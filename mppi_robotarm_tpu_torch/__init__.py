@@ -1,0 +1,40 @@
+"""mppi_robotarm_tpu_torch — the PyTorch/CUDA port of mppi_robotarm_tpu.
+
+The same MPPI path-tracking engine for the 2-link planar arm, in PyTorch,
+with the whole closed loop as one hand-written CUDA kernel for Hopper
+(``csrc/sim_kernel.cu``, built at first use).  The JAX package stays the
+reference each part is checked against; this package never imports JAX.
+"""
+
+from .config import (
+    ArmParams,
+    MPPIConfig,
+    SimConfig,
+    benchmark_preset,
+    circle_tracking_preset,
+    high_accuracy_preset,
+    config_from_json,
+    config_to_json,
+)
+from .mppi.solver import MPPIState, SolveResult, init_state, solve
+from .sim.loop import (
+    SimRecord,
+    SimState,
+    init_sim,
+    simulate,
+    simulate_fused,
+    simulate_python,
+)
+from .sim.paths import load_ref_path, synth_circle_path
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ArmParams", "MPPIConfig", "SimConfig",
+    "benchmark_preset", "circle_tracking_preset", "high_accuracy_preset",
+    "config_from_json", "config_to_json",
+    "MPPIState", "SolveResult", "init_state", "solve",
+    "SimRecord", "SimState", "init_sim", "simulate", "simulate_fused",
+    "simulate_python",
+    "load_ref_path", "synth_circle_path",
+]

@@ -1,0 +1,370 @@
+"""The whole closed loop in one launch: wrapper, CUDA kernel, plain twin.
+
+``fused_sim_run_batched`` runs ``n_steps`` closed-loop steps of B scenarios
+(waypoint advance and freeze, noise, K×T rollout and cost, softmax and
+stats, Σwε, reflect median, control update and shift, plant step, record
+row) and returns ``(records (B, n_steps, 12) f32, u_final (B, T, 2) f32)``.
+It is the port of ``mppi_robotarm_tpu/ops/pallas_sim.py::
+pallas_sim_run_batched`` and its kernel ``_sim_kernel``.
+
+The path is picked by where the tensors lie: CUDA tensors launch the
+hand-written kernel ``csrc/sim_kernel.cu`` (built by ``ops/_build.py`` and
+bound through ``ctypes``) or raise; CPU tensors take
+:func:`fused_sim_reference`, the plain PyTorch version of the same
+function.  Nothing falls back from one to the other.
+
+Noise: with ``eps`` (B, n_steps, K, T, 2) the kernel reads the caller's
+noise (the parity seam); without it, each step draws Philox4x32-10 normals
+keyed (seed, step0 + step) with counter (k, t, 0, 0), so a chained run
+continues the stream of one long run bit for bit.
+
+Record lanes: [q1, q2, dq1, dq2, u1, u2, wp_idx, done, cost_min, cost_mean,
+ess, weight_entropy].  A frozen (path-end) step keeps its state, records
+done=1 and zeroes the u and cost lanes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import ArmParams, MPPIConfig, SimConfig
+from .cuda_rollout import (
+    chol_terms,
+    dynamics_step,
+    dynamics_step_trig,
+    philox_epsilon,
+    tracking_cost,
+)
+from .filters import median_filter_reflect
+from .noise import sigma_inverse
+
+REC_LANES = 12
+MAX_SAMPLES = 8192        # K ≤ 8 samples per thread of a 1024-thread block
+
+# Kernel launches made by fused_sim_run_batched; a run that must show it
+# went through the kernel reads it before and after.
+LAUNCHES = 0
+
+_ARM_FIELDS = ("a11", "b11", "c11", "m2", "l2", "k12", "k12b", "m22", "g1a",
+               "g1b", "lc2", "l1", "g2")
+
+
+class _ArmConsts(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in _ARM_FIELDS]
+
+
+class _SimParams(ctypes.Structure):
+    """Mirror of ``SimParams`` in csrc/sim_kernel.cu, field for field."""
+
+    _fields_ = [
+        ("arm", _ArmConsts),
+        ("l1c", ctypes.c_float), ("l2c", ctypes.c_float),
+        ("lam", ctypes.c_float), ("gamma", ctypes.c_float),
+        ("dt_c", ctypes.c_float), ("dt_p", ctypes.c_float),
+        ("cost_scale", ctypes.c_float), ("dist_scale", ctypes.c_float),
+        ("stage_w", ctypes.c_float * 4), ("term_w", ctypes.c_float * 4),
+        ("exploit_thresh", ctypes.c_float), ("u_clamp", ctypes.c_float),
+        ("dist1", ctypes.c_float), ("dist2", ctypes.c_float),
+        ("l11", ctypes.c_float), ("l21", ctypes.c_float),
+        ("l22", ctypes.c_float),
+        ("sinv", ctypes.c_float * 4),
+        ("k_actual", ctypes.c_float),
+        ("has_clamp", ctypes.c_int),
+        ("K", ctypes.c_int), ("T", ctypes.c_int), ("W", ctypes.c_int),
+        ("fw", ctypes.c_int),
+        ("n_ref", ctypes.c_int), ("n_steps", ctypes.c_int),
+        ("use_prng", ctypes.c_int),
+    ]
+
+
+def _arm_consts(p: ArmParams) -> _ArmConsts:
+    """The arm's constant sub-products, grouped as Python evaluates them in
+    :func:`~.cuda_rollout.dynamics_step_trig` (float64, then float32)."""
+    return _ArmConsts(
+        a11=p.m1 * p.lc1 ** 2 + p.l1, b11=p.l1 ** 2 + p.lc2 ** 2,
+        c11=2.0 * p.l1 * p.lc2, m2=p.m2, l2=p.l2, k12=p.m2 * p.l1 * p.lc2,
+        k12b=p.m2 * p.lc2 ** 2, m22=p.m2 * p.lc2 ** 2 + p.l2,
+        g1a=p.m1 * p.lc1 * p.g, g1b=p.m2 * p.g, lc2=p.lc2, l1=p.l1,
+        g2=p.m2 * p.lc2 * p.g)
+
+
+def _sim_params(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig, n_ref: int,
+                n_steps: int, use_prng: bool) -> _SimParams:
+    f4 = ctypes.c_float * 4
+    l11, l21, l22 = chol_terms(cfg.sigma)
+    return _SimParams(
+        arm=_arm_consts(arm), l1c=cfg.l1, l2c=cfg.l2, lam=cfg.lam,
+        gamma=cfg.gamma, dt_c=cfg.delta_t, dt_p=sim.dt,
+        cost_scale=cfg.cost_scale, dist_scale=cfg.dist_scale,
+        stage_w=f4(*cfg.stage_cost_weight),
+        term_w=f4(*cfg.terminal_cost_weight),
+        exploit_thresh=(1.0 - cfg.exploration) * cfg.num_samples,
+        u_clamp=0.0 if cfg.u_clamp is None else cfg.u_clamp,
+        dist1=sim.disturbance[0], dist2=sim.disturbance[1],
+        l11=l11, l21=l21, l22=l22,
+        sinv=f4(*sigma_inverse(cfg.sigma).reshape(4)),
+        k_actual=cfg.num_samples, has_clamp=cfg.u_clamp is not None,
+        K=cfg.num_samples, T=cfg.horizon, W=cfg.search_idx_len,
+        fw=cfg.filter_window, n_ref=n_ref, n_steps=n_steps,
+        use_prng=use_prng)
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to float32, as the kernel receives it."""
+    return float(np.float32(x))
+
+
+def _reference_one(arm, cfg, sim, ref, q, dq, u, wp, seed: int, step0: int,
+                   n_steps: int, eps):
+    """One scenario of :func:`fused_sim_reference` (tensors on one device)."""
+    K, T, W = cfg.num_samples, cfg.horizon, cfg.search_idx_len
+    device = ref.device
+    f32 = torch.float32
+    n = ref.shape[0]
+    stage_w = tuple(_f32(w) for w in cfg.stage_cost_weight)
+    term_w = tuple(_f32(w) for w in cfg.terminal_cost_weight)
+    si0, si1, si2, si3 = (_f32(v) for v in sigma_inverse(cfg.sigma).ravel())
+    exploit = (torch.arange(K, device=device).to(f32)
+               < _f32((1.0 - cfg.exploration) * cfg.num_samples))
+    offs = torch.arange(W, device=device)
+    zero = torch.zeros((), dtype=f32, device=device)
+
+    q1, q2, dq1, dq2 = q[0], q[1], dq[0], dq[1]
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    rows = []
+    for step in range(n_steps):
+        # ---- waypoint advance and freeze (_wp_advance_scalar) ----------
+        x = cfg.l1 * torch.cos(q1) + cfg.l2 * torch.cos(q1 + q2)
+        y = cfg.l1 * torch.sin(q1) + cfg.l2 * torch.sin(q1 + q2)
+        idx0 = wp + offs
+        win0 = ref[torch.clamp(idx0, max=n - 1)]
+        dx = x - win0[:, 0]
+        dy = y - win0[:, 1]
+        d = (dx * dx + dy * dy) * cfg.dist_scale
+        d = torch.where(idx0 < n, d, torch.inf)
+        wn = wp + torch.argmin(d)
+        frz = done | (wn >= n - 1)
+        wp = torch.where(frz, wp, wn)
+        done = frz
+        win = ref[torch.clamp(wp + offs, max=n - 1)]
+
+        # ---- noise ------------------------------------------------------
+        eps_t = (philox_epsilon(seed, step0 + step, cfg, device)
+                 if eps is None else eps[step])
+
+        # ---- rollout and cost, vectorised over K (trig carry) -----------
+        c1, s1 = torch.cos(q1), torch.sin(q1)
+        c12, s12 = torch.cos(q1 + q2), torch.sin(q1 + q2)
+        r1, r2, rd1, rd2 = q1, q2, dq1, dq2
+        s = torch.zeros(K, dtype=f32, device=device)
+        for t in range(T):
+            e1, e2 = eps_t[:, t, 0], eps_t[:, t, 1]
+            u1r, u2r = u[t, 0], u[t, 1]
+            v1 = torch.where(exploit, u1r + e1, e1)
+            v2 = torch.where(exploit, u2r + e2, e2)
+            if cfg.u_clamp is not None:
+                v1 = torch.clamp(v1, -cfg.u_clamp, cfg.u_clamp)
+                v2 = torch.clamp(v2, -cfg.u_clamp, cfg.u_clamp)
+            c2 = c12 * c1 + s12 * s1          # q2 = (q1+q2) − q1
+            s2 = s12 * c1 - c12 * s1
+            r1, r2, rd1, rd2 = dynamics_step_trig(
+                r1, r2, rd1, rd2, v1, v2, cfg.delta_t, arm, c1, c2, s2, c12)
+            c1, s1 = torch.cos(r1), torch.sin(r1)
+            r12 = r1 + r2
+            c12, s12 = torch.cos(r12), torch.sin(r12)
+            xr = cfg.l1 * c1 + cfg.l2 * c12
+            yr = cfg.l1 * s1 + cfg.l2 * s12
+            s = s + tracking_cost(xr, yr, rd1, rd2, win, stage_w, cfg)
+            su1 = si0 * u1r + si1 * u2r
+            su2 = si2 * u1r + si3 * u2r
+            s = s + cfg.gamma * (v1 * su1 + v2 * su2)
+        xr = cfg.l1 * c1 + cfg.l2 * c12
+        yr = cfg.l1 * s1 + cfg.l2 * s12
+        s = s + tracking_cost(xr, yr, rd1, rd2, win, term_w, cfg)
+
+        # ---- softmax and stats ------------------------------------------
+        m = torch.amin(s)
+        e = torch.exp(-(s - m) / cfg.lam)
+        eta = torch.sum(e)
+        inv_eta = 1.0 / eta
+        stats = (m, torch.sum(s) / _f32(K), (eta * eta) / torch.sum(e * e),
+                 torch.log(eta) + torch.sum(e * (s - m)) * inv_eta / cfg.lam)
+
+        # ---- Σwε, median, u update and warm-start shift (Q3) -------------
+        weps = torch.sum(e[:, None, None] * eps_t, dim=0) * inv_eta
+        unew = u + median_filter_reflect(weps, cfg.filter_window)
+        u = torch.where(frz, u, torch.cat([unew[1:], unew[-1:]], dim=0))
+
+        # ---- plant step at sim dt and record row (_plant_record_scalar) --
+        u1, u2 = u[0, 0], u[0, 1]
+        nq = dynamics_step(q1, q2, dq1, dq2, u1 + sim.disturbance[0],
+                           u2 + sim.disturbance[1], sim.dt, arm)
+        q1, q2, dq1, dq2 = (torch.where(frz, old, new) for old, new
+                            in zip((q1, q2, dq1, dq2), nq))
+        rows.append(torch.stack(
+            [q1, q2, dq1, dq2, torch.where(frz, zero, u1),
+             torch.where(frz, zero, u2), wp.to(f32), frz.to(f32)]
+            + [torch.where(frz, zero, v) for v in stats]))
+    rec = (torch.stack(rows) if rows
+           else torch.empty((0, REC_LANES), dtype=f32, device=device))
+    return rec, u
+
+
+def fused_sim_reference(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                        ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
+                        eps=None, step0=None):
+    """Plain PyTorch version of the fused closed-loop kernel.
+
+    Same arguments and results as :func:`fused_sim_run_batched`, on any
+    device: vectorised over K, Python loops over scenarios, steps and T,
+    and the kernel's arithmetic — the trig carry, the exact metric, the
+    JAX kernel's entropy form, the same Philox stream.  Only the order of
+    the K-sums differs from the kernel.
+    """
+    _check_config(cfg)
+    B = q0.shape[0]
+    if step0 is None:
+        step0 = torch.zeros(B, dtype=torch.int64)
+    seeds = [int(v) for v in torch.as_tensor(seed).reshape(B).tolist()]
+    steps0 = [int(v) for v in torch.as_tensor(step0).reshape(B).tolist()]
+    wp = torch.as_tensor(wp_idx, device=ref_path.device).reshape(B).long()
+    recs, ufins = [], []
+    for b in range(B):
+        rec, ufin = _reference_one(
+            arm, cfg, sim, ref_path, q0[b], dq0[b], u_prev[b], wp[b],
+            seeds[b], steps0[b], n_steps, None if eps is None else eps[b])
+        recs.append(rec)
+        ufins.append(ufin)
+    return torch.stack(recs), torch.stack(ufins)
+
+
+def _check_config(cfg: MPPIConfig) -> None:
+    cfg.validate()
+    if cfg.filter_window > 2 * cfg.horizon:
+        raise ValueError(
+            f"filter_window (= {cfg.filter_window}) must be <= 2 * horizon "
+            f"(= {2 * cfg.horizon}): the fused loop reflects the median "
+            f"window once at each edge")
+    if cfg.num_samples > MAX_SAMPLES:
+        raise ValueError(f"the fused loop takes K <= {MAX_SAMPLES} samples, "
+                         f"got {cfg.num_samples}")
+
+
+def _check_tensor(name, t, shape, dtype, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
+            eps, step0):
+    """Check the operands and launch csrc/sim_kernel.cu on the current
+    stream.  Raises on anything the kernel does not take."""
+    global LAUNCHES
+    from ._build import load_library
+
+    device = ref_path.device
+    B, K, T = q0.shape[0], cfg.num_samples, cfg.horizon
+    f32 = torch.float32
+    if ref_path.shape[0] < 1 or n_steps < 0:
+        raise ValueError(f"need a non-empty path and n_steps >= 0, got "
+                         f"{ref_path.shape[0]} rows and {n_steps} steps")
+    _check_tensor("ref_path", ref_path, (ref_path.shape[0], 4), f32, device)
+    _check_tensor("q0", q0, (B, 2), f32, device)
+    _check_tensor("dq0", dq0, (B, 2), f32, device)
+    _check_tensor("u_prev", u_prev, (B, T, 2), f32, device)
+    if eps is not None:
+        _check_tensor("eps", eps, (B, n_steps, K, T, 2), f32, device)
+    ints = []
+    for name, v in (("wp_idx", wp_idx), ("seed", seed), ("step0", step0)):
+        v = torch.as_tensor(v, device=device).reshape(-1)
+        if v.shape[0] != B or v.dtype.is_floating_point:
+            raise ValueError(f"{name} must hold {B} integers")
+        ints.append(v)
+    state_f = torch.cat([q0, dq0], dim=1).contiguous()
+    state_i = torch.stack(ints, dim=1).to(torch.int32).contiguous()
+    rec = torch.empty((B, n_steps, REC_LANES), dtype=f32, device=device)
+    ufin = torch.empty((B, T, 2), dtype=f32, device=device)
+    scratch = (torch.empty((B, K, T, 2), dtype=f32, device=device)
+               if eps is None else None)
+    params = _sim_params(arm, cfg, sim, ref_path.shape[0], n_steps,
+                         eps is None)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mppi_sim_launch(
+            ctypes.byref(params), B, _ptr(state_f), _ptr(state_i),
+            _ptr(u_prev), _ptr(ref_path), _ptr(eps), _ptr(scratch),
+            _ptr(rec), _ptr(ufin), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError("sim_kernel launch failed: "
+                           + lib.mppi_error_string(err).decode())
+    LAUNCHES += 1
+    return rec, ufin
+
+
+def fused_sim_run_batched(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                          ref_path: torch.Tensor,   # (N, 4) f32
+                          q0: torch.Tensor,         # (B, 2) f32
+                          dq0: torch.Tensor,        # (B, 2) f32
+                          u_prev: torch.Tensor,     # (B, T, 2) f32
+                          wp_idx,                   # (B,) int
+                          seed,                     # (B,) int, 31-bit
+                          n_steps: int,
+                          eps: Optional[torch.Tensor] = None,
+                          step0=None):              # (B,) int absolute step
+    """Run B scenarios × ``n_steps`` closed-loop steps in one launch.
+
+    Any CUDA operand launches ``csrc/sim_kernel.cu`` or raises; only when
+    every tensor lies on the CPU does :func:`fused_sim_reference` run.
+    Returns (records (B, n_steps, 12) f32, u_final (B, T, 2) f32).
+    """
+    _check_config(cfg)
+    B = q0.shape[0]
+    if step0 is None:
+        step0 = torch.zeros(B, dtype=torch.int64, device=ref_path.device)
+    kinds = {v.device.type for v in (ref_path, q0, dq0, u_prev, eps, wp_idx,
+                                     seed, step0)
+             if isinstance(v, torch.Tensor)}
+    if kinds == {"cpu"}:
+        return fused_sim_reference(arm, cfg, sim, ref_path, q0, dq0, u_prev,
+                                   wp_idx, seed, n_steps, eps, step0)
+    if "cuda" not in kinds:
+        raise ValueError(f"fused_sim_run_batched runs on CUDA or CPU "
+                         f"tensors, got {sorted(kinds)}")
+    # any CUDA operand takes the kernel, which raises on mixed devices
+    return _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
+                   n_steps, eps, step0)
+
+
+def fused_sim_run(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                  ref_path: torch.Tensor, q0, dq0, u_prev, wp_idx, seed,
+                  n_steps: int, eps: Optional[torch.Tensor] = None,
+                  step0=None):
+    """Single-scenario shim over :func:`fused_sim_run_batched`: q0/dq0 (2,),
+    u_prev (T, 2), eps (n_steps, K, T, 2).  Returns (records (n_steps, 12),
+    u_final (T, 2))."""
+    device = ref_path.device
+    one = lambda v: torch.as_tensor(v, device=device).reshape(1)
+    rec, ufin = fused_sim_run_batched(
+        arm, cfg, sim, ref_path, q0[None], dq0[None], u_prev[None],
+        one(wp_idx), one(seed), n_steps,
+        eps=None if eps is None else eps[None],
+        step0=None if step0 is None else one(step0))
+    return rec[0], ufin[0]

@@ -1,0 +1,28 @@
+"""Information-theoretic MPPI weights (reference control.py:297-314).
+
+ρ = min S, wₖ = exp(−(Sₖ−ρ)/λ) / Σ exp(−(Sⱼ−ρ)/λ): a stabilised softmax
+over −S/λ, plus the solver-health metrics of the weights.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def mppi_weights(s: torch.Tensor, lam: float) -> torch.Tensor:
+    """wₖ = softmax(−(Sₖ − min S)/λ) over the last axis."""
+    rho = torch.amin(s, dim=-1, keepdim=True)
+    e = torch.exp(-(s - rho) / lam)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def effective_sample_size(w: torch.Tensor) -> torch.Tensor:
+    """ESS = 1 / Σ wₖ²."""
+    return 1.0 / torch.sum(w * w, dim=-1)
+
+
+def weight_entropy(w: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy of the weight distribution."""
+    return -torch.sum(
+        torch.where(w > 0, w * torch.log(torch.clamp_min(w, 1e-38)), 0.0),
+        dim=-1)

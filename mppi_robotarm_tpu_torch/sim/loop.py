@@ -1,0 +1,233 @@
+"""Closed-loop receding-horizon simulator.
+
+The reference's main loop (run.py:48-71) runs one MPPI solve per step,
+integrates the plant one semi-implicit Euler step at dt=0.003 (the
+controller model runs at 2·dt, quirk Q2), records the state, and raises
+``IndexError`` at the path end (control.py:76-78, quirk Q6).
+
+Three loops:
+  * :func:`simulate` — an eager Python loop over :func:`sim_step` in any
+    dtype; the path end becomes a ``done`` flag that freezes the state;
+  * :func:`simulate_python` — the same loop with the reference-exact
+    ``IndexError``;
+  * :func:`simulate_fused` — the whole loop in one launch of the fused
+    CUDA kernel (``ops/cuda_sim.py``), float32.
+
+Without injected noise every loop draws the counter-based Philox stream
+keyed by (``SimState.seed``, absolute step), so the eager and fused loops
+see the same noise and a chained run continues one long run's stream.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import ArmParams, MPPIConfig, SimConfig
+from ..models.arm import arm_ddq, fk_full
+from ..mppi.solver import MPPIState, SolveResult, init_state, solve
+from ..ops.cuda_rollout import philox_epsilon
+from ..ops.cuda_sim import fused_sim_run
+from ..ops.weights import effective_sample_size, weight_entropy
+
+
+class SimState(NamedTuple):
+    """Full closed-loop state."""
+
+    step: torch.Tensor           # () int64 absolute step
+    q: torch.Tensor              # (2,)
+    dq: torch.Tensor             # (2,)
+    mppi: MPPIState
+    seed: int                    # 31-bit noise seed (the JAX key's place)
+    done: torch.Tensor           # () bool path-end freeze flag (Q6)
+
+
+class SimRecord(NamedTuple):
+    """Per-step records mirroring run.py:39-46 (q, u, EE pos, refs)."""
+
+    q: torch.Tensor              # (steps, 2)
+    dq: torch.Tensor             # (steps, 2)
+    u: torch.Tensor              # (steps, 2)
+    ee: torch.Tensor             # (steps, 2)   end-effector (x2, y2)
+    elbow: torch.Tensor          # (steps, 2)   (x1, y1)
+    ref_xy: torch.Tensor         # (steps, 2)   ref_path[step, 0:2]
+    wp_idx: torch.Tensor         # (steps,)
+    cost_min: torch.Tensor       # (steps,)
+    cost_mean: torch.Tensor      # (steps,)
+    ess: torch.Tensor            # (steps,)
+    weight_entropy: torch.Tensor  # (steps,)
+    done: torch.Tensor           # (steps,) bool
+
+
+def init_sim(cfg: MPPIConfig, sim: SimConfig, seed: int = 0,
+             dtype=torch.float32, device=None) -> SimState:
+    """Initial state: the preset's q0/dq0, the warm start, index 0."""
+    return SimState(
+        step=torch.tensor(0, dtype=torch.int64, device=device),
+        q=torch.tensor(sim.q0, dtype=dtype, device=device),
+        dq=torch.tensor(sim.dq0, dtype=dtype, device=device),
+        mppi=init_state(cfg, dtype=dtype, device=device),
+        seed=int(seed) & 0x7FFFFFFF,
+        done=torch.tensor(False, device=device),
+    )
+
+
+def plant_step(arm: ArmParams, sim: SimConfig, q, dq, u):
+    """Plant integration ``dq += dt·ddq; q += dt·dq_new`` (run.py:53-55),
+    with the optional constant disturbance torque."""
+    ddq1, ddq2 = arm_ddq(q[0], q[1], dq[0], dq[1],
+                         u[0] + sim.disturbance[0], u[1] + sim.disturbance[1],
+                         arm)
+    dq = dq + sim.dt * torch.stack([ddq1, ddq2])
+    q = q + sim.dt * dq
+    return q, dq
+
+
+def sim_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+             ref_path: torch.Tensor, state: SimState,
+             eps: Optional[torch.Tensor] = None):
+    """One closed-loop step: solve → plant → freeze when done.
+
+    Without ``eps`` the noise is the Philox stream at (seed, state.step).
+    Returns (next SimState, SolveResult).
+    """
+    observed = torch.cat([state.q, state.dq])
+    if eps is None:
+        eps = philox_epsilon(state.seed, int(state.step), cfg,
+                             state.q.device)
+    res = solve(arm, cfg, ref_path, observed, state.mppi, eps=eps)
+
+    done = state.done | res.path_end
+    q_new, dq_new = plant_step(arm, sim, state.q, state.dq, res.u0)
+    keep = lambda new, old: torch.where(done, old, new)
+    next_state = SimState(
+        step=state.step + torch.where(done, 0, 1),
+        q=keep(q_new, state.q),
+        dq=keep(dq_new, state.dq),
+        mppi=MPPIState(u_prev=keep(res.state.u_prev, state.mppi.u_prev),
+                       wp_idx=keep(res.state.wp_idx, state.mppi.wp_idx)),
+        seed=state.seed,
+        done=done,
+    )
+    return next_state, res
+
+
+def _record(arm: ArmParams, ref_path, next_state: SimState,
+            res: SolveResult, abs_step) -> tuple:
+    x1, y1, x2, y2 = fk_full(next_state.q[0], next_state.q[1], arm)
+    ref_row = ref_path[min(abs_step, ref_path.shape[0] - 1)]
+    dn = next_state.done
+    zero = lambda v: torch.where(dn, torch.zeros_like(v), v)
+    return (next_state.q, next_state.dq, zero(res.u0),
+            torch.stack([x2, y2]), torch.stack([x1, y1]), ref_row[0:2],
+            next_state.mppi.wp_idx, zero(torch.amin(res.costs)),
+            zero(torch.mean(res.costs)),
+            zero(effective_sample_size(res.weights)),
+            zero(weight_entropy(res.weights)), dn)
+
+
+def simulate(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+             ref_path: torch.Tensor, state0: SimState, num_steps: int,
+             eps_per_step=None):
+    """Eager closed loop: ``num_steps`` calls of :func:`sim_step`.
+
+    ``eps_per_step``: optional (num_steps, K, T, 2) injected noise.  Records
+    after the path end carry the frozen state with zeroed u and cost lanes.
+    Returns (final SimState, SimRecord).
+    """
+    state = state0
+    step0 = int(state0.step)
+    rows = []
+    for i in range(num_steps):
+        eps = None if eps_per_step is None else eps_per_step[i]
+        state, res = sim_step(arm, cfg, sim, ref_path, state, eps=eps)
+        rows.append(_record(arm, ref_path, state, res, step0 + i + 1))
+    return state, SimRecord(*(torch.stack(f) for f in zip(*rows)))
+
+
+def simulate_python(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                    ref_path: torch.Tensor, state0: SimState,
+                    num_steps: int, eps_per_step=None):
+    """Host loop with reference-exact error behaviour: raises
+    ``IndexError`` at the path end like control.py:76-78.
+
+    Returns (final SimState, [(q, dq, u0, wp_idx) per step]).
+    """
+    state = state0
+    records = []
+    for i in range(num_steps):
+        eps = None if eps_per_step is None else eps_per_step[i]
+        state, res = sim_step(arm, cfg, sim, ref_path, state, eps=eps)
+        if bool(state.done):
+            raise IndexError("Reached the end of the reference path.")
+        records.append((state.q.clone(), state.dq.clone(), res.u0.clone(),
+                        int(state.mppi.wp_idx)))
+    return state, records
+
+
+# Records of one launch live in device memory, 48 B per step and scenario,
+# so one launch takes up to 2^20 steps (48 MiB); longer runs are chained,
+# and the (seed, absolute step) noise indexing makes the chain bitwise
+# equal to one launch.
+_FUSED_MAX_STEPS = 1 << 20
+
+
+def simulate_fused(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                   ref_path: torch.Tensor, state0: SimState, num_steps: int,
+                   eps_per_step: Optional[torch.Tensor] = None):
+    """Closed loop with the WHOLE loop in one fused kernel launch.
+
+    Waypoint update, noise, rollout, softmax, median, control update, plant
+    step and record writes all run inside ``csrc/sim_kernel.cu`` on CUDA
+    tensors (the plain PyTorch twin on CPU tensors), in float32.  Semantics
+    match :func:`simulate`.  ``eps_per_step``: optional (num_steps, K, T, 2)
+    injected noise; by default the kernel draws the Philox stream keyed by
+    (state0.seed, absolute step).  The seed is returned unchanged and
+    ``step`` advances by the steps that were not done, so a run chained
+    from the returned state continues the stream bit for bit.  Runs longer
+    than ``_FUSED_MAX_STEPS`` (a device-memory bound on the records) are
+    chained the same way.
+    """
+    if num_steps > _FUSED_MAX_STEPS:
+        state, parts, done = state0, [], 0
+        while done < num_steps:
+            n = min(_FUSED_MAX_STEPS, num_steps - done)
+            e = None if eps_per_step is None else eps_per_step[done:done + n]
+            state, rec = _simulate_fused_once(arm, cfg, sim, ref_path, state,
+                                              n, e)
+            parts.append(rec)
+            done += n
+        return state, SimRecord(*(torch.cat(f) for f in zip(*parts)))
+    return _simulate_fused_once(arm, cfg, sim, ref_path, state0, num_steps,
+                                eps_per_step)
+
+
+def _simulate_fused_once(arm, cfg, sim, ref_path, state0: SimState,
+                         num_steps: int, eps_per_step):
+    device = ref_path.device
+    f32 = torch.float32
+    ref = ref_path.to(f32).contiguous()
+    rec_rows, u_fin = fused_sim_run(
+        arm, cfg, sim, ref, state0.q.to(f32), state0.dq.to(f32),
+        state0.mppi.u_prev.to(f32).contiguous(), state0.mppi.wp_idx,
+        state0.seed, num_steps, eps=eps_per_step, step0=state0.step)
+    q = rec_rows[:, 0:2]
+    dq = rec_rows[:, 2:4]
+    x1, y1, x2, y2 = fk_full(q[:, 0], q[:, 1], arm)
+    idx = torch.clamp(state0.step + torch.arange(1, num_steps + 1,
+                                                 device=device),
+                      max=ref.shape[0] - 1)
+    done = rec_rows[:, 7] > 0.5
+    rec = SimRecord(
+        q=q, dq=dq, u=rec_rows[:, 4:6],
+        ee=torch.stack([x2, y2], dim=-1), elbow=torch.stack([x1, y1], dim=-1),
+        ref_xy=ref[idx, 0:2], wp_idx=rec_rows[:, 6].long(),
+        cost_min=rec_rows[:, 8], cost_mean=rec_rows[:, 9],
+        ess=rec_rows[:, 10], weight_entropy=rec_rows[:, 11], done=done)
+    final = SimState(
+        step=state0.step + torch.sum(~done),
+        q=q[-1], dq=dq[-1],
+        mppi=MPPIState(u_prev=u_fin, wp_idx=rec.wp_idx[-1]),
+        seed=state0.seed, done=done[-1])
+    return final, rec

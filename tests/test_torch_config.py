@@ -1,0 +1,68 @@
+"""The port's config copy equals the JAX package's, and the port never
+imports JAX."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+
+import mppi_robotarm_tpu.config as jcfg
+import mppi_robotarm_tpu_torch.config as pcfg
+import _torch_port_helpers  # noqa: F401  (pins torch to one thread)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("preset", ["circle_tracking_preset",
+                                    "benchmark_preset",
+                                    "high_accuracy_preset"])
+def test_presets_equal_jax(preset):
+    jax_side = getattr(jcfg, preset)()
+    port_side = getattr(pcfg, preset)()
+    for j, p in zip(jax_side, port_side):
+        assert type(j).__name__ == type(p).__name__
+        assert dataclasses.asdict(j) == dataclasses.asdict(p)
+    assert jax_side[1].gamma == port_side[1].gamma
+
+
+@pytest.mark.parametrize("cls", ["ArmParams", "MPPIConfig", "SimConfig"])
+def test_dataclass_fields_equal_jax(cls):
+    jf = dataclasses.fields(getattr(jcfg, cls))
+    pf = dataclasses.fields(getattr(pcfg, cls))
+    assert [(f.name, f.default) for f in jf] == \
+        [(f.name, f.default) for f in pf]
+
+
+def test_json_round_trip_and_cross_load():
+    arm, cfg, sim = pcfg.benchmark_preset()
+    cfg = dataclasses.replace(cfg, u_clamp=0.8, exploration=0.1)
+    text = pcfg.config_to_json(arm, cfg, sim)
+    assert pcfg.config_from_json(text) == (arm, cfg, sim)
+    # the two packages read each other's JSON
+    jarm, jmppi, jsim = jcfg.config_from_json(text)
+    assert dataclasses.asdict(jmppi) == dataclasses.asdict(cfg)
+    assert pcfg.config_to_json(arm, cfg, sim) == \
+        jcfg.config_to_json(jarm, jmppi, jsim)
+
+
+def test_validate_rejects_bad_sigma():
+    with pytest.raises(ValueError, match="sigma"):
+        dataclasses.replace(pcfg.MPPIConfig(),
+                            sigma=((1.0, 0.0, 0.0),)).validate()
+    with pytest.raises(ValueError, match="filter_window"):
+        dataclasses.replace(pcfg.MPPIConfig(), filter_window=0).validate()
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, mppi_robotarm_tpu_torch, "
+            "mppi_robotarm_tpu_torch.convert, "
+            "mppi_robotarm_tpu_torch.ops.cuda_sim, "
+            "mppi_robotarm_tpu_torch.ops._build, "
+            "mppi_robotarm_tpu_torch.utils.metrics; "
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
+            "if m.startswith('jax'))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,164 @@
+"""The port's eager solve against JAX ``solve(backend='xla')``, the
+reference golden value and the executed reference's 1500-step run."""
+
+import os
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import mppi_robotarm_tpu.mppi.solver as jsolver
+from mppi_robotarm_tpu.config import ArmParams as JArm
+import mppi_robotarm_tpu_torch.mppi.solver as psolver
+from mppi_robotarm_tpu_torch.config import ArmParams as PArm
+from mppi_robotarm_tpu_torch.config import MPPIConfig as PCfg
+from mppi_robotarm_tpu_torch.config import SimConfig as PSim
+from mppi_robotarm_tpu_torch.models.arm import fk_ee
+from mppi_robotarm_tpu_torch.sim.loop import plant_step
+from mppi_robotarm_tpu_torch.utils.metrics import tracking_errors
+from _torch_port_helpers import configs, eps_noise, n, t
+from test_golden_reference import GOLDEN_U0, X0, _seeded_reference_noise
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "data",
+                      "reference_golden_run.npz")
+
+
+@pytest.mark.parametrize("case", ["start", "mid_path", "exploration",
+                                  "clamp", "path_end"])
+def test_solve_f64_matches_jax_xla(ref_path, case):
+    path = np.asarray(ref_path)
+    kw = {"exploration": {"exploration": 0.25},
+          "clamp": {"u_clamp": 15.0}}.get(case, {})
+    cj, cp = configs(100, 30, **kw)
+    x0, wp = X0, 0
+    if case == "mid_path":
+        x0, wp = np.array([0.62, -0.9, 1.3, -2.1]), 400
+    if case == "path_end":          # the window truncates at the path end
+        wp = path.shape[0] - 12
+        x0 = np.array([0.3, 1.1, 0.0, 0.0])
+    rng = np.random.default_rng(7)
+    u_prev = np.array([10.0, -2.0]) + rng.normal(size=(30, 2))
+    eps = eps_noise(8, (100, 30, 2), np.float64)
+    rj = jsolver.solve(JArm(), cj, jnp.asarray(path), jnp.asarray(x0),
+                       jsolver.MPPIState(jnp.asarray(u_prev),
+                                         jnp.asarray(wp, jnp.int32)),
+                       eps=jnp.asarray(eps))
+    rp = psolver.solve(PArm(), cp, t(path), t(x0),
+                       psolver.MPPIState(t(u_prev), torch.tensor(wp)),
+                       eps=t(eps))
+    np.testing.assert_allclose(n(rp.costs), n(rj.costs), rtol=1e-12)
+    np.testing.assert_allclose(n(rp.weights), n(rj.weights), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(n(rp.u_seq), n(rj.u_seq), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(n(rp.u0), n(rj.u0), rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(n(rp.state.u_prev)[0], n(rp.u0))
+    assert int(rp.state.wp_idx) == int(rj.state.wp_idx)
+    assert bool(rp.path_end) == bool(rj.path_end)
+
+
+def test_solve_needs_exactly_one_noise_source(ref_path):
+    cfg = PCfg()
+    st = psolver.init_state(cfg, dtype=torch.float64)
+    args = (PArm(), cfg, t(ref_path), t(X0), st)
+    with pytest.raises(ValueError):
+        psolver.solve(*args)
+    with pytest.raises(ValueError):
+        psolver.solve(*args, eps=torch.zeros(100, 30, 2, dtype=torch.float64),
+                      generator=torch.Generator())
+    a = psolver.solve(*args, generator=torch.Generator().manual_seed(1))
+    b = psolver.solve(*args, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a.u_seq, b.u_seq) and a.eps.dtype == torch.float64
+
+
+def test_golden_u0_f64(ref_path):
+    res = psolver.solve(PArm(), PCfg(), t(ref_path), t(X0),
+                        psolver.init_state(PCfg(), dtype=torch.float64),
+                        eps=t(_seeded_reference_noise()))
+    np.testing.assert_allclose(n(res.u0), GOLDEN_U0, rtol=1e-8)
+
+
+def test_golden_u0_f32(ref_path):
+    f32 = torch.float32
+    res = psolver.solve(PArm(), PCfg(), t(ref_path, f32), t(X0, f32),
+                        psolver.init_state(PCfg()),
+                        eps=t(_seeded_reference_noise(), f32))
+    assert res.u0.dtype == f32
+    np.testing.assert_allclose(n(res.u0), GOLDEN_U0, atol=1e-3)
+
+
+def _ee(q):
+    x, y = fk_ee(t(q[:, 0]), t(q[:, 1]), 1.0, 1.0)
+    return np.stack([n(x), n(y)], axis=1)
+
+
+@pytest.fixture(scope="module")
+def replay(ref_path):
+    """The port's full-length f64 replay of the reference noise stream."""
+    if not os.path.exists(GOLDEN):
+        pytest.fail("tests/data/reference_golden_run.npz is missing")
+    golden = np.load(GOLDEN)
+    steps = golden["q"].shape[0]
+    arm, cfg, sim = PArm(), PCfg(), PSim()
+    rs = np.random.RandomState(int(golden["seed"]))
+    sigma = np.array([[20.0, 0.0], [0.0, 20.0]])
+    q, dq = t(golden["x0"][:2]), t(golden["x0"][2:])
+    state = psolver.init_state(cfg, dtype=torch.float64)
+    rp = t(ref_path)
+    qs, wps = [], []
+    with torch.inference_mode():     # no autograd bookkeeping, ~25 % faster
+        for _ in range(steps):
+            eps = rs.multivariate_normal(np.zeros(2), sigma, (100, 30))
+            res = psolver.solve(arm, cfg, rp, torch.cat([q, dq]), state,
+                                eps=t(eps))
+            q, dq = plant_step(arm, sim, q, dq, res.u0)
+            state = res.state
+            qs.append(n(q))
+            wps.append(int(state.wp_idx))
+    return golden, np.array(qs), np.array(wps)
+
+
+def _first(bad):
+    return int(np.argmax(bad)) if bad.any() else len(bad)
+
+
+def test_replay_prefixes(replay):
+    """Bitwise for the first 16 plant steps (measured; the f64 sin/cos of
+    PyTorch and NumPy differ in the last bit for ~0.2 % of arguments, which
+    ends the bitwise run earlier than the JAX package's 27), <1e-9 for
+    >=40, <1e-3 for >=80, the waypoint schedule for >=80."""
+    golden, q, wp = replay
+    qdiff = np.max(np.abs(q - golden["q"]), axis=1)
+    assert _first(qdiff > 0) >= 16, _first(qdiff > 0)
+    assert _first(qdiff > 1e-9) >= 40, _first(qdiff > 1e-9)
+    assert _first(qdiff > 1e-3) >= 80, _first(qdiff > 1e-3)
+    assert _first(wp != golden["wp_idx"]) >= 80
+
+
+def test_replay_full_run_distribution(replay, ref_path):
+    """Full-run tracking of the replay against the executed reference.
+
+    The step-aligned RMS and the final waypoint are held as
+    tests/test_reference_replay.py holds them.  The lag-free on-path mean
+    of one 1500-step run is one realization of a chaotic loop: the JAX
+    package's own 1500-step on-path means at this configuration span
+    10.97-30.69 mm over 8 seeds (test_reference_replay.py:124-126), and on
+    six shared NumPy noise streams the JAX solve and this port measured
+    8.65-29.44 and 11.22-29.26 mm.  The reference ran 10.76 mm; this
+    port's replay of its stream, 18.4 mm (ratio 1.71).  So the on-path mean
+    is held below 1.5x on the low side and to the JAX package's seed spread
+    (30.69 mm) on the high side.
+    """
+    golden, q, wp = replay
+    steps = golden["q"].shape[0]
+    path = np.asarray(ref_path)
+    step_ref = path[1:steps + 1, 0:2]
+    s_ref = tracking_errors(_ee(golden["q"]), step_ref, full_path=path)
+    s_rep = tracking_errors(_ee(q), step_ref, full_path=path)
+    ratio = s_rep["onpath_mean_m"] / s_ref["onpath_mean_m"]
+    assert 1 / 1.5 < ratio, f"on-path mean ratio {ratio:.2f}"
+    assert s_rep["onpath_mean_m"] < 30.69e-3, s_rep["onpath_mean_m"]
+    ratio2 = s_rep["ee_rms_m"] / s_ref["ee_rms_m"]
+    assert 1 / 1.5 < ratio2 < 1.5, f"step-aligned RMS ratio {ratio2:.2f}"
+    assert abs(int(wp[-1]) - int(golden["wp_idx"][-1])) < 0.05 * len(path)
