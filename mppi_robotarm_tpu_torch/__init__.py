@@ -1,8 +1,9 @@
 """mppi_robotarm_tpu_torch — the PyTorch/CUDA port of mppi_robotarm_tpu.
 
 The same MPPI path-tracking engine for the 2-link planar arm, in PyTorch,
-with the whole closed loop as one hand-written CUDA kernel for Hopper
-(``csrc/sim_kernel.cu``, built at first use).  The JAX package stays the
+with hand-written CUDA kernels for Hopper, built at first use: the whole
+closed loop in one launch (``csrc/sim_kernel.cu``) and the per-step solve
+(``csrc/solve_kernel.cu``) behind ``backend="cuda"``.  The JAX package stays the
 reference each part is checked against; this package never imports JAX.
 """
 
@@ -16,12 +17,20 @@ from .config import (
     config_from_json,
     config_to_json,
 )
-from .mppi.solver import MPPIState, SolveResult, init_state, solve
+from .mppi.solver import (
+    MPPIState,
+    SolveResult,
+    init_state,
+    solve,
+    solve_batched,
+)
 from .sim.loop import (
     SimRecord,
     SimState,
     init_sim,
+    init_sim_batch,
     simulate,
+    simulate_batch,
     simulate_fused,
     simulate_python,
 )
@@ -33,8 +42,8 @@ __all__ = [
     "ArmParams", "MPPIConfig", "SimConfig",
     "benchmark_preset", "circle_tracking_preset", "high_accuracy_preset",
     "config_from_json", "config_to_json",
-    "MPPIState", "SolveResult", "init_state", "solve",
-    "SimRecord", "SimState", "init_sim", "simulate", "simulate_fused",
-    "simulate_python",
+    "MPPIState", "SolveResult", "init_state", "solve", "solve_batched",
+    "SimRecord", "SimState", "init_sim", "init_sim_batch", "simulate",
+    "simulate_batch", "simulate_fused", "simulate_python",
     "load_ref_path", "synth_circle_path",
 ]

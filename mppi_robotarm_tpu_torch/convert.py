@@ -40,6 +40,24 @@ def sim_state_from_numpy(step, q, dq, u_prev, wp_idx, key_data, done,
     )
 
 
+def sim_state_batch_from_numpy(step, q, dq, u_prev, wp_idx, key_data, done,
+                               dtype=torch.float32,
+                               device=None) -> SimState:
+    """The port's batched :class:`SimState` from a batched JAX ``SimState``
+    (``init_sim_batch``): ``key_data`` (B, 2) gives each scenario's seed as
+    :func:`seed_from_key_data` does."""
+    as_t = lambda v: torch.tensor(np.array(v), dtype=dtype, device=device)
+    as_i = lambda v: torch.tensor(np.array(v), dtype=torch.int64,
+                                  device=device)
+    seeds = [seed_from_key_data(k) for k in np.asarray(key_data)]
+    return SimState(
+        step=as_i(step), q=as_t(q), dq=as_t(dq),
+        mppi=MPPIState(u_prev=as_t(u_prev), wp_idx=as_i(wp_idx)),
+        seed=as_i(seeds),
+        done=torch.tensor(np.array(done), dtype=torch.bool, device=device),
+    )
+
+
 def _from_dataclass(cls, cfg):
     return cls(**dataclasses.asdict(cfg))
 

@@ -1,6 +1,7 @@
-// Per-sample device helpers of the fused closed-loop kernel (sim_kernel.cu).
+// Device helpers shared by the fused closed-loop kernel (sim_kernel.cu) and
+// the per-step solve kernel (solve_kernel.cu).
 //
-// Each function has a plain-PyTorch twin of the same name in
+// Each per-sample function has a plain-PyTorch twin of the same name in
 // ops/cuda_rollout.py, written with the same operation order, and each
 // ports a helper that the JAX package's Pallas kernels inline from
 // mppi_robotarm_tpu/ops/pallas_rollout.py:
@@ -15,6 +16,12 @@
 // philox4x32_10 replaces the TPU's hardware PRNG, which has no CUDA twin: it
 // is the Random123 Philox4x32-10 counter-based generator, so noise is a pure
 // function of (seed, absolute step, sample, horizon step).
+//
+// Block-level pieces, device only: warp_sum / warp_min (xor-butterfly
+// shuffles, so every lane holds the bitwise-same result) and reflect_median
+// (scipy's reflect-mode median at one output, the TPU kernels' odd-even
+// transposition network, pallas_sim.py:489-511 and pallas_rollout.py:
+// 624-653, as a rank count).
 //
 // Every function is exact IEEE float32 arithmetic (no fast-math intrinsics);
 // the file is compiled with --fmad=false so that no a*b+c is contracted into
@@ -144,3 +151,51 @@ MPPI_HD float tracking_cost(float x, float y, float dq1, float dq2,
   return (w0 * (ex * ex) + w1 * (ey * ey) + w2 * (e1 * e1) +
           w3 * (e2 * e2)) * cost_scale;
 }
+
+#ifdef __CUDACC__
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // xor butterfly: every lane ends with the bitwise-same sum
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    v = fminf(v, __shfl_xor_sync(kFullMask, v, o));
+  }
+  return v;
+}
+
+// scipy.ndimage.median_filter(size=fw, mode='reflect') at output t of the
+// T-row series v: the window spans t - fw/2 .. t - fw/2 + fw - 1, reflected
+// once at each edge (fw <= 2T, checked by the wrappers); the value of rank
+// fw/2 is found by counting, which equals sorting and indexing.
+__device__ __forceinline__ float reflect_median(const float* v, int T,
+                                                int fw, int t) {
+  const int left = fw / 2;
+  const int rank = fw / 2;
+  float result = 0.0f;
+  for (int i = 0; i < fw; ++i) {
+    int ji = t - left + i;
+    ji = ji < 0 ? -1 - ji : (ji >= T ? 2 * T - 1 - ji : ji);
+    const float vi = v[ji];
+    int less = 0, leq = 0;
+    for (int j = 0; j < fw; ++j) {
+      int jj = t - left + j;
+      jj = jj < 0 ? -1 - jj : (jj >= T ? 2 * T - 1 - jj : jj);
+      const float vj = v[jj];
+      less += vj < vi;
+      leq += vj <= vi;
+    }
+    if (less <= rank && rank < leq) {
+      result = vi;
+      break;
+    }
+  }
+  return result;
+}
+
+#endif  // __CUDACC__

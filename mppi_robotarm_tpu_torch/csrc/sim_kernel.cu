@@ -79,18 +79,6 @@ struct SimParams {
 namespace {
 
 constexpr int kRecLanes = 12;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  // xor butterfly: every lane ends with the bitwise-same sum
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 // Copy ref rows [widx, widx + W) into the window, clamped to the last row.
 __device__ void refresh_window(float* win, const float* __restrict__ ref,
@@ -102,34 +90,6 @@ __device__ void refresh_window(float* win, const float* __restrict__ ref,
     win[4 * j + 2] = ref[4 * src + 2];
     win[4 * j + 3] = ref[4 * src + 3];
   }
-}
-
-// scipy.ndimage.median_filter(size=fw, mode='reflect') at output t of the
-// T-row series v: the window spans t - fw/2 .. t - fw/2 + fw - 1, reflected
-// once at each edge (fw <= 2T, checked by the wrapper); the value of rank
-// fw/2 is found by counting, which equals sorting and indexing.
-__device__ float reflect_median(const float* v, int T, int fw, int t) {
-  const int left = fw / 2;
-  const int rank = fw / 2;
-  float result = 0.0f;
-  for (int i = 0; i < fw; ++i) {
-    int ji = t - left + i;
-    ji = ji < 0 ? -1 - ji : (ji >= T ? 2 * T - 1 - ji : ji);
-    const float vi = v[ji];
-    int less = 0, leq = 0;
-    for (int j = 0; j < fw; ++j) {
-      int jj = t - left + j;
-      jj = jj < 0 ? -1 - jj : (jj >= T ? 2 * T - 1 - jj : jj);
-      const float vj = v[jj];
-      less += vj < vi;
-      leq += vj <= vi;
-    }
-    if (less <= rank && rank < leq) {
-      result = vi;
-      break;
-    }
-  }
-  return result;
 }
 
 }  // namespace
@@ -405,5 +365,8 @@ int mppi_sim_launch(const SimParams* params, int B, const float* state_f,
 const char* mppi_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// sizeof(SimParams), held against the ctypes mirror when the library loads.
+int mppi_sim_params_size() { return (int)sizeof(SimParams); }
 
 }  // extern "C"

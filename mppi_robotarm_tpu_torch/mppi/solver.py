@@ -12,6 +12,13 @@ aliasing of ``u_prev``, nets out to
 so the control applied to the plant is the SHIFTED first element.  The
 waypoint index advances once per solve from the observed state (Q5); the
 path-end condition (Q6) comes back as a ``path_end`` flag.
+
+Two backends, as the JAX package has 'xla' and 'pallas': ``"eager"`` (the
+default) rolls out in PyTorch in any dtype; ``"cuda"`` runs the K×T sweep,
+the softmax, Σwε and (when ``filter_window <= 2T``) the median and update
+through the solve kernels of ``ops/cuda_solve.py`` in float32, with noise
+injected or drawn in the kernel from (seed, step).  ``solve_batched`` is
+the B-scenario solve through one kernel launch (``solve_batched_pallas``).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from ..config import ArmParams, MPPIConfig
 from ..models.arm import fk_ee
+from ..ops import cuda_solve
 from ..ops.filters import median_filter_reflect
 from ..ops.noise import sample_epsilon, sigma_cholesky, sigma_inverse
 from ..ops.rollout import rollout_costs
@@ -44,7 +52,8 @@ class SolveResult(NamedTuple):
     path_end: torch.Tensor       # () bool, the reference IndexError (Q6)
     costs: torch.Tensor          # (K,) per-sample total costs S
     weights: torch.Tensor        # (K,) importance weights w
-    eps: torch.Tensor            # (K, T, 2) the noise used
+    eps: Optional[torch.Tensor]  # (K, T, 2) the noise used; None from a
+                                 # seeded cuda solve unless want_eps=True
 
 
 def init_state(cfg: MPPIConfig, dtype=torch.float32,
@@ -57,8 +66,35 @@ def init_state(cfg: MPPIConfig, dtype=torch.float32,
 
 
 def shift_warm_start(u_seq: torch.Tensor) -> torch.Tensor:
-    """Drop u[0] and duplicate the last row (control.py:148-149)."""
-    return torch.cat([u_seq[1:], u_seq[-1:]], dim=0)
+    """Drop u[0] and duplicate the last row (control.py:148-149) of a
+    (..., T, 2) sequence."""
+    return torch.cat([u_seq[..., 1:, :], u_seq[..., -1:, :]], dim=-2)
+
+
+def _median_update(u_prev, w_eps_raw, cfg: MPPIConfig):
+    """u_prev + median_filter(Σwε) of a (..., T, 2) batch (Q10, Q3)."""
+    w = median_filter_reflect(w_eps_raw.movedim(-2, 0), cfg.filter_window)
+    return u_prev + w.movedim(0, -2)
+
+
+def _solve_kernels(arm, cfg, observed_x, u_prev, window, valid, seed, eps,
+                   step, want_eps):
+    """The cuda backend's K×T sweep for (B, ...) inputs: the kernels'
+    outputs cast back to the state's dtype.  Returns (u_seq, S, eps)."""
+    f32 = torch.float32
+    dtype = u_prev.dtype
+    # with fuse_update the kernel also applies the median (Q10) and the
+    # u update (Q3) and returns u_new
+    fuse = cfg.filter_window <= 2 * cfg.horizon
+    out, s, eps_used, _ = cuda_solve.solve_batched(
+        arm, cfg, observed_x.to(f32).contiguous(),
+        u_prev.to(f32).contiguous(), window.to(f32).contiguous(),
+        valid.sum(dim=-1), seed=seed,
+        eps=None if eps is None else eps.to(f32).contiguous(), step=step,
+        emit_eps=want_eps or eps is not None, fuse_update=fuse)
+    out = out.to(dtype)
+    u_seq = out if fuse else _median_update(u_prev, out, cfg)
+    return u_seq, s.to(dtype), eps_used
 
 
 def solve(
@@ -69,14 +105,26 @@ def solve(
     state: MPPIState,
     eps: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    backend: str = "eager",
+    seed=None,
+    step=0,
+    want_eps: bool = False,
 ) -> SolveResult:
     """One MPPI solve (control.py:67-152) in the dtype of ``state.u_prev``.
 
-    Noise is either injected (``eps`` (K, T, 2), the parity seam) or drawn
-    from ``generator``; exactly one must be given.
+    Noise is either injected (``eps`` (K, T, 2), the parity seam) or drawn:
+    from ``generator`` on the eager backend, in the kernel from the Philox
+    stream at (``seed``, ``step``) on the cuda backend; exactly one source
+    must be given.  A seeded cuda solve returns ``eps=None`` unless
+    ``want_eps`` is set: the kernel then also writes its (K, T, 2) noise out.
     """
-    if (eps is None) == (generator is None):
-        raise ValueError("provide exactly one of eps= or generator=")
+    if backend not in ("eager", "cuda"):
+        raise ValueError(f"unknown backend {backend!r}")
+    drawn = generator if backend == "eager" else seed
+    if (eps is None) == (drawn is None) or (
+            backend == "cuda" and generator is not None):
+        raise ValueError("provide exactly one of eps= or "
+                         + ("generator=" if backend == "eager" else "seed="))
     cfg.validate()
     dtype = state.u_prev.dtype
     device = state.u_prev.device
@@ -86,6 +134,20 @@ def solve(
         ref_path, state.wp_idx, x_obs, y_obs, cfg.search_idx_len,
         cfg.dist_scale)
     path_end = wp_idx >= ref_path.shape[0] - 1
+
+    if backend == "cuda":
+        one = lambda v: None if v is None else torch.as_tensor(
+            v, device=device).reshape(1)
+        u_seq, s, eps = _solve_kernels(
+            arm, cfg, observed_x[None], state.u_prev[None], window[None],
+            valid[None], one(seed), None if eps is None else eps[None],
+            one(step), want_eps)
+        u_seq, s = u_seq[0], s[0]
+        next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
+        return SolveResult(u0=next_state.u_prev[0], u_seq=u_seq,
+                           state=next_state, path_end=path_end, costs=s,
+                           weights=mppi_weights(s, cfg.lam),
+                           eps=None if eps is None else eps[0])
 
     if eps is None:
         eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
@@ -105,3 +167,39 @@ def solve(
     return SolveResult(u0=next_state.u_prev[0], u_seq=u_seq,
                        state=next_state, path_end=path_end, costs=s,
                        weights=w, eps=eps)
+
+
+def solve_batched(
+    arm: ArmParams,
+    cfg: MPPIConfig,
+    ref_path: torch.Tensor,       # (N, 4)
+    observed_x: torch.Tensor,     # (B, 4)
+    state: MPPIState,             # u_prev (B, T, 2), wp_idx (B,)
+    seeds=None,                   # (B,) int noise seeds, or
+    eps: Optional[torch.Tensor] = None,   # (B, K, T, 2) injected noise
+    step=None,                    # (B,) or () int absolute closed-loop step
+) -> SolveResult:
+    """B-scenario solve through ONE launch of the solve kernels.
+
+    The counterpart of the JAX package's ``solve_batched_pallas``: the
+    waypoint update, weights and warm-start shift are batched PyTorch, the
+    K×T sweep one ``ops/cuda_solve.py::solve_batched`` call.  Pass
+    scenario-constant ``seeds`` and the absolute ``step``: the kernel keys
+    its stream by both, so no two (scenario, step) pairs share noise and a
+    resumed run continues its stream.  Every field of the result has a
+    leading B axis; ``eps`` is the injected noise, or None.
+    """
+    if (seeds is None) == (eps is None):
+        raise ValueError("provide exactly one of seeds= or eps=")
+    cfg.validate()
+    x_obs, y_obs = fk_ee(observed_x[:, 0], observed_x[:, 1], cfg.l1, cfg.l2)
+    wp_idx, window, valid = update_waypoint_index(
+        ref_path, state.wp_idx, x_obs, y_obs, cfg.search_idx_len,
+        cfg.dist_scale)
+    path_end = wp_idx >= ref_path.shape[0] - 1
+    u_seq, s, eps = _solve_kernels(arm, cfg, observed_x, state.u_prev,
+                                   window, valid, seeds, eps, step, False)
+    next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
+    return SolveResult(u0=next_state.u_prev[:, 0], u_seq=u_seq,
+                       state=next_state, path_end=path_end, costs=s,
+                       weights=mppi_weights(s, cfg.lam), eps=eps)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/``) at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links the objects into one shared library
 with a plain C interface, ``build/torch_kernels/libmppi_kernels.so`` at the
 root of the checkout, which ``ctypes`` loads.  A digest of the sources and
 flags sits beside the library, so an edit to a source rebuilds it.  The
@@ -23,11 +24,12 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libmppi_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH_FLAGS,
     "-std=c++17", "-O3",
     "--fmad=false",          # keep a*b+c rounded twice, as the torch twin does
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -50,6 +52,20 @@ def _digest(sources) -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds):
+    """Run the commands at the same time; raise on the first that fails.
+    Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> str:
     """Compile the kernels unless the library is current; return nvcc's
     report ("" when nothing was built).  Raises if nvcc fails."""
@@ -60,28 +76,49 @@ def build() -> str:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-           *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o",
+                     str(obj), str(src)] for src, obj in zip(sources, objs)])
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return log
 
 
+def _check_abi(lib, fn: str, struct) -> None:
+    size = getattr(lib, fn)()
+    if size != ctypes.sizeof(struct):
+        raise RuntimeError(f"{struct.__name__} mirrors {size} bytes of C "
+                           f"struct as {ctypes.sizeof(struct)}: the ctypes "
+                           f"fields and the kernel's struct differ")
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed (printing nvcc's report to standard error), load the
-    library and declare its C functions."""
+    library, declare its C functions and check that each parameter struct
+    has the size of its ctypes mirror."""
+    from .cuda_sim import _SimParams
+    from .cuda_solve import _SolveParams
+
     print(build(), file=sys.stderr, end="")
     lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
     ptr = ctypes.c_void_p
     lib.mppi_sim_launch.argtypes = [ptr, ctypes.c_int] + [ptr] * 9
     lib.mppi_sim_launch.restype = ctypes.c_int
+    lib.mppi_solve_launch.argtypes = [ptr, ctypes.c_int] + [ptr] * 14
+    lib.mppi_solve_launch.restype = ctypes.c_int
     lib.mppi_error_string.argtypes = [ctypes.c_int]
     lib.mppi_error_string.restype = ctypes.c_char_p
+    for fn in ("mppi_sim_params_size", "mppi_solve_params_size"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    _check_abi(lib, "mppi_sim_params_size", _SimParams)
+    _check_abi(lib, "mppi_solve_params_size", _SolveParams)
     return lib

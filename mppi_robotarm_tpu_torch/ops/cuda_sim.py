@@ -28,16 +28,15 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..config import ArmParams, MPPIConfig, SimConfig
 from .cuda_rollout import (
+    _f32,
     chol_terms,
     dynamics_step,
-    dynamics_step_trig,
     philox_epsilon,
-    tracking_cost,
+    rollout_cost_trig,
 )
 from .filters import median_filter_reflect
 from .noise import sigma_inverse
@@ -113,21 +112,13 @@ def _sim_params(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig, n_ref: int,
         use_prng=use_prng)
 
 
-def _f32(x: float) -> float:
-    """A Python float rounded to float32, as the kernel receives it."""
-    return float(np.float32(x))
-
-
 def _reference_one(arm, cfg, sim, ref, q, dq, u, wp, seed: int, step0: int,
                    n_steps: int, eps):
     """One scenario of :func:`fused_sim_reference` (tensors on one device)."""
-    K, T, W = cfg.num_samples, cfg.horizon, cfg.search_idx_len
+    K, W = cfg.num_samples, cfg.search_idx_len
     device = ref.device
     f32 = torch.float32
     n = ref.shape[0]
-    stage_w = tuple(_f32(w) for w in cfg.stage_cost_weight)
-    term_w = tuple(_f32(w) for w in cfg.terminal_cost_weight)
-    si0, si1, si2, si3 = (_f32(v) for v in sigma_inverse(cfg.sigma).ravel())
     exploit = (torch.arange(K, device=device).to(f32)
                < _f32((1.0 - cfg.exploration) * cfg.num_samples))
     offs = torch.arange(W, device=device)
@@ -157,34 +148,8 @@ def _reference_one(arm, cfg, sim, ref, q, dq, u, wp, seed: int, step0: int,
                  if eps is None else eps[step])
 
         # ---- rollout and cost, vectorised over K (trig carry) -----------
-        c1, s1 = torch.cos(q1), torch.sin(q1)
-        c12, s12 = torch.cos(q1 + q2), torch.sin(q1 + q2)
-        r1, r2, rd1, rd2 = q1, q2, dq1, dq2
-        s = torch.zeros(K, dtype=f32, device=device)
-        for t in range(T):
-            e1, e2 = eps_t[:, t, 0], eps_t[:, t, 1]
-            u1r, u2r = u[t, 0], u[t, 1]
-            v1 = torch.where(exploit, u1r + e1, e1)
-            v2 = torch.where(exploit, u2r + e2, e2)
-            if cfg.u_clamp is not None:
-                v1 = torch.clamp(v1, -cfg.u_clamp, cfg.u_clamp)
-                v2 = torch.clamp(v2, -cfg.u_clamp, cfg.u_clamp)
-            c2 = c12 * c1 + s12 * s1          # q2 = (q1+q2) − q1
-            s2 = s12 * c1 - c12 * s1
-            r1, r2, rd1, rd2 = dynamics_step_trig(
-                r1, r2, rd1, rd2, v1, v2, cfg.delta_t, arm, c1, c2, s2, c12)
-            c1, s1 = torch.cos(r1), torch.sin(r1)
-            r12 = r1 + r2
-            c12, s12 = torch.cos(r12), torch.sin(r12)
-            xr = cfg.l1 * c1 + cfg.l2 * c12
-            yr = cfg.l1 * s1 + cfg.l2 * s12
-            s = s + tracking_cost(xr, yr, rd1, rd2, win, stage_w, cfg)
-            su1 = si0 * u1r + si1 * u2r
-            su2 = si2 * u1r + si3 * u2r
-            s = s + cfg.gamma * (v1 * su1 + v2 * su2)
-        xr = cfg.l1 * c1 + cfg.l2 * c12
-        yr = cfg.l1 * s1 + cfg.l2 * s12
-        s = s + tracking_cost(xr, yr, rd1, rd2, win, term_w, cfg)
+        s = rollout_cost_trig(arm, cfg, q1, q2, dq1, dq2, u, eps_t, win,
+                              exploit)
 
         # ---- softmax and stats ------------------------------------------
         m = torch.amin(s)

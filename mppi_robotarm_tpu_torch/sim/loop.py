@@ -5,17 +5,22 @@ integrates the plant one semi-implicit Euler step at dt=0.003 (the
 controller model runs at 2·dt, quirk Q2), records the state, and raises
 ``IndexError`` at the path end (control.py:76-78, quirk Q6).
 
-Three loops:
-  * :func:`simulate` — an eager Python loop over :func:`sim_step` in any
-    dtype; the path end becomes a ``done`` flag that freezes the state;
-  * :func:`simulate_python` — the same loop with the reference-exact
+The loops:
+  * :func:`simulate` — a Python loop over :func:`sim_step`; the path end
+    becomes a ``done`` flag that freezes the state.  ``backend="eager"``
+    solves in PyTorch in any dtype; ``backend="cuda"`` solves each step
+    through the solve kernels (``ops/cuda_solve.py``) in float32, keeping
+    step, seed and waypoint index on the device so the host never waits;
+  * :func:`simulate_python` — the eager loop with the reference-exact
     ``IndexError``;
+  * :func:`simulate_batch` — B independent scenarios (BASELINE config 4);
+    on the cuda backend one kernel launch solves all B each step;
   * :func:`simulate_fused` — the whole loop in one launch of the fused
     CUDA kernel (``ops/cuda_sim.py``), float32.
 
 Without injected noise every loop draws the counter-based Philox stream
-keyed by (``SimState.seed``, absolute step), so the eager and fused loops
-see the same noise and a chained run continues one long run's stream.
+keyed by (``SimState.seed``, absolute step), so all of them see the same
+noise and a chained run continues one long run's stream.
 """
 
 from __future__ import annotations
@@ -26,7 +31,13 @@ import torch
 
 from ..config import ArmParams, MPPIConfig, SimConfig
 from ..models.arm import arm_ddq, fk_full
-from ..mppi.solver import MPPIState, SolveResult, init_state, solve
+from ..mppi.solver import (
+    MPPIState,
+    SolveResult,
+    init_state,
+    solve,
+    solve_batched,
+)
 from ..ops.cuda_rollout import philox_epsilon
 from ..ops.cuda_sim import fused_sim_run
 from ..ops.weights import effective_sample_size, weight_entropy
@@ -39,7 +50,8 @@ class SimState(NamedTuple):
     q: torch.Tensor              # (2,)
     dq: torch.Tensor             # (2,)
     mppi: MPPIState
-    seed: int                    # 31-bit noise seed (the JAX key's place)
+    seed: int                    # 31-bit noise seed (the JAX key's place);
+                                 # a (B,) int64 tensor in a batched state
     done: torch.Tensor           # () bool path-end freeze flag (Q6)
 
 
@@ -73,25 +85,108 @@ def init_sim(cfg: MPPIConfig, sim: SimConfig, seed: int = 0,
     )
 
 
+def init_sim_batch(cfg: MPPIConfig, sim: SimConfig, seeds, q0=None,
+                   dq0=None, dtype=torch.float32, device=None) -> SimState:
+    """Batched :class:`SimState` of B scenarios (BASELINE config 4).
+
+    ``seeds``: (B,) scenario-constant noise seeds (the JAX package's keys'
+    place); ``q0``/``dq0``: optional (B, 2) initial states (default: the
+    preset's).
+    """
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=device)
+    b = seeds.shape[0]
+    rows = lambda v: torch.tensor(v, dtype=dtype, device=device).repeat(b, 1)
+    return SimState(
+        step=torch.zeros(b, dtype=torch.int64, device=device),
+        q=rows(sim.q0) if q0 is None else torch.as_tensor(
+            q0, dtype=dtype, device=device),
+        dq=rows(sim.dq0) if dq0 is None else torch.as_tensor(
+            dq0, dtype=dtype, device=device),
+        mppi=MPPIState(
+            u_prev=torch.tensor(cfg.warm_start, dtype=dtype,
+                                device=device).repeat(b, cfg.horizon, 1),
+            wp_idx=torch.zeros(b, dtype=torch.int64, device=device)),
+        seed=seeds & 0x7FFFFFFF,
+        done=torch.zeros(b, dtype=torch.bool, device=device),
+    )
+
+
 def plant_step(arm: ArmParams, sim: SimConfig, q, dq, u):
     """Plant integration ``dq += dt·ddq; q += dt·dq_new`` (run.py:53-55),
-    with the optional constant disturbance torque."""
-    ddq1, ddq2 = arm_ddq(q[0], q[1], dq[0], dq[1],
-                         u[0] + sim.disturbance[0], u[1] + sim.disturbance[1],
-                         arm)
-    dq = dq + sim.dt * torch.stack([ddq1, ddq2])
+    with the optional constant disturbance torque; q, dq, u (..., 2)."""
+    ddq1, ddq2 = arm_ddq(q[..., 0], q[..., 1], dq[..., 0], dq[..., 1],
+                         u[..., 0] + sim.disturbance[0],
+                         u[..., 1] + sim.disturbance[1], arm)
+    dq = dq + sim.dt * torch.stack([ddq1, ddq2], dim=-1)
     q = q + sim.dt * dq
     return q, dq
 
 
+def _step_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                ref_path: torch.Tensor, states: SimState,
+                eps: Optional[torch.Tensor]):
+    """One cuda-backend step of B scenarios: solve_batched → plant →
+    freeze.  No host synchronisation: the seed and step go to the kernel
+    as device tensors."""
+    observed = torch.cat([states.q, states.dq], dim=-1)
+    res = solve_batched(arm, cfg, ref_path, observed, states.mppi,
+                        seeds=states.seed if eps is None else None, eps=eps,
+                        step=states.step)
+    done = states.done | res.path_end
+    q_new, dq_new = plant_step(arm, sim, states.q, states.dq, res.u0)
+    keep = lambda new, old: torch.where(
+        done.view(-1, *(1,) * (new.dim() - 1)), old, new)
+    next_states = SimState(
+        step=states.step + torch.where(done, 0, 1),
+        q=keep(q_new, states.q),
+        dq=keep(dq_new, states.dq),
+        mppi=MPPIState(u_prev=keep(res.state.u_prev, states.mppi.u_prev),
+                       wp_idx=keep(res.state.wp_idx, states.mppi.wp_idx)),
+        seed=states.seed,
+        done=done,
+    )
+    return next_states, res
+
+
+def _as_batch(state: SimState) -> SimState:
+    """A single-scenario state as a batch of one (seed on the device)."""
+    device = state.q.device
+    return SimState(
+        step=state.step.reshape(1), q=state.q[None], dq=state.dq[None],
+        mppi=MPPIState(u_prev=state.mppi.u_prev[None],
+                       wp_idx=state.mppi.wp_idx.reshape(1)),
+        seed=torch.tensor([state.seed], dtype=torch.int64, device=device),
+        done=state.done.reshape(1))
+
+
+def _scenario(states: SimState, b: int, seed) -> SimState:
+    """Scenario ``b`` of a batched state, with the given ``seed``."""
+    return SimState(
+        step=states.step[b], q=states.q[b], dq=states.dq[b],
+        mppi=MPPIState(u_prev=states.mppi.u_prev[b],
+                       wp_idx=states.mppi.wp_idx[b]),
+        seed=seed, done=states.done[b])
+
+
 def sim_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
              ref_path: torch.Tensor, state: SimState,
-             eps: Optional[torch.Tensor] = None):
+             eps: Optional[torch.Tensor] = None, backend: str = "eager"):
     """One closed-loop step: solve → plant → freeze when done.
 
-    Without ``eps`` the noise is the Philox stream at (seed, state.step).
+    Without ``eps`` the noise is the Philox stream at (seed, state.step):
+    drawn on the host by the eager backend, in the kernel by the cuda one.
     Returns (next SimState, SolveResult).
     """
+    if backend == "cuda":
+        nxt, res = _step_batch(arm, cfg, sim, ref_path, _as_batch(state),
+                               None if eps is None else eps[None])
+        one = lambda v: None if v is None else v[0]
+        return _scenario(nxt, 0, state.seed), SolveResult(
+            *(one(v) for v in res[:2]),
+            MPPIState(*(v[0] for v in res.state)),
+            *(one(v) for v in res[3:]))
+    if backend != "eager":
+        raise ValueError(f"unknown backend {backend!r}")
     observed = torch.cat([state.q, state.dq])
     if eps is None:
         eps = philox_epsilon(state.seed, int(state.step), cfg,
@@ -129,13 +224,23 @@ def _record(arm: ArmParams, ref_path, next_state: SimState,
 
 def simulate(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
              ref_path: torch.Tensor, state0: SimState, num_steps: int,
-             eps_per_step=None):
-    """Eager closed loop: ``num_steps`` calls of :func:`sim_step`.
+             eps_per_step=None, backend: str = "eager"):
+    """Closed loop: ``num_steps`` calls of :func:`sim_step`.
 
     ``eps_per_step``: optional (num_steps, K, T, 2) injected noise.  Records
     after the path end carry the frozen state with zeroed u and cost lanes.
-    Returns (final SimState, SimRecord).
+    ``backend="cuda"`` runs the loop of :func:`simulate_batch` on a batch
+    of one.  Returns (final SimState, SimRecord).
     """
+    if backend == "cuda":
+        final, rec = simulate_batch(
+            arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
+            eps_per_step=(None if eps_per_step is None
+                          else eps_per_step[:, None]), backend="cuda")
+        return (_scenario(final, 0, state0.seed),
+                SimRecord(*(f[:, 0] for f in rec)))
+    if backend != "eager":
+        raise ValueError(f"unknown backend {backend!r}")
     state = state0
     step0 = int(state0.step)
     rows = []
@@ -164,6 +269,67 @@ def simulate_python(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         records.append((state.q.clone(), state.dq.clone(), res.u0.clone(),
                         int(state.mppi.wp_idx)))
     return state, records
+
+
+def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                   ref_path: torch.Tensor, states0: SimState,
+                   num_steps: int, eps_per_step=None,
+                   backend: str = "eager"):
+    """B independent closed-loop scenarios; ``states0`` from
+    :func:`init_sim_batch`.
+
+    Same semantics per scenario as :func:`simulate`.  ``backend="eager"``
+    runs :func:`simulate` scenario by scenario; ``backend="cuda"`` solves
+    all B through one launch of the solve kernels per step, keyed by each
+    scenario's constant seed and absolute step, so scenario b's run equals
+    its run alone.  ``eps_per_step``: optional (num_steps, B, K, T, 2).
+    Returns (final batched SimState, SimRecord of (num_steps, B, ...)).
+    """
+    if backend == "eager":
+        runs = [simulate(arm, cfg, sim, ref_path,
+                         _scenario(states0, b, int(states0.seed[b])),
+                         num_steps, None if eps_per_step is None
+                         else eps_per_step[:, b])
+                for b in range(states0.q.shape[0])]
+        finals = [f for f, _ in runs]
+        stack = lambda vs: torch.stack(list(vs))
+        final = SimState(
+            step=stack(f.step for f in finals), q=stack(f.q for f in finals),
+            dq=stack(f.dq for f in finals),
+            mppi=MPPIState(*(stack(v) for v in zip(*(f.mppi
+                                                     for f in finals)))),
+            seed=states0.seed, done=stack(f.done for f in finals))
+        return final, SimRecord(*(torch.stack(f, dim=1)
+                                  for f in zip(*(r for _, r in runs))))
+    if backend != "cuda":
+        raise ValueError(f"unknown backend {backend!r}")
+
+    device = states0.q.device
+    states = states0._replace(seed=torch.as_tensor(
+        states0.seed, dtype=torch.int64, device=device))
+    rows = []
+    for i in range(num_steps):
+        eps = None if eps_per_step is None else eps_per_step[i]
+        states, res = _step_batch(arm, cfg, sim, ref_path, states, eps)
+        rows.append((states.q, states.dq, res.u0, states.mppi.wp_idx,
+                     torch.amin(res.costs, dim=-1),
+                     torch.mean(res.costs, dim=-1),
+                     effective_sample_size(res.weights),
+                     weight_entropy(res.weights), states.done))
+    q, dq, u, wp, cmin, cmean, ess, ent, done = (
+        torch.stack(f) for f in zip(*rows))
+    # the FK, reference rows and path-end zeroing of every step at once
+    x1, y1, x2, y2 = fk_full(q[..., 0], q[..., 1], arm)
+    idx = torch.clamp(states0.step.to(device)
+                      + torch.arange(1, num_steps + 1, device=device)[:, None],
+                      max=ref_path.shape[0] - 1)
+    zero = lambda v: torch.where(done.view(*done.shape, *(1,) * (v.dim() - 2)),
+                                 torch.zeros_like(v), v)
+    return states._replace(seed=states0.seed), SimRecord(
+        q=q, dq=dq, u=zero(u), ee=torch.stack([x2, y2], dim=-1),
+        elbow=torch.stack([x1, y1], dim=-1), ref_xy=ref_path[idx, 0:2],
+        wp_idx=wp, cost_min=zero(cmin), cost_mean=zero(cmean), ess=zero(ess),
+        weight_entropy=zero(ent), done=done)
 
 
 # Records of one launch live in device memory, 48 B per step and scenario,

@@ -59,7 +59,9 @@ def test_port_never_imports_jax():
     code = ("import sys, mppi_robotarm_tpu_torch, "
             "mppi_robotarm_tpu_torch.convert, "
             "mppi_robotarm_tpu_torch.ops.cuda_sim, "
+            "mppi_robotarm_tpu_torch.ops.cuda_solve, "
             "mppi_robotarm_tpu_torch.ops._build, "
+            "mppi_robotarm_tpu_torch.sim.loop, "
             "mppi_robotarm_tpu_torch.utils.metrics; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")

@@ -1,5 +1,7 @@
-"""The fused closed-loop CUDA kernel against its plain PyTorch twin, on the
-card.  Marked ``cuda``: without an NVIDIA GPU (and nvcc) every test skips.
+"""The CUDA kernels against their plain PyTorch twins, on the card: the
+fused closed loop (``sim_kernel``) and the per-step solve (``solve_kernel``
+with its combine pass).  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
+every test skips.
 The file imports nothing of JAX, so on a GPU machine without JAX it runs
 without the suite's conftest:
 
@@ -13,7 +15,8 @@ import pytest
 import torch
 
 import mppi_robotarm_tpu_torch as P
-from mppi_robotarm_tpu_torch.ops import cuda_sim
+from mppi_robotarm_tpu_torch.ops import cuda_sim, cuda_solve
+from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -107,3 +110,166 @@ def test_kernel_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         cuda_sim.fused_sim_run_batched(
             *args, eps=torch.zeros(2, 2, 64, 4, 2, device=dev))
+
+
+# ---- the per-step solve kernel (csrc/solve_kernel.cu) ----------------------
+
+def _solve_inputs(dev, B, K, T, seed):
+    """B scenarios near the preset state, warm-start controls plus noise,
+    clamped windows at staggered indices of a 2000-point circle."""
+    rng = np.random.default_rng(seed)
+    ref = torch.as_tensor(P.synth_circle_path(2000), device=dev)
+    x0 = torch.as_tensor(
+        (np.array([*SIM.q0, 0.1, -0.2]) + rng.normal(scale=0.01, size=(B, 4))
+         ).astype(np.float32), device=dev)
+    u = torch.as_tensor((np.array([10.0, -2.0]) + rng.normal(size=(B, T, 2))
+                         ).astype(np.float32), device=dev)
+    starts = 3 * torch.arange(B, device=dev) % (2000 - 30)
+    idx = starts[:, None] + torch.arange(30, device=dev)
+    return x0, u, ref[idx].contiguous()
+
+
+def _check_solve(got, want, normalize=True):
+    """Kernel vs twin on one call: S and m bit for bit (same per-sample
+    arithmetic, min is exact); Σwε / u_new to atol 2e-5 (the in-tile sums'
+    order differs), raw rows to rtol 2e-5 of their magnitude; eta rtol 2e-5.
+    """
+    (w_k, s_k, e_k, (m_k, eta_k)), (w_p, s_p, e_p, (m_p, eta_p)) = got, want
+    assert torch.equal(s_k, s_p)
+    assert torch.equal(m_k, m_p)
+    w_p = w_p.cpu().numpy()
+    atol = 2e-5 if normalize else 2e-5 * np.abs(w_p).max()
+    np.testing.assert_allclose(w_k.cpu().numpy(), w_p, rtol=2e-5, atol=atol)
+    np.testing.assert_allclose(eta_k.cpu().numpy(), eta_p.cpu().numpy(),
+                               rtol=2e-5)
+    if e_p is not None:
+        assert torch.equal(e_k, e_p)
+
+
+@pytest.mark.parametrize("K,T,B", [(1024, 50, 1), (100, 30, 8),
+                                   (65536, 50, 1)])
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_solve_kernel_matches_twin(dev, K, T, B, noise):
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
+                              lam=3e5)
+    x0, u, win = _solve_inputs(dev, B, K, T, K + T)
+    kw = (dict(eps=torch.as_tensor(eps_noise(K, (B, K, T, 2)), device=dev))
+          if noise == "eps" else
+          dict(seed=torch.arange(B, device=dev) + 7,
+               step=torch.arange(B, device=dev) * 5 + 3))
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES)
+    got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
+    assert (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES) == tuple(
+        v + 1 for v in before)
+    want = cuda_solve.solve_batched_reference(ARM, cfg, x0, u, win, **kw)
+    _check_solve(got, want)
+    again = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
+    for a, b in zip((got[0], got[1], *got[3]), (again[0], again[1],
+                                                 *again[3])):
+        assert torch.equal(a, b)            # deterministic: same bits
+    if noise == "prng":
+        assert torch.equal(got[2][0], philox_epsilon(7, 3, cfg, dev))
+
+
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_solve_kernel_fleet_shape_fused(dev, noise):
+    """simulate_batch's solve at BASELINE config 4: 4096 scenarios x K=128,
+    T=30, one tile each, with the fused median and u update; tolerances of
+    _check_solve."""
+    B, K, T = 4096, 128, 30
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
+                              lam=3e5)
+    x0, u, win = _solve_inputs(dev, B, K, T, 11)
+    kw = (dict(eps=torch.as_tensor(eps_noise(5, (B, K, T, 2)), device=dev))
+          if noise == "eps" else
+          dict(seed=torch.arange(B, device=dev) + 7,
+               step=torch.arange(B, device=dev) * 5 + 3))
+    got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, fuse_update=True,
+                                   **kw)
+    want = cuda_solve.solve_batched_reference(ARM, cfg, x0, u, win,
+                                              fuse_update=True, **kw)
+    _check_solve(got, want)
+
+
+@pytest.mark.parametrize("T,fuse", [(200, True), (20, False)])
+def test_solve_kernel_horizons_and_noise_modes_agree(dev, T, fuse):
+    """A long horizon shrinks the tile to fit its noise in shared memory;
+    PRNG mode equals eps mode fed the noise it drew, bit for bit."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=1000, horizon=T,
+                              lam=3e5)
+    x0, u, win = _solve_inputs(dev, 2, 1000, T, 1)
+    kw = dict(seed=torch.tensor([1, 2], device=dev), step=4,
+              fuse_update=fuse)
+    got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
+    _check_solve(got, cuda_solve.solve_batched_reference(ARM, cfg, x0, u,
+                                                         win, **kw))
+    fed = cuda_solve.solve_batched(ARM, cfg, x0, u, win, eps=got[2],
+                                   fuse_update=fuse)
+    for a, b in zip((got[0], got[1], *got[3]), (fed[0], fed[1], *fed[3])):
+        assert torch.equal(a, b)
+
+
+def test_solve_kernel_raw_rows_with_k_offset(dev):
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=2048, horizon=50,
+                              exploration=0.5, lam=3e5)
+    x0, u, win = _solve_inputs(dev, 2, 700, 50, 2)
+    kw = dict(seed=torch.tensor([3, 4], device=dev), step=9, k_local=700,
+              k_offset=torch.tensor([0, 900], device=dev), normalize=False)
+    got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
+    _check_solve(got, cuda_solve.solve_batched_reference(ARM, cfg, x0, u,
+                                                         win, **kw),
+                 normalize=False)
+    full = philox_epsilon(4, 9, cfg, dev)
+    assert torch.equal(got[2][1], full[900:1600])
+
+
+def test_solve_kernel_tiles_give_the_same_costs(dev):
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=3000, horizon=30,
+                              lam=3e5)
+    x0, u, win = _solve_inputs(dev, 1, 3000, 30, 3)
+    outs = [cuda_solve.solve_batched(ARM, cfg, x0, u, win, seed=[5],
+                                     tile=tile) for tile in (32, 128, 512)]
+    for o in outs[1:]:
+        assert torch.equal(o[1], outs[0][1])
+        np.testing.assert_allclose(o[0].cpu().numpy(),
+                                   outs[0][0].cpu().numpy(), atol=2e-5)
+
+
+def test_per_step_loop_matches_fused_and_batch_matches_single(dev):
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=256, horizon=20)
+    ref = torch.as_tensor(P.synth_circle_path(2000), device=dev)
+    s0 = P.init_sim(cfg, SIM, seed=3, device=dev)
+    before = cuda_solve.LAUNCHES
+    _, per = P.simulate(ARM, cfg, SIM, ref, s0, 8, backend="cuda")
+    assert cuda_solve.LAUNCHES == before + 8
+    _, fused = P.simulate_fused(ARM, cfg, SIM, ref, s0, 8)
+    for i in range(8):
+        np.testing.assert_allclose(per.q[i].cpu().numpy(),
+                                   fused.q[i].cpu().numpy(),
+                                   atol=2e-6 * 4 ** i)
+        np.testing.assert_allclose(per.u[i].cpu().numpy(),
+                                   fused.u[i].cpu().numpy(),
+                                   atol=2e-5 * 4 ** i)
+    assert torch.equal(per.wp_idx, fused.wp_idx)
+    states = P.init_sim_batch(cfg, SIM, [3, 8, 1], device=dev)
+    _, rec = P.simulate_batch(ARM, cfg, SIM, ref, states, 8, backend="cuda")
+    for f, a, b in zip(rec._fields, rec, per):
+        assert torch.equal(a[:, 0], b), f
+
+
+def test_solve_kernel_rejects_bad_operands(dev):
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=64, horizon=5)
+    x0, u, win = _solve_inputs(dev, 2, 64, 5, 4)
+    with pytest.raises(TypeError):
+        cuda_solve.solve_batched(ARM, cfg, x0.double(), u, win, seed=[1, 2])
+    with pytest.raises(ValueError):
+        cuda_solve.solve_batched(ARM, cfg, x0, u, win.cpu(), seed=[1, 2])
+    with pytest.raises(ValueError):
+        cuda_solve.solve_batched(ARM, cfg, x0, u, win,
+                                 eps=torch.zeros(2, 64, 4, 2, device=dev))
+    with pytest.raises(ValueError):
+        cuda_solve.solve_batched(ARM, cfg, x0, u, win, seed=[1, 2],
+                                 fuse_update=True, normalize=False)
+    with pytest.raises(ValueError):
+        cuda_solve.solve_batched(ARM, cfg, x0, u, win, seed=[1, 2],
+                                 tile=544)
