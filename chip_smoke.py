@@ -36,13 +36,39 @@ Phases (any failure raises and exits non-zero):
      time per solve against the plain twin at K=1024 and K=65536, the
      per-step loop's µs/step and device idle share (device-busy µs/step
      from a profiled window against the unprofiled µs/step), the batch's
-     scenario-steps/s.
+     scenario-steps/s;
+ 11. the fleet kernel against the fused kernel and against its plain
+     twin, eps and PRNG modes: K=128/T=30, B=64, group=8 on a 120-row
+     path with half the scenarios frozen from the start, and K=100/T=30,
+     B=12, group=4: records and u_final == the fused kernel's bit for bit
+     over 50 steps, two runs the same bits, within phase 2's bands of
+     ``fused_sim_reference_stacked`` over 8 steps;
+ 12. the fleet path, ``simulate_fused_batch`` on phase 9's fleet for 2000
+     steps: fleet-kernel launches, finite records, scenario 0 ==
+     ``simulate_fused`` of it alone bit for bit, every scenario == the
+     fused kernel's run of the fleet (group 1), 1000 + 1000 chained steps
+     == one run, the first 8 steps of scenario 0 within phase 2's bands of
+     phase 9's ``simulate_batch(backend="cuda")``; the on-path mean over
+     scenarios (median and p95, not gated);
+ 13. the CLI in-process: ``--batch 4096 --backend cuda-fused`` (fleet
+     kernel), single ``--backend cuda-fused`` (fused kernel), and
+     ``--backend cuda --checkpoint-every`` against a checkpoint and resume,
+     which must equal the uninterrupted run;
+ 14. timing with CUDA events, min of 3, over 1000 steps of phase 9's fleet:
+     the fleet kernel against the fused kernel (their records and u_final
+     equal for every scenario), and the stacked plain twin per step; the
+     fleet kernel within phase 2's bands of the stacked twin over 8 steps
+     of every scenario.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script fails.
 """
 
+import contextlib
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -59,6 +85,11 @@ SOLVE_LAM = 3e5       # phase 7: tens of samples carry weight (at the
                       # presets' lam = 1 the softmax is one-hot)
 W_TOL = 2e-5          # phase 7: Σwε / u_new absolute, η and raw rows relative
 BATCH, BATCH_STEPS = 4096, 50      # BASELINE config 4 at K=128, T=30
+FLEET_CMP_STEPS = 50  # phase 11: fleet kernel == fused kernel, bitwise
+FLEET_STEPS = 2000    # phase 12: the fleet path
+CLI_STEPS, CKPT_EVERY = 200, 100   # phase 13
+FLEET_TIME_STEPS, PLAIN_FLEET_STEPS = 1000, 3   # phase 14
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(ok, msg):
@@ -111,6 +142,101 @@ def compare(label, cuda_sim, arm, cfg, sim, ref, device, seed, eps=None):
           f"{label}: step-0 stats off by {stats_rel} relative")
     print(f"{label}: kernel == twin within tolerance")
     return float(dq.max())
+
+
+def fleet_compare(label, cuda_sim, arm, cfg, sim, ref, B, group, device,
+                  noise, frozen_mix):
+    """The fleet kernel (``group``) against the fused kernel (group=1) over
+    FLEET_CMP_STEPS steps, bit for bit and twice, then against the stacked
+    plain twin over CMP_STEPS steps in phase 2's bands; returns max |Δq|
+    against the twin."""
+    import torch
+
+    T, K = cfg.horizon, cfg.num_samples
+    rng = np.random.default_rng(B + K)
+    q0 = np.array([sim.q0]) + 0.01 * rng.normal(size=(B, 2))
+    wp = torch.zeros(B, dtype=torch.int64, device=device)
+    if frozen_mix:       # odd scenarios start at the last waypoint: frozen
+        wp[1::2] = ref.shape[0] - 1
+    args = (arm, cfg, sim, ref,
+            torch.as_tensor(q0.astype(np.float32), device=device),
+            torch.zeros(B, 2, device=device),
+            torch.tensor(cfg.warm_start, dtype=torch.float32,
+                         device=device).repeat(B, T, 1).contiguous(),
+            wp, torch.arange(B, device=device) + 5)
+    kw = dict(step0=torch.arange(B, device=device) * 3)
+    eps = None
+    if noise == "eps":
+        eps = torch.as_tensor(
+            (rng.normal(size=(B, FLEET_CMP_STEPS, K, T, 2))
+             * np.sqrt(20.0)).astype(np.float32), device=device)
+    run = lambda g, n, e: cuda_sim.fused_sim_run_batched(*args, n, eps=e,
+                                                          group=g, **kw)
+    before = cuda_sim.FLEET_LAUNCHES
+    rec1, uf1 = run(1, FLEET_CMP_STEPS, eps)
+    recg, ufg = run(group, FLEET_CMP_STEPS, eps)
+    again = run(group, FLEET_CMP_STEPS, eps)
+    torch.cuda.synchronize()
+    check(cuda_sim.FLEET_LAUNCHES == before + 2,
+          f"{label}: the fleet kernel was not launched")
+    differ = int((recg != rec1).any(dim=2).sum())
+    check(torch.equal(recg, rec1) and torch.equal(ufg, uf1),
+          f"{label}: fleet kernel != fused kernel ({differ} record rows "
+          f"differ)")
+    check(torch.equal(again[0], recg) and torch.equal(again[1], ufg),
+          f"{label}: two runs differ")
+    frozen = int((recg[:, -1, 7] > 0.5).sum())
+    if frozen_mix:
+        check(frozen == B // 2 and bool((recg[0::2, :, 7] == 0).all()),
+              f"{label}: the frozen/active mix did not hold ({frozen})")
+    e8 = None if eps is None else eps[:, :CMP_STEPS].contiguous()
+    rk, _ = run(group, CMP_STEPS, e8)
+    rp, _ = cuda_sim.fused_sim_reference_stacked(*args, CMP_STEPS, eps=e8,
+                                                 **kw)
+    print(f"{label}: records and u_final == the fused kernel's, bitwise, "
+          f"over {FLEET_CMP_STEPS} steps ({frozen} of {B} frozen at the "
+          f"end); deterministic")
+    return stacked_bands(label, rk, rp)
+
+
+def stacked_bands(label, rk, rp):
+    """(B, CMP_STEPS, 12) fleet-kernel rows against the stacked plain
+    twin's, in phase 2's bands over all scenarios; returns max |Δq|."""
+    import torch
+
+    torch.cuda.synchronize()
+    dq = (rk[..., 0:2] - rp[..., 0:2]).abs().amax(dim=(0, 2)).cpu().numpy()
+    du = (rk[..., 4:6] - rp[..., 4:6]).abs().amax(dim=(0, 2)).cpu().numpy()
+    stats_rel = ((rk[:, 0, 8:12] - rp[:, 0, 8:12]).abs()
+                 / rp[:, 0, 8:12].abs().clamp_min(1e-30)).amax().item()
+    for i in range(CMP_STEPS):
+        check(dq[i] <= Q_TOL * 4 ** i, f"{label}: q step {i} off by {dq[i]}")
+        check(du[i] <= U_TOL * 4 ** i, f"{label}: u step {i} off by {du[i]}")
+    check(torch.equal(rk[..., 6:8], rp[..., 6:8]),
+          f"{label}: wp_idx/done lanes differ from the stacked twin")
+    check(stats_rel <= STATS_RTOL, f"{label}: step-0 stats off by "
+          f"{stats_rel} relative")
+    print(f"{label}: vs the stacked twin over {rk.shape[0]} scenarios, "
+          f"per-step max|dq| {np.array2string(dq, precision=2)}, max|du| "
+          f"{np.array2string(du, precision=2)}, step-0 stats rel "
+          f"{stats_rel:.2g}")
+    return float(dq.max())
+
+
+def onpath_by_scenario_mm(rec, path_xy):
+    """Each scenario's mean distance to the nearest path point over its
+    live steps, mm, on the device (a (steps, B) record)."""
+    import torch
+
+    p = torch.as_tensor(path_xy, device=rec.ee.device)
+    total = torch.zeros(rec.ee.shape[1], dtype=torch.float64,
+                        device=p.device)
+    for i in range(0, rec.ee.shape[0], 25):
+        ee = rec.ee[i:i + 25]
+        d = torch.cdist(ee.reshape(-1, 2), p).amin(dim=1).view(ee.shape[:2])
+        total += torch.where(rec.done[i:i + 25], 0.0, d).double().sum(dim=0)
+    live = (~rec.done).sum(dim=0).clamp_min(1)
+    return (total / live * 1e3).cpu().numpy()
 
 
 def device_total(event) -> float:
@@ -475,6 +601,179 @@ def main() -> int:
           f"{min(bt):.2f} ms (runs {[round(t, 2) for t in bt]}), "
           f"{rate:,.0f} scenario-steps/s")
 
+    # ---- 11. the fleet kernel against the fused kernel and its twin ----
+    fleet_err = 0.0
+    for noise in ("eps", "prng"):
+        for label, (a, c, s), B, g, r, mix in (
+                ("K=128 T=30 B=64 group=8", (arm, cfg_b, sim), 64, 8,
+                 ref_b[:120].contiguous(), True),
+                ("K=100 T=30 B=12 group=4", m.circle_tracking_preset(), 12,
+                 4, ref_b, False)):
+            fleet_err = max(fleet_err, fleet_compare(
+                f"fleet {noise} {label}", cuda_sim, a, c, s, r, B, g,
+                device, noise, mix))
+
+    # ---- 12. the fleet path --------------------------------------------
+    cuda_sim.FLEET_LAUNCHES = 0
+    final_f, rec_f = m.simulate_fused_batch(arm, cfg_b, sim, ref_b, states_b,
+                                            FLEET_STEPS)
+    torch.cuda.synchronize()
+    fleet_launches = cuda_sim.FLEET_LAUNCHES
+    check(fleet_launches >= 1, "the fleet path launched no fleet kernel")
+    print(f"fleet path: simulate_fused_batch {BATCH} scenarios x "
+          f"{FLEET_STEPS} steps (K=128, T=30), fleet_kernel launches "
+          f"{fleet_launches}")
+    for field, v in zip(rec_f._fields, rec_f):
+        if v.dtype.is_floating_point:
+            check(bool(torch.isfinite(v).all()), f"fleet {field} not finite")
+    check(tuple(rec_f.q.shape) == (FLEET_STEPS, BATCH, 2),
+          f"fleet record shape {tuple(rec_f.q.shape)}")
+    _, rec_1f = m.simulate_fused(arm, cfg_b, sim, ref_b, one, FLEET_STEPS)
+    for field, a, b in zip(rec_f._fields, rec_f, rec_1f):
+        check(torch.equal(a[:, 0], b),
+              f"fleet scenario 0 {field} differs from its simulate_fused run")
+    # every scenario against the fused kernel (group 1) on the same grid
+    final_k1, rec_k1 = m.simulate_fused_batch(arm, cfg_b, sim, ref_b,
+                                              states_b, FLEET_STEPS, group=1)
+    for field, a, b in zip(rec_f._fields, rec_f, rec_k1):
+        differ = int((a != b).reshape(FLEET_STEPS, BATCH, -1).any(-1)
+                     .any(0).sum())
+        check(differ == 0, f"fleet {field} differs from the fused kernel's "
+              f"in {differ} of {BATCH} scenarios")
+    check(torch.equal(final_k1.mppi.u_prev, final_f.mppi.u_prev)
+          and torch.equal(final_k1.step, final_f.step),
+          "fleet final state differs from the fused kernel's")
+    del final_k1, rec_k1
+    half = FLEET_STEPS // 2
+    s_h, r_h1 = m.simulate_fused_batch(arm, cfg_b, sim, ref_b, states_b, half)
+    s_h2, r_h2 = m.simulate_fused_batch(arm, cfg_b, sim, ref_b, s_h,
+                                        FLEET_STEPS - half)
+    for field, a, b1, b2 in zip(rec_f._fields, rec_f, r_h1, r_h2):
+        b = torch.cat([b1, b2])
+        if field == "ref_xy":
+            # a frozen scenario's step stops, so its later reference rows
+            # are indexed from where it froze; compare the live rows
+            live = ~rec_f.done
+            a, b = a[live], b[live]
+        check(torch.equal(a, b),
+              f"fleet chained record {field} differs from one run")
+    check(torch.equal(s_h2.mppi.u_prev, final_f.mppi.u_prev)
+          and torch.equal(s_h2.q, final_f.q)
+          and torch.equal(s_h2.step, final_f.step),
+          "fleet chained final state differs from one run")
+    compare_records("fleet vs per-step batch, scenario 0",
+                    m.SimRecord(*(f[:, 0] for f in rec_f)),
+                    m.SimRecord(*(f[:, 0] for f in rec_b)))
+    onp = onpath_by_scenario_mm(rec_f, m.synth_circle_path(2000)[:, 0:2])
+    n_frozen = int(final_f.done.sum())
+    print(f"fleet path: scenario 0 == simulate_fused alone, bitwise; "
+          f"all {BATCH} scenarios == the fused kernel's (group 1) run, "
+          f"bitwise; {half} + {FLEET_STEPS - half} chained == one run, "
+          f"bitwise; "
+          f"on-path mean over live steps, by scenario: median "
+          f"{np.median(onp):.3f} mm, p95 {np.percentile(onp, 95):.3f} mm "
+          f"(not gated); {n_frozen} of {BATCH} scenarios at the path end")
+
+    # ---- 13. the CLI ---------------------------------------------------
+    from mppi_robotarm_tpu_torch import cli
+
+    cli_dir = os.path.join(ROOT, "build", "chip_smoke_cli")   # gitignored
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    sub = lambda name: os.path.join(cli_dir, name)
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        check(rc == 0, f"cli {argv} returned {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    cuda_sim.FLEET_LAUNCHES = 0
+    summ = run_cli(["--batch", str(BATCH), "--samples", "128", "--horizon",
+                    "30", "--steps", str(CLI_STEPS), "--backend",
+                    "cuda-fused", "--out-dir", sub("batch")])
+    cli_fleet = cuda_sim.FLEET_LAUNCHES
+    check(cli_fleet >= 1, "cli --batch cuda-fused launched no fleet kernel")
+    with np.load(sub("batch/batch_record.npz")) as z:
+        check(sorted(z.files) == sorted(m.SimRecord._fields)
+              and z["q"].shape == (CLI_STEPS, BATCH, 2)
+              and np.isfinite(z["q"]).all(), "cli batch_record.npz")
+    print(f"cli --batch {BATCH} --backend cuda-fused: fleet_kernel launches "
+          f"{cli_fleet}; {json.dumps(summ)}")
+    cuda_sim.LAUNCHES = 0
+    summ = run_cli(["--steps", str(CLI_STEPS), "--backend", "cuda-fused",
+                    "--out-dir", sub("single")])
+    check(cuda_sim.LAUNCHES >= 1, "cli cuda-fused launched no sim_kernel")
+    print(f"cli --backend cuda-fused: sim_kernel launches "
+          f"{cuda_sim.LAUNCHES}; {json.dumps(summ)}")
+    cuda_solve.LAUNCHES = 0
+    per = ["--backend", "cuda", "--steps"]
+    summ = run_cli(per + [str(2 * CKPT_EVERY), "--checkpoint-every",
+                          str(CKPT_EVERY), "--checkpoint", sub("full.npz"),
+                          "--out-dir", sub("full")])
+    check(cuda_solve.LAUNCHES >= 2 * CKPT_EVERY,
+          "cli --backend cuda launched too few solves")
+    run_cli(per + [str(CKPT_EVERY), "--checkpoint", sub("part.npz"),
+                   "--out-dir", sub("first")])
+    run_cli(per + [str(CKPT_EVERY), "--checkpoint", sub("part.npz"),
+                   "--out-dir", sub("resumed")])
+    with np.load(sub("full/record.npz")) as full, \
+            np.load(sub("first/record.npz")) as first, \
+            np.load(sub("resumed/record.npz")) as resumed:
+        for f in m.SimRecord._fields:
+            check(np.array_equal(full[f], np.concatenate([first[f],
+                                                          resumed[f]])),
+                  f"cli resumed record {f} differs from the full run")
+    with np.load(sub("full.npz")) as a, np.load(sub("part.npz")) as b:
+        check(sorted(a.files) == sorted(b.files)
+              and all(np.array_equal(a[f], b[f]) for f in a.files),
+              "cli resumed checkpoint differs from the full run's")
+    print(f"cli --backend cuda: {CKPT_EVERY} + {CKPT_EVERY} steps through a "
+          f"checkpoint == {2 * CKPT_EVERY} uninterrupted, bitwise; "
+          f"{json.dumps(summ)}")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+
+    # ---- 14. fleet timing ----------------------------------------------
+    fleet_args = (arm, cfg_b, sim, ref_b, states_b.q, states_b.dq,
+                  states_b.mppi.u_prev.contiguous(), states_b.mppi.wp_idx,
+                  states_b.seed)
+    out = {}
+    run_g = lambda g: out.__setitem__(g, cuda_sim.fused_sim_run_batched(
+        *fleet_args, FLEET_TIME_STEPS, step0=states_b.step, group=g))
+    t_fleet, t_k1 = [], []
+    for _ in range(3):
+        t_fleet += cuda_time(lambda: run_g(8), 1)
+        t_k1 += cuda_time(lambda: run_g(1), 1)
+    fleet_ms = min(t_fleet) / FLEET_TIME_STEPS
+    k1_fleet_ms = min(t_k1) / FLEET_TIME_STEPS
+    for part, a, b in zip(("records", "u_final"), out[8], out[1]):
+        differ = int((a != b).reshape(BATCH, -1).any(-1).sum())
+        check(differ == 0, f"fleet timing run: {part} of fleet_kernel != "
+              f"sim_kernel's in {differ} of {BATCH} scenarios")
+    print(f"fleet timing run: records and u_final of all {BATCH} scenarios "
+          f"over {FLEET_TIME_STEPS} steps == sim_kernel's, bitwise")
+    del out
+    fleet_err = max(fleet_err, stacked_bands(
+        f"fleet prng {BATCH} x K=128 T=30 group=8",
+        cuda_sim.fused_sim_run_batched(*fleet_args, CMP_STEPS,
+                                       step0=states_b.step, group=8)[0],
+        cuda_sim.fused_sim_reference_stacked(*fleet_args, CMP_STEPS,
+                                             step0=states_b.step)[0]))
+    pt = cuda_time(lambda: cuda_sim.fused_sim_reference_stacked(
+        *fleet_args, PLAIN_FLEET_STEPS, step0=states_b.step), 2)
+    plain_fleet_ms = min(pt) / PLAIN_FLEET_STEPS
+    rate_f = BATCH / (fleet_ms / 1e3)
+    print(f"timing [{card}]: fleet {BATCH} x K=128, T=30 over "
+          f"{FLEET_TIME_STEPS} steps: fleet_kernel {fleet_ms * 1e3:.2f} "
+          f"us/launch-step ({rate_f:,.0f} scenario-steps/s), runs "
+          f"{[round(t, 2) for t in t_fleet]} ms; sim_kernel on the same "
+          f"fleet {k1_fleet_ms * 1e3:.2f} us/launch-step "
+          f"({BATCH / (k1_fleet_ms / 1e3):,.0f} scenario-steps/s), runs "
+          f"{[round(t, 2) for t in t_k1]} ms; simulate_batch(cuda) "
+          f"{rate:,.0f} scenario-steps/s (phase 10); stacked plain twin "
+          f"{plain_fleet_ms * 1e3:.1f} us/step over {PLAIN_FLEET_STEPS} "
+          f"steps, runs {[round(t, 2) for t in pt]} ms")
+
     dev_1k, ev_1k, plain_1k, plain_comb_1k = timing["K=1024"]
     print(json.dumps({"kernels": [
         {"name": "sim_kernel", "route": "cuda",
@@ -492,7 +791,12 @@ def main() -> int:
          "replaces": "mppi_robotarm_tpu/ops/pallas_rollout.py:585",
          "launches": combine_launches, "max_abs_err": w_err,
          "ms": dev_1k["solve_combine_kernel"] / 1e3,
-         "plain_ms": plain_comb_1k}]}))
+         "plain_ms": plain_comb_1k},
+        {"name": "fleet_kernel", "route": "cuda",
+         "source": "mppi_robotarm_tpu_torch/csrc/fleet_kernel.cu",
+         "replaces": "mppi_robotarm_tpu/ops/pallas_sim.py:552",
+         "launches": fleet_launches, "max_abs_err": fleet_err,
+         "ms": fleet_ms, "plain_ms": plain_fleet_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

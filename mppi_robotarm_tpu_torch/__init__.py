@@ -2,8 +2,11 @@
 
 The same MPPI path-tracking engine for the 2-link planar arm, in PyTorch,
 with hand-written CUDA kernels for Hopper, built at first use: the whole
-closed loop in one launch (``csrc/sim_kernel.cu``) and the per-step solve
-(``csrc/solve_kernel.cu``) behind ``backend="cuda"``.  The JAX package stays the
+closed loop in one launch (``csrc/sim_kernel.cu``), a fleet of small-K
+scenarios, one warp each (``csrc/fleet_kernel.cu``, behind
+``simulate_fused_batch``), and the per-step solve (``csrc/solve_kernel.cu``)
+behind ``backend="cuda"``.  ``python -m mppi_robotarm_tpu_torch.cli`` is
+the command-line interface.  The JAX package stays the
 reference each part is checked against; this package never imports JAX.
 """
 
@@ -20,9 +23,11 @@ from .config import (
 from .mppi.solver import (
     MPPIState,
     SolveResult,
+    VizResult,
     init_state,
     solve,
     solve_batched,
+    viz_rollouts,
 )
 from .sim.loop import (
     SimRecord,
@@ -32,9 +37,15 @@ from .sim.loop import (
     simulate,
     simulate_batch,
     simulate_fused,
+    simulate_fused_batch,
     simulate_python,
 )
-from .sim.paths import load_ref_path, synth_circle_path
+from .sim.paths import (
+    load_joint_log,
+    load_ref_path,
+    ref_path_from_joint_log,
+    synth_circle_path,
+)
 
 __version__ = "0.1.0"
 
@@ -42,8 +53,10 @@ __all__ = [
     "ArmParams", "MPPIConfig", "SimConfig",
     "benchmark_preset", "circle_tracking_preset", "high_accuracy_preset",
     "config_from_json", "config_to_json",
-    "MPPIState", "SolveResult", "init_state", "solve", "solve_batched",
+    "MPPIState", "SolveResult", "VizResult", "init_state", "solve",
+    "solve_batched", "viz_rollouts",
     "SimRecord", "SimState", "init_sim", "init_sim_batch", "simulate",
-    "simulate_batch", "simulate_fused", "simulate_python",
-    "load_ref_path", "synth_circle_path",
+    "simulate_batch", "simulate_fused", "simulate_fused_batch",
+    "simulate_python", "load_joint_log", "load_ref_path",
+    "ref_path_from_joint_log", "synth_circle_path",
 ]

@@ -48,37 +48,17 @@
 // whole of it runs as one block on 1 of the 132 SMs: a latency-bound chain
 // of T dependent rollout steps per sample, six block barriers per step, and
 // single-thread waypoint and plant phases.  Splitting K over a thread-block
-// cluster, fleets of scenarios per launch and regenerating ε instead of
-// storing it are later work.
+// cluster is later work.  Fleets of K <= 128 scenarios run one warp each in
+// fleet_kernel.cu, whose sample_step (sim_common.cuh) is the same sequence
+// of float32 operations as the rollout below; this kernel keeps its own
+// inline copy, because calling the helper made it 12 % slower at B=1
+// (PERF.md).
 
 #include <cuda_runtime.h>
 
-#include "mppi_device.cuh"
-
-// Mirrored field for field by ops/cuda_sim.py::_SimParams (all fields are
-// 4 bytes wide, so the layouts agree without padding).
-struct SimParams {
-  ArmConsts arm;
-  float l1c, l2c;              // cost FK link lengths (MPPIConfig.l1/l2)
-  float lam, gamma;
-  float dt_c, dt_p;            // controller-model and plant dt (Q2)
-  float cost_scale, dist_scale;
-  float stage_w[4];
-  float term_w[4];
-  float exploit_thresh;        // (1 - exploration) * num_samples (Q9)
-  float u_clamp;
-  float dist1, dist2;          // plant disturbance torque
-  float l11, l21, l22;         // chol(Σ)
-  float sinv[4];               // Σ^-1, row-major
-  float k_actual;              // float(K)
-  int has_clamp;
-  int K, T, W, fw;
-  int n_ref, n_steps, use_prng;
-};
+#include "sim_common.cuh"
 
 namespace {
-
-constexpr int kRecLanes = 12;
 
 // Copy ref rows [widx, widx + W) into the window, clamped to the last row.
 __device__ void refresh_window(float* win, const float* __restrict__ ref,

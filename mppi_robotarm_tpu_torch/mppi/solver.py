@@ -19,6 +19,8 @@ the softmax, Σwε and (when ``filter_window <= 2T``) the median and update
 through the solve kernels of ``ops/cuda_solve.py`` in float32, with noise
 injected or drawn in the kernel from (seed, step).  ``solve_batched`` is
 the B-scenario solve through one kernel launch (``solve_batched_pallas``).
+:func:`viz_rollouts` re-rolls a solve's samples and its optimal sequence
+for rendering.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from ..models.arm import fk_ee
 from ..ops import cuda_solve
 from ..ops.filters import median_filter_reflect
 from ..ops.noise import sample_epsilon, sigma_cholesky, sigma_inverse
-from ..ops.rollout import rollout_costs
+from ..ops.rollout import rollout_costs, rollout_trajectory
 from ..ops.waypoint import update_waypoint_index
 from ..ops.weights import mppi_weights
 
@@ -54,6 +56,14 @@ class SolveResult(NamedTuple):
     weights: torch.Tensor        # (K,) importance weights w
     eps: Optional[torch.Tensor]  # (K, T, 2) the noise used; None from a
                                  # seeded cuda solve unless want_eps=True
+
+
+class VizResult(NamedTuple):
+    """Visualisation re-rollouts (control.py:129-145, quirk Q4)."""
+
+    optimal_traj: torch.Tensor   # (T, 4)
+    sampled_trajs: torch.Tensor  # (K, T, 4)
+    sorted_idx: torch.Tensor     # (K,) argsort(S): render order (run.py:88-90)
 
 
 def init_state(cfg: MPPIConfig, dtype=torch.float32,
@@ -203,3 +213,32 @@ def solve_batched(
     return SolveResult(u0=next_state.u_prev[:, 0], u_seq=u_seq,
                        state=next_state, path_end=path_end, costs=s,
                        weights=mppi_weights(s, cfg.lam), eps=eps)
+
+
+def viz_rollouts(
+    arm: ArmParams,
+    cfg: MPPIConfig,
+    observed_x: torch.Tensor,    # (4,)
+    u_seq: torch.Tensor,         # (T, 2) post-update sequence
+    u_prev: torch.Tensor,        # (T, 2) pre-update sequence (for v)
+    eps: Optional[torch.Tensor],  # (K, T, 2)
+    costs: torch.Tensor,         # (K,)
+) -> VizResult:
+    """Optimal and sampled trajectory re-rollouts for rendering
+    (control.py:129-145, with quirk Q4).  ``v`` is rebuilt from u_prev and
+    eps as in the cost rollout (control.py:98-101).  ``eps`` must be the
+    solve's noise: a seeded cuda solve returns None unless asked with
+    ``want_eps=True``, and this raises ``ValueError`` then."""
+    if eps is None:
+        raise ValueError(
+            "viz_rollouts needs the solve's noise tensor, but SolveResult"
+            ".eps is None: re-run solve(..., want_eps=True) (a seeded cuda "
+            "solve does not write its noise out by default)")
+    k_idx = torch.arange(cfg.num_samples, device=eps.device)
+    exploit = (k_idx < (1.0 - cfg.exploration) * cfg.num_samples)[:, None,
+                                                                   None]
+    v = torch.where(exploit, u_prev[None] + eps, eps)
+    return VizResult(
+        optimal_traj=rollout_trajectory(arm, cfg, observed_x, u_seq),
+        sampled_trajs=rollout_trajectory(arm, cfg, observed_x, v),
+        sorted_idx=torch.argsort(costs, stable=True))

@@ -114,6 +114,10 @@ def load_library() -> ctypes.CDLL:
     lib.mppi_sim_launch.restype = ctypes.c_int
     lib.mppi_solve_launch.argtypes = [ptr, ctypes.c_int] + [ptr] * 14
     lib.mppi_solve_launch.restype = ctypes.c_int
+    lib.mppi_fleet_launch.argtypes = [ptr] + [ctypes.c_int] * 2 + [ptr] * 9
+    lib.mppi_fleet_launch.restype = ctypes.c_int
+    lib.mppi_fleet_scratch_floats.argtypes = [ptr]
+    lib.mppi_fleet_scratch_floats.restype = ctypes.c_int
     lib.mppi_error_string.argtypes = [ctypes.c_int]
     lib.mppi_error_string.restype = ctypes.c_char_p
     for fn in ("mppi_sim_params_size", "mppi_solve_params_size"):

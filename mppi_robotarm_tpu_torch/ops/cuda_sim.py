@@ -5,13 +5,19 @@
 stats, Σwε, reflect median, control update and shift, plant step, record
 row) and returns ``(records (B, n_steps, 12) f32, u_final (B, T, 2) f32)``.
 It is the port of ``mppi_robotarm_tpu/ops/pallas_sim.py::
-pallas_sim_run_batched`` and its kernel ``_sim_kernel``.
+pallas_sim_run_batched`` and its two kernels: ``_sim_kernel`` and, for
+``1 < group <= 8`` at K <= 128, the scenario-fleet kernel
+``_sim_kernel_stacked``.
 
-The path is picked by where the tensors lie: CUDA tensors launch the
-hand-written kernel ``csrc/sim_kernel.cu`` (built by ``ops/_build.py`` and
-bound through ``ctypes``) or raise; CPU tensors take
-:func:`fused_sim_reference`, the plain PyTorch version of the same
-function.  Nothing falls back from one to the other.
+The path is picked by where the tensors lie: CUDA tensors launch a
+hand-written kernel (built by ``ops/_build.py`` and bound through
+``ctypes``) or raise — ``csrc/fleet_kernel.cu`` (one warp per scenario)
+for ``1 < group <= 8`` at K <= 128, ``csrc/sim_kernel.cu`` (one block per
+scenario) otherwise; the two give the same bits per scenario.  CPU tensors
+take the plain PyTorch versions of the same function,
+:func:`fused_sim_reference_stacked` for ``group > 1`` and
+:func:`fused_sim_reference` otherwise.  Nothing falls back from one to the
+other.
 
 Noise: with ``eps`` (B, n_steps, K, T, 2) the kernel reads the caller's
 noise (the parity seam); without it, each step draws Philox4x32-10 normals
@@ -36,6 +42,7 @@ from .cuda_rollout import (
     chol_terms,
     dynamics_step,
     philox_epsilon,
+    philox_epsilon_batch,
     rollout_cost_trig,
 )
 from .filters import median_filter_reflect
@@ -43,10 +50,14 @@ from .noise import sigma_inverse
 
 REC_LANES = 12
 MAX_SAMPLES = 8192        # K ≤ 8 samples per thread of a 1024-thread block
+FLEET_MAX_SAMPLES = 128   # fleet kernel: K ≤ 4 samples per lane of a warp
+FLEET_MAX_GROUP = 8       # fleet kernel: scenarios (warps) per block
 
-# Kernel launches made by fused_sim_run_batched; a run that must show it
-# went through the kernel reads it before and after.
+# Kernel launches made by fused_sim_run_batched, of sim_kernel (LAUNCHES)
+# and of fleet_kernel (FLEET_LAUNCHES); a run that must show it went
+# through a kernel reads them before and after.
 LAUNCHES = 0
+FLEET_LAUNCHES = 0
 
 _ARM_FIELDS = ("a11", "b11", "c11", "m2", "l2", "k12", "k12b", "m22", "g1a",
                "g1b", "lc2", "l1", "g2")
@@ -57,7 +68,7 @@ class _ArmConsts(ctypes.Structure):
 
 
 class _SimParams(ctypes.Structure):
-    """Mirror of ``SimParams`` in csrc/sim_kernel.cu, field for field."""
+    """Mirror of ``SimParams`` in csrc/sim_common.cuh, field for field."""
 
     _fields_ = [
         ("arm", _ArmConsts),
@@ -207,6 +218,97 @@ def fused_sim_reference(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     return torch.stack(recs), torch.stack(ufins)
 
 
+def fused_sim_reference_stacked(arm: ArmParams, cfg: MPPIConfig,
+                                sim: SimConfig, ref_path, q0, dq0, u_prev,
+                                wp_idx, seed, n_steps, eps=None, step0=None):
+    """Plain PyTorch version of the fleet kernel: :func:`fused_sim_reference`
+    with the B scenarios as a tensor dimension instead of a Python loop.
+
+    The counterpart of ``_sim_kernel_stacked``'s layout, in which the
+    scenarios ride the sublanes.  Every operation is the per-scenario one
+    batched over B, so each scenario's results equal
+    :func:`fused_sim_reference`'s.
+    """
+    _check_config(cfg)
+    B, K, W = q0.shape[0], cfg.num_samples, cfg.search_idx_len
+    device = ref_path.device
+    f32 = torch.float32
+    n = ref_path.shape[0]
+    col = lambda v: torch.as_tensor(v, device=device).reshape(B).long()
+    seeds = col(seed)
+    steps0 = (torch.zeros(B, dtype=torch.int64, device=device)
+              if step0 is None else col(step0))
+    wp = col(wp_idx)
+    exploit = (torch.arange(K, device=device).to(f32)
+               < _f32((1.0 - cfg.exploration) * cfg.num_samples)
+               ).expand(B, K)
+    offs = torch.arange(W, device=device)
+    zero = torch.zeros((), dtype=f32, device=device)
+    no_offset = torch.zeros(B, dtype=torch.int64, device=device)
+
+    q1, q2, dq1, dq2 = q0[:, 0], q0[:, 1], dq0[:, 0], dq0[:, 1]
+    u = u_prev
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    rows = []
+    for step in range(n_steps):
+        # ---- waypoint advance and freeze, per scenario ------------------
+        x = cfg.l1 * torch.cos(q1) + cfg.l2 * torch.cos(q1 + q2)
+        y = cfg.l1 * torch.sin(q1) + cfg.l2 * torch.sin(q1 + q2)
+        idx0 = wp[:, None] + offs
+        win0 = ref_path[torch.clamp(idx0, max=n - 1)]
+        dx = x[:, None] - win0[..., 0]
+        dy = y[:, None] - win0[..., 1]
+        d = (dx * dx + dy * dy) * cfg.dist_scale
+        d = torch.where(idx0 < n, d, torch.inf)
+        wn = wp + torch.argmin(d, dim=1)
+        frz = done | (wn >= n - 1)
+        wp = torch.where(frz, wp, wn)
+        done = frz
+        win = ref_path[torch.clamp(wp[:, None] + offs, max=n - 1)]
+
+        # ---- noise ------------------------------------------------------
+        eps_t = (philox_epsilon_batch(seeds, steps0 + step, no_offset, K,
+                                      cfg)
+                 if eps is None else eps[:, step])
+
+        # ---- rollout and cost, (B, K) ------------------------------------
+        s = rollout_cost_trig(arm, cfg, q1[:, None], q2[:, None],
+                              dq1[:, None], dq2[:, None], u, eps_t,
+                              win[:, None], exploit)
+
+        # ---- softmax and stats ------------------------------------------
+        m = torch.amin(s, dim=1)
+        e = torch.exp(-(s - m[:, None]) / cfg.lam)
+        eta = torch.sum(e, dim=1)
+        inv_eta = 1.0 / eta
+        stats = (m, torch.sum(s, dim=1) / _f32(K),
+                 (eta * eta) / torch.sum(e * e, dim=1),
+                 torch.log(eta)
+                 + torch.sum(e * (s - m[:, None]), dim=1) * inv_eta / cfg.lam)
+
+        # ---- Σwε, median, u update and warm-start shift (Q3) -------------
+        weps = torch.sum(e[:, :, None, None] * eps_t, dim=1) \
+            * inv_eta[:, None, None]
+        med = median_filter_reflect(weps.movedim(1, 0), cfg.filter_window)
+        unew = u + med.movedim(0, 1)
+        u = torch.where(frz[:, None, None], u,
+                        torch.cat([unew[:, 1:], unew[:, -1:]], dim=1))
+
+        # ---- plant step at sim dt and record row -------------------------
+        u1, u2 = u[:, 0, 0], u[:, 0, 1]
+        nq = dynamics_step(q1, q2, dq1, dq2, u1 + sim.disturbance[0],
+                           u2 + sim.disturbance[1], sim.dt, arm)
+        q1, q2, dq1, dq2 = (torch.where(frz, old, new) for old, new
+                            in zip((q1, q2, dq1, dq2), nq))
+        rows.append(torch.stack(
+            [q1, q2, dq1, dq2, torch.where(frz, zero, u1),
+             torch.where(frz, zero, u2), wp.to(f32), frz.to(f32)]
+            + [torch.where(frz, zero, v) for v in stats], dim=1))
+    rec = (torch.stack(rows, dim=1) if rows
+           else torch.empty((B, 0, REC_LANES), dtype=f32, device=device))
+    return rec, u
+
+
 def _check_config(cfg: MPPIConfig) -> None:
     cfg.validate()
     if cfg.filter_window > 2 * cfg.horizon:
@@ -237,13 +339,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
-            eps, step0):
-    """Check the operands and launch csrc/sim_kernel.cu on the current
-    stream.  Raises on anything the kernel does not take."""
-    global LAUNCHES
-    from ._build import load_library
-
+def _operands(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
+              n_steps, eps, step0):
+    """Check the operands of a kernel launch and allocate its outputs.
+    Raises on anything the kernels do not take.  Returns (params, state_f,
+    state_i, rec, ufin)."""
     device = ref_path.device
     B, K, T = q0.shape[0], cfg.num_samples, cfg.horizon
     f32 = torch.float32
@@ -266,10 +366,30 @@ def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
     state_i = torch.stack(ints, dim=1).to(torch.int32).contiguous()
     rec = torch.empty((B, n_steps, REC_LANES), dtype=f32, device=device)
     ufin = torch.empty((B, T, 2), dtype=f32, device=device)
-    scratch = (torch.empty((B, K, T, 2), dtype=f32, device=device)
-               if eps is None else None)
     params = _sim_params(arm, cfg, sim, ref_path.shape[0], n_steps,
                          eps is None)
+    return params, state_f, state_i, rec, ufin
+
+
+def _raise_on(lib, err: int, kernel: str) -> None:
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           + lib.mppi_error_string(err).decode())
+
+
+def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
+            eps, step0):
+    """Launch csrc/sim_kernel.cu on the current stream."""
+    global LAUNCHES
+    from ._build import load_library
+
+    params, state_f, state_i, rec, ufin = _operands(
+        arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps, eps,
+        step0)
+    device = ref_path.device
+    B, K, T = q0.shape[0], cfg.num_samples, cfg.horizon
+    scratch = (torch.empty((B, K, T, 2), dtype=torch.float32, device=device)
+               if eps is None else None)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -277,10 +397,36 @@ def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
             ctypes.byref(params), B, _ptr(state_f), _ptr(state_i),
             _ptr(u_prev), _ptr(ref_path), _ptr(eps), _ptr(scratch),
             _ptr(rec), _ptr(ufin), ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError("sim_kernel launch failed: "
-                           + lib.mppi_error_string(err).decode())
+    _raise_on(lib, err, "sim_kernel")
     LAUNCHES += 1
+    return rec, ufin
+
+
+def _launch_fleet(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
+                  n_steps, eps, step0, group):
+    """Launch csrc/fleet_kernel.cu on the current stream: one warp per
+    scenario, ``group`` scenarios per block."""
+    global FLEET_LAUNCHES
+    from ._build import load_library
+
+    params, state_f, state_i, rec, ufin = _operands(
+        arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps, eps,
+        step0)
+    device = ref_path.device
+    lib = load_library()
+    scratch = None
+    if eps is None:          # PRNG mode: the ε store, [slot][t][c][lane]
+        per = lib.mppi_fleet_scratch_floats(ctypes.byref(params))
+        scratch = torch.empty((q0.shape[0], per), dtype=torch.float32,
+                              device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mppi_fleet_launch(
+            ctypes.byref(params), q0.shape[0], group, _ptr(state_f),
+            _ptr(state_i), _ptr(u_prev), _ptr(ref_path), _ptr(eps),
+            _ptr(scratch), _ptr(rec), _ptr(ufin), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "fleet_kernel")
+    FLEET_LAUNCHES += 1
     return rec, ufin
 
 
@@ -293,29 +439,41 @@ def fused_sim_run_batched(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                           seed,                     # (B,) int, 31-bit
                           n_steps: int,
                           eps: Optional[torch.Tensor] = None,
-                          step0=None):              # (B,) int absolute step
+                          step0=None,               # (B,) int absolute step
+                          group: int = 1):          # scenarios per block
     """Run B scenarios × ``n_steps`` closed-loop steps in one launch.
 
-    Any CUDA operand launches ``csrc/sim_kernel.cu`` or raises; only when
-    every tensor lies on the CPU does :func:`fused_sim_reference` run.
-    Returns (records (B, n_steps, 12) f32, u_final (B, T, 2) f32).
+    Any CUDA operand launches a kernel or raises: ``csrc/fleet_kernel.cu``
+    when ``1 < group <= 8`` and K <= 128, ``csrc/sim_kernel.cu`` for any
+    other ``group`` (the JAX package's interleave for larger K is a TPU
+    lever; sim_kernel gives the same results).  Only when every tensor lies
+    on the CPU does a plain version run: :func:`fused_sim_reference_stacked`
+    for ``group > 1``, :func:`fused_sim_reference` otherwise.  ``B`` must be
+    divisible by ``group``.  Per scenario, every route gives the same
+    results.  Returns (records (B, n_steps, 12) f32, u_final (B, T, 2) f32).
     """
     _check_config(cfg)
     B = q0.shape[0]
+    if group < 1 or B % group:
+        raise ValueError(f"B={B} is not divisible by group={group}")
     if step0 is None:
         step0 = torch.zeros(B, dtype=torch.int64, device=ref_path.device)
     kinds = {v.device.type for v in (ref_path, q0, dq0, u_prev, eps, wp_idx,
                                      seed, step0)
              if isinstance(v, torch.Tensor)}
+    args = (arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
+            eps, step0)
     if kinds == {"cpu"}:
-        return fused_sim_reference(arm, cfg, sim, ref_path, q0, dq0, u_prev,
-                                   wp_idx, seed, n_steps, eps, step0)
+        if group > 1:
+            return fused_sim_reference_stacked(*args)
+        return fused_sim_reference(*args)
     if "cuda" not in kinds:
         raise ValueError(f"fused_sim_run_batched runs on CUDA or CPU "
                          f"tensors, got {sorted(kinds)}")
-    # any CUDA operand takes the kernel, which raises on mixed devices
-    return _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
-                   n_steps, eps, step0)
+    # any CUDA operand takes a kernel, which raises on mixed devices
+    if 1 < group <= FLEET_MAX_GROUP and cfg.num_samples <= FLEET_MAX_SAMPLES:
+        return _launch_fleet(*args, group)
+    return _launch(*args)
 
 
 def fused_sim_run(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,

@@ -7,6 +7,8 @@ counterpart of ``mppi_robotarm_tpu/ops/rollout.py``.  Semantics kept:
   * stage cost on the post-step state plus γ·uᵀΣ⁻¹v per step;
   * the frozen-window waypoint lookup (Q5);
   * terminal cost on the final state; ×10000 and ×100 scales (Q7).
+
+:func:`rollout_trajectory` re-rolls given controls for visualisation.
 """
 
 from __future__ import annotations
@@ -80,3 +82,28 @@ def rollout_costs(
         s = s + c + cfg.gamma * (v1 * su[0] + v2 * su[1])
     s = s + _stage_cost(q1, q2, dq1, dq2, window, valid, term_w, cfg)
     return s, torch.stack([q1, q2, dq1, dq2], dim=-1)
+
+
+def rollout_trajectory(
+    arm: ArmParams,
+    cfg: MPPIConfig,
+    x0: torch.Tensor,          # (4,)
+    v: torch.Tensor,           # (..., T, 2) control sequences
+) -> torch.Tensor:
+    """State trajectories under given controls: the visualisation
+    re-rollouts.  Keeps the reference's off-by-one (quirk Q4): step t
+    applies ``v[..., t-1]``, so the LAST control is applied first
+    (control.py:132-134, 142-143).  Returns (..., T, 4)."""
+    v = torch.roll(v, 1, dims=-2)
+    batch = v.shape[:-2]
+    x0 = x0.to(v.dtype)
+    q1, q2, dq1, dq2 = (x0[i].expand(batch) for i in range(4))
+    traj = []
+    for t in range(v.shape[-2]):
+        v1, v2 = v[..., t, 0], v[..., t, 1]
+        if cfg.u_clamp is not None:
+            v1 = torch.clamp(v1, -cfg.u_clamp, cfg.u_clamp)
+            v2 = torch.clamp(v2, -cfg.u_clamp, cfg.u_clamp)
+        q1, q2, dq1, dq2 = arm_step(q1, q2, dq1, dq2, v1, v2, cfg.delta_t, arm)
+        traj.append(torch.stack([q1, q2, dq1, dq2], dim=-1))
+    return torch.stack(traj, dim=-2)

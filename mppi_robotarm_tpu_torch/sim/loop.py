@@ -16,7 +16,10 @@ The loops:
   * :func:`simulate_batch` — B independent scenarios (BASELINE config 4);
     on the cuda backend one kernel launch solves all B each step;
   * :func:`simulate_fused` — the whole loop in one launch of the fused
-    CUDA kernel (``ops/cuda_sim.py``), float32.
+    CUDA kernel (``ops/cuda_sim.py``), float32;
+  * :func:`simulate_fused_batch` — B scenarios' whole loops in one launch:
+    the fleet kernel (one warp per scenario) at K <= 128, the fused kernel
+    otherwise.
 
 Without injected noise every loop draws the counter-based Philox stream
 keyed by (``SimState.seed``, absolute step), so all of them see the same
@@ -39,7 +42,7 @@ from ..mppi.solver import (
     solve_batched,
 )
 from ..ops.cuda_rollout import philox_epsilon
-from ..ops.cuda_sim import fused_sim_run
+from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
 from ..ops.weights import effective_sample_size, weight_entropy
 
 
@@ -282,8 +285,10 @@ def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     runs :func:`simulate` scenario by scenario; ``backend="cuda"`` solves
     all B through one launch of the solve kernels per step, keyed by each
     scenario's constant seed and absolute step, so scenario b's run equals
-    its run alone.  ``eps_per_step``: optional (num_steps, B, K, T, 2).
-    Returns (final batched SimState, SimRecord of (num_steps, B, ...)).
+    its run alone.  ``eps_per_step``: optional (num_steps, B, K, T, 2),
+    step-major (:func:`simulate_fused_batch` takes it scenario-major, as the
+    JAX package does).  Returns (final batched SimState, SimRecord of
+    (num_steps, B, ...)).
     """
     if backend == "eager":
         runs = [simulate(arm, cfg, sim, ref_path,
@@ -332,10 +337,13 @@ def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         weight_entropy=zero(ent), done=done)
 
 
-# Records of one launch live in device memory, 48 B per step and scenario,
-# so one launch takes up to 2^20 steps (48 MiB); longer runs are chained,
-# and the (seed, absolute step) noise indexing makes the chain bitwise
-# equal to one launch.
+# A launch writes 48 B of kernel rows per scenario-step, which the
+# SimRecord's fields are then cut from.  One launch covers at most 2^20
+# scenario-steps (48 MiB of rows); a longer run is chained through the
+# returned state and each chunk's fields go straight into a preallocated
+# record, so the run holds its record plus one chunk's rows, and the
+# (seed, absolute step) noise indexing makes it equal to one launch bit
+# for bit.
 _FUSED_MAX_STEPS = 1 << 20
 
 
@@ -346,54 +354,117 @@ def simulate_fused(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
 
     Waypoint update, noise, rollout, softmax, median, control update, plant
     step and record writes all run inside ``csrc/sim_kernel.cu`` on CUDA
-    tensors (the plain PyTorch twin on CPU tensors), in float32.  Semantics
-    match :func:`simulate`.  ``eps_per_step``: optional (num_steps, K, T, 2)
+    tensors (the plain PyTorch twin on CPU tensors), in float32: the
+    :func:`simulate_fused_batch` of a batch of one.  Semantics match
+    :func:`simulate`.  ``eps_per_step``: optional (num_steps, K, T, 2)
     injected noise; by default the kernel draws the Philox stream keyed by
     (state0.seed, absolute step).  The seed is returned unchanged and
     ``step`` advances by the steps that were not done, so a run chained
     from the returned state continues the stream bit for bit.  Runs longer
-    than ``_FUSED_MAX_STEPS`` (a device-memory bound on the records) are
+    than ``_FUSED_MAX_STEPS`` (a bound on a launch's kernel rows) are
     chained the same way.
     """
-    if num_steps > _FUSED_MAX_STEPS:
-        state, parts, done = state0, [], 0
-        while done < num_steps:
-            n = min(_FUSED_MAX_STEPS, num_steps - done)
-            e = None if eps_per_step is None else eps_per_step[done:done + n]
-            state, rec = _simulate_fused_once(arm, cfg, sim, ref_path, state,
-                                              n, e)
-            parts.append(rec)
-            done += n
-        return state, SimRecord(*(torch.cat(f) for f in zip(*parts)))
-    return _simulate_fused_once(arm, cfg, sim, ref_path, state0, num_steps,
-                                eps_per_step)
+    final, rec = simulate_fused_batch(
+        arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
+        eps_per_step=None if eps_per_step is None else eps_per_step[None],
+        group=1)
+    return (_scenario(final, 0, state0.seed),
+            SimRecord(*(f[:, 0] for f in rec)))
 
 
-def _simulate_fused_once(arm, cfg, sim, ref_path, state0: SimState,
-                         num_steps: int, eps_per_step):
+def auto_group(cfg: MPPIConfig, batch: int) -> int:
+    """The JAX package's choice of scenarios per program: the largest of 8,
+    4, 2, 1 that divides ``batch`` when K <= 128, else 1."""
+    if cfg.num_samples > FLEET_MAX_SAMPLES:
+        return 1
+    return next(g for g in (8, 4, 2, 1) if batch % g == 0)
+
+
+def simulate_fused_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                         ref_path: torch.Tensor, states0: SimState,
+                         num_steps: int,
+                         eps_per_step: Optional[torch.Tensor] = None,
+                         group: Optional[int] = None):
+    """B scenarios × the whole closed loop, one kernel launch per chunk.
+
+    ``states0`` from :func:`init_sim_batch`; each scenario draws the Philox
+    stream keyed by its ``seed`` and absolute ``step``.  ``group`` is the
+    number of scenarios per block (None: :func:`auto_group`).  On CUDA
+    tensors ``1 < group <= 8`` at K <= 128 runs ``csrc/fleet_kernel.cu``,
+    any other ``group`` ``csrc/sim_kernel.cu``; on CPU tensors the plain
+    versions run.  Every route gives each scenario the bits of its
+    :func:`simulate_fused` run alone.  ``eps_per_step``: optional
+    (B, num_steps, K, T, 2), scenario-major as in the JAX package (unlike
+    :func:`simulate_batch`'s (num_steps, B, ...)).  Records are laid out
+    (num_steps, B, ...) as :func:`simulate_batch`'s; the final ``step``
+    advances by each scenario's live steps and the seeds come back
+    unchanged, so a chained run continues the streams.  Runs of more than
+    ``_FUSED_MAX_STEPS`` scenario-steps are launched in chunks chained that
+    way, each written into one preallocated record: the result equals one
+    launch bit for bit.
+    """
+    B = states0.q.shape[0]
+    if group is None:
+        group = auto_group(cfg, B)
     device = ref_path.device
     f32 = torch.float32
     ref = ref_path.to(f32).contiguous()
-    rec_rows, u_fin = fused_sim_run(
-        arm, cfg, sim, ref, state0.q.to(f32), state0.dq.to(f32),
-        state0.mppi.u_prev.to(f32).contiguous(), state0.mppi.wp_idx,
-        state0.seed, num_steps, eps=eps_per_step, step0=state0.step)
-    q = rec_rows[:, 0:2]
-    dq = rec_rows[:, 2:4]
-    x1, y1, x2, y2 = fk_full(q[:, 0], q[:, 1], arm)
-    idx = torch.clamp(state0.step + torch.arange(1, num_steps + 1,
-                                                 device=device),
-                      max=ref.shape[0] - 1)
-    done = rec_rows[:, 7] > 0.5
-    rec = SimRecord(
-        q=q, dq=dq, u=rec_rows[:, 4:6],
-        ee=torch.stack([x2, y2], dim=-1), elbow=torch.stack([x1, y1], dim=-1),
-        ref_xy=ref[idx, 0:2], wp_idx=rec_rows[:, 6].long(),
-        cost_min=rec_rows[:, 8], cost_mean=rec_rows[:, 9],
-        ess=rec_rows[:, 10], weight_entropy=rec_rows[:, 11], done=done)
-    final = SimState(
-        step=state0.step + torch.sum(~done),
-        q=q[-1], dq=dq[-1],
-        mppi=MPPIState(u_prev=u_fin, wp_idx=rec.wp_idx[-1]),
-        seed=state0.seed, done=done[-1])
+    seeds = torch.as_tensor(states0.seed, dtype=torch.int64, device=device)
+    step0 = torch.as_tensor(states0.step, dtype=torch.int64, device=device)
+    q, dq = states0.q.to(f32).contiguous(), states0.dq.to(f32).contiguous()
+    u, wp = states0.mppi.u_prev.to(f32).contiguous(), states0.mppi.wp_idx
+    step = step0
+    done = torch.as_tensor(states0.done, dtype=torch.bool, device=device)
+    chunk = max(1, _FUSED_MAX_STEPS // max(B, 1))
+    rec = None if 0 < num_steps <= chunk else _empty_record(num_steps, B,
+                                                            device)
+    for start in range(0, num_steps, chunk):
+        n = min(chunk, num_steps - start)
+        rows, u = fused_sim_run_batched(
+            arm, cfg, sim, ref, q, dq, u, wp, seeds, n,
+            eps=(None if eps_per_step is None else
+                 eps_per_step[:, start:start + n].to(f32).contiguous()),
+            step0=step, group=group)
+        r = rows.transpose(0, 1)            # (n, B, 12)
+        part = _record_from_rows(arm, ref, step0, start, r)
+        if rec is None:
+            rec = part
+        else:
+            for dst, src in zip(rec, part):
+                dst[start:start + n] = src
+        q, dq = r[-1, :, 0:2].contiguous(), r[-1, :, 2:4].contiguous()
+        wp, done = part.wp_idx[-1], part.done[-1]
+        step = step + torch.sum(~part.done, dim=0)
+    final = SimState(step=step, q=q, dq=dq,
+                     mppi=MPPIState(u_prev=u, wp_idx=wp),
+                     seed=states0.seed, done=done)
     return final, rec
+
+
+def _empty_record(steps: int, B: int, device) -> SimRecord:
+    f = lambda *s: torch.empty((steps, B, *s), dtype=torch.float32,
+                               device=device)
+    return SimRecord(
+        q=f(2), dq=f(2), u=f(2), ee=f(2), elbow=f(2), ref_xy=f(2),
+        wp_idx=torch.empty((steps, B), dtype=torch.int64, device=device),
+        cost_min=f(), cost_mean=f(), ess=f(), weight_entropy=f(),
+        done=torch.empty((steps, B), dtype=torch.bool, device=device))
+
+
+def _record_from_rows(arm: ArmParams, ref: torch.Tensor, step0: torch.Tensor,
+                      start: int, r: torch.Tensor) -> SimRecord:
+    """The SimRecord of a launch's (n, B, 12) kernel rows that begin
+    ``start`` steps after ``step0``: the reference row of step i is
+    ``step0 + start + i + 1``, as in one launch over the whole run."""
+    q = r[..., 0:2]
+    x1, y1, x2, y2 = fk_full(q[..., 0], q[..., 1], arm)
+    idx = torch.clamp(
+        step0[None] + torch.arange(start + 1, start + r.shape[0] + 1,
+                                   device=r.device)[:, None],
+        max=ref.shape[0] - 1)
+    return SimRecord(
+        q=q, dq=r[..., 2:4], u=r[..., 4:6],
+        ee=torch.stack([x2, y2], dim=-1), elbow=torch.stack([x1, y1], dim=-1),
+        ref_xy=ref[idx, 0:2], wp_idx=r[..., 6].long(),
+        cost_min=r[..., 8], cost_mean=r[..., 9], ess=r[..., 10],
+        weight_entropy=r[..., 11], done=r[..., 7] > 0.5)

@@ -2,8 +2,10 @@
 
 ``load_ref_path`` accepts the reference's 4- and 6-column path files and
 returns the (N, 4) [x, y, dq1, dq2] slice the controller consumes.
-``synth_circle_path`` re-synthesises the reference circle from the port's
-IK, so the port runs without the data files.
+``load_joint_log`` reads a [q1, q2, x, y] trajectory log (the reference's
+``trajectory.txt``) and ``ref_path_from_joint_log`` turns it into that
+path format.  ``synth_circle_path`` re-synthesises the reference circle
+from the port's IK, so the port runs without the data files.
 """
 
 from __future__ import annotations
@@ -23,6 +25,27 @@ def load_ref_path(path: str, dtype=np.float32) -> np.ndarray:
             f"expected a (N,4) or (N,6) path file, got shape {raw.shape}"
         )
     return np.ascontiguousarray(raw[:, 0:4], dtype=dtype)
+
+
+def load_joint_log(path: str, dtype=np.float32) -> np.ndarray:
+    """Load a [q1, q2, x, y] trajectory log (trajectory.txt format)."""
+    raw = np.loadtxt(path)
+    if raw.ndim != 2 or raw.shape[1] != 4:
+        raise ValueError(f"expected a (N,4) log file, got shape {raw.shape}")
+    return np.ascontiguousarray(raw, dtype=dtype)
+
+
+def ref_path_from_joint_log(log: np.ndarray, dt: float = 0.003,
+                            dtype=np.float32) -> np.ndarray:
+    """A [q1, q2, x, y] joint log → the controller's (N, 4) [x, y, dq1, dq2]
+    path: joint velocities are central differences of the logged angles at
+    the plant timestep, taken in float64 (BASELINE config 1's input)."""
+    log = np.asarray(log, dtype=np.float64)
+    if log.ndim != 2 or log.shape[1] != 4:
+        raise ValueError(f"expected a (N,4) [q1,q2,x,y] log, got {log.shape}")
+    dq = np.gradient(log[:, 0:2], axis=0) / dt
+    out = np.concatenate([log[:, 2:4], dq], axis=1)
+    return np.ascontiguousarray(out, dtype=dtype)
 
 
 def synth_circle_path(

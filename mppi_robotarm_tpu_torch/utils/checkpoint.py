@@ -1,0 +1,86 @@
+"""Checkpoint / resume of the closed-loop state.
+
+One atomic ``.npz`` per save (written to a temporary file, then renamed)
+with the JAX package's fields (``mppi_robotarm_tpu/utils/checkpoint.py``):
+step, q, dq, u_prev, wp_idx, key_data, key_typed, done, for a single
+:class:`SimState` or a batched one.  The two packages read each other's
+files:
+
+* the port writes ``key_data`` as uint32 ``[0, seed]`` per scenario with
+  ``key_typed=False`` (a raw JAX key), from which the JAX fused loop
+  derives the same 31-bit seed (``key_data[-1] & 0x7FFFFFFF``);
+* the port reads raw or typed JAX keys through
+  :func:`~mppi_robotarm_tpu_torch.convert.seed_from_key_data`.
+
+The noise stream is keyed by (seed, absolute step), so a resumed run
+continues it bit for bit.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from ..convert import seed_from_key_data
+from ..mppi.solver import MPPIState
+from ..sim.loop import SimState
+
+_FIELDS = ("step", "q", "dq", "u_prev", "wp_idx", "key_data", "done")
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def save_checkpoint(path: str, state: SimState) -> None:
+    """Atomically serialise a SimState (or a scenario-batched one) to .npz."""
+    seeds = np.asarray(_np(state.seed), dtype=np.uint32)
+    key_data = np.stack([np.zeros_like(seeds), seeds], axis=-1)
+    payload = {
+        "step": _np(state.step).astype(np.int32),
+        "q": _np(state.q),
+        "dq": _np(state.dq),
+        "u_prev": _np(state.mppi.u_prev),
+        "wp_idx": _np(state.mppi.wp_idx).astype(np.int32),
+        "key_data": key_data,
+        "key_typed": np.asarray(False),
+        "done": _np(state.done),
+    }
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_checkpoint(path: str, dtype=None, device=None) -> SimState:
+    """Restore a SimState saved by :func:`save_checkpoint` or by the JAX
+    package's.  ``dtype`` casts q, dq and u_prev (default: as saved)."""
+    with np.load(path) as z:
+        missing = [f for f in _FIELDS if f not in z]
+        if missing:
+            raise ValueError(f"checkpoint {path} missing fields {missing}")
+        z = {f: z[f] for f in _FIELDS}
+    as_f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    as_i = lambda v: torch.as_tensor(v.astype(np.int64), device=device)
+    batched = z["q"].ndim == 2
+    key_data = z["key_data"]
+    if batched:
+        seed = as_i(np.asarray([seed_from_key_data(k) for k in key_data]))
+    else:
+        seed = seed_from_key_data(key_data)
+    return SimState(
+        step=as_i(z["step"]), q=as_f(z["q"]), dq=as_f(z["dq"]),
+        mppi=MPPIState(u_prev=as_f(z["u_prev"]), wp_idx=as_i(z["wp_idx"])),
+        seed=seed,
+        done=torch.as_tensor(z["done"].astype(bool), device=device))

@@ -1,10 +1,35 @@
-"""Closed-loop tracking metrics (NumPy)."""
+"""Closed-loop metrics and observability.
+
+Solver-health metrics of one solve (:func:`solve_metrics`), closed-loop
+tracking errors (:func:`tracking_errors`, NumPy), a finiteness check
+(:func:`nan_guard`) and a JSON-lines logger with a step cadence
+(:class:`MetricsLogger`): the counterparts of
+``mppi_robotarm_tpu/utils/metrics.py``.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import sys
+from typing import Optional, TextIO
 
 import numpy as np
+import torch
+
+from ..ops.weights import effective_sample_size, weight_entropy
+
+
+def solve_metrics(costs: torch.Tensor, weights: torch.Tensor) -> dict:
+    """Scalar health metrics of one solve (cost stats, ESS, entropy)."""
+    costs = torch.as_tensor(costs)
+    weights = torch.as_tensor(weights)
+    return {
+        "cost_min": float(torch.amin(costs)),
+        "cost_mean": float(torch.mean(costs)),
+        "cost_max": float(torch.amax(costs)),
+        "ess": float(effective_sample_size(weights)),
+        "weight_entropy": float(weight_entropy(weights)),
+    }
 
 
 def tracking_errors(ee: np.ndarray, ref_xy: np.ndarray,
@@ -31,3 +56,31 @@ def tracking_errors(ee: np.ndarray, ref_xy: np.ndarray,
         out["onpath_mean_m"] = float(d.mean())
         out["onpath_max_m"] = float(d.max())
     return out
+
+
+def nan_guard(*arrays) -> bool:
+    """True when every array (tensor or NumPy) is finite."""
+    return all(bool(torch.isfinite(torch.as_tensor(a)).all()) for a in arrays)
+
+
+class MetricsLogger:
+    """JSON-lines metrics sink with a step cadence (host side)."""
+
+    def __init__(self, stream: Optional[TextIO] = None, every: int = 1):
+        self.stream = stream or sys.stderr
+        self.every = max(1, every)
+
+    def log(self, step: int, **metrics) -> None:
+        if step % self.every:
+            return
+        self.stream.write(json.dumps({"step": step, **metrics}) + "\n")
+
+    def log_record(self, rec, stride: int = 100) -> None:
+        """Dump a SimRecord's solver-health series at ``stride`` cadence."""
+        n = rec.cost_min.shape[0]
+        for i in range(0, n, stride):
+            self.log(i, cost_min=float(rec.cost_min[i]),
+                     cost_mean=float(rec.cost_mean[i]),
+                     ess=float(rec.ess[i]),
+                     weight_entropy=float(rec.weight_entropy[i]),
+                     wp_idx=int(rec.wp_idx[i]))

@@ -62,7 +62,11 @@ def test_port_never_imports_jax():
             "mppi_robotarm_tpu_torch.ops.cuda_solve, "
             "mppi_robotarm_tpu_torch.ops._build, "
             "mppi_robotarm_tpu_torch.sim.loop, "
-            "mppi_robotarm_tpu_torch.utils.metrics; "
+            "mppi_robotarm_tpu_torch.cli, "
+            "mppi_robotarm_tpu_torch.utils.checkpoint, "
+            "mppi_robotarm_tpu_torch.utils.metrics, "
+            "mppi_robotarm_tpu_torch.utils.plotting, "
+            "mppi_robotarm_tpu_torch.utils.timing; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins, on the card: the
-fused closed loop (``sim_kernel``) and the per-step solve (``solve_kernel``
-with its combine pass).  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
+fused closed loop (``sim_kernel``), the scenario fleet (``fleet_kernel``,
+also against ``sim_kernel`` bit for bit) and the per-step solve
+(``solve_kernel`` with its combine pass).  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
 every test skips.
 The file imports nothing of JAX, so on a GPU machine without JAX it runs
 without the suite's conftest:
@@ -273,3 +274,92 @@ def test_solve_kernel_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         cuda_solve.solve_batched(ARM, cfg, x0, u, win, seed=[1, 2],
                                  tile=544)
+
+
+# ---- the fleet kernel (csrc/fleet_kernel.cu) --------------------------------
+
+def _fleet_args(cfg, dev, B, rows, frozen_mix):
+    """B scenarios on a ``rows``-row path; with ``frozen_mix`` the odd ones
+    start at the last row, so frozen and active scenarios share a block."""
+    ref = torch.as_tensor(P.synth_circle_path(2000)[:rows], device=dev)
+    f32 = torch.float32
+    q0 = (torch.tensor([SIM.q0], dtype=f32, device=dev).repeat(B, 1)
+          + 0.005 * torch.arange(B, device=dev)[:, None])
+    wp = torch.zeros(B, dtype=torch.int64, device=dev)
+    if frozen_mix:
+        wp[1::2] = rows - 1
+    return (ARM, cfg, SIM, ref, q0, torch.zeros(B, 2, device=dev),
+            torch.tensor(cfg.warm_start, dtype=f32,
+                         device=dev).repeat(B, cfg.horizon, 1).contiguous(),
+            wp, torch.arange(B, device=dev) + 3)
+
+
+@pytest.mark.parametrize("K,B,group,rows,mix", [(128, 16, 8, 120, True),
+                                                (100, 12, 4, 2000, False),
+                                                (40, 6, 2, 400, True)])
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_fleet_kernel_equals_sim_kernel(dev, K, B, group, rows, mix, noise):
+    """Per scenario, records and u_final of the fleet kernel equal the
+    fused kernel's bit for bit (frozen/active mix, K=100 padding)."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=30)
+    steps = 20
+    args = _fleet_args(cfg, dev, B, rows, mix)
+    kw = dict(step0=torch.arange(B, device=dev) * 2,
+              eps=(torch.as_tensor(eps_noise(K, (B, steps, K, 30, 2)),
+                                   device=dev) if noise == "eps" else None))
+    rec1, uf1 = cuda_sim.fused_sim_run_batched(*args, steps, group=1, **kw)
+    before = cuda_sim.FLEET_LAUNCHES
+    recg, ufg = cuda_sim.fused_sim_run_batched(*args, steps, group=group,
+                                               **kw)
+    assert cuda_sim.FLEET_LAUNCHES == before + 1
+    assert torch.equal(recg, rec1) and torch.equal(ufg, uf1)
+    again = cuda_sim.fused_sim_run_batched(*args, steps, group=group, **kw)
+    assert torch.equal(again[0], recg) and torch.equal(again[1], ufg)
+    if mix:
+        done = recg[:, -1, 7].cpu().numpy()
+        assert (done[1::2] == 1).all() and (done[0::2] == 0).all()
+
+
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_fleet_kernel_matches_stacked_twin(dev, noise):
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=128, horizon=30)
+    steps, B = 6, 16
+    args = _fleet_args(cfg, dev, B, 120, True)
+    eps = (torch.as_tensor(eps_noise(3, (B, steps, 128, 30, 2)), device=dev)
+           if noise == "eps" else None)
+    rec_k, _ = cuda_sim.fused_sim_run_batched(*args, steps, eps=eps, group=8)
+    rec_p, _ = cuda_sim.fused_sim_reference_stacked(*args, steps, eps=eps)
+    rk, rp = rec_k.cpu().numpy(), rec_p.cpu().numpy()
+    for i in range(steps):
+        np.testing.assert_allclose(rk[:, i, 0:2], rp[:, i, 0:2],
+                                   atol=2e-6 * 4 ** i)
+        np.testing.assert_allclose(rk[:, i, 4:6], rp[:, i, 4:6],
+                                   atol=2e-5 * 4 ** i)
+    np.testing.assert_array_equal(rk[..., 6:8], rp[..., 6:8])
+    np.testing.assert_allclose(rk[:, 0, 8:12], rp[:, 0, 8:12], rtol=1e-4)
+
+
+def test_simulate_fused_batch_on_the_card(dev):
+    """The fleet loop: launches the fleet kernel, each scenario equals its
+    simulate_fused run alone, chained equals one run; K > 128 takes the
+    fused kernel."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=128, horizon=30)
+    ref = torch.as_tensor(P.synth_circle_path(2000), device=dev)
+    states = P.init_sim_batch(cfg, SIM, [3, 8, 1, 5, 0, 2, 9, 4], device=dev)
+    before = cuda_sim.FLEET_LAUNCHES
+    final, rec = P.simulate_fused_batch(ARM, cfg, SIM, ref, states, 30)
+    assert cuda_sim.FLEET_LAUNCHES == before + 1
+    _, alone = P.simulate_fused(ARM, cfg, SIM, ref,
+                                P.init_sim(cfg, SIM, seed=1, device=dev), 30)
+    for f, a, b in zip(rec._fields, rec, alone):
+        assert torch.equal(a[:, 2], b), f
+    s1, r1 = P.simulate_fused_batch(ARM, cfg, SIM, ref, states, 12)
+    s2, r2 = P.simulate_fused_batch(ARM, cfg, SIM, ref, s1, 18)
+    for f, a, b1, b2 in zip(rec._fields, rec, r1, r2):
+        assert torch.equal(a, torch.cat([b1, b2])), f
+    assert torch.equal(s2.step, final.step)
+    big = dataclasses.replace(cfg, num_samples=256)
+    before = (cuda_sim.LAUNCHES, cuda_sim.FLEET_LAUNCHES)
+    P.simulate_fused_batch(ARM, big, SIM, ref, states, 2, group=8)
+    assert (cuda_sim.LAUNCHES, cuda_sim.FLEET_LAUNCHES) == (before[0] + 1,
+                                                            before[1])
