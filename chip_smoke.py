@@ -58,9 +58,22 @@ Phases (any failure raises and exits non-zero):
      the fleet kernel against the fused kernel (their records and u_final
      equal for every scenario), and the stacked plain twin per step; the
      fleet kernel within phase 2's bands of the stacked twin over 8 steps
-     of every scenario.
+     of every scenario;
+ 15. the launch-overhead probes: ``probe_scale_kernel`` (P1) and
+     ``probe_big_kernel`` (P2) against their plain versions bit for bit,
+     then ``tools/overhead.py``'s five chains of 100 iterations (a torch
+     op, P1, P2, the solve at K=1024, H=50 with and without the noise
+     output), each eager and as one replayed CUDA graph, the graph's final
+     carry equal to the eager chain's bit for bit; the probes' device time
+     beside their plain versions' and, for P1, ``torch.mul``'s.
 
-The line before the last is the per-kernel JSON summary; the last line is
+The line before the last is the per-kernel JSON summary: each kernel's
+launches on its main path, its error against its plain version, its time,
+the plain version's, a library call's where one PyTorch call computes the
+same function, and its bound, the least time the card could take for the
+work (``bound_ms``): the larger of the operations over 67 TFLOP/s (float32
+outside the tensor cores) and the bytes over 3.35 TB/s, the H100 SXM's
+published peaks, for the inputs of this run.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script fails.
 """
 
@@ -69,7 +82,6 @@ import io
 import json
 import os
 import shutil
-import subprocess
 import sys
 import time
 
@@ -90,6 +102,9 @@ FLEET_STEPS = 2000    # phase 12: the fleet path
 CLI_STEPS, CKPT_EVERY = 200, 100   # phase 13
 FLEET_TIME_STEPS, PLAIN_FLEET_STEPS = 1000, 3   # phase 14
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PEAK_OPS = 67e12      # float32 operations/s outside the tensor cores, H100 SXM
+PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
+PROBE_TIME_CALLS = 100  # phase 15: launches per device-time window
 
 
 def check(ok, msg):
@@ -267,6 +282,26 @@ def compare_records(label, a, b):
     print(f"{label}: within the bands for {CMP_STEPS} steps")
 
 
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of ops / PEAK_OPS and nbytes /
+    PEAK_BYTES, in ms, and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rollout_ops(samples, T, W, stats):
+    """Operations of ``samples`` Philox-noise rollouts over T steps against
+    a W-row window, counted by hand from the plain per-sample code
+    (``ops/cuda_rollout.py``; each float add, mul, div, compare, select,
+    sin, cos, log, sqrt, exp and each of Philox's 20 integer multiplies as
+    one; PERF.md section 6): per sample-step 101 + 8W for the rollout and
+    cost, 36 for the noise and 4 for Σe·ε; per sample 8W + 35 for the
+    initial trig, the terminal cost and the softmax, and with ``stats``
+    the fused loops' 7 for cost_mean, ESS and entropy."""
+    return samples * (T * (141 + 8 * W) + 8 * W + 35 + (7 if stats else 0))
+
+
 def solve_compare(label, cuda_solve, philox_epsilon, arm, cfg, ref, B,
                   device, rng, noise, **kw):
     """Solve kernels vs their plain twin on one call; returns
@@ -339,15 +374,13 @@ def main() -> int:
     import mppi_robotarm_tpu_torch as m
     from mppi_robotarm_tpu_torch.ops import _build, cuda_sim, cuda_solve
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
+    from mppi_robotarm_tpu_torch.tools import overhead
 
     check("jax" not in sys.modules, "the port imported JAX")
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = overhead.card()
     card = smi.splitlines()[0]
     print(f"device: {name} (count {count}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -752,6 +785,7 @@ def main() -> int:
               f"sim_kernel's in {differ} of {BATCH} scenarios")
     print(f"fleet timing run: records and u_final of all {BATCH} scenarios "
           f"over {FLEET_TIME_STEPS} steps == sim_kernel's, bitwise")
+    fleet_live = int((out[8][0][..., 7] == 0).sum())   # frozen steps skip
     del out
     fleet_err = max(fleet_err, stacked_bands(
         f"fleet prng {BATCH} x K=128 T=30 group=8",
@@ -774,29 +808,140 @@ def main() -> int:
           f"{plain_fleet_ms * 1e3:.1f} us/step over {PLAIN_FLEET_STEPS} "
           f"steps, runs {[round(t, 2) for t in pt]} ms")
 
+    # ---- 15. the launch-overhead probes and chains ---------------------
+    from mppi_robotarm_tpu_torch.ops import cuda_probe
+
+    xp = torch.as_tensor(np.random.default_rng(15).normal(
+        size=(8, 128)).astype(np.float32), device=device)
+    before = (cuda_probe.SCALE_LAUNCHES, cuda_probe.BIG_LAUNCHES)
+    o1 = cuda_probe.probe_scale(xp)
+    o2, b2 = cuda_probe.probe_big(xp)
+    torch.cuda.synchronize()
+    check((cuda_probe.SCALE_LAUNCHES, cuda_probe.BIG_LAUNCHES)
+          == (before[0] + 1, before[1] + 1), "a probe launch was not counted")
+    want = cuda_probe.probe_scale_reference(xp)
+    check(torch.equal(o1, want), "probe_scale_kernel differs from its plain "
+          "version")
+    check(torch.equal(o2, want) and tuple(b2.shape) == cuda_probe.BIG_SHAPE
+          and torch.equal(b2, cuda_probe.probe_big_reference(xp)[1]),
+          "probe_big_kernel differs from its plain version")
+    probe_err = float(max((o1 - want).abs().max(), (o2 - want).abs().max(),
+                          b2.abs().max()))
+    print("probes: probe_scale_kernel and probe_big_kernel == their plain "
+          "versions, bitwise, at (8, 128)")
+    # this slice's path: the chains of python -m ...tools.overhead
+    cuda_probe.SCALE_LAUNCHES = cuda_probe.BIG_LAUNCHES = 0
+    chain_times = overhead.measure(device)
+    torch.cuda.synchronize()
+    scale_launches = cuda_probe.SCALE_LAUNCHES
+    big_launches = cuda_probe.BIG_LAUNCHES
+    check(scale_launches >= 1 and big_launches >= 1,
+          "the overhead chains launched no probe kernel")
+    for cname, t in chain_times:
+        print(f"timing [{card}]: " + overhead.format_line(cname, t))
+        check(overhead.same_bits(t.eager_carry, t.graph_carry),
+              f"chain {cname}: the graph's carry differs from the eager one")
+        check(t.launches >= 1, f"chain {cname}: the profiler saw no launch")
+    print(f"chains: probe_scale_kernel launches {scale_launches}, "
+          f"probe_big_kernel launches {big_launches} (eager chains and one "
+          f"capture each; {chain_times[0][1].replays} graph replays a chain "
+          f"not counted); every graph == its eager chain, bitwise")
+
+    def device_ms(fn):
+        """Device time per call (torch.profiler, every kernel of fn)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROBE_TIME_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(device_total(e) for e in prof.key_averages())
+        check(total > 0, "the profiler saw no device time")
+        return total / PROBE_TIME_CALLS / 1e3
+
+    p1_ms = device_ms(lambda: cuda_probe.probe_scale(xp))
+    p1_plain_ms = device_ms(lambda: cuda_probe.probe_scale_reference(xp))
+    p1_lib_ms = device_ms(lambda: torch.mul(xp, 1.000001))
+    p2_ms = device_ms(lambda: cuda_probe.probe_big(xp))
+    p2_plain_ms = device_ms(lambda: cuda_probe.probe_big_reference(xp))
+    print(f"timing [{card}]: device time per call over {PROBE_TIME_CALLS} "
+          f"calls: probe_scale_kernel {p1_ms * 1e3:.3f} us, plain "
+          f"{p1_plain_ms * 1e3:.3f} us, torch.mul {p1_lib_ms * 1e3:.3f} us; "
+          f"probe_big_kernel {p2_ms * 1e3:.3f} us, plain "
+          f"{p2_plain_ms * 1e3:.3f} us")
+
+    # ---- bounds, from this run's shapes (see ``bound``) ----------------
+    f4 = 4
+    W = cfg.search_idx_len
+    live_k1 = int((~rec.done).sum())       # phase 6 times phase 4's run
+    k1_bound = bound(
+        live_k1 * rollout_ops(cfg.num_samples, cfg.horizon, W, True) / STEPS,
+        (ref.numel() * f4 + STEPS * cuda_sim.REC_LANES * f4
+         + 2 * (2 + 2 + 2 * cfg.horizon) * f4 + 3 * 8) / STEPS)
+    tile_1k = cuda_solve.default_tile(cfg.num_samples, cfg)
+    n_tiles_1k = -(-cfg.num_samples // tile_1k)
+    part_bytes = n_tiles_1k * (2 * cfg.horizon + 2) * f4
+    k2_bound = bound(
+        rollout_ops(cfg.num_samples, cfg.horizon, W, False),
+        (x1.numel() + u1.numel() + win1.numel() + cfg.num_samples) * f4
+        + 2 * 8 + part_bytes)
+    # the combine's median counts at most fw*fw compare pairs an output
+    # (it stops at the median's rank); the bytes bound it even then
+    T2 = 2 * cfg.horizon
+    comb_bound = bound(
+        n_tiles_1k * (6 + 2 * T2) + T2 * (3 + 2 * cfg.filter_window ** 2),
+        part_bytes + 2 * u1.numel() * f4 + 2 * f4)
+    k3_bound = bound(
+        fleet_live * rollout_ops(cfg_b.num_samples, cfg_b.horizon,
+                                 cfg_b.search_idx_len, True)
+        / FLEET_TIME_STEPS,
+        (ref_b.numel() * f4
+         + BATCH * FLEET_TIME_STEPS * cuda_sim.REC_LANES * f4
+         + BATCH * (2 * (2 + 2 + 2 * cfg_b.horizon) * f4 + 3 * 8))
+        / FLEET_TIME_STEPS)
+    p1_bound = bound(xp.numel(), 2 * xp.numel() * f4)
+    p2_bound = bound(xp.numel(), (2 * xp.numel() + b2.numel()) * f4)
+    print(f"bounds [{card}]: sim_kernel {k1_bound[0] * 1e3:.4f} us/step "
+          f"({k1_bound[1]}, {live_k1} of {STEPS} steps live), solve_kernel "
+          f"{k2_bound[0] * 1e3:.4f} us ({k2_bound[1]}), solve_combine_kernel "
+          f"{comb_bound[0] * 1e3:.4f} us ({comb_bound[1]}), fleet_kernel "
+          f"{k3_bound[0] * 1e3:.4f} us/launch-step ({k3_bound[1]}, "
+          f"{fleet_live} of {BATCH * FLEET_TIME_STEPS} scenario-steps "
+          f"live), probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
+          f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
+          f"({p2_bound[1]})")
+
+    def entry(name, source, replaces, launches, err, ms, plain, bnd,
+              library=None):
+        return {"name": name, "route": "cuda",
+                "source": "mppi_robotarm_tpu_torch/csrc/" + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library}
+
     dev_1k, ev_1k, plain_1k, plain_comb_1k = timing["K=1024"]
     print(json.dumps({"kernels": [
-        {"name": "sim_kernel", "route": "cuda",
-         "source": "mppi_robotarm_tpu_torch/csrc/sim_kernel.cu",
-         "replaces": "mppi_robotarm_tpu/ops/pallas_sim.py:225",
-         "launches": launches, "max_abs_err": max_err,
-         "ms": kern_ms, "plain_ms": plain_ms},
-        {"name": "solve_kernel", "route": "cuda",
-         "source": "mppi_robotarm_tpu_torch/csrc/solve_kernel.cu",
-         "replaces": "mppi_robotarm_tpu/ops/pallas_rollout.py:380",
-         "launches": solve_launches, "max_abs_err": s_err,
-         "ms": dev_1k["solve_tile_kernel"] / 1e3, "plain_ms": plain_1k},
-        {"name": "solve_combine_kernel", "route": "cuda",
-         "source": "mppi_robotarm_tpu_torch/csrc/solve_kernel.cu",
-         "replaces": "mppi_robotarm_tpu/ops/pallas_rollout.py:585",
-         "launches": combine_launches, "max_abs_err": w_err,
-         "ms": dev_1k["solve_combine_kernel"] / 1e3,
-         "plain_ms": plain_comb_1k},
-        {"name": "fleet_kernel", "route": "cuda",
-         "source": "mppi_robotarm_tpu_torch/csrc/fleet_kernel.cu",
-         "replaces": "mppi_robotarm_tpu/ops/pallas_sim.py:552",
-         "launches": fleet_launches, "max_abs_err": fleet_err,
-         "ms": fleet_ms, "plain_ms": plain_fleet_ms}]}))
+        entry("sim_kernel", "sim_kernel.cu",
+              "mppi_robotarm_tpu/ops/pallas_sim.py:225", launches, max_err,
+              kern_ms, plain_ms, k1_bound),
+        entry("solve_kernel", "solve_kernel.cu",
+              "mppi_robotarm_tpu/ops/pallas_rollout.py:380", solve_launches,
+              s_err, dev_1k["solve_tile_kernel"] / 1e3, plain_1k, k2_bound),
+        entry("solve_combine_kernel", "solve_kernel.cu",
+              "mppi_robotarm_tpu/ops/pallas_rollout.py:585",
+              combine_launches, w_err,
+              dev_1k["solve_combine_kernel"] / 1e3, plain_comb_1k,
+              comb_bound),
+        entry("fleet_kernel", "fleet_kernel.cu",
+              "mppi_robotarm_tpu/ops/pallas_sim.py:552", fleet_launches,
+              fleet_err, fleet_ms, plain_fleet_ms, k3_bound),
+        entry("probe_scale_kernel", "probe_kernels.cu",
+              "tools/tpu_overhead.py:45", scale_launches, probe_err, p1_ms,
+              p1_plain_ms, p1_bound, p1_lib_ms),
+        entry("probe_big_kernel", "probe_kernels.cu",
+              "tools/tpu_overhead.py:59", big_launches, probe_err, p2_ms,
+              p2_plain_ms, p2_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

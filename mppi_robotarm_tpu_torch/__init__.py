@@ -5,9 +5,12 @@ with hand-written CUDA kernels for Hopper, built at first use: the whole
 closed loop in one launch (``csrc/sim_kernel.cu``), a fleet of small-K
 scenarios, one warp each (``csrc/fleet_kernel.cu``, behind
 ``simulate_fused_batch``), and the per-step solve (``csrc/solve_kernel.cu``)
-behind ``backend="cuda"``.  ``python -m mppi_robotarm_tpu_torch.cli`` is
-the command-line interface.  The JAX package stays the
-reference each part is checked against; this package never imports JAX.
+behind ``backend="cuda"``; ``csrc/probe_kernels.cu`` holds two launch-cost
+probes, which ``python -m mppi_robotarm_tpu_torch.tools.overhead`` times.
+``python -m mppi_robotarm_tpu_torch.cli`` is the command-line interface.
+State is made on the GPU unless ``device="cpu"`` is asked for.  The JAX
+package stays the reference each part is checked against; this package
+never imports JAX.
 """
 
 from .config import (

@@ -9,11 +9,13 @@ backends named for this package:
         --out-dir results/ --figures
     python -m mppi_robotarm_tpu_torch.cli --batch 4096 --samples 128 \
         --horizon 30 --steps 2000 --backend cuda-fused
+    python -m mppi_robotarm_tpu_torch.cli --steps 5 --backend eager
 
-``eager`` runs in PyTorch on the CPU; ``cuda`` (the per-step solve kernels)
-and ``cuda-fused`` (the whole loop in one kernel; with ``--batch`` the
-scenario-fleet kernel) run on ``cuda:0`` and exit with a message when there
-is no CUDA device.  Configs load from JSON (``--config``) on top of the
+``cuda`` (the default: the per-step solve kernels, the counterpart of the
+JAX CLI's per-step ``xla`` default) and ``cuda-fused`` (the whole loop in
+one kernel; with ``--batch`` the scenario-fleet kernel) run on ``cuda:0``
+and exit with a message when there is no CUDA device; ``eager`` runs in
+PyTorch on the CPU.  Configs load from JSON (``--config``) on top of the
 circle-tracking preset; individual flags override.
 """
 
@@ -44,12 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--samples", type=int, default=None, help="K")
     p.add_argument("--horizon", type=int, default=None, help="T")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--backend", choices=BACKENDS, default="eager",
+    p.add_argument("--backend", choices=BACKENDS, default="cuda",
                    help="eager PyTorch on the CPU, the per-step CUDA solve "
-                        "kernels, or the whole-loop fused CUDA kernel "
-                        "(fastest; with --batch it runs the scenario-fleet "
-                        "kernel; no --checkpoint-every); the cuda backends "
-                        "need a CUDA device")
+                        "kernels (default), or the whole-loop fused CUDA "
+                        "kernel (fastest; with --batch it runs the "
+                        "scenario-fleet kernel; no --checkpoint-every); the "
+                        "cuda backends need a CUDA device")
     p.add_argument("--out-dir", default=None,
                    help="save records (.npz), metrics (.json), figures")
     p.add_argument("--figures", action="store_true",

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .config import ArmParams, MPPIConfig, SimConfig
+from .device import resolve_device
 from .mppi.solver import MPPIState
 from .sim.loop import SimRecord, SimState
 
@@ -27,7 +28,9 @@ def seed_from_key_data(key_data) -> int:
 
 def sim_state_from_numpy(step, q, dq, u_prev, wp_idx, key_data, done,
                          dtype=torch.float32, device=None) -> SimState:
-    """The port's :class:`SimState` from a JAX ``SimState``'s values."""
+    """The port's :class:`SimState` from a JAX ``SimState``'s values, on
+    ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
     as_t = lambda v: torch.tensor(np.array(v), dtype=dtype, device=device)
     return SimState(
         step=torch.tensor(int(step), dtype=torch.int64, device=device),
@@ -45,7 +48,8 @@ def sim_state_batch_from_numpy(step, q, dq, u_prev, wp_idx, key_data, done,
                                device=None) -> SimState:
     """The port's batched :class:`SimState` from a batched JAX ``SimState``
     (``init_sim_batch``): ``key_data`` (B, 2) gives each scenario's seed as
-    :func:`seed_from_key_data` does."""
+    :func:`seed_from_key_data` does.  On ``device``, default ``cuda``."""
+    device = resolve_device(device)
     as_t = lambda v: torch.tensor(np.array(v), dtype=dtype, device=device)
     as_i = lambda v: torch.tensor(np.array(v), dtype=torch.int64,
                                   device=device)

@@ -92,7 +92,7 @@ solve_tile_kernel(const SolveParams p,
                   const float* __restrict__ u,         // (B, T, 2)
                   const float* __restrict__ win,       // (B, W, 4)
                   const long long* __restrict__ seed,  // (B,) | null
-                  const long long* __restrict__ step,  // (B,) or (1,) | null
+                  const long long* __restrict__ step,  // (B,), (1,) | null
                   const long long* __restrict__ koff,  // (B,) | null
                   const float* __restrict__ eps_in,    // (B, K, T, 2) | null
                   float* __restrict__ eps_out,  // (B, K, T, 2) | null
@@ -116,8 +116,8 @@ solve_tile_kernel(const SolveParams p,
   const bool valid = k < K;
   const long long k0 = koff ? koff[b] : 0;
   const uint32_t seed32 = p.use_prng ? (uint32_t)seed[b] : 0u;
-  const uint32_t step32 =
-      p.use_prng ? (uint32_t)step[(size_t)p.step_stride * b] : 0u;
+  const uint32_t step32 =   // no step tensor: step 0
+      (p.use_prng && step) ? (uint32_t)step[(size_t)p.step_stride * b] : 0u;
 
   for (int i = lk; i < 4 * W; i += blockDim.x) {
     s_win[i] = win[(size_t)b * 4 * W + i];

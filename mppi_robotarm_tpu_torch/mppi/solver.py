@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import ArmParams, MPPIConfig
+from ..device import resolve_device
 from ..models.arm import fk_ee
 from ..ops import cuda_solve
 from ..ops.filters import median_filter_reflect
@@ -68,7 +69,9 @@ class VizResult(NamedTuple):
 
 def init_state(cfg: MPPIConfig, dtype=torch.float32,
                device=None) -> MPPIState:
-    """Warm start ``u_prev = [(10, -2)] * T`` (control.py:59), index 0."""
+    """Warm start ``u_prev = [(10, -2)] * T`` (control.py:59), index 0, on
+    ``device`` (default ``cuda``; see :mod:`..device`)."""
+    device = resolve_device(device)
     u0 = torch.tensor(cfg.warm_start, dtype=dtype,
                       device=device).repeat(cfg.horizon, 1)
     return MPPIState(u_prev=u0,

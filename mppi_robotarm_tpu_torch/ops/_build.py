@@ -118,6 +118,11 @@ def load_library() -> ctypes.CDLL:
     lib.mppi_fleet_launch.restype = ctypes.c_int
     lib.mppi_fleet_scratch_floats.argtypes = [ptr]
     lib.mppi_fleet_scratch_floats.restype = ctypes.c_int
+    lib.mppi_probe_scale_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]
+    lib.mppi_probe_scale_launch.restype = ctypes.c_int
+    lib.mppi_probe_big_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr,
+                                          ctypes.c_int, ptr]
+    lib.mppi_probe_big_launch.restype = ctypes.c_int
     lib.mppi_error_string.argtypes = [ctypes.c_int]
     lib.mppi_error_string.restype = ctypes.c_char_p
     for fn in ("mppi_sim_params_size", "mppi_solve_params_size"):

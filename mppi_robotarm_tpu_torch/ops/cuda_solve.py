@@ -28,6 +28,14 @@ a combine then rescales the partials in tile order, m = min m_p,
 does across devices.  ``nvalid`` is taken for the JAX signature and read by
 neither version: the window is a clamped gather, which makes the row mask
 a no-op (``pallas_rollout.py:201-211``).
+
+CUDA graphs: a launch copies nothing from the host, so ``solve_batched``
+and ``solve_core`` can be captured in ``torch.cuda.graph`` when every
+operand (``seed``, ``step``, ``k_offset`` included) is already a tensor on
+the device; a missing ``step`` is the kernel's step 0, not a copy.  Call
+once before capturing, which builds and loads the library.  The graph
+keeps the kernel arguments as they were at capture: the parameter block by
+value, the operands and outputs by address.
 """
 
 from __future__ import annotations
@@ -54,7 +62,9 @@ MAX_SCENARIOS = 65535         # the grid's y extent
 SMEM_BYTES = 232448           # shared memory a block may take on Hopper
 
 # Launches of the two kernels made by solve_batched; a run that must show
-# it went through them reads these before and after.
+# it went through them reads these before and after.  A launch captured in
+# a CUDA graph counts once, at capture: the replays are the graph owner's
+# to count.
 LAUNCHES = 0                  # solve_tile_kernel
 COMBINE_LAUNCHES = 0          # solve_combine_kernel
 
@@ -254,16 +264,17 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
     _check_tensor("u", u, (B, T, 2), f32, device)
     _check_tensor("window", window, (B, W, 4), f32, device)
     use_prng = eps is None
+    step_stride = 0
     if use_prng:
         seed = _int_col(seed, B, device, "seed").contiguous()
-        step = torch.as_tensor(0 if step is None else step, device=device)
-        step_stride = int(step.dim() > 0 and step.numel() > 1)
-        step = _int_col(step, 1 + (B - 1) * step_stride, device,
-                        "step").contiguous()
+        if step is not None:       # None: the kernel keys every draw step 0
+            step = torch.as_tensor(step, device=device)
+            step_stride = int(step.dim() > 0 and step.numel() > 1)
+            step = _int_col(step, 1 + (B - 1) * step_stride, device,
+                            "step").contiguous()
     else:
         _check_tensor("eps", eps, (B, K, T, 2), f32, device)
         seed = step = None
-        step_stride = 0
     koff = (None if k_offset is None
             else _int_col(k_offset, B, device, "k_offset").contiguous())
     for name, v in (("seed", seed), ("step", step), ("k_offset", koff)):
@@ -340,11 +351,12 @@ def solve_core(arm: ArmParams, cfg: MPPIConfig, x0, u, window, nvalid=None,
                fuse_update: bool = False):
     """Single-scenario shim over :func:`solve_batched`: x0 (4,), u (T, 2),
     window (W, 4), eps (K, T, 2), seed and step scalars.  Returns (w_eps
-    (T, 2) — u_new with ``fuse_update`` —, S (K,), eps (K, T, 2) | None)."""
+    (T, 2) — u_new with ``fuse_update`` —, S (K,), eps (K, T, 2) | None).
+    ``nvalid``, which no version reads, is not moved to the device."""
     one = lambda v: None if v is None else torch.as_tensor(
         v, device=x0.device).reshape(1)
     out, s, eps_used, _ = solve_batched(
-        arm, cfg, x0[None], u[None], window[None], one(nvalid),
+        arm, cfg, x0[None], u[None], window[None], None,
         seed=one(seed), eps=None if eps is None else eps[None],
         step=one(step), tile=tile, emit_eps=emit_eps,
         fuse_update=fuse_update)

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import ArmParams, MPPIConfig, SimConfig
+from ..device import resolve_device
 from ..models.arm import arm_ddq, fk_full
 from ..mppi.solver import (
     MPPIState,
@@ -77,7 +78,9 @@ class SimRecord(NamedTuple):
 
 def init_sim(cfg: MPPIConfig, sim: SimConfig, seed: int = 0,
              dtype=torch.float32, device=None) -> SimState:
-    """Initial state: the preset's q0/dq0, the warm start, index 0."""
+    """Initial state: the preset's q0/dq0, the warm start, index 0, on
+    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
     return SimState(
         step=torch.tensor(0, dtype=torch.int64, device=device),
         q=torch.tensor(sim.q0, dtype=dtype, device=device),
@@ -94,8 +97,9 @@ def init_sim_batch(cfg: MPPIConfig, sim: SimConfig, seeds, q0=None,
 
     ``seeds``: (B,) scenario-constant noise seeds (the JAX package's keys'
     place); ``q0``/``dq0``: optional (B, 2) initial states (default: the
-    preset's).
+    preset's).  On ``device``, default ``cuda``.
     """
+    device = resolve_device(device)
     seeds = torch.as_tensor(seeds, dtype=torch.int64, device=device)
     b = seeds.shape[0]
     rows = lambda v: torch.tensor(v, dtype=dtype, device=device).repeat(b, 1)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..convert import seed_from_key_data
+from ..device import resolve_device
 from ..mppi.solver import MPPIState
 from ..sim.loop import SimState
 
@@ -65,12 +66,14 @@ def save_checkpoint(path: str, state: SimState) -> None:
 
 def load_checkpoint(path: str, dtype=None, device=None) -> SimState:
     """Restore a SimState saved by :func:`save_checkpoint` or by the JAX
-    package's.  ``dtype`` casts q, dq and u_prev (default: as saved)."""
+    package's, on ``device`` (default ``cuda``).  ``dtype`` casts q, dq and
+    u_prev (default: as saved)."""
     with np.load(path) as z:
         missing = [f for f in _FIELDS if f not in z]
         if missing:
             raise ValueError(f"checkpoint {path} missing fields {missing}")
         z = {f: z[f] for f in _FIELDS}
+    device = resolve_device(device)
     as_f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     as_i = lambda v: torch.as_tensor(v.astype(np.int64), device=device)
     batched = z["q"].ndim == 2

@@ -43,7 +43,7 @@ def test_solve_cuda_matches_jax_xla(ref_path, filter_window):
         wp_idx=jnp.asarray(4, jnp.int32))
     rj = J.solve(JARM, cj, jnp.asarray(ref), jnp.asarray(obs), js,
                  eps=jnp.asarray(eps), backend="xla")
-    ps = P.init_state(cp)._replace(wp_idx=torch.tensor(4))
+    ps = P.init_state(cp, device="cpu")._replace(wp_idx=torch.tensor(4))
     rp = P.solve(PARM, cp, t(ref, F32), t(obs, F32), ps, eps=t(eps, F32),
                  backend="cuda")
     np.testing.assert_allclose(n(rp.costs), np.asarray(rj.costs), rtol=2e-5)
@@ -64,7 +64,7 @@ def test_solve_cuda_seeded_draws_the_stream(ref_path):
     _, cp = configs(128, 8)
     ref = t(np.asarray(ref_path), F32)
     obs = t(np.array([1.15, -1.27, 0.0, 0.0]), F32)
-    st = P.init_state(cp)
+    st = P.init_state(cp, device="cpu")
     quiet = P.solve(PARM, cp, ref, obs, st, backend="cuda", seed=11, step=4)
     loud = P.solve(PARM, cp, ref, obs, st, backend="cuda", seed=11, step=4,
                    want_eps=True)
@@ -97,7 +97,7 @@ def test_simulate_cuda_matches_jax_sim_step_loop(ref_path):
                       int(js.mppi.wp_idx), bool(js.done)))
     before = cuda_solve.LAUNCHES
     final, rec = P.simulate(PARM, cp, PSIM, t(ref, F32),
-                            P.init_sim(cp, PSIM, 0), steps,
+                            P.init_sim(cp, PSIM, 0, device="cpu"), steps,
                             eps_per_step=t(eps, F32), backend="cuda")
     assert cuda_solve.LAUNCHES == before          # CPU tensors: the twin
     for i, (q, u0, wp, done) in enumerate(jrows):
@@ -113,7 +113,7 @@ def test_simulate_cuda_matches_jax_sim_step_loop(ref_path):
 def _batch(cp, seeds=(5, 9, 11, 2)):
     q0 = (torch.tensor([PSIM.q0] * len(seeds))
           + 0.02 * torch.arange(len(seeds), dtype=F32)[:, None])
-    return P.init_sim_batch(cp, PSIM, list(seeds), q0=q0)
+    return P.init_sim_batch(cp, PSIM, list(seeds), q0=q0, device="cpu")
 
 
 def test_simulate_batch_cuda_equals_each_scenario_alone(ref_path):
@@ -194,7 +194,7 @@ def test_solve_batched_equals_per_scenario_solve(ref_path):
 def test_sim_step_cuda_single_step(ref_path):
     _, cp = configs(100, 8)
     ref = t(np.asarray(ref_path), F32)
-    s0 = P.init_sim(cp, PSIM, seed=3)
+    s0 = P.init_sim(cp, PSIM, seed=3, device="cpu")
     nxt, res = ploop.sim_step(PARM, cp, PSIM, ref, s0, backend="cuda")
     _, rec = P.simulate(PARM, cp, PSIM, ref, s0, 1, backend="cuda")
     assert nxt.seed == 3 and int(nxt.step) == 1
@@ -211,11 +211,12 @@ def test_init_sim_batch_matches_jax_via_convert():
     ps = convert.sim_state_batch_from_numpy(
         np.asarray(js.step), np.asarray(js.q), np.asarray(js.dq),
         np.asarray(js.mppi.u_prev), np.asarray(js.mppi.wp_idx),
-        np.asarray(jax.random.key_data(js.key)), np.asarray(js.done))
+        np.asarray(jax.random.key_data(js.key)), np.asarray(js.done),
+        device="cpu")
     seeds = [convert.seed_from_key_data(k)
              for k in np.asarray(jax.random.key_data(keys))]
     ref = P.init_sim_batch(P.benchmark_preset()[1], P.SimConfig(), seeds,
-                           q0=torch.tensor(q0, dtype=F32))
+                           q0=torch.tensor(q0, dtype=F32), device="cpu")
     for a, b in zip(ps, ref):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)

@@ -19,6 +19,7 @@ import _torch_port_helpers  # noqa: F401  (pins torch to one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--samples", "16", "--horizon", "6"]
+EAGER = ["--backend", "eager"]        # the port's CPU path
 
 
 def _run(main, argv):
@@ -40,7 +41,7 @@ def test_single_run_outputs_match_jax(tmp_path):
     out_j, out_p = (os.path.join(tmp_path, d) for d in ("j", "p"))
     flags = ["--steps", "5", *SMALL, "--figures", "--render-step", "3"]
     rc_j, sj = _run(jcli.main, flags + ["--out-dir", out_j])
-    rc_p, sp = _run(pcli.main, flags + ["--out-dir", out_p])
+    rc_p, sp = _run(pcli.main, flags + EAGER + ["--out-dir", out_p])
     assert rc_j == rc_p == 0
     assert list(sp) == list(sj)
     assert sp["backend"] == "eager" and sj["backend"] == "xla"
@@ -62,7 +63,8 @@ def test_batch_run_outputs_match_jax(tmp_path):
     out_j, out_p = (os.path.join(tmp_path, d) for d in ("j", "p"))
     flags = ["--steps", "4", *SMALL, "--batch", "3"]
     rc_j, sj = _run(jcli.main, flags + ["--out-dir", out_j])
-    rc_p, sp = _run(pcli.main, flags + ["--out-dir", out_p, "--figures"])
+    rc_p, sp = _run(pcli.main, flags + EAGER + ["--out-dir", out_p,
+                                                "--figures"])
     assert rc_j == rc_p == 0
     assert list(sp) == list(sj)
     assert (sp["batch"], sp["steps"]) == (sj["batch"], sj["steps"]) == (3, 4)
@@ -88,7 +90,7 @@ def test_batch_seeds_and_jitter(tmp_path, monkeypatch):
         return orig(arm, cfg, sim, ref, states, *a, **k)
 
     monkeypatch.setattr(ploop, "simulate_batch", spy)
-    flags = ["--steps", "2", *SMALL, "--batch", "4", "--seed", "7"]
+    flags = ["--steps", "2", *SMALL, *EAGER, "--batch", "4", "--seed", "7"]
     ck = os.path.join(tmp_path, "fleet.npz")
     assert _run(pcli.main, flags + ["--checkpoint", ck])[0] == 0
     assert _run(pcli.main, flags)[0] == 0
@@ -105,7 +107,7 @@ def test_batch_seeds_and_jitter(tmp_path, monkeypatch):
 
 def test_checkpoint_every_resume_equals_uninterrupted(tmp_path):
     d = lambda name: os.path.join(tmp_path, name)
-    flags = [*SMALL, "--seed", "3"]
+    flags = [*SMALL, *EAGER, "--seed", "3"]
     assert _run(pcli.main, flags + ["--steps", "6", "--checkpoint-every",
                                     "3", "--checkpoint", d("full.npz"),
                                     "--out-dir", d("full")])[0] == 0
@@ -129,10 +131,10 @@ def test_checkpoint_every_resume_equals_uninterrupted(tmp_path):
 
 def test_guards(monkeypatch):
     with pytest.raises(SystemExit, match="checkpoint-every"):
-        pcli.main(["--steps", "4", *SMALL, "--batch", "2",
+        pcli.main(["--steps", "4", *SMALL, *EAGER, "--batch", "2",
                    "--checkpoint-every", "2"])
     with pytest.raises(SystemExit, match="render-step"):
-        pcli.main(["--steps", "4", *SMALL, "--batch", "2",
+        pcli.main(["--steps", "4", *SMALL, *EAGER, "--batch", "2",
                    "--render-step", "1"])
     monkeypatch.setattr(pcli, "_device", lambda backend: torch.device("cpu"))
     with pytest.raises(SystemExit, match="checkpoint-every"):
@@ -157,7 +159,7 @@ def test_profile_dir_and_config(tmp_path):
     with open(path, "w") as f:
         f.write(pcfg.config_to_json(arm, cfg, sim))
     prof = os.path.join(tmp_path, "prof")
-    rc, s = _run(pcli.main, ["--steps", "2", *SMALL, "--config", path,
+    rc, s = _run(pcli.main, ["--steps", "2", *SMALL, *EAGER, "--config", path,
                              "--profile-dir", prof, "--metrics-every", "1"])
     assert rc == 0 and s["K"] == 16
     assert os.path.exists(os.path.join(prof, "trace.json"))

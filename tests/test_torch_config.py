@@ -60,7 +60,10 @@ def test_port_never_imports_jax():
             "mppi_robotarm_tpu_torch.convert, "
             "mppi_robotarm_tpu_torch.ops.cuda_sim, "
             "mppi_robotarm_tpu_torch.ops.cuda_solve, "
+            "mppi_robotarm_tpu_torch.ops.cuda_probe, "
             "mppi_robotarm_tpu_torch.ops._build, "
+            "mppi_robotarm_tpu_torch.tools.overhead, "
+            "mppi_robotarm_tpu_torch.device, "
             "mppi_robotarm_tpu_torch.sim.loop, "
             "mppi_robotarm_tpu_torch.cli, "
             "mppi_robotarm_tpu_torch.utils.checkpoint, "

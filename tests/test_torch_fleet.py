@@ -115,8 +115,9 @@ def test_simulate_fused_batch_matches_jax(ref_path, monkeypatch):
     jfinal, jrec = J.simulate_fused_batch(JARM, cj, JSIM, jnp.asarray(ref),
                                           jstates, steps, eps_per_step=eps)
     pfinal, prec = P.simulate_fused_batch(
-        PARM, cp, PSIM, t(ref, F32), P.init_sim_batch(cp, PSIM, np.arange(B)),
-        steps, eps_per_step=t(eps, F32))
+        PARM, cp, PSIM, t(ref, F32),
+        P.init_sim_batch(cp, PSIM, np.arange(B), device="cpu"), steps,
+        eps_per_step=t(eps, F32))
     for f in prec._fields:
         assert tuple(getattr(prec, f).shape) == getattr(jrec, f).shape, f
     for i in range(steps):
@@ -140,7 +141,7 @@ def test_fleet_chained_equals_one_run(ref_path, monkeypatch):
     does the automatic chaining past _FUSED_MAX_STEPS."""
     _, cp = configs(64, 6)
     ref = t(np.asarray(ref_path[:400]), F32)
-    s0 = P.init_sim_batch(cp, PSIM, [11, 4, 7, 2])
+    s0 = P.init_sim_batch(cp, PSIM, [11, 4, 7, 2], device="cpu")
     _, full = P.simulate_fused_batch(PARM, cp, PSIM, ref, s0, 5)
     s1, r1 = P.simulate_fused_batch(PARM, cp, PSIM, ref, s0, 3)
     s2, r2 = P.simulate_fused_batch(PARM, cp, PSIM, ref, s1, 2)
@@ -154,7 +155,7 @@ def test_fleet_chained_equals_one_run(ref_path, monkeypatch):
         assert torch.equal(s.seed, s0.seed)
         assert torch.equal(s.mppi.u_prev, s_auto.mppi.u_prev)
     # each scenario is its simulate_fused run alone
-    one = P.init_sim(cp, PSIM, seed=4)
+    one = P.init_sim(cp, PSIM, seed=4, device="cpu")
     _, alone = P.simulate_fused(PARM, cp, PSIM, ref, one, 5)
     for f, a, b in zip(full._fields, full, alone):
         assert torch.equal(a[:, 1], b), f
@@ -169,7 +170,7 @@ def test_chunked_run_equals_one_launch_with_frozen_scenarios(ref_path,
     ref = t(np.asarray(ref_path[:120]), F32)
     B = 4
     q0, up, wp = _fleet_inputs(cp, B, True)
-    s0 = P.init_sim_batch(cp, PSIM, [3, 8, 1, 6], q0=q0)
+    s0 = P.init_sim_batch(cp, PSIM, [3, 8, 1, 6], q0=q0, device="cpu")
     s0 = s0._replace(step=torch.tensor([0, 2, 5, 1]),
                      mppi=P.MPPIState(u_prev=t(up, F32),
                                       wp_idx=torch.as_tensor(wp)))
@@ -225,5 +226,5 @@ def test_group_must_divide_the_batch(ref_path):
         cuda_sim.fused_sim_run_batched(*args, group=2)
     with pytest.raises(ValueError, match="divisible"):
         P.simulate_fused_batch(PARM, cp, PSIM, ref,
-                               P.init_sim_batch(cp, PSIM, [0, 1, 2]), 2,
-                               group=2)
+                               P.init_sim_batch(cp, PSIM, [0, 1, 2],
+                                                device="cpu"), 2, group=2)

@@ -108,7 +108,7 @@ def test_simulate_matches_jax_simulate_python(ref_path):
     _, recs = J.simulate_python(JARM, cj, JSIM, jnp.asarray(ref_path), s0,
                                 steps, eps_per_step=[jnp.asarray(e)
                                                      for e in eps])
-    p0 = P.init_sim(cp, PSIM, 0, dtype=torch.float64)
+    p0 = P.init_sim(cp, PSIM, 0, dtype=torch.float64, device="cpu")
     final, rec = P.simulate(PARM, cp, PSIM, t(ref_path), p0, steps,
                             eps_per_step=t(eps))
     _, precs = P.simulate_python(PARM, cp, PSIM, t(ref_path), p0, steps,
@@ -143,7 +143,7 @@ def test_path_end_raises_like_jax():
     with pytest.raises(IndexError):
         J.simulate_python(JARM, cj, JSIM, jnp.asarray(path), s0, 2,
                           eps_per_step=[jnp.asarray(e) for e in eps])
-    p0 = P.init_sim(cp, PSIM, 0, dtype=torch.float64)
+    p0 = P.init_sim(cp, PSIM, 0, dtype=torch.float64, device="cpu")
     p0 = p0._replace(mppi=p0.mppi._replace(wp_idx=torch.tensor(45)))
     with pytest.raises(IndexError):
         P.simulate_python(PARM, cp, PSIM, t(path), p0, 2,
@@ -171,8 +171,8 @@ def test_simulate_fused_wrapper_matches_jax(ref_path, monkeypatch):
                                                jax.random.PRNGKey(0)),
                                     steps, eps_per_step=eps)
     pfinal, prec = P.simulate_fused(PARM, cp, PSIM, t(ref, F32),
-                                    P.init_sim(cp, PSIM, 0), steps,
-                                    eps_per_step=t(eps, F32))
+                                    P.init_sim(cp, PSIM, 0, device="cpu"),
+                                    steps, eps_per_step=t(eps, F32))
     prec = convert.records_to_numpy(prec)
     for f in ("q", "dq", "ee", "elbow"):
         np.testing.assert_allclose(getattr(prec, f), np.asarray(
@@ -193,7 +193,7 @@ def test_fused_twin_chained_equals_single_prng(ref_path, monkeypatch):
     does the automatic chaining past _FUSED_MAX_STEPS."""
     _, cp = configs(128, 8)
     ref = t(np.asarray(ref_path[:400]), F32)
-    s0 = P.init_sim(cp, PSIM, seed=11)
+    s0 = P.init_sim(cp, PSIM, seed=11, device="cpu")
     _, full = P.simulate_fused(PARM, cp, PSIM, ref, s0, 6)
     s, parts = s0, []
     for k in (3, 3):
@@ -213,7 +213,7 @@ def test_eager_and_fused_draw_the_same_noise(ref_path):
     same Philox stream, so they agree within the fused parity band."""
     _, cp = configs(128, 8)
     ref = t(np.asarray(ref_path[:400]), F32)
-    s0 = P.init_sim(cp, PSIM, seed=5, dtype=F32)
+    s0 = P.init_sim(cp, PSIM, seed=5, dtype=F32, device="cpu")
     _, fused = P.simulate_fused(PARM, cp, PSIM, ref, s0, 5)
     _, eager = P.simulate(PARM, cp, PSIM, ref, s0, 5)
     for i in range(5):
@@ -231,8 +231,10 @@ def test_convert_round_trip():
     ps = convert.sim_state_from_numpy(
         np.asarray(js.step), np.asarray(js.q), np.asarray(js.dq),
         np.asarray(js.mppi.u_prev), np.asarray(js.mppi.wp_idx),
-        np.asarray(jax.random.key_data(js.key)), np.asarray(js.done))
-    ref = P.init_sim(P.benchmark_preset()[1], P.SimConfig(), seed=3)
+        np.asarray(jax.random.key_data(js.key)), np.asarray(js.done),
+        device="cpu")
+    ref = P.init_sim(P.benchmark_preset()[1], P.SimConfig(), seed=3,
+                     device="cpu")
     assert ps.seed == ref.seed == 3
     for a, b in zip(ps, ref):
         if isinstance(a, torch.Tensor):

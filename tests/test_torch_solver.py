@@ -60,7 +60,7 @@ def test_solve_f64_matches_jax_xla(ref_path, case):
 
 def test_solve_needs_exactly_one_noise_source(ref_path):
     cfg = PCfg()
-    st = psolver.init_state(cfg, dtype=torch.float64)
+    st = psolver.init_state(cfg, dtype=torch.float64, device="cpu")
     args = (PArm(), cfg, t(ref_path), t(X0), st)
     with pytest.raises(ValueError):
         psolver.solve(*args)
@@ -74,7 +74,8 @@ def test_solve_needs_exactly_one_noise_source(ref_path):
 
 def test_golden_u0_f64(ref_path):
     res = psolver.solve(PArm(), PCfg(), t(ref_path), t(X0),
-                        psolver.init_state(PCfg(), dtype=torch.float64),
+                        psolver.init_state(PCfg(), dtype=torch.float64,
+                                           device="cpu"),
                         eps=t(_seeded_reference_noise()))
     np.testing.assert_allclose(n(res.u0), GOLDEN_U0, rtol=1e-8)
 
@@ -82,7 +83,7 @@ def test_golden_u0_f64(ref_path):
 def test_golden_u0_f32(ref_path):
     f32 = torch.float32
     res = psolver.solve(PArm(), PCfg(), t(ref_path, f32), t(X0, f32),
-                        psolver.init_state(PCfg()),
+                        psolver.init_state(PCfg(), device="cpu"),
                         eps=t(_seeded_reference_noise(), f32))
     assert res.u0.dtype == f32
     np.testing.assert_allclose(n(res.u0), GOLDEN_U0, atol=1e-3)
@@ -104,7 +105,7 @@ def replay(ref_path):
     rs = np.random.RandomState(int(golden["seed"]))
     sigma = np.array([[20.0, 0.0], [0.0, 20.0]])
     q, dq = t(golden["x0"][:2]), t(golden["x0"][2:])
-    state = psolver.init_state(cfg, dtype=torch.float64)
+    state = psolver.init_state(cfg, dtype=torch.float64, device="cpu")
     rp = t(ref_path)
     qs, wps = [], []
     with torch.inference_mode():     # no autograd bookkeeping, ~25 % faster

@@ -45,12 +45,12 @@ def test_checkpoint_resume_continues_the_fused_loop_bitwise(ref_path,
     more, bit for bit; the state round-trips field for field."""
     _, cp = configs(64, 6)
     ref = t(np.asarray(ref_path[:400]), F32)
-    s0 = P.init_sim(cp, PSIM, seed=9)
+    s0 = P.init_sim(cp, PSIM, seed=9, device="cpu")
     s_full, rec_full = P.simulate_fused(PARM, cp, PSIM, ref, s0, 6)
     s_half, _ = P.simulate_fused(PARM, cp, PSIM, ref, s0, 3)
     path = os.path.join(tmp_path, "state.npz")
     pck.save_checkpoint(path, s_half)
-    s_res = pck.load_checkpoint(path)
+    s_res = pck.load_checkpoint(path, device="cpu")
     for a, b in zip((s_res.step, s_res.q, s_res.dq, s_res.done, *s_res.mppi),
                     (s_half.step, s_half.q, s_half.dq, s_half.done,
                      *s_half.mppi)):
@@ -66,10 +66,11 @@ def test_checkpoint_resume_continues_the_fused_loop_bitwise(ref_path,
 def test_batched_checkpoint_round_trip(tmp_path):
     _, cp = configs(32, 5)
     states = P.init_sim_batch(cp, PSIM, [3, 0x7FFFFFFF, 12],
-                              q0=np.random.default_rng(1).normal(size=(3, 2)))
+                              q0=np.random.default_rng(1).normal(size=(3, 2)),
+                              device="cpu")
     path = os.path.join(tmp_path, "fleet.npz")
     pck.save_checkpoint(path, states)
-    back = pck.load_checkpoint(path)
+    back = pck.load_checkpoint(path, device="cpu")
     assert torch.equal(back.seed, states.seed)
     for a, b in zip((back.step, back.q, back.dq, back.done, *back.mppi),
                     (states.step, states.q, states.dq, states.done,
@@ -89,7 +90,7 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path, typed):
                      mppi=js.mppi._replace(wp_idx=jnp.asarray(5, jnp.int32)))
     path = os.path.join(tmp_path, "jax.npz")
     jck.save_checkpoint(path, js)
-    ps = pck.load_checkpoint(path)
+    ps = pck.load_checkpoint(path, device="cpu")
     kd = (jax.random.key_data(js.key) if typed else js.key)
     assert ps.seed == convert.seed_from_key_data(np.asarray(kd)) == 77
     assert int(ps.step) == 12 and int(ps.mppi.wp_idx) == 5
@@ -101,7 +102,7 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path, typed):
     jb = J.init_sim_batch(cj, JSIM, jax.vmap(jax.random.PRNGKey)(
         jnp.arange(5, 9)))
     jck.save_checkpoint(path, jb)
-    pb = pck.load_checkpoint(path)
+    pb = pck.load_checkpoint(path, device="cpu")
     assert pb.seed.tolist() == [5, 6, 7, 8]
     np.testing.assert_array_equal(n(pb.q), np.asarray(jb.q))
 
@@ -113,7 +114,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     path_j = os.path.join(tmp_path, "jax.npz")
     path_p = os.path.join(tmp_path, "port.npz")
     jck.save_checkpoint(path_j, J.init_sim(cj, JSIM, jax.random.PRNGKey(0)))
-    ps = P.init_sim(cp, PSIM, seed=123456)._replace(
+    ps = P.init_sim(cp, PSIM, seed=123456, device="cpu")._replace(
         step=torch.tensor(40), mppi=P.MPPIState(
             u_prev=torch.full((5, 2), 0.5), wp_idx=torch.tensor(17)))
     pck.save_checkpoint(path_p, ps)
@@ -129,7 +130,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
                 & np.uint32(0x7FFFFFFF)))      # sim/loop.py:366-370
     assert seed == convert.seed_from_key_data(kd) == 123456
     # batched
-    pb = P.init_sim_batch(cp, PSIM, [4, 9])
+    pb = P.init_sim_batch(cp, PSIM, [4, 9], device="cpu")
     pck.save_checkpoint(path_p, pb)
     jb = jck.load_checkpoint(path_p)
     assert np.asarray(jb.key).shape == (2, 2)
