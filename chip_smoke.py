@@ -12,13 +12,20 @@ Phases (any failure raises and exits non-zero):
      injected noise, 8 steps, at benchmark_preset (K=1024, H=50) on the
      8000-point circle and at the reference config (K=100, H=30);
   3. PRNG mode: the same comparison with the kernel's Philox stream;
-  4. the fused path, ``simulate_fused(benchmark_preset, seed 0, 4000 steps)``:
-     the kernel's launch count, finite records, >= 1000 live steps, the
-     on-path mean over the first 1500 live steps < 42 mm, and
-     high_accuracy_preset < 18 mm;
+  4. the fused path, ``simulate_fused(benchmark_preset, seed 0, 4000 steps)``
+     on the cluster size that ``cuda_sim.cluster_size`` chooses (> 1 at
+     B=1): the kernel's launch count, finite records, >= 1000 live steps,
+     the on-path mean over the first 1500 live steps < 42 mm, and
+     high_accuracy_preset < 18 mm; its records and u_final == those of
+     ``fused_sim_run(..., cluster=1)`` bit for bit, and so are every other
+     cluster size's that fits: over the 4000 steps, in eps mode over 8 steps
+     at benchmark_preset and at K=100, T=30 (C <= 4), and over 50 steps of
+     K=8192, H=50;
   5. continuation: 2000 + 2000 chained steps equal one 4000-step run;
-  6. timing with CUDA events: the kernel over the 4000-step run and the plain
-     twin over 20 steps, at the benchmark shape;
+  6. timing with CUDA events, min of 3 in turns (``tools/fused_timing.py``):
+     the kernel over the 4000-step run at every cluster size, with the
+     SHA-256 of each run's records and u_final, and the plain twin over 20
+     steps, at the benchmark shape;
   7. the solve kernels against their plain twin, eps and PRNG modes, at
      K=1024/H=50 (B=1), K=100/T=30 (B=8), K=65536/H=50 (B=1) and phase 9's
      fused solve at K=128/T=30 (B=4096), and raw rows with k_offset: S and
@@ -71,10 +78,16 @@ The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
 the plain version's, a library call's where one PyTorch call computes the
 same function, and its bound, the least time the card could take for the
-work (``bound_ms``): the larger of the operations over 67 TFLOP/s (float32
-outside the tensor cores) and the bytes over 3.35 TB/s, the H100 SXM's
-published peaks, for the inputs of this run.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script fails.
+work (``bound_ms``): the larger of the operations over 67 TFLOP/s (the
+H100 SXM's published float32 peak outside the tensor cores) and the bytes
+over 3.35 TB/s (its HBM3), for the inputs of this run.  The bounds line
+also prints each fused kernel's operations at the unfused float32 issue
+rate, 33.5 T/s (132 SMs × 128 lanes × 1.98 GHz): the hand count counts an
+add and a mul as two operations, as the peak counts an FMA, but the
+build's ``--fmad=false`` fuses none, so each takes an issue slot.  That
+figure is for reading the kernels; ``bound_ms`` stays at the card's peak.
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+the script fails.
 """
 
 import contextlib
@@ -97,12 +110,14 @@ SOLVE_LAM = 3e5       # phase 7: tens of samples carry weight (at the
                       # presets' lam = 1 the softmax is one-hot)
 W_TOL = 2e-5          # phase 7: Σwε / u_new absolute, η and raw rows relative
 BATCH, BATCH_STEPS = 4096, 50      # BASELINE config 4 at K=128, T=30
+BIG_K_STEPS = 50      # phase 4: K=8192 at every cluster size
 FLEET_CMP_STEPS = 50  # phase 11: fleet kernel == fused kernel, bitwise
 FLEET_STEPS = 2000    # phase 12: the fleet path
 CLI_STEPS, CKPT_EVERY = 200, 100   # phase 13
 FLEET_TIME_STEPS, PLAIN_FLEET_STEPS = 1000, 3   # phase 14
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_OPS = 67e12      # float32 operations/s outside the tensor cores, H100 SXM
+PEAK_OPS = 67e12      # float32 FLOP/s outside the tensor cores, H100 SXM
+UNFUSED_OPS = 33.5e12   # unfused float32 op/s: 132 SMs x 128 lanes x 1.98 GHz
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
 PROBE_TIME_CALLS = 100  # phase 15: launches per device-time window
 
@@ -110,15 +125,6 @@ PROBE_TIME_CALLS = 100  # phase 15: launches per device-time window
 def check(ok, msg):
     if not ok:
         raise RuntimeError(msg)
-
-
-def onpath_mean_mm(ee, path_xy):
-    """Mean distance to the nearest path point, in mm (bench.py:143-150)."""
-    d = np.empty(len(ee))
-    for i in range(0, len(ee), 256):
-        d[i:i + 256] = np.linalg.norm(
-            ee[i:i + 256, None, :] - path_xy[None], axis=-1).min(axis=1)
-    return float(d.mean() * 1e3)
 
 
 def compare(label, cuda_sim, arm, cfg, sim, ref, device, seed, eps=None):
@@ -238,6 +244,32 @@ def stacked_bands(label, rk, rp):
     return float(dq.max())
 
 
+def cluster_equal(label, m, cuda_sim, arm, cfg, sim, ref, device, steps,
+                  eps=None):
+    """``fused_sim_run`` at every cluster size that fits K against
+    ``cluster=1``: records and u_final bit for bit.  Returns the cluster-1
+    (records, u_final)."""
+    import torch
+
+    st0 = m.init_sim(cfg, sim, seed=0, device=device)
+    args = (arm, cfg, sim, ref, st0.q, st0.dq, st0.mppi.u_prev,
+            st0.mppi.wp_idx, st0.seed, steps)
+    nwarp = cuda_sim.sim_threads(cfg.num_samples) // 32
+    sizes = sorted(c for c in cuda_sim.CLUSTER_SIZES if nwarp % c == 0)
+    rec1, uf1 = cuda_sim.fused_sim_run(*args, eps=eps, cluster=1)
+    for c in sizes[1:]:
+        rec, uf = cuda_sim.fused_sim_run(*args, eps=eps, cluster=c)
+        torch.cuda.synchronize()
+        differ = int((rec != rec1).any(dim=1).sum())
+        check(torch.equal(rec, rec1) and torch.equal(uf, uf1),
+              f"{label}: cluster {c} != cluster 1 ({differ} record rows "
+              f"differ)")
+    check(bool(torch.isfinite(rec1).all()), f"{label}: records not finite")
+    print(f"{label}: records and u_final at cluster sizes {sizes} == "
+          f"cluster 1, bitwise, over {steps} steps")
+    return rec1, uf1
+
+
 def onpath_by_scenario_mm(rec, path_xy):
     """Each scenario's mean distance to the nearest path point over its
     live steps, mm, on the device (a (steps, B) record)."""
@@ -284,7 +316,9 @@ def compare_records(label, a, b):
 
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of ops / PEAK_OPS and nbytes /
-    PEAK_BYTES, in ms, and which of the two it is."""
+    PEAK_BYTES, in ms, and which of the two it is.  ``ops`` counts each
+    add, mul, compare or special function as one (``rollout_ops``), as
+    PEAK_OPS counts an FMA as two."""
     t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -374,7 +408,7 @@ def main() -> int:
     import mppi_robotarm_tpu_torch as m
     from mppi_robotarm_tpu_torch.ops import _build, cuda_sim, cuda_solve
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
-    from mppi_robotarm_tpu_torch.tools import overhead
+    from mppi_robotarm_tpu_torch.tools import fused_timing, overhead
 
     check("jax" not in sys.modules, "the port imported JAX")
     device = torch.device("cuda", 0)
@@ -414,6 +448,9 @@ def main() -> int:
     compare("prng K=100 T=30", cuda_sim, arm_r, cfg_r, sim_r, ref, device, 7)
 
     # ---- 4. the main path ----------------------------------------------
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    chosen = cuda_sim.cluster_size(1, cfg.num_samples, sm_count)
+    check(chosen > 1, f"benchmark_preset at B=1 chose cluster {chosen}")
     state0 = m.init_sim(cfg, sim, seed=0, device=device)
     cuda_sim.LAUNCHES = 0
     final, rec = m.simulate_fused(arm, cfg, sim, ref, state0, STEPS)
@@ -421,7 +458,28 @@ def main() -> int:
     launches = cuda_sim.LAUNCHES
     check(launches >= 1, "the main path launched no kernel")
     print(f"main path: simulate_fused {STEPS} steps, sim_kernel launches "
-          f"{launches}")
+          f"{launches}, each a cluster of {chosen} blocks ({sm_count} SMs)")
+    rows1, ufin1 = cluster_equal("clusters prng benchmark_preset", m,
+                                 cuda_sim, arm, cfg, sim, ref, device, STEPS)
+    for field, lanes in (("q", slice(0, 2)), ("dq", slice(2, 4)),
+                         ("u", slice(4, 6)), ("cost_min", 8),
+                         ("cost_mean", 9), ("ess", 10),
+                         ("weight_entropy", 11)):
+        check(torch.equal(getattr(rec, field), rows1[:, lanes]),
+              f"main path record {field} != fused_sim_run(cluster=1)'s")
+    check(torch.equal(rec.wp_idx, rows1[:, 6].long())
+          and torch.equal(rec.done, rows1[:, 7] > 0.5)
+          and torch.equal(final.mppi.u_prev, ufin1),
+          "main path wp_idx/done/u_final != fused_sim_run(cluster=1)'s")
+    print(f"main path: records and u_final (cluster {chosen}) == "
+          f"fused_sim_run(cluster=1), bitwise")
+    cluster_equal("clusters eps benchmark_preset", m, cuda_sim, arm, cfg, sim,
+                  ref, device, CMP_STEPS, eps=noise(cfg)[0])
+    cluster_equal("clusters eps K=100 T=30", m, cuda_sim, arm_r, cfg_r, sim_r,
+                  ref, device, CMP_STEPS, eps=noise(cfg_r)[0])
+    cluster_equal("clusters prng K=8192 H=50", m, cuda_sim, arm,
+                  dataclasses.replace(cfg, num_samples=8192), sim, ref,
+                  device, BIG_K_STEPS)
     for field, v in zip(rec._fields, rec):
         if v.dtype.is_floating_point:
             check(bool(torch.isfinite(v).all()), f"record {field} not finite")
@@ -429,9 +487,9 @@ def main() -> int:
     path_xy = path_np[:, 0:2]
 
     def live_onpath(r):
-        ee = r.ee.cpu().numpy()[~r.done.cpu().numpy()][:1500]
-        check(len(ee) >= 1000, f"only {len(ee)} live steps")
-        return onpath_mean_mm(ee, path_xy), len(ee)
+        mean, n = fused_timing.live_onpath_mm(r, path_xy)
+        check(n >= 1000, f"only {n} live steps")
+        return mean, n
 
     onpath, n_live = live_onpath(rec)
     print(f"main path: on-path mean {onpath:.3f} mm over {n_live} live "
@@ -472,19 +530,28 @@ def main() -> int:
             times.append(start.elapsed_time(stop))
         return times
 
-    run_args = (arm, cfg, sim, ref, state0.q, state0.dq,
-                state0.mppi.u_prev, state0.mppi.wp_idx, state0.seed)
-    kern = cuda_time(lambda: cuda_sim.fused_sim_run(*run_args, STEPS), 3)
-    kern_ms = min(kern) / STEPS
+    k1_rows = fused_timing.measure(device, STEPS)
+    for row in k1_rows:
+        print(f"timing [{card}]: sim_kernel {row['setting']} "
+              f"{row['us_per_step']:.2f} us/step over a {STEPS}-step launch, "
+              f"runs {[round(t, 2) for t in row['runs_ms']]} ms; records and "
+              f"u_final sha256 {row['sha256']}")
+    check(len({row["sha256"] for row in k1_rows}) == 1,
+          "the cluster sizes' 4000-step runs differ")
+    check({row["sha256"] for row in k1_rows}
+          == {fused_timing.digest(rows1, ufin1)},
+          "the timing runs' records differ from phase 4's")
+    kern_ms = next(row["us_per_step"] for row in k1_rows
+                   if row["setting"] == f"cluster={chosen}") / 1e3
     plain_steps = 20
     plain = cuda_time(lambda: cuda_sim.fused_sim_reference(
         arm, cfg, sim, ref, state0.q[None], state0.dq[None],
         state0.mppi.u_prev[None], state0.mppi.wp_idx.reshape(1),
         torch.tensor([0]), plain_steps), 2)
     plain_ms = min(plain) / plain_steps
-    print(f"timing [{card}]: sim_kernel {kern_ms * 1e3:.2f} us/step "
-          f"({1e3 / kern_ms:,.0f} solves/s) over a {STEPS}-step launch, "
-          f"runs {[round(t, 2) for t in kern]} ms")
+    print(f"timing [{card}]: sim_kernel on the main path's cluster of "
+          f"{chosen}: {kern_ms * 1e3:.2f} us/step ({1e3 / kern_ms:,.0f} "
+          f"solves/s)")
     print(f"timing [{card}]: plain twin {plain_ms * 1e3:.1f} us/step over "
           f"{plain_steps} steps, runs {[round(t, 2) for t in plain]} ms")
 
@@ -848,16 +915,19 @@ def main() -> int:
           f"not counted); every graph == its eager chain, bitwise")
 
     def device_ms(fn):
-        """Device time per call (torch.profiler, every kernel of fn)."""
+        """Device time per call (torch.profiler): each kernel's mean time a
+        launch, summed over the kernels of fn, which launches each once.
+        A window can lose events, so the total over the calls would read
+        low; the mean of the events it kept does not."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(PROBE_TIME_CALLS):
                 fn()
             torch.cuda.synchronize()
-        total = sum(device_total(e) for e in prof.key_averages())
-        check(total > 0, "the profiler saw no device time")
-        return total / PROBE_TIME_CALLS / 1e3
+        kernels = [e for e in prof.key_averages() if device_total(e) > 0]
+        check(bool(kernels), "the profiler saw no device time")
+        return sum(device_total(e) / e.count for e in kernels) / 1e3
 
     p1_ms = device_ms(lambda: cuda_probe.probe_scale(xp))
     p1_plain_ms = device_ms(lambda: cuda_probe.probe_scale_reference(xp))
@@ -874,15 +944,18 @@ def main() -> int:
     f4 = 4
     W = cfg.search_idx_len
     live_k1 = int((~rec.done).sum())       # phase 6 times phase 4's run
+    k1_ops = live_k1 * rollout_ops(cfg.num_samples, cfg.horizon, W,
+                                   True) / STEPS
     k1_bound = bound(
-        live_k1 * rollout_ops(cfg.num_samples, cfg.horizon, W, True) / STEPS,
+        k1_ops,
         (ref.numel() * f4 + STEPS * cuda_sim.REC_LANES * f4
          + 2 * (2 + 2 + 2 * cfg.horizon) * f4 + 3 * 8) / STEPS)
     tile_1k = cuda_solve.default_tile(cfg.num_samples, cfg)
     n_tiles_1k = -(-cfg.num_samples // tile_1k)
     part_bytes = n_tiles_1k * (2 * cfg.horizon + 2) * f4
+    k2_ops = rollout_ops(cfg.num_samples, cfg.horizon, W, False)
     k2_bound = bound(
-        rollout_ops(cfg.num_samples, cfg.horizon, W, False),
+        k2_ops,
         (x1.numel() + u1.numel() + win1.numel() + cfg.num_samples) * f4
         + 2 * 8 + part_bytes)
     # the combine's median counts at most fw*fw compare pairs an output
@@ -891,10 +964,11 @@ def main() -> int:
     comb_bound = bound(
         n_tiles_1k * (6 + 2 * T2) + T2 * (3 + 2 * cfg.filter_window ** 2),
         part_bytes + 2 * u1.numel() * f4 + 2 * f4)
+    k3_ops = fleet_live * rollout_ops(cfg_b.num_samples, cfg_b.horizon,
+                                      cfg_b.search_idx_len,
+                                      True) / FLEET_TIME_STEPS
     k3_bound = bound(
-        fleet_live * rollout_ops(cfg_b.num_samples, cfg_b.horizon,
-                                 cfg_b.search_idx_len, True)
-        / FLEET_TIME_STEPS,
+        k3_ops,
         (ref_b.numel() * f4
          + BATCH * FLEET_TIME_STEPS * cuda_sim.REC_LANES * f4
          + BATCH * (2 * (2 + 2 + 2 * cfg_b.horizon) * f4 + 3 * 8))
@@ -910,6 +984,12 @@ def main() -> int:
           f"live), probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
           f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
           f"({p2_bound[1]})")
+    issue_us = lambda ops: ops / UNFUSED_OPS * 1e6
+    print(f"operations at the unfused FP32 issue rate, "
+          f"{UNFUSED_OPS / 1e12:g} T/s (not bound_ms) [{card}]: sim_kernel "
+          f"{issue_us(k1_ops):.4f} us/step, solve_kernel "
+          f"{issue_us(k2_ops):.4f} us, fleet_kernel {issue_us(k3_ops):.4f} "
+          f"us/launch-step")
 
     def entry(name, source, replaces, launches, err, ms, plain, bnd,
               library=None):

@@ -12,7 +12,8 @@
 // Contract: per scenario, records and u_final equal sim_kernel.cu's bit for
 // bit, in both noise modes.  The per-sample arithmetic is sim_common.cuh's
 // sample_step, which repeats sim_kernel.cu's rollout operation for
-// operation, and every K-sum is taken in sim_kernel.cu's order at
+// operation (sim_kernel.cu scans the window in another order and picks the
+// same row), and every K-sum is taken in sim_kernel.cu's order at
 // K <= 128 (one sample per thread, round_up(K, 32) threads): lane l owns
 // samples k = l + 32j, j < ceil(K/32), and slot j plays sim_kernel.cu's
 // warp j.  Each slot is reduced with the xor-butterfly warp_sum / warp_min
@@ -23,8 +24,8 @@
 // Per closed-loop step, inside one warp:
 //   1. waypoint phase, lane-parallel: lane j computes window row j's
 //      distance straight from the path; a butterfly over (d, j) finds the
-//      strictly smallest d with ties to the lowest j (sim_kernel.cu's
-//      serial first-win scan; NaN never wins, an all-inf window gives 0);
+//      strictly smallest d with ties to the lowest j (a serial first-win
+//      scan's row; NaN never wins, an all-inf window gives 0);
 //      the path-end freeze; lane j copies row j of the window at the
 //      effective index to the warp's shared memory.  A frozen scenario
 //      skips phases 2-5: a per-warp branch, no divergence inside the warp;
@@ -68,19 +69,6 @@ constexpr int kSlots = 4;            // samples per lane: K <= 128
 constexpr int kMaxGroup = 8;         // warps (scenarios) per block
 constexpr int kMinBlocks = 4;        // resident blocks per SM
 constexpr int kMaxSmem = 227 * 1024;
-
-// (d, j) butterfly: every lane ends with the smallest d, ties to the
-// lowest j.
-__device__ __forceinline__ void warp_argmin(float& d, int& j) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float od = __shfl_xor_sync(kFullMask, d, o);
-    const int oj = __shfl_xor_sync(kFullMask, j, o);
-    if (od < d || (od == d && oj < j)) {
-      d = od;
-      j = oj;
-    }
-  }
-}
 
 // Shared floats per warp: u (2T), window (4W), Σwε (2T), median (2T).
 __host__ __device__ int smem_floats_per_warp(const SimParams& p) {

@@ -1,14 +1,14 @@
 // What the two closed-loop kernels share: the parameter block and the
 // per-sample rollout.
 //
-// sim_kernel.cu (one block per scenario, one thread per sample) and
-// fleet_kernel.cu (one warp per scenario, up to four samples per lane) run
-// the same closed loop and read the same SimParams.  fleet_kernel.cu rolls
-// a sample out through sample_step / sample_terminal below, which repeat
-// sim_kernel.cu's inline rollout operation for operation, so a sample's
-// cost is the same sequence of float32 operations in either kernel.  With
-// the K-sums taken in the same order, the two give the same bits per
-// scenario.
+// sim_kernel.cu (a cluster of blocks per scenario, one thread per sample)
+// and fleet_kernel.cu (one warp per scenario, up to four samples per lane)
+// run the same closed loop and read the same SimParams.  fleet_kernel.cu
+// rolls a sample out through sample_step / sample_terminal below, which
+// repeat sim_kernel.cu's inline rollout operation for operation (its window
+// scan compares the same distances in another order and picks the same
+// row), so a sample's cost has the same bits in either kernel.  With the
+// K-sums taken in the same order, the two give the same bits per scenario.
 
 #pragma once
 
@@ -98,4 +98,18 @@ __device__ __forceinline__ float sample_terminal(const SimParams& p,
   return x.s + tracking_cost(ex, ey, x.dq1, x.dq2, win, p.W, p.term_w[0],
                              p.term_w[1], p.term_w[2], p.term_w[3],
                              p.dist_scale, p.cost_scale);
+}
+
+// (d, j) butterfly: every lane ends with the smallest d, ties to the
+// lowest j.  With NaN masked to +inf beforehand it equals a serial
+// first-win scan of strict < (an all-inf window gives lane 0's j).
+__device__ __forceinline__ void warp_argmin(float& d, int& j) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od = __shfl_xor_sync(kFullMask, d, o);
+    const int oj = __shfl_xor_sync(kFullMask, j, o);
+    if (od < d || (od == d && oj < j)) {
+      d = od;
+      j = oj;
+    }
+  }
 }

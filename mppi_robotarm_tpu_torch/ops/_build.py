@@ -99,6 +99,24 @@ def _check_abi(lib, fn: str, struct) -> None:
                            f"fields and the kernel's struct differ")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+# (argtypes, restype) of each C function of the library, in the order of
+# its declaration in csrc/: c_void_p for every pointer and the stream,
+# c_int for every int.
+C_FUNCTIONS = {
+    "mppi_sim_launch": ([_P, _I, _I] + [_P] * 9, _I),
+    "mppi_solve_launch": ([_P, _I] + [_P] * 14, _I),
+    "mppi_fleet_launch": ([_P, _I, _I] + [_P] * 9, _I),
+    "mppi_fleet_scratch_floats": ([_P], _I),
+    "mppi_probe_scale_launch": ([_P, _P, _I, _P], _I),
+    "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _P], _I),
+    "mppi_error_string": ([_I], ctypes.c_char_p),
+    "mppi_sim_params_size": ([], _I),
+    "mppi_solve_params_size": ([], _I),
+}
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed (printing nvcc's report to standard error), load the
@@ -109,25 +127,9 @@ def load_library() -> ctypes.CDLL:
 
     print(build(), file=sys.stderr, end="")
     lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
-    ptr = ctypes.c_void_p
-    lib.mppi_sim_launch.argtypes = [ptr, ctypes.c_int] + [ptr] * 9
-    lib.mppi_sim_launch.restype = ctypes.c_int
-    lib.mppi_solve_launch.argtypes = [ptr, ctypes.c_int] + [ptr] * 14
-    lib.mppi_solve_launch.restype = ctypes.c_int
-    lib.mppi_fleet_launch.argtypes = [ptr] + [ctypes.c_int] * 2 + [ptr] * 9
-    lib.mppi_fleet_launch.restype = ctypes.c_int
-    lib.mppi_fleet_scratch_floats.argtypes = [ptr]
-    lib.mppi_fleet_scratch_floats.restype = ctypes.c_int
-    lib.mppi_probe_scale_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]
-    lib.mppi_probe_scale_launch.restype = ctypes.c_int
-    lib.mppi_probe_big_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr,
-                                          ctypes.c_int, ptr]
-    lib.mppi_probe_big_launch.restype = ctypes.c_int
-    lib.mppi_error_string.argtypes = [ctypes.c_int]
-    lib.mppi_error_string.restype = ctypes.c_char_p
-    for fn in ("mppi_sim_params_size", "mppi_solve_params_size"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
+    for name, (argtypes, restype) in C_FUNCTIONS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     _check_abi(lib, "mppi_sim_params_size", _SimParams)
     _check_abi(lib, "mppi_solve_params_size", _SolveParams)
     return lib

@@ -12,8 +12,9 @@ pallas_sim_run_batched`` and its two kernels: ``_sim_kernel`` and, for
 The path is picked by where the tensors lie: CUDA tensors launch a
 hand-written kernel (built by ``ops/_build.py`` and bound through
 ``ctypes``) or raise — ``csrc/fleet_kernel.cu`` (one warp per scenario)
-for ``1 < group <= 8`` at K <= 128, ``csrc/sim_kernel.cu`` (one block per
-scenario) otherwise; the two give the same bits per scenario.  CPU tensors
+for ``1 < group <= 8`` at K <= 128, ``csrc/sim_kernel.cu`` (a cluster of
+:func:`cluster_size` blocks per scenario) otherwise; the two, and every
+cluster size, give the same bits per scenario.  CPU tensors
 take the plain PyTorch versions of the same function,
 :func:`fused_sim_reference_stacked` for ``group > 1`` and
 :func:`fused_sim_reference` otherwise.  Nothing falls back from one to the
@@ -52,6 +53,8 @@ REC_LANES = 12
 MAX_SAMPLES = 8192        # K ≤ 8 samples per thread of a 1024-thread block
 FLEET_MAX_SAMPLES = 128   # fleet kernel: K ≤ 4 samples per lane of a warp
 FLEET_MAX_GROUP = 8       # fleet kernel: scenarios (warps) per block
+CLUSTER_SIZES = (8, 4, 2, 1)   # sim_kernel: blocks per scenario
+CTA_MIN_WARPS = 4         # cluster_size: one warp per scheduler of an SM
 
 # Kernel launches made by fused_sim_run_batched, of sim_kernel (LAUNCHES)
 # and of fleet_kernel (FLEET_LAUNCHES); a run that must show it went
@@ -309,6 +312,40 @@ def fused_sim_reference_stacked(arm: ArmParams, cfg: MPPIConfig,
     return rec, u
 
 
+def sim_threads(num_samples: int) -> int:
+    """sim_kernel's virtual block: min(1024, round_up(K, 32)) threads, one
+    per sample (each thread takes every nthr-th sample beyond)."""
+    return min(1024, -(-num_samples // 32) * 32)
+
+
+def cluster_size(batch: int, num_samples: int, sm_count: int) -> int:
+    """Blocks per scenario for sim_kernel: the largest C in
+    :data:`CLUSTER_SIZES` that splits the virtual block into whole warps
+    (C divides nthr / 32), leaves each block at least
+    :data:`CTA_MIN_WARPS` warps and keeps batch × C within the card's
+    ``sm_count`` streaming multiprocessors; else 1.  A pure function of the
+    shape: a large fleet keeps one block per scenario.
+
+    Each sample's rollout is a dependent chain, so once every scheduler of
+    an SM holds one warp, more SMs cannot shorten the step and the cluster
+    barriers only add to it: on an H100 at ``benchmark_preset`` C=8 (four
+    warps a block) beat C=16 (a non-portable size, no longer offered), and
+    at K=100 C=1 beat C=2 and C=4 (PERF.md).
+    """
+    nwarp = sim_threads(num_samples) // 32
+    return next(c for c in CLUSTER_SIZES
+                if nwarp % c == 0 and nwarp >= CTA_MIN_WARPS * c
+                and batch * c <= sm_count or c == 1)
+
+
+def _check_cluster(cluster: int, num_samples: int) -> None:
+    nwarp = sim_threads(num_samples) // 32
+    if cluster not in CLUSTER_SIZES or nwarp % cluster:
+        raise ValueError(
+            f"cluster must be one of {CLUSTER_SIZES} and divide the "
+            f"{nwarp} warps of a K={num_samples} scenario, got {cluster}")
+
+
 def _check_config(cfg: MPPIConfig) -> None:
     cfg.validate()
     if cfg.filter_window > 2 * cfg.horizon:
@@ -351,6 +388,9 @@ def _operands(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
         raise ValueError(f"need a non-empty path and n_steps >= 0, got "
                          f"{ref_path.shape[0]} rows and {n_steps} steps")
     _check_tensor("ref_path", ref_path, (ref_path.shape[0], 4), f32, device)
+    if ref_path.data_ptr() % 16:
+        raise ValueError("ref_path must start on a 16-byte boundary: "
+                         "sim_kernel reads its rows as float4")
     _check_tensor("q0", q0, (B, 2), f32, device)
     _check_tensor("dq0", dq0, (B, 2), f32, device)
     _check_tensor("u_prev", u_prev, (B, T, 2), f32, device)
@@ -378,8 +418,9 @@ def _raise_on(lib, err: int, kernel: str) -> None:
 
 
 def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
-            eps, step0):
-    """Launch csrc/sim_kernel.cu on the current stream."""
+            eps, step0, cluster):
+    """Launch csrc/sim_kernel.cu on the current stream, ``cluster`` blocks
+    per scenario (None: :func:`cluster_size`)."""
     global LAUNCHES
     from ._build import load_library
 
@@ -388,16 +429,19 @@ def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
         step0)
     device = ref_path.device
     B, K, T = q0.shape[0], cfg.num_samples, cfg.horizon
-    scratch = (torch.empty((B, K, T, 2), dtype=torch.float32, device=device)
+    if cluster is None:
+        cluster = cluster_size(B, K, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+    scratch = (torch.empty((B, 2 * T, K), dtype=torch.float32, device=device)
                if eps is None else None)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mppi_sim_launch(
-            ctypes.byref(params), B, _ptr(state_f), _ptr(state_i),
-            _ptr(u_prev), _ptr(ref_path), _ptr(eps), _ptr(scratch),
-            _ptr(rec), _ptr(ufin), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "sim_kernel")
+            ctypes.byref(params), B, cluster, _ptr(state_f),
+            _ptr(state_i), _ptr(u_prev), _ptr(ref_path), _ptr(eps),
+            _ptr(scratch), _ptr(rec), _ptr(ufin), ctypes.c_void_p(stream))
+    _raise_on(lib, err, f"sim_kernel (cluster of {cluster} blocks)")
     LAUNCHES += 1
     return rec, ufin
 
@@ -440,22 +484,33 @@ def fused_sim_run_batched(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                           n_steps: int,
                           eps: Optional[torch.Tensor] = None,
                           step0=None,               # (B,) int absolute step
-                          group: int = 1):          # scenarios per block
+                          group: int = 1,           # scenarios per block
+                          cluster: Optional[int] = None):
     """Run B scenarios × ``n_steps`` closed-loop steps in one launch.
 
     Any CUDA operand launches a kernel or raises: ``csrc/fleet_kernel.cu``
     when ``1 < group <= 8`` and K <= 128, ``csrc/sim_kernel.cu`` for any
     other ``group`` (the JAX package's interleave for larger K is a TPU
-    lever; sim_kernel gives the same results).  Only when every tensor lies
-    on the CPU does a plain version run: :func:`fused_sim_reference_stacked`
-    for ``group > 1``, :func:`fused_sim_reference` otherwise.  ``B`` must be
-    divisible by ``group``.  Per scenario, every route gives the same
-    results.  Returns (records (B, n_steps, 12) f32, u_final (B, T, 2) f32).
+    lever; sim_kernel gives the same results) on ``cluster`` blocks per
+    scenario (None: :func:`cluster_size`; a cluster the card cannot place
+    raises).  Only when every tensor lies on the CPU does a plain version
+    run: :func:`fused_sim_reference_stacked` for ``group > 1``,
+    :func:`fused_sim_reference` otherwise.  ``B`` must be divisible by
+    ``group``.  Per scenario, every route and every cluster size gives the
+    same results.  Returns (records (B, n_steps, 12) f32, u_final (B, T, 2)
+    f32).
     """
     _check_config(cfg)
     B = q0.shape[0]
     if group < 1 or B % group:
         raise ValueError(f"B={B} is not divisible by group={group}")
+    fleet = 1 < group <= FLEET_MAX_GROUP and (cfg.num_samples
+                                              <= FLEET_MAX_SAMPLES)
+    if cluster is not None:
+        if fleet:
+            raise ValueError(f"cluster applies to sim_kernel; group={group} "
+                             f"takes fleet_kernel")
+        _check_cluster(cluster, cfg.num_samples)
     if step0 is None:
         step0 = torch.zeros(B, dtype=torch.int64, device=ref_path.device)
     kinds = {v.device.type for v in (ref_path, q0, dq0, u_prev, eps, wp_idx,
@@ -471,15 +526,15 @@ def fused_sim_run_batched(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         raise ValueError(f"fused_sim_run_batched runs on CUDA or CPU "
                          f"tensors, got {sorted(kinds)}")
     # any CUDA operand takes a kernel, which raises on mixed devices
-    if 1 < group <= FLEET_MAX_GROUP and cfg.num_samples <= FLEET_MAX_SAMPLES:
+    if fleet:
         return _launch_fleet(*args, group)
-    return _launch(*args)
+    return _launch(*args, cluster)
 
 
 def fused_sim_run(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                   ref_path: torch.Tensor, q0, dq0, u_prev, wp_idx, seed,
                   n_steps: int, eps: Optional[torch.Tensor] = None,
-                  step0=None):
+                  step0=None, cluster: Optional[int] = None):
     """Single-scenario shim over :func:`fused_sim_run_batched`: q0/dq0 (2,),
     u_prev (T, 2), eps (n_steps, K, T, 2).  Returns (records (n_steps, 12),
     u_final (T, 2))."""
@@ -489,5 +544,5 @@ def fused_sim_run(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         arm, cfg, sim, ref_path, q0[None], dq0[None], u_prev[None],
         one(wp_idx), one(seed), n_steps,
         eps=None if eps is None else eps[None],
-        step0=None if step0 is None else one(step0))
+        step0=None if step0 is None else one(step0), cluster=cluster)
     return rec[0], ufin[0]

@@ -63,6 +63,8 @@ def test_port_never_imports_jax():
             "mppi_robotarm_tpu_torch.ops.cuda_probe, "
             "mppi_robotarm_tpu_torch.ops._build, "
             "mppi_robotarm_tpu_torch.tools.overhead, "
+            "mppi_robotarm_tpu_torch.tools.fused_timing, "
+            "mppi_robotarm_tpu_torch.tools.sass_loops, "
             "mppi_robotarm_tpu_torch.device, "
             "mppi_robotarm_tpu_torch.sim.loop, "
             "mppi_robotarm_tpu_torch.cli, "

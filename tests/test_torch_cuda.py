@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins, on the card: the
-fused closed loop (``sim_kernel``), the scenario fleet (``fleet_kernel``,
-also against ``sim_kernel`` bit for bit) and the per-step solve
+fused closed loop (``sim_kernel``, also at every cluster size against
+``cluster=1`` bit for bit), the scenario fleet (``fleet_kernel``, also
+against ``sim_kernel`` bit for bit) and the per-step solve
 (``solve_kernel`` with its combine pass).  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
 every test skips.
 The file imports nothing of JAX, so on a GPU machine without JAX it runs
@@ -69,6 +70,35 @@ def test_kernel_matches_twin(dev, K, H, noise):
                                    atol=2e-5 * 4 ** i)
     np.testing.assert_array_equal(rk[..., 6:8], rp[..., 6:8])
     np.testing.assert_allclose(rk[:, 0, 8:12], rp[:, 0, 8:12], rtol=1e-4)
+
+
+@pytest.mark.parametrize("preset,steps", [("benchmark_preset", 30),
+                                          ("circle_tracking_preset", 30)])
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_every_cluster_size_equals_cluster_one(dev, preset, steps, noise):
+    """Records and u_final at every cluster size that fits K equal one
+    block's bit for bit: the warp partials are folded in the same order."""
+    arm, cfg, sim = getattr(P, preset)()
+    K, T = cfg.num_samples, cfg.horizon
+    ref = torch.as_tensor(P.synth_circle_path(8000), device=dev)
+    s0 = P.init_sim(cfg, sim, seed=0, device=dev)
+    args = (arm, cfg, sim, ref, s0.q, s0.dq, s0.mppi.u_prev, s0.mppi.wp_idx,
+            s0.seed, steps)
+    eps = (torch.as_tensor(eps_noise(K, (steps, K, T, 2)), device=dev)
+           if noise == "eps" else None)
+    rec1, uf1 = cuda_sim.fused_sim_run(*args, eps=eps, cluster=1)
+    nwarp = cuda_sim.sim_threads(K) // 32
+    sizes = [c for c in cuda_sim.CLUSTER_SIZES if c > 1 and nwarp % c == 0]
+    assert sizes
+    for c in sizes:
+        before = cuda_sim.LAUNCHES
+        rec, uf = cuda_sim.fused_sim_run(*args, eps=eps, cluster=c)
+        assert cuda_sim.LAUNCHES == before + 1
+        assert torch.equal(rec, rec1) and torch.equal(uf, uf1), c
+    assert bool(torch.isfinite(rec1).all())
+    # the default launch is one of them
+    rec, uf = cuda_sim.fused_sim_run(*args, eps=eps)
+    assert torch.equal(rec, rec1) and torch.equal(uf, uf1)
 
 
 def test_kernel_chained_equals_single(dev):
