@@ -40,14 +40,20 @@ Phases (any failure raises and exits non-zero):
      K=128, T=30 for 50 steps: finite records, scenario 0 == its run alone
      bit for bit;
  10. timing: the solve kernels' device time (torch.profiler) and CUDA-event
-     time per solve against the plain twin at K=1024 and K=65536, the
-     per-step loop's µs/step and device idle share (device-busy µs/step
-     from a profiled window against the unprofiled µs/step), the batch's
-     scenario-steps/s;
+     time per solve against the plain twin at K=1024 and K=65536 (B=1) and
+     at phase 9's per-step solve (4096 x K=128, T=30), each with the tile
+     pass's layout that ``cuda_solve.solve_layout`` picks (the tile from
+     K, the lanes a sample and tiles a block from the batch and the card's
+     SMs), the
+     per-step loop's µs/step and device
+     idle share (device-busy µs/step from a profiled window against the
+     unprofiled µs/step), the batch's scenario-steps/s;
  11. the fleet kernel against the fused kernel and against its plain
      twin, eps and PRNG modes: K=128/T=30, B=64, group=8 on a 120-row
-     path with half the scenarios frozen from the start, and K=100/T=30,
-     B=12, group=4: records and u_final == the fused kernel's bit for bit
+     path with half the scenarios frozen from the start, K=100/T=30,
+     B=12, group=4, and at odd horizons K=20/T=31 (one padded slot, half
+     frozen) and K=90/T=25, B=16, group=8: records and u_final == the
+     fused kernel's bit for bit
      over 50 steps, two runs the same bits, within phase 2's bands of
      ``fused_sim_reference_stacked`` over 8 steps;
  12. the fleet path, ``simulate_fused_batch`` on phase 9's fleet for 2000
@@ -61,9 +67,12 @@ Phases (any failure raises and exits non-zero):
      kernel), single ``--backend cuda-fused`` (fused kernel), and
      ``--backend cuda --checkpoint-every`` against a checkpoint and resume,
      which must equal the uninterrupted run;
- 14. timing with CUDA events, min of 3, over 1000 steps of phase 9's fleet:
-     the fleet kernel against the fused kernel (their records and u_final
-     equal for every scenario), and the stacked plain twin per step; the
+ 14. the fleet kernel's layout (``cuda_sim.fleet_warps``: warps a
+     scenario, samples a lane, scenarios a block) and its rollout loop's
+     local loads and stores in the built library's SASS; timing with CUDA
+     events, min of 3, over 1000 steps of phase 9's fleet: the fleet kernel
+     against the fused kernel (their records and u_final equal for every
+     scenario), and the stacked plain twin per step; the
      fleet kernel within phase 2's bands of the stacked twin over 8 steps
      of every scenario;
  15. the launch-overhead probes: ``probe_scale_kernel`` (P1) and
@@ -408,7 +417,7 @@ def main() -> int:
     import mppi_robotarm_tpu_torch as m
     from mppi_robotarm_tpu_torch.ops import _build, cuda_sim, cuda_solve
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
-    from mppi_robotarm_tpu_torch.tools import fused_timing, overhead
+    from mppi_robotarm_tpu_torch.tools import fused_timing, overhead, sass_loops
 
     check("jax" not in sys.modules, "the port imported JAX")
     device = torch.device("cuda", 0)
@@ -628,49 +637,45 @@ def main() -> int:
           f"{int((~rec_b.done[-1]).sum())} scenarios live at the end")
 
     # ---- 10. timing ----------------------------------------------------
-    def device_us(fn, n):
-        """Device time per call of each solve kernel (torch.profiler)."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            name = e.key.split("(")[0]
-            if name in ("solve_tile_kernel", "solve_combine_kernel"):
-                out[name] = device_total(e) / n
-        check(len(out) == 2, f"the profiler saw no solve kernels: {out}")
-        return out
-
     x1 = torch.cat([state0.q, state0.dq])[None]
     u1 = state0.mppi.u_prev[None].contiguous()
     win1 = ref[:cfg.search_idx_len][None].contiguous()
     timing = {}
-    for label, c in (("K=1024", cfg), ("K=65536",
-                                        dataclasses.replace(cfg, num_samples=65536))):
-        kw = dict(seed=torch.tensor([0], device=device),
-                  step=torch.tensor([0], device=device), fuse_update=True,
-                  emit_eps=False)
-        call = lambda: cuda_solve.solve_batched(arm, c, x1, u1, win1, **kw)
-        dev_us = device_us(call, 20)
+    cfg_fs = dataclasses.replace(cfg, num_samples=128, horizon=30)
+    for label, c, B in (("K=1024 H=50", cfg, 1),
+                        ("K=65536 H=50",
+                         dataclasses.replace(cfg, num_samples=65536), 1),
+                        (f"fleet {BATCH} x K=128 T=30", cfg_fs, BATCH)):
+        # phase 9's per-step solve: its states, controls and windows
+        xs = (x1 if B == 1 else torch.cat([states_b.q, states_b.dq], 1))
+        us = (u1 if B == 1 else states_b.mppi.u_prev.contiguous())
+        ws = (win1 if B == 1 else ref_b[
+            states_b.mppi.wp_idx[:, None]
+            + torch.arange(c.search_idx_len, device=device)].contiguous())
+        kw = dict(seed=torch.arange(B, device=device),
+                  step=torch.zeros(B, dtype=torch.int64, device=device),
+                  fuse_update=True, emit_eps=False)
+        call = lambda: cuda_solve.solve_batched(arm, c, xs, us, ws, **kw)
+        dev_us = fused_timing.solve_device_us(call)
         ev = [t / 20 for t in cuda_time(lambda: [call() for _ in range(20)], 3)]
         plain = cuda_time(lambda: cuda_solve.solve_batched_reference(
-            arm, c, x1, u1, win1, **kw), 3)
+            arm, c, xs, us, ws, **kw), 3)
         K = c.num_samples
-        tile = cuda_solve.default_tile(K, c)
+        tile, n_tiles, lanes, group = cuda_solve._plan(
+            c, K, None, True, True, B, sm_count)
         w_ref = cuda_solve.solve_batched_reference(
-            arm, c, x1, u1, win1, **{**kw, "emit_eps": True})
+            arm, c, xs, us, ws, **{**kw, "emit_eps": True})
         parts = cuda_solve.tile_partials(w_ref[1], w_ref[2], tile, c.lam)
         plain_comb = cuda_time(lambda: cuda_solve.combine_reference(
-            *parts, u1, c, fuse_update=True), 3)
+            *parts, us, c, fuse_update=True), 3)
         timing[label] = (dev_us, min(ev), min(plain), min(plain_comb))
-        print(f"timing [{card}]: solve {label} H=50: solve_tile_kernel "
+        print(f"timing [{card}]: solve {label} B={B}: solve_tile_kernel "
               f"{dev_us['solve_tile_kernel']:.2f} us + solve_combine_kernel "
-              f"{dev_us['solve_combine_kernel']:.2f} us device time (tile "
-              f"{tile}, {-(-K // tile)} tiles); {min(ev) * 1e3:.2f} us per "
-              f"call by CUDA events over 20 calls, runs "
+              f"{dev_us['solve_combine_kernel']:.2f} us device time (layout "
+              f"chosen for {sm_count} SMs: {lanes} lanes a sample, tile "
+              f"{tile}, {n_tiles} tiles a scenario, {group} a block); "
+              f"{min(ev) * 1e3:.2f} us "
+              f"per call by CUDA events over 20 calls, runs "
               f"{[round(t * 1e3, 2) for t in ev]}; plain twin "
               f"{min(plain) * 1e3:.1f} us/solve, its combine "
               f"{min(plain_comb) * 1e3:.1f} us")
@@ -708,7 +713,13 @@ def main() -> int:
                 ("K=128 T=30 B=64 group=8", (arm, cfg_b, sim), 64, 8,
                  ref_b[:120].contiguous(), True),
                 ("K=100 T=30 B=12 group=4", m.circle_tracking_preset(), 12,
-                 4, ref_b, False)):
+                 4, ref_b, False),
+                ("K=20 T=31 B=16 group=8", (arm, dataclasses.replace(
+                    cfg_b, num_samples=20, horizon=31), sim), 16, 8,
+                 ref_b[:120].contiguous(), True),
+                ("K=90 T=25 B=16 group=8", (arm, dataclasses.replace(
+                    cfg_b, num_samples=90, horizon=25), sim), 16, 8, ref_b,
+                 False)):
             fleet_err = max(fleet_err, fleet_compare(
                 f"fleet {noise} {label}", cuda_sim, a, c, s, r, B, g,
                 device, noise, mix))
@@ -834,6 +845,18 @@ def main() -> int:
     shutil.rmtree(cli_dir, ignore_errors=True)
 
     # ---- 14. fleet timing ----------------------------------------------
+    warps = cuda_sim.fleet_warps(cfg_b.num_samples)
+    per_lane = -(-(-(-cfg_b.num_samples // 32)) // warps)
+    k3_sass = next(v for k, v in sass_loops.functions(
+        sass_loops.library_sass()).items() if "fleet_kernel" in k
+        and sass_loops.template_args(k) == f"<{warps},{per_lane}>")
+    k3_loop = sass_loops.loop_classes(k3_sass)
+    check(k3_loop, "no rollout loop in fleet_kernel's SASS")
+    print(f"fleet layout: fleet_kernel<{warps},{per_lane}>, {warps} warps a "
+          f"scenario, {per_lane} samples a lane, "
+          f"{min(8, cuda_sim.FLEET_MAX_WARPS // warps)} scenarios a block; "
+          f"its rollout loop holds {k3_loop['local load']} local loads and "
+          f"{k3_loop['local store']} local stores (SASS, static)")
     fleet_args = (arm, cfg_b, sim, ref_b, states_b.q, states_b.dq,
                   states_b.mppi.u_prev.contiguous(), states_b.mppi.wp_idx,
                   states_b.seed)
@@ -950,8 +973,8 @@ def main() -> int:
         k1_ops,
         (ref.numel() * f4 + STEPS * cuda_sim.REC_LANES * f4
          + 2 * (2 + 2 + 2 * cfg.horizon) * f4 + 3 * 8) / STEPS)
-    tile_1k = cuda_solve.default_tile(cfg.num_samples, cfg)
-    n_tiles_1k = -(-cfg.num_samples // tile_1k)
+    n_tiles_1k = cuda_solve._plan(cfg, cfg.num_samples, None, True, True,
+                                  1, sm_count)[1]
     part_bytes = n_tiles_1k * (2 * cfg.horizon + 2) * f4
     k2_ops = rollout_ops(cfg.num_samples, cfg.horizon, W, False)
     k2_bound = bound(
@@ -1000,7 +1023,7 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library}
 
-    dev_1k, ev_1k, plain_1k, plain_comb_1k = timing["K=1024"]
+    dev_1k, ev_1k, plain_1k, plain_comb_1k = timing["K=1024 H=50"]
     print(json.dumps({"kernels": [
         entry("sim_kernel", "sim_kernel.cu",
               "mppi_robotarm_tpu/ops/pallas_sim.py:225", launches, max_err,

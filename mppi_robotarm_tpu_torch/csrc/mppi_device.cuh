@@ -10,8 +10,8 @@
 //   box_muller          <- _box_muller          (pallas_rollout.py:79)
 //   dynamics_step_trig  <- _dynamics_step_trig  (pallas_rollout.py:123)
 //   dynamics_step       <- _dynamics_step       (pallas_rollout.py:178)
-//   tracking_cost       <- _tracking_cost       (pallas_rollout.py:186),
-//                          exact metric, unmasked
+//   window_cost         <- _tracking_cost       (pallas_rollout.py:186),
+//                          exact metric, unmasked (twin: tracking_cost)
 //
 // philox4x32_10 replaces the TPU's hardware PRNG, which has no CUDA twin: it
 // is the Random123 Philox4x32-10 counter-based generator, so noise is a pure
@@ -125,33 +125,6 @@ MPPI_HD void dynamics_step(float& q1, float& q2, float& dq1, float& dq2,
   dynamics_step_trig(q1, q2, dq1, dq2, v1, v2, dt, a, c1, c2, s2, c12);
 }
 
-// Nearest-waypoint tracking cost of the end-effector position (x, y) against
-// the clamped (W, 4) window win[j*4 + {x, y, dq1, dq2}].  First-win strict <
-// ties (control.py:208-215); rows past the path end repeat the last row, so
-// the unmasked scan selects the same values as a masked one.
-MPPI_HD float tracking_cost(float x, float y, float dq1, float dq2,
-                            const float* win, int W, float w0, float w1,
-                            float w2, float w3, float dist_scale,
-                            float cost_scale) {
-  float best = INFINITY;
-  int bj = 0;
-  for (int j = 0; j < W; ++j) {
-    const float dx = x - win[4 * j];
-    const float dy = y - win[4 * j + 1];
-    const float d = (dx * dx + dy * dy) * dist_scale;
-    if (d < best) {
-      best = d;
-      bj = j;
-    }
-  }
-  const float ex = x - win[4 * bj];
-  const float ey = y - win[4 * bj + 1];
-  const float e1 = dq1 - win[4 * bj + 2];
-  const float e2 = dq2 - win[4 * bj + 3];
-  return (w0 * (ex * ex) + w1 * (ey * ey) + w2 * (e1 * e1) +
-          w3 * (e2 * e2)) * cost_scale;
-}
-
 #ifdef __CUDACC__
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -167,6 +140,154 @@ __device__ __forceinline__ float warp_min(float v) {
     v = fminf(v, __shfl_xor_sync(kFullMask, v, o));
   }
   return v;
+}
+
+// The window scan of the three closed-loop kernels (sim_kernel.cu,
+// fleet_kernel.cu through sim_common.cuh, solve_kernel.cu): the
+// nearest-waypoint tracking cost of the end-effector (x, y) against a
+// clamped window of W float4 rows {x, y, dq1, dq2}, 16-byte aligned in
+// shared memory.  The row is the first strict minimum of the distance
+// (control.py:208-215; rows past the path end repeat the last row, so the
+// unmasked scan selects what a masked one would).  Every schedule keeps
+// that: each chain keeps its subset's first strict minimum (NaN never
+// wins; an all-inf subset keeps its first row) and chains merge with ties
+// to the lower row, so each picks the serial scan's row and the cost has
+// the same bits.  Two schedules of the same compares (Scan):
+//   kAhead:  two interleaved chains (even and odd rows), the next pass's two
+//            rows loaded before this pass's compares, so the shared loads do
+//            not stall the chain: for a latency-bound chain (one warp a
+//            scheduler: sim_kernel.cu on a cluster; window_cost_lanes runs
+//            it on each lane's rows);
+//   kSerial: one chain, the fewest instructions, for an issue-bound card
+//            whose many resident warps hide the chain (fleet_kernel.cu,
+//            solve_kernel.cu at one lane a sample).  Two chains four rows a
+//            pass without the load-ahead measured the same there (PERF.md).
+enum class Scan { kAhead, kSerial };
+
+// The stage or terminal cost (weights w[4]) against window row r.
+__device__ __forceinline__ float row_cost(float x, float y, float dq1,
+                                          float dq2, float4 r, const float* w,
+                                          float cost_scale) {
+  const float ex = x - r.x;
+  const float ey = y - r.y;
+  const float e1 = dq1 - r.z;
+  const float e2 = dq2 - r.w;
+  return (w[0] * (ex * ex) + w[1] * (ey * ey) + w[2] * (e1 * e1) +
+          w[3] * (e2 * e2)) * cost_scale;
+}
+
+// One row of a first-win chain: take row `row` if its distance is strictly
+// below the chain's best b (then jb = row).
+__device__ __forceinline__ void scan_take(float x, float y, float4 r,
+                                          int row, float dist_scale,
+                                          float& b, int& jb) {
+  const float dx = x - r.x, dy = y - r.y;
+  const float d = (dx * dx + dy * dy) * dist_scale;
+  if (d < b) {
+    b = d;
+    jb = row;
+  }
+}
+
+// The tracking cost on a window of float4 rows, scanned by one thread on
+// the schedule kS.
+template <Scan kS>
+__device__ __forceinline__ float window_cost(float x, float y, float dq1,
+                                             float dq2, const float4* win,
+                                             int W, const float* w,
+                                             float dist_scale,
+                                             float cost_scale) {
+  float b0 = INFINITY, b1 = INFINITY;
+  int j0 = 0, j1 = 1;
+  int j = 0;
+  if constexpr (kS == Scan::kAhead) {
+    float4 n0 = win[0], n1 = win[W > 1 ? 1 : 0];
+    for (; j + 1 < W; j += 2) {
+      const float4 r0 = n0, r1 = n1;
+      if (j + 3 < W) {
+        n0 = win[j + 2];
+        n1 = win[j + 3];
+      }
+      const float dx0 = x - r0.x, dy0 = y - r0.y;
+      const float dx1 = x - r1.x, dy1 = y - r1.y;
+      const float d0 = (dx0 * dx0 + dy0 * dy0) * dist_scale;
+      const float d1 = (dx1 * dx1 + dy1 * dy1) * dist_scale;
+      if (d0 < b0) {
+        b0 = d0;
+        j0 = j;
+      }
+      if (d1 < b1) {
+        b1 = d1;
+        j1 = j + 1;
+      }
+    }
+    if (j < W) {
+      const float4 r0 = win[j];
+      const float dx0 = x - r0.x, dy0 = y - r0.y;
+      const float d0 = (dx0 * dx0 + dy0 * dy0) * dist_scale;
+      if (d0 < b0) {
+        b0 = d0;
+        j0 = j;
+      }
+    }
+    const float4 r = win[(b1 < b0 || (b1 == b0 && j1 < j0)) ? j1 : j0];
+    const float ex = x - r.x;
+    const float ey = y - r.y;
+    const float e1 = dq1 - r.z;
+    const float e2 = dq2 - r.w;
+    return (w[0] * (ex * ex) + w[1] * (ey * ey) + w[2] * (e1 * e1) +
+            w[3] * (e2 * e2)) * cost_scale;
+  } else {
+    for (; j < W; ++j) scan_take(x, y, win[j], j, dist_scale, b0, j0);
+    return row_cost(x, y, dq1, dq2, win[j0], w, cost_scale);
+  }
+}
+
+// The tracking cost with one sample's scan split over L aligned lanes (L a
+// power of two, lane `sub` of the group on rows sub, sub + L, ...; L = 1
+// scans alone on kSerial, for a full card).  Each lane runs kAhead's two
+// chains over its rows; a (d, j) butterfly over the group takes the
+// smallest d, ties to the lower row, so every lane of the group picks the
+// serial scan's row and returns the same bits.  `mask` holds every lane of
+// the warp that calls it (whole groups).
+template <int L>
+__device__ __forceinline__ float window_cost_lanes(
+    float x, float y, float dq1, float dq2, const float4* win, int W,
+    const float* w, float dist_scale, float cost_scale, int sub,
+    unsigned mask) {
+  if constexpr (L == 1) {
+    return window_cost<Scan::kSerial>(x, y, dq1, dq2, win, W, w,
+                                      dist_scale, cost_scale);
+  } else {
+    float b0 = INFINITY, b1 = INFINITY;
+    int j0 = sub, j1 = sub + L;
+    int j = sub;
+    float4 n0 = win[sub < W ? sub : 0];
+    float4 n1 = win[sub + L < W ? sub + L : 0];
+    for (; j + L < W; j += 2 * L) {
+      const float4 r0 = n0, r1 = n1;
+      if (j + 3 * L < W) {
+        n0 = win[j + 2 * L];
+        n1 = win[j + 3 * L];
+      }
+      scan_take(x, y, r0, j, dist_scale, b0, j0);
+      scan_take(x, y, r1, j + L, dist_scale, b1, j1);
+    }
+    if (j < W) scan_take(x, y, win[j], j, dist_scale, b0, j0);
+    const bool odd = b1 < b0 || (b1 == b0 && j1 < j0);
+    float best = odd ? b1 : b0;
+    int bj = odd ? j1 : j0;
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(mask, best, o);
+      const int oj = __shfl_xor_sync(mask, bj, o);
+      if (od < best || (od == best && oj < bj)) {
+        best = od;
+        bj = oj;
+      }
+    }
+    return row_cost(x, y, dq1, dq2, win[bj], w, cost_scale);
+  }
 }
 
 // scipy.ndimage.median_filter(size=fw, mode='reflect') at output t of the

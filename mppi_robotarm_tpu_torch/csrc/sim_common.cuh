@@ -2,13 +2,14 @@
 // per-sample rollout.
 //
 // sim_kernel.cu (a cluster of blocks per scenario, one thread per sample)
-// and fleet_kernel.cu (one warp per scenario, up to four samples per lane)
-// run the same closed loop and read the same SimParams.  fleet_kernel.cu
-// rolls a sample out through sample_step / sample_terminal below, which
-// repeat sim_kernel.cu's inline rollout operation for operation (its window
-// scan compares the same distances in another order and picks the same
-// row), so a sample's cost has the same bits in either kernel.  With the
-// K-sums taken in the same order, the two give the same bits per scenario.
+// and fleet_kernel.cu (one, two or four warps per scenario, up to two
+// samples per lane) run the same closed loop and read the same SimParams.
+// fleet_kernel.cu rolls a sample out through sample_step / sample_terminal
+// below, which repeat sim_kernel.cu's inline rollout operation for
+// operation; the window scan is mppi_device.cuh's window_cost on another
+// schedule that picks the same row, so a sample's cost has the same bits in
+// either kernel.  With the K-sums taken in the same order, the two give the
+// same bits per scenario.
 
 #pragma once
 
@@ -61,11 +62,13 @@ __device__ __forceinline__ void philox_eps(const SimParams& p, uint32_t seed,
 
 // One horizon step of a sample: control v = (u + ε | ε), clamp, the arm
 // step with the trig carry and exact sincosf of the new angles, the stage
-// cost against the window, then γ·vᵀΣ⁻¹u.
+// cost against the window (W float4 rows; one scan chain, the fewest
+// instructions, since fleet_kernel.cu fills the card: PERF.md), then
+// γ·vᵀΣ⁻¹u.
 __device__ __forceinline__ void sample_step(const SimParams& p, Sample& x,
                                             bool exploit, float e1, float e2,
                                             float u1r, float u2r,
-                                            const float* win) {
+                                            const float4* win) {
   float v1 = exploit ? u1r + e1 : e1;
   float v2 = exploit ? u2r + e2 : e2;
   if (p.has_clamp) {
@@ -81,9 +84,9 @@ __device__ __forceinline__ void sample_step(const SimParams& p, Sample& x,
   sincosf(x.q1 + x.q2, &x.s12, &x.c12);
   const float ex = p.l1c * x.c1 + p.l2c * x.c12;
   const float ey = p.l1c * x.s1 + p.l2c * x.s12;
-  x.s = x.s + tracking_cost(ex, ey, x.dq1, x.dq2, win, p.W, p.stage_w[0],
-                            p.stage_w[1], p.stage_w[2], p.stage_w[3],
-                            p.dist_scale, p.cost_scale);
+  x.s = x.s + window_cost<Scan::kSerial>(ex, ey, x.dq1, x.dq2, win, p.W,
+                                         p.stage_w, p.dist_scale,
+                                         p.cost_scale);
   const float su1 = p.sinv[0] * u1r + p.sinv[1] * u2r;
   const float su2 = p.sinv[2] * u1r + p.sinv[3] * u2r;
   x.s = x.s + p.gamma * (v1 * su1 + v2 * su2);
@@ -92,12 +95,12 @@ __device__ __forceinline__ void sample_step(const SimParams& p, Sample& x,
 // The sample's total cost: its running cost plus the terminal cost.
 __device__ __forceinline__ float sample_terminal(const SimParams& p,
                                                  const Sample& x,
-                                                 const float* win) {
+                                                 const float4* win) {
   const float ex = p.l1c * x.c1 + p.l2c * x.c12;
   const float ey = p.l1c * x.s1 + p.l2c * x.s12;
-  return x.s + tracking_cost(ex, ey, x.dq1, x.dq2, win, p.W, p.term_w[0],
-                             p.term_w[1], p.term_w[2], p.term_w[3],
-                             p.dist_scale, p.cost_scale);
+  return x.s + window_cost<Scan::kSerial>(ex, ey, x.dq1, x.dq2, win, p.W,
+                                          p.term_w, p.dist_scale,
+                                          p.cost_scale);
 }
 
 // (d, j) butterfly: every lane ends with the smallest d, ties to the

@@ -31,9 +31,10 @@
 //      Σwε rows read it coalesced; eps mode reads the caller's
 //      (B, n, K, T, 2) noise.  T steps of the arm model with the trig carry
 //      (cos/sin of q2 from the carried q1 and q1+q2 pairs), exact sincosf
-//      for the FK, the tracking cost against the window (window_cost: two
-//      interleaved first-win chains over the rows, the next pass's rows
-//      loaded ahead), γ·vᵀΣ⁻¹u, and the terminal cost;
+//      for the FK, the tracking cost against the window (mppi_device.cuh's
+//      window_cost, shared with the other two kernels: two interleaved
+//      first-win chains over the rows, the next pass's rows loaded ahead),
+//      γ·vᵀΣ⁻¹u, and the terminal cost;
 //   3. softmax and stats: each warp's min, then (after a cluster barrier)
 //      every warp of every CTA reads all nwarp partials over distributed
 //      shared memory and folds them in warp order 0..nwarp-1; the same for
@@ -72,8 +73,8 @@
 // SMs, until one warp per scheduler is left (C=8 at K=1024) and the
 // chain's latency sets the pace: there the window scan is the largest part
 // of the chain, the reason for window_cost's layout (PERF.md has the split
-// and the A/Bs).  Fleets of K <= 128 scenarios run one warp each in
-// fleet_kernel.cu, whose sample_step (sim_common.cuh) is the same sequence
+// and the A/Bs).  Fleets of K <= 128 scenarios run one or two warps
+// each in fleet_kernel.cu, whose sample_step (sim_common.cuh) is the same sequence
 // of float32 operations as the rollout below; this kernel keeps its own
 // inline copy, because calling the helper made it 12 % slower at B=1
 // (PERF.md).
@@ -121,59 +122,6 @@ __device__ __forceinline__ float fold_sum(float v, int nwarp) {
 // own and gathered Σwε rows (2 x 2T), warp partials.
 __host__ __device__ size_t smem_floats(const SimParams& p) {
   return (size_t)p.K + 4 * p.W + 8 * p.T + kRedFloats;
-}
-
-// tracking_cost (mppi_device.cuh) on a window of float4 rows, scanned as
-// two interleaved first-win chains (even and odd rows) merged with ties to
-// the lower row.  Each chain keeps its subset's first strict minimum (NaN
-// never wins), so the merge picks the row the serial scan picks, and the
-// cost has the same bits with half the dependent compare chain; the next
-// pass's two rows are loaded before this pass's compares, so the shared
-// loads do not stall the chain.
-__device__ __forceinline__ float window_cost(float x, float y, float dq1,
-                                             float dq2, const float4* win,
-                                             int W, const float* w,
-                                             float dist_scale,
-                                             float cost_scale) {
-  float b0 = INFINITY, b1 = INFINITY;
-  int j0 = 0, j1 = 1;
-  int j = 0;
-  float4 n0 = win[0], n1 = win[W > 1 ? 1 : 0];
-  for (; j + 1 < W; j += 2) {
-    const float4 r0 = n0, r1 = n1;
-    if (j + 3 < W) {
-      n0 = win[j + 2];
-      n1 = win[j + 3];
-    }
-    const float dx0 = x - r0.x, dy0 = y - r0.y;
-    const float dx1 = x - r1.x, dy1 = y - r1.y;
-    const float d0 = (dx0 * dx0 + dy0 * dy0) * dist_scale;
-    const float d1 = (dx1 * dx1 + dy1 * dy1) * dist_scale;
-    if (d0 < b0) {
-      b0 = d0;
-      j0 = j;
-    }
-    if (d1 < b1) {
-      b1 = d1;
-      j1 = j + 1;
-    }
-  }
-  if (j < W) {
-    const float4 r0 = win[j];
-    const float dx0 = x - r0.x, dy0 = y - r0.y;
-    const float d0 = (dx0 * dx0 + dy0 * dy0) * dist_scale;
-    if (d0 < b0) {
-      b0 = d0;
-      j0 = j;
-    }
-  }
-  const float4 r = win[(b1 < b0 || (b1 == b0 && j1 < j0)) ? j1 : j0];
-  const float ex = x - r.x;
-  const float ey = y - r.y;
-  const float e1 = dq1 - r.z;
-  const float e2 = dq2 - r.w;
-  return (w[0] * (ex * ex) + w[1] * (ey * ey) + w[2] * (e1 * e1) +
-          w[3] * (e2 * e2)) * cost_scale;
 }
 
 }  // namespace
@@ -318,16 +266,18 @@ sim_kernel(const SimParams p,
           sincosf(q1 + q2, &s12, &c12);
           const float x = p.l1c * c1 + p.l2c * c12;
           const float y = p.l1c * s1 + p.l2c * s12;
-          s = s + window_cost(x, y, dq1, dq2, s_win, W, p.stage_w,
-                              p.dist_scale, p.cost_scale);
+          s = s + window_cost<Scan::kAhead>(x, y, dq1, dq2, s_win, W,
+                                            p.stage_w, p.dist_scale,
+                                            p.cost_scale);
           const float su1 = p.sinv[0] * u1r + p.sinv[1] * u2r;
           const float su2 = p.sinv[2] * u1r + p.sinv[3] * u2r;
           s = s + p.gamma * (v1 * su1 + v2 * su2);
         }
         const float xT = p.l1c * c1 + p.l2c * c12;
         const float yT = p.l1c * s1 + p.l2c * s12;
-        s = s + window_cost(xT, yT, dq1, dq2, s_win, W, p.term_w,
-                            p.dist_scale, p.cost_scale);
+        s = s + window_cost<Scan::kAhead>(xT, yT, dq1, dq2, s_win, W,
+                                          p.term_w, p.dist_scale,
+                                          p.cost_scale);
         s_cost[k] = s;
       }
 

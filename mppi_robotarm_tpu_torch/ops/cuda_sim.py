@@ -51,8 +51,9 @@ from .noise import sigma_inverse
 
 REC_LANES = 12
 MAX_SAMPLES = 8192        # K ≤ 8 samples per thread of a 1024-thread block
-FLEET_MAX_SAMPLES = 128   # fleet kernel: K ≤ 4 samples per lane of a warp
-FLEET_MAX_GROUP = 8       # fleet kernel: scenarios (warps) per block
+FLEET_MAX_SAMPLES = 128   # fleet kernel: K ≤ 4 slots of 32 samples
+FLEET_MAX_GROUP = 8       # fleet kernel: scenarios per block (group)
+FLEET_MAX_WARPS = 8       # fleet kernel: warps per block
 CLUSTER_SIZES = (8, 4, 2, 1)   # sim_kernel: blocks per scenario
 CTA_MIN_WARPS = 4         # cluster_size: one warp per scheduler of an SM
 
@@ -338,6 +339,18 @@ def cluster_size(batch: int, num_samples: int, sm_count: int) -> int:
                 and batch * c <= sm_count or c == 1)
 
 
+def fleet_warps(num_samples: int) -> int:
+    """Warps per scenario for fleet_kernel, from K's 32-sample slots: one
+    warp for one slot, two for two or three (two samples a lane at three),
+    four for four (one sample a lane, sim_kernel's layout).
+
+    At 64 registers a thread (4 resident blocks of 256 threads an SM), a
+    lane that carries four samples spilled; at K=128 one sample a lane ran
+    fastest (PERF.md)."""
+    slots = -(-num_samples // 32)
+    return 1 if slots == 1 else 2 if slots <= 3 else 4
+
+
 def _check_cluster(cluster: int, num_samples: int) -> None:
     nwarp = sim_threads(num_samples) // 32
     if cluster not in CLUSTER_SIZES or nwarp % cluster:
@@ -448,8 +461,8 @@ def _launch(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps,
 
 def _launch_fleet(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
                   n_steps, eps, step0, group):
-    """Launch csrc/fleet_kernel.cu on the current stream: one warp per
-    scenario, ``group`` scenarios per block."""
+    """Launch csrc/fleet_kernel.cu on the current stream: :func:`fleet_warps`
+    warps per scenario, ``group`` scenarios per block (at most 8 warps)."""
     global FLEET_LAUNCHES
     from ._build import load_library
 
@@ -457,6 +470,7 @@ def _launch_fleet(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
         arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed, n_steps, eps,
         step0)
     device = ref_path.device
+    warps = fleet_warps(cfg.num_samples)
     lib = load_library()
     scratch = None
     if eps is None:          # PRNG mode: the ε store, [slot][t][c][lane]
@@ -466,10 +480,10 @@ def _launch_fleet(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mppi_fleet_launch(
-            ctypes.byref(params), q0.shape[0], group, _ptr(state_f),
+            ctypes.byref(params), q0.shape[0], group, warps, _ptr(state_f),
             _ptr(state_i), _ptr(u_prev), _ptr(ref_path), _ptr(eps),
             _ptr(scratch), _ptr(rec), _ptr(ufin), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "fleet_kernel")
+    _raise_on(lib, err, f"fleet_kernel ({warps} warps a scenario)")
     FLEET_LAUNCHES += 1
     return rec, ufin
 

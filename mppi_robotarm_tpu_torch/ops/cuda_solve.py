@@ -58,6 +58,10 @@ from .filters import median_filter_reflect
 from .noise import sigma_inverse
 
 MAX_TILE = 512                # samples per block of the tile pass
+MAX_THREADS = 512             # threads per block of the tile pass
+LANE_CHOICES = (4, 2, 1)      # threads per sample of the tile pass
+SM_THREADS = 128              # one warp per scheduler of an H100 SM
+TILE_SMS = 132                # the H100 SXM's SMs, fixed for solve_tile
 MAX_SCENARIOS = 65535         # the grid's y extent
 SMEM_BYTES = 232448           # shared memory a block may take on Hopper
 
@@ -90,6 +94,7 @@ class _SolveParams(ctypes.Structure):
         ("use_prng", ctypes.c_int),
         ("normalize", ctypes.c_int), ("fuse_update", ctypes.c_int),
         ("step_stride", ctypes.c_int),
+        ("lanes", ctypes.c_int), ("group", ctypes.c_int),
     ]
 
 
@@ -110,9 +115,64 @@ def default_tile(K: int, cfg: MPPIConfig) -> int:
     return min(_max_tile(cfg), max(128, -(-per_partial // 32) * 32))
 
 
+def solve_lanes(batch: int, num_samples: int, sm_count: int) -> int:
+    """Threads per sample of the tile pass: the largest L in
+    :data:`LANE_CHOICES` that keeps batch × K × L threads within one warp
+    per scheduler of ``sm_count`` SMs (:data:`SM_THREADS` each), else 1.
+
+    Each sample's rollout is a dependent chain, so while SMs sit idle the
+    chain's latency sets the solve's time; L lanes split each window scan,
+    the largest part of the chain, at the price of L-fold rollout work,
+    which a full card pays in issue slots (PERF.md).
+    """
+    return next(L for L in LANE_CHOICES
+                if batch * num_samples * L <= sm_count * SM_THREADS
+                or L == 1)
+
+
+def solve_tile(cfg: MPPIConfig, K: int) -> int:
+    """Samples per block of the tile pass, from K and ``cfg`` alone.
+
+    The tile sets the rounding of the cross-tile sums, so it depends on
+    neither the batch nor the card: a scenario gives the same bits alone
+    and in a batch, on the CPU and on any GPU.  Where one scenario's K
+    samples at ``solve_lanes(1, K, TILE_SMS)`` lanes each would not fit one
+    block of MAX_THREADS threads, tiles of SM_THREADS / lanes samples
+    spread them over an H100's SMs (K=1024: 32 tiles of 32); else
+    :func:`default_tile`.
+    """
+    lone = solve_lanes(1, K, TILE_SMS)
+    if lone == 1 or K * lone <= MAX_THREADS:
+        return default_tile(K, cfg)
+    return min(SM_THREADS // lone, _max_tile(cfg))
+
+
+def solve_layout(cfg: MPPIConfig, K: int, batch: int = 1,
+                 sm_count: Optional[int] = None, tile: Optional[int] = None):
+    """(tile, lanes, group) of the tile pass for ``batch`` scenarios of K
+    samples.
+
+    ``tile`` defaults to :func:`solve_tile`.  The lanes are the most in
+    :data:`LANE_CHOICES` up to ``solve_lanes(batch, K, sm_count)`` (1
+    without a card) that keep tile × lanes within MAX_THREADS threads a
+    block.  ``group`` tiles of a scenario share a block: as many as make it
+    SM_THREADS threads, within the scenario's tiles and the shared memory
+    of :func:`_max_tile` samples (at B=64, K=1024 an H100 ran 2048
+    one-warp blocks 1.5× slower than 512 blocks of four tiles, PERF.md).
+    Lanes and group change no bit of any result.
+    """
+    tile = tile or solve_tile(cfg, K)
+    top = 1 if sm_count is None else solve_lanes(batch, K, sm_count)
+    lanes = next(L for L in LANE_CHOICES
+                 if L <= top and (tile * L <= MAX_THREADS or L == 1))
+    group = max(1, min(SM_THREADS // (tile * lanes), -(-K // tile),
+                       _max_tile(cfg) // tile))
+    return tile, lanes, group
+
+
 def _plan(cfg: MPPIConfig, K: int, tile: Optional[int], normalize: bool,
-          fuse_update: bool):
-    """Validate the options; return (tile, n_tiles)."""
+          fuse_update: bool, batch: int = 1, sm_count: Optional[int] = None):
+    """Validate the options; return (tile, n_tiles, lanes, group)."""
     cfg.validate()
     if fuse_update and (not normalize
                         or cfg.filter_window > 2 * cfg.horizon):
@@ -124,11 +184,18 @@ def _plan(cfg: MPPIConfig, K: int, tile: Optional[int], normalize: bool,
     if top < 32:
         raise ValueError(f"horizon {cfg.horizon} is too long for the solve "
                          f"kernel: 32 samples' noise must fit shared memory")
-    tile = tile or default_tile(K, cfg)
+    tile, lanes, group = solve_layout(cfg, K, batch, sm_count, tile)
     if tile % 32 or not 32 <= tile <= top:
         raise ValueError(f"tile must be a multiple of 32 in [32, {top}] "
                          f"at horizon {cfg.horizon}, got {tile}")
-    return tile, -(-K // tile)
+    return tile, -(-K // tile), lanes, group
+
+
+def _sm_count(device) -> Optional[int]:
+    """The SM count of a CUDA device, None for the CPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _sample_count(cfg, eps, k_local) -> int:
@@ -161,7 +228,7 @@ def solve_batched_reference(arm: ArmParams, cfg: MPPIConfig, x0, u, window,
     if (seed is None) == (eps is None):
         raise ValueError("provide exactly one of seed= or eps=")
     K = _sample_count(cfg, eps, k_local)
-    tile, _ = _plan(cfg, K, tile, normalize, fuse_update)
+    tile = _plan(cfg, K, tile, normalize, fuse_update)[0]
     B, device, f32 = x0.shape[0], x0.device, torch.float32
     koff = (torch.zeros(B, dtype=torch.int64, device=device)
             if k_offset is None else _int_col(k_offset, B, device,
@@ -223,7 +290,7 @@ def combine_reference(m_p, eta_p, rows, u, cfg: MPPIConfig,
 
 @functools.lru_cache(maxsize=64)
 def _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
-                  fuse_update, step_stride) -> _SolveParams:
+                  fuse_update, step_stride, lanes, group) -> _SolveParams:
     """The kernels' parameter block, cached by its arguments (the frozen
     configs hash): a closed loop builds it at its first step and passes
     the same one every step after.  Callers never modify it."""
@@ -241,7 +308,8 @@ def _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
         has_clamp=cfg.u_clamp is not None, K=K, T=cfg.horizon,
         W=cfg.search_idx_len, fw=cfg.filter_window, tile=tile,
         n_tiles=n_tiles, use_prng=use_prng, normalize=normalize,
-        fuse_update=fuse_update, step_stride=step_stride)
+        fuse_update=fuse_update, step_stride=step_stride, lanes=lanes,
+        group=group)
 
 
 def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
@@ -254,9 +322,10 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
     if (seed is None) == (eps is None):
         raise ValueError("provide exactly one of seed= or eps=")
     K = _sample_count(cfg, eps, k_local)
-    tile, n_tiles = _plan(cfg, K, tile, normalize, fuse_update)
     device = x0.device
     B, T, W = x0.shape[0], cfg.horizon, cfg.search_idx_len
+    tile, n_tiles, lanes, group = _plan(cfg, K, tile, normalize,
+                                        fuse_update, B, _sm_count(device))
     f32 = torch.float32
     if not 1 <= B <= MAX_SCENARIOS:
         raise ValueError(f"need 1 to {MAX_SCENARIOS} scenarios, got {B}")
@@ -290,7 +359,7 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
     eps_out = (torch.empty((B, K, T, 2), dtype=f32, device=device)
                if use_prng and emit_eps else None)
     params = _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
-                           fuse_update, step_stride)
+                           fuse_update, step_stride, lanes, group)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -326,8 +395,10 @@ def solve_batched(arm: ArmParams, cfg: MPPIConfig,
 
     Any CUDA operand launches ``csrc/solve_kernel.cu`` or raises; only when
     every tensor lies on the CPU does :func:`solve_batched_reference` run.
-    ``tile`` (default :func:`default_tile`) changes no per-sample cost and
-    only the rounding of the cross-tile sums.
+    ``tile`` (default :func:`solve_tile`) changes no per-sample cost and
+    only the rounding of the cross-tile sums; the kernel's threads per
+    sample and tiles per block (:func:`solve_layout`, from the batch and
+    the card's SMs) change no bit.
     """
     kinds = {v.device.type for v in (x0, u, window, nvalid, seed, eps, step,
                                      k_offset)

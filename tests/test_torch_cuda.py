@@ -254,6 +254,50 @@ def test_solve_kernel_raw_rows_with_k_offset(dev):
     assert torch.equal(got[2][1], full[900:1600])
 
 
+@pytest.mark.parametrize("K,T,B", [
+    (1024, 50, 1),     # 4 lanes a sample on an H100, 32 tiles of 32
+    (1024, 50, 8),     # 2 lanes
+    (1024, 50, 64),    # 1 lane
+    (100, 30, 8),      # 4 lanes, one tile of 128
+    (8192, 50, 1)])    # 2 lanes, tiles of 64
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_solve_kernel_every_layout_matches_twin(dev, K, T, B, noise):
+    """At shapes that take each lanes per sample solve_layout can pick: S
+    and m bit for bit against the twin, Σwε / η within _check_solve's
+    tolerances."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
+                              lam=3e5)
+    x0, u, win = _solve_inputs(dev, B, K, T, 7 * B)
+    kw = (dict(eps=torch.as_tensor(eps_noise(K, (B, K, T, 2)), device=dev))
+          if noise == "eps" else
+          dict(seed=torch.arange(B, device=dev) + 2,
+               step=torch.arange(B, device=dev) + 1))
+    got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, fuse_update=True,
+                                   **kw)
+    want = cuda_solve.solve_batched_reference(ARM, cfg, x0, u, win,
+                                              fuse_update=True, **kw)
+    _check_solve(got, want)
+
+
+@pytest.mark.parametrize("K,T,B", [(1024, 50, 64), (1024, 50, 8),
+                                   (128, 30, 64)])
+def test_solve_kernel_batch_equals_single(dev, K, T, B):
+    """Scenario 0 of a batch gives the bits of its solve alone, though the
+    two take different lanes per sample (at K=1024: 1 or 2 against 4)."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
+                              lam=3e5)
+    x0, u, win = _solve_inputs(dev, B, K, T, K)
+    kw = dict(seed=torch.arange(B, device=dev) + 9,
+              step=torch.full((B,), 4, device=dev), fuse_update=True)
+    many = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
+    alone = cuda_solve.solve_batched(
+        ARM, cfg, x0[:1], u[:1], win[:1], fuse_update=True,
+        seed=kw["seed"][:1], step=kw["step"][:1])
+    for a, b in zip((many[0], many[1], *many[3]),
+                    (alone[0], alone[1], *alone[3])):
+        assert torch.equal(a[:1], b)
+
+
 def test_solve_kernel_tiles_give_the_same_costs(dev):
     cfg = dataclasses.replace(P.MPPIConfig(), num_samples=3000, horizon=30,
                               lam=3e5)
@@ -324,18 +368,26 @@ def _fleet_args(cfg, dev, B, rows, frozen_mix):
             wp, torch.arange(B, device=dev) + 3)
 
 
-@pytest.mark.parametrize("K,B,group,rows,mix", [(128, 16, 8, 120, True),
-                                                (100, 12, 4, 2000, False),
-                                                (40, 6, 2, 400, True)])
+@pytest.mark.parametrize("K,B,group,rows,mix,T", [
+    (128, 16, 8, 120, True, 30), (100, 12, 4, 2000, False, 30),
+    (40, 6, 2, 400, True, 30),
+    (128, 16, 8, 400, True, 25),      # odd T: the float4 window's stride
+    (90, 8, 8, 400, False, 31),       # two warps of two samples a lane
+    (20, 8, 4, 400, True, 31)])       # K < 32: one slot, padded
 @pytest.mark.parametrize("noise", ["eps", "prng"])
-def test_fleet_kernel_equals_sim_kernel(dev, K, B, group, rows, mix, noise):
+def test_fleet_kernel_equals_sim_kernel(dev, K, B, group, rows, mix, T,
+                                        noise):
     """Per scenario, records and u_final of the fleet kernel equal the
-    fused kernel's bit for bit (frozen/active mix, K=100 padding)."""
-    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=30)
+    fused kernel's bit for bit (frozen/active mix, padding, odd T), at
+    shapes that take every layout of the fleet kernel: one warp a scenario
+    (K=20), two (K=40; two samples a lane at K=90) and four (K=100, 128).
+    At odd T several scenarios share a block, so a window off its 16-byte
+    boundary would fault on its float4 loads."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T)
     steps = 20
     args = _fleet_args(cfg, dev, B, rows, mix)
     kw = dict(step0=torch.arange(B, device=dev) * 2,
-              eps=(torch.as_tensor(eps_noise(K, (B, steps, K, 30, 2)),
+              eps=(torch.as_tensor(eps_noise(K, (B, steps, K, T, 2)),
                                    device=dev) if noise == "eps" else None))
     rec1, uf1 = cuda_sim.fused_sim_run_batched(*args, steps, group=1, **kw)
     before = cuda_sim.FLEET_LAUNCHES
