@@ -26,25 +26,27 @@ Phases (any failure raises and exits non-zero):
      the kernel over the 4000-step run at every cluster size, with the
      SHA-256 of each run's records and u_final, and the plain twin over 20
      steps, at the benchmark shape;
-  7. the solve kernels against their plain twin, eps and PRNG modes, at
-     K=1024/H=50 (B=1), K=100/T=30 (B=8), K=65536/H=50 (B=1) and phase 9's
-     fused solve at K=128/T=30 (B=4096), and raw rows with k_offset: S and
-     m bit for bit, Σwε / u_new within 2e-5, η within 2e-5 relative, PRNG
-     noise == the twin's bit for bit and == philox_epsilon for up to 8
-     scenarios, two runs the same bits;
+  7. the solve kernel against its plain twin, eps and PRNG modes, at
+     K=1024/H=50 (B=1 and B=64: four tiles a block, eight blocks a
+     scenario), K=100/T=30 (B=8), K=65536/H=50 (B=1) and phase 9's fused
+     solve at K=128/T=30 (B=4096), and raw rows with k_offset: S and m bit
+     for bit, Σwε / u_new within 2e-5, η within 2e-5 relative, PRNG noise
+     == the twin's bit for bit and == philox_epsilon for up to 8 scenarios,
+     two runs the same bits;
   8. the per-step path, ``simulate(benchmark_preset, seed 0, 4000 steps,
-     backend="cuda")``: solve-kernel launches >= live steps, finite records,
-     on-path mean < 42 mm, its first 8 steps == phase 4's fused run within
-     the bands of phase 2;
+     backend="cuda")``: one solve-kernel launch a step (so at least one a
+     live step) and no separate combine launch, finite records, on-path
+     mean < 42 mm, its first 8 steps == phase 4's fused run within the
+     bands of phase 2;
   9. the batch, ``simulate_batch(backend="cuda")`` at 4096 scenarios x
      K=128, T=30 for 50 steps: finite records, scenario 0 == its run alone
      bit for bit;
- 10. timing: the solve kernels' device time (torch.profiler) and CUDA-event
-     time per solve against the plain twin at K=1024 and K=65536 (B=1) and
-     at phase 9's per-step solve (4096 x K=128, T=30), each with the tile
-     pass's layout that ``cuda_solve.solve_layout`` picks (the tile from
-     K, the lanes a sample and tiles a block from the batch and the card's
-     SMs), the
+ 10. timing: the solve kernel's one launch, its device time
+     (torch.profiler) and CUDA-event time per solve against the plain twin
+     at K=1024 and K=65536 (B=1) and at phase 9's per-step solve (4096 x
+     K=128, T=30), each with the layout that ``cuda_solve.solve_layout``
+     picks (the tile from K, the lanes a sample and tiles a block from the
+     batch and the card's SMs), the
      per-step loop's µs/step and device
      idle share (device-busy µs/step from a profiled window against the
      unprofiled µs/step), the batch's scenario-steps/s;
@@ -76,9 +78,10 @@ Phases (any failure raises and exits non-zero):
      fleet kernel within phase 2's bands of the stacked twin over 8 steps
      of every scenario;
  15. the launch-overhead probes: ``probe_scale_kernel`` (P1) and
-     ``probe_big_kernel`` (P2) against their plain versions bit for bit,
-     then ``tools/overhead.py``'s five chains of 100 iterations (a torch
-     op, P1, P2, the solve at K=1024, H=50 with and without the noise
+     ``probe_big_kernel`` (P2, one block an SM) against their plain
+     versions bit for bit (P2 also at a size its threads do not divide),
+     then ``tools/overhead.py``'s five chains of 100 iterations (a
+     torch op, P1, P2, the solve at K=1024, H=50 with and without the noise
      output), each eager and as one replayed CUDA graph, the graph's final
      carry equal to the eager chain's bit for bit; the probes' device time
      beside their plain versions' and, for P1, ``torch.mul``'s.
@@ -293,13 +296,6 @@ def onpath_by_scenario_mm(rec, path_xy):
         total += torch.where(rec.done[i:i + 25], 0.0, d).double().sum(dim=0)
     live = (~rec.done).sum(dim=0).clamp_min(1)
     return (total / live * 1e3).cpu().numpy()
-
-
-def device_total(event) -> float:
-    """An averaged profiler event's own device time, µs (the attribute's
-    name changed across torch releases)."""
-    return (getattr(event, "self_device_time_total", None)
-            or getattr(event, "self_cuda_time_total", 0.0))
 
 
 def compare_records(label, a, b):
@@ -572,6 +568,7 @@ def main() -> int:
     s_err, w_err = 0.0, 0.0
     for noise in ("eps", "prng"):
         for label, c, B, fuse in (("K=1024 H=50", cfg_w, 1, True),
+                                  ("K=1024 H=50", cfg_w, 64, True),
                                   ("K=100 T=30", cfg_r, 8, False),
                                   ("K=65536 H=50", cfg_l, 1, True),
                                   ("K=128 T=30", cfg_f, BATCH, True)):
@@ -598,10 +595,13 @@ def main() -> int:
     combine_launches = cuda_solve.COMBINE_LAUNCHES
     live = int((~rec_p.done).sum())
     print(f"per-step path: simulate(backend='cuda') {STEPS} steps, "
-          f"solve_tile_kernel launches {solve_launches}, solve_combine_kernel "
+          f"solve_tile_kernel launches {solve_launches}, separate combine "
           f"launches {combine_launches}, live steps {live}")
-    check(solve_launches >= live and combine_launches >= live,
-          "the per-step path launched fewer solves than live steps")
+    check(solve_launches == STEPS >= live,
+          f"the per-step path made {solve_launches} solve launches in "
+          f"{STEPS} steps, not one a step")
+    check(combine_launches == 0,
+          f"the per-step path made {combine_launches} combine launches")
     for field, v in zip(rec_p._fields, rec_p):
         if v.dtype.is_floating_point:
             check(bool(torch.isfinite(v).all()), f"per-step {field} not finite")
@@ -657,40 +657,42 @@ def main() -> int:
                   fuse_update=True, emit_eps=False)
         call = lambda: cuda_solve.solve_batched(arm, c, xs, us, ws, **kw)
         dev_us = fused_timing.solve_device_us(call)
+        check(set(dev_us) == {"solve_tile_kernel"},
+              f"solve {label}: the profiler saw {sorted(dev_us)}, not one "
+              f"solve_tile_kernel launch a call")
         ev = [t / 20 for t in cuda_time(lambda: [call() for _ in range(20)], 3)]
         plain = cuda_time(lambda: cuda_solve.solve_batched_reference(
             arm, c, xs, us, ws, **kw), 3)
         K = c.num_samples
         tile, n_tiles, lanes, group = cuda_solve._plan(
             c, K, None, True, True, B, sm_count)
-        w_ref = cuda_solve.solve_batched_reference(
-            arm, c, xs, us, ws, **{**kw, "emit_eps": True})
-        parts = cuda_solve.tile_partials(w_ref[1], w_ref[2], tile, c.lam)
-        plain_comb = cuda_time(lambda: cuda_solve.combine_reference(
-            *parts, us, c, fuse_update=True), 3)
-        timing[label] = (dev_us, min(ev), min(plain), min(plain_comb))
-        print(f"timing [{card}]: solve {label} B={B}: solve_tile_kernel "
-              f"{dev_us['solve_tile_kernel']:.2f} us + solve_combine_kernel "
-              f"{dev_us['solve_combine_kernel']:.2f} us device time (layout "
-              f"chosen for {sm_count} SMs: {lanes} lanes a sample, tile "
-              f"{tile}, {n_tiles} tiles a scenario, {group} a block); "
+        timing[label] = (dev_us, min(ev), min(plain))
+        print(f"timing [{card}]: solve {label} B={B}: solve_tile_kernel, "
+              f"one launch: {dev_us['solve_tile_kernel']:.2f} us device time "
+              f"(layout chosen for {sm_count} SMs: {lanes} lanes a sample, "
+              f"tile {tile}, {n_tiles} tiles a scenario, {group} a block); "
               f"{min(ev) * 1e3:.2f} us "
               f"per call by CUDA events over 20 calls, runs "
               f"{[round(t * 1e3, 2) for t in ev]}; plain twin "
-              f"{min(plain) * 1e3:.1f} us/solve, its combine "
-              f"{min(plain_comb) * 1e3:.1f} us")
+              f"{min(plain) * 1e3:.1f} us/solve")
 
     loop_steps = 1000
     lt = cuda_time(lambda: m.simulate(arm, cfg, sim, ref, state0, loop_steps,
                                       backend="cuda"), 3)
     loop_us = min(lt) / loop_steps * 1e3
     steps_w = 300
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        m.simulate(arm, cfg, sim, ref, state0, steps_w, backend="cuda")
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    busy_us = sum(device_total(e) for e in prof.key_averages()) / steps_w
+    for _ in range(fused_timing.PROFILE_TRIES):  # a window can come back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m.simulate(arm, cfg, sim, ref, state0, steps_w, backend="cuda")
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        busy_us = sum(fused_timing.device_total(e)
+                      for e in prof.key_averages()) / steps_w
+        if busy_us > 0:
+            break
+    check(busy_us > 0, f"the profiler saw no device time in "
+          f"{fused_timing.PROFILE_TRIES} windows of the per-step loop")
     idle = 1.0 - busy_us / loop_us      # the profiler slows the host only
     print(f"timing [{card}]: per-step loop {loop_us:.2f} us/step by CUDA "
           f"events over {loop_steps} steps, runs {[round(t, 1) for t in lt]} "
@@ -915,10 +917,17 @@ def main() -> int:
     check(torch.equal(o2, want) and tuple(b2.shape) == cuda_probe.BIG_SHAPE
           and torch.equal(b2, cuda_probe.probe_big_reference(xp)[1]),
           "probe_big_kernel differs from its plain version")
+    odd = (97, 132)        # 3,201 16-byte stores, no whole pass
+    o3, b3 = cuda_probe.probe_big(xp, big_shape=odd)
+    torch.cuda.synchronize()
+    check(torch.equal(o3, want) and torch.equal(
+        b3, cuda_probe.probe_big_reference(xp, odd)[1]),
+        f"probe_big_kernel differs from its plain version at {odd}")
     probe_err = float(max((o1 - want).abs().max(), (o2 - want).abs().max(),
-                          b2.abs().max()))
-    print("probes: probe_scale_kernel and probe_big_kernel == their plain "
-          "versions, bitwise, at (8, 128)")
+                          b2.abs().max(), b3.abs().max()))
+    print(f"probes: probe_scale_kernel and probe_big_kernel == their plain "
+          f"versions, bitwise, at (8, 128); probe_big_kernel also with zeros "
+          f"of {odd}")
     # this slice's path: the chains of python -m ...tools.overhead
     cuda_probe.SCALE_LAUNCHES = cuda_probe.BIG_LAUNCHES = 0
     chain_times = overhead.measure(device)
@@ -937,31 +946,37 @@ def main() -> int:
           f"capture each; {chain_times[0][1].replays} graph replays a chain "
           f"not counted); every graph == its eager chain, bitwise")
 
-    def device_ms(fn):
-        """Device time per call (torch.profiler): each kernel's mean time a
-        launch, summed over the kernels of fn, which launches each once.
-        A window can lose events, so the total over the calls would read
-        low; the mean of the events it kept does not."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROBE_TIME_CALLS):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if device_total(e) > 0]
-        check(bool(kernels), "the profiler saw no device time")
-        return sum(device_total(e) / e.count for e in kernels) / 1e3
+    by_events = []
 
-    p1_ms = device_ms(lambda: cuda_probe.probe_scale(xp))
-    p1_plain_ms = device_ms(lambda: cuda_probe.probe_scale_reference(xp))
-    p1_lib_ms = device_ms(lambda: torch.mul(xp, 1.000001))
-    p2_ms = device_ms(lambda: cuda_probe.probe_big(xp))
-    p2_plain_ms = device_ms(lambda: cuda_probe.probe_big_reference(xp))
+    def device_ms(name, fn):
+        """Device time per call (``fused_timing.profiled_us`` over
+        PROBE_TIME_CALLS calls): each kernel's mean time a launch, summed
+        over the kernels of fn, which launches each once.  Where no
+        profiled window saw a device event, the CUDA-event time per call
+        over as many calls, and ``name`` is listed as timed so."""
+        us = fused_timing.profiled_us(fn, PROBE_TIME_CALLS)
+        if us:
+            return sum(us.values()) / 1e3
+        by_events.append(name)
+        return min(cuda_time(lambda: [fn() for _ in range(PROBE_TIME_CALLS)],
+                             3)) / PROBE_TIME_CALLS
+
+    p1_ms = device_ms("probe_scale_kernel",
+                      lambda: cuda_probe.probe_scale(xp))
+    p1_plain_ms = device_ms("probe_scale plain",
+                            lambda: cuda_probe.probe_scale_reference(xp))
+    p1_lib_ms = device_ms("torch.mul", lambda: torch.mul(xp, 1.000001))
+    p2_ms = device_ms("probe_big_kernel", lambda: cuda_probe.probe_big(xp))
+    p2_plain_ms = device_ms("probe_big plain",
+                            lambda: cuda_probe.probe_big_reference(xp))
     print(f"timing [{card}]: device time per call over {PROBE_TIME_CALLS} "
           f"calls: probe_scale_kernel {p1_ms * 1e3:.3f} us, plain "
           f"{p1_plain_ms * 1e3:.3f} us, torch.mul {p1_lib_ms * 1e3:.3f} us; "
           f"probe_big_kernel {p2_ms * 1e3:.3f} us, plain "
-          f"{p2_plain_ms * 1e3:.3f} us")
+          f"{p2_plain_ms * 1e3:.3f} us"
+          + (f"; by CUDA events, as {fused_timing.PROFILE_TRIES} profiled "
+             f"windows saw no device time: {', '.join(by_events)}"
+             if by_events else ""))
 
     # ---- bounds, from this run's shapes (see ``bound``) ----------------
     f4 = 4
@@ -973,20 +988,21 @@ def main() -> int:
         k1_ops,
         (ref.numel() * f4 + STEPS * cuda_sim.REC_LANES * f4
          + 2 * (2 + 2 + 2 * cfg.horizon) * f4 + 3 * 8) / STEPS)
+    # the solve at K=1024: the rollouts, the tile softmaxes, and the
+    # combine of the 32 tile partials (the median counts at most fw*fw
+    # compare pairs an output: it stops at the median's rank); its bytes
+    # are the inputs and outputs alone, as the partials never need to leave
+    # the chip
     n_tiles_1k = cuda_solve._plan(cfg, cfg.num_samples, None, True, True,
                                   1, sm_count)[1]
-    part_bytes = n_tiles_1k * (2 * cfg.horizon + 2) * f4
-    k2_ops = rollout_ops(cfg.num_samples, cfg.horizon, W, False)
+    T2 = 2 * cfg.horizon
+    k2_ops = (rollout_ops(cfg.num_samples, cfg.horizon, W, False)
+              + n_tiles_1k * (6 + 2 * T2)
+              + T2 * (3 + 2 * cfg.filter_window ** 2))
     k2_bound = bound(
         k2_ops,
-        (x1.numel() + u1.numel() + win1.numel() + cfg.num_samples) * f4
-        + 2 * 8 + part_bytes)
-    # the combine's median counts at most fw*fw compare pairs an output
-    # (it stops at the median's rank); the bytes bound it even then
-    T2 = 2 * cfg.horizon
-    comb_bound = bound(
-        n_tiles_1k * (6 + 2 * T2) + T2 * (3 + 2 * cfg.filter_window ** 2),
-        part_bytes + 2 * u1.numel() * f4 + 2 * f4)
+        (x1.numel() + u1.numel() + win1.numel() + cfg.num_samples
+         + u1.numel() + 2) * f4 + 2 * 8)
     k3_ops = fleet_live * rollout_ops(cfg_b.num_samples, cfg_b.horizon,
                                       cfg_b.search_idx_len,
                                       True) / FLEET_TIME_STEPS
@@ -1000,8 +1016,7 @@ def main() -> int:
     p2_bound = bound(xp.numel(), (2 * xp.numel() + b2.numel()) * f4)
     print(f"bounds [{card}]: sim_kernel {k1_bound[0] * 1e3:.4f} us/step "
           f"({k1_bound[1]}, {live_k1} of {STEPS} steps live), solve_kernel "
-          f"{k2_bound[0] * 1e3:.4f} us ({k2_bound[1]}), solve_combine_kernel "
-          f"{comb_bound[0] * 1e3:.4f} us ({comb_bound[1]}), fleet_kernel "
+          f"{k2_bound[0] * 1e3:.4f} us ({k2_bound[1]}), fleet_kernel "
           f"{k3_bound[0] * 1e3:.4f} us/launch-step ({k3_bound[1]}, "
           f"{fleet_live} of {BATCH * FLEET_TIME_STEPS} scenario-steps "
           f"live), probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
@@ -1023,19 +1038,15 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library}
 
-    dev_1k, ev_1k, plain_1k, plain_comb_1k = timing["K=1024 H=50"]
+    dev_1k, ev_1k, plain_1k = timing["K=1024 H=50"]
     print(json.dumps({"kernels": [
         entry("sim_kernel", "sim_kernel.cu",
               "mppi_robotarm_tpu/ops/pallas_sim.py:225", launches, max_err,
               kern_ms, plain_ms, k1_bound),
         entry("solve_kernel", "solve_kernel.cu",
-              "mppi_robotarm_tpu/ops/pallas_rollout.py:380", solve_launches,
-              s_err, dev_1k["solve_tile_kernel"] / 1e3, plain_1k, k2_bound),
-        entry("solve_combine_kernel", "solve_kernel.cu",
-              "mppi_robotarm_tpu/ops/pallas_rollout.py:585",
-              combine_launches, w_err,
-              dev_1k["solve_combine_kernel"] / 1e3, plain_comb_1k,
-              comb_bound),
+              "mppi_robotarm_tpu/ops/pallas_rollout.py:380 and :585 (its "
+              "finalize)", solve_launches, max(s_err, w_err),
+              dev_1k["solve_tile_kernel"] / 1e3, plain_1k, k2_bound),
         entry("fleet_kernel", "fleet_kernel.cu",
               "mppi_robotarm_tpu/ops/pallas_sim.py:552", fleet_launches,
               fleet_err, fleet_ms, plain_fleet_ms, k3_bound),

@@ -1,16 +1,18 @@
 // One MPPI solve for B scenarios: K noisy rollouts, their costs, the softmax
-// over the samples and the weighted noise, in two launches.
+// over the samples and the weighted noise, in one launch.
 //
 // Replaces: mppi_robotarm_tpu/ops/pallas_rollout.py::_solve_kernel (reached
-// through pallas_solve_batched and pallas_solve_core).  It ports WHAT that
-// kernel computes, not its sequential (B x K-tile) grid.  Plain PyTorch
-// twin: ops/cuda_solve.py::solve_batched_reference; wrapper: ops/
-// cuda_solve.py::solve_batched.
+// through pallas_solve_batched and pallas_solve_core): its tile steps
+// (pallas_rollout.py:380) and its finalize at the last grid step
+// (pallas_rollout.py:585-659).  It ports WHAT that kernel computes, not its
+// sequential (B x K-tile) grid.  Plain PyTorch twin: ops/cuda_solve.py::
+// solve_batched_reference; wrapper: ops/cuda_solve.py::solve_batched.
 //
 // The TPU kernel runs its grid in order on one core and carries the online
 // softmax (running min m, running eta, running Sum e*eps) in scratch from one
 // K-tile to the next, initialising at the first tile and finalising at the
-// last.  CUDA blocks run at the same time in no order, so the work is split:
+// last.  CUDA blocks run at the same time in no order, so each tile reduces
+// its own softmax and one block per scenario combines the tiles:
 //
 //   solve_tile_kernel<L>, grid (n_tiles / G, B), G tiles a block and L
 //   threads per sample (blockDim = G x tile x L, tile a multiple of 32, at
@@ -30,15 +32,37 @@
 //     3. the tile's own softmax: m_p = min S, e = exp(-(S - m_p)/lam),
 //        eta_p = Sum e, and the 2T rows Sum e*eps (one warp per horizon
 //        step and one for eta_p, lanes striding the tile's samples, so
-//        no sum depends on the lanes per sample) written to a
-//        (B, n_tiles, 2T + 2) workspace with m_p and eta_p.
-//   solve_combine_kernel, one block per scenario, reads the partials in
-//   tile order: m = min m_p, eta = Sum eta_p * exp((m - m_p)/lam), the rows
-//   rescaled the same way (the two-level combine of parallel/sharded.py:
-//   139-145); then Sum w*eps = rows / eta, or the raw rows (normalize=0), or
-//   with fuse_update the reflect median of rows * (1/eta) added to u
-//   (pallas_rollout.py:618-659).  No float atomics anywhere, and every sum
-//   has a fixed order, so a solve gives the same bits on every run.
+//        no sum depends on the lanes per sample), the tile's partial
+//        (2T rows, m_p, eta_p);
+//     4. the combine, on one block per scenario: m = min m_p, then in tile
+//        order eta = Sum eta_p * exp((m - m_p)/lam) and the rows rescaled
+//        the same way (the two-level combine of parallel/sharded.py:
+//        139-145); then Sum w*eps = rows / eta, or the raw rows
+//        (normalize=0), or with fuse_update the reflect median of
+//        rows * (1/eta) added to u (pallas_rollout.py:618-659).
+//        - One tile a scenario (n_tiles == 1: the fleet's K=128, every
+//          K <= 128): the block combines its own partial from shared
+//          memory, with the same expressions (scale = exp((m - m_p)/lam),
+//          0 + row * scale; never shortened, as 0 + (-0) is +0).
+//        - Several tiles: each block writes its tiles' partials to a
+//          (B, n_tiles, 2T + 2) workspace; after a barrier one thread
+//          fences and adds one to the scenario's arrival counter.  The
+//          block that brings it to the scenario's block count combines:
+//          it stages the partials in its shared memory with cp.async (the
+//          launch sizes the region past the eps to hold them; a chunk at a
+//          time where a block cannot), folds each row over the tiles in
+//          tile order, and puts the counter back to 0, so the next launch
+//          and every replay of a captured graph start from zero with no
+//          memset.
+//        The combine is out of line (combine_solve) and its median counts
+//        ranks in registers (reflect_median_regs), both for time (below).
+//      The counters (int32, one a scenario) are the wrapper's: one slot
+//      of them for each (device, stream), zeroed once when allocated
+//      (ops/cuda_solve.py::_arrival_counters), so solves in flight on two
+//      streams never share one.
+//   No float atomics anywhere, and every sum has a fixed order, so a solve
+//   gives the same bits on every run, and the bits of the two-launch
+//   combine this kernel replaces.
 //
 // Where eps waits between the rollout and Sum e*eps was decided on an H100
 // (PERF.md): shared memory beat a (B, K, T, 2) global scratch and
@@ -65,10 +89,16 @@
 // chains fill the card (K=65536: 128 blocks of 512 threads on 132 SMs, one
 // block per SM for its 200 KB of shared eps; the fleet's 4096 x K=128)
 // issue rate bounds it, and one lane a sample scans alone on one chain,
-// the fewest instructions (PERF.md).  The combine is a few microseconds of
-// one block per scenario; it reads the partials of at most ~128 tiles (the
-// wrapper grows the tile with K), which keeps its serial sums to about 15
-// us at K=65536.
+// the fewest instructions (PERF.md).  The combine does almost no work (at
+// most ~128 tiles' partials: the wrapper grows the tile with K), so its
+// cost is latency: as a second launch, a launch's gap and 5.9-14.6 us of
+// kernel on an H100.  In the last block it is a few microseconds of
+// latency (PERF.md: tools/combine_clocks.py splits it): the arrival's
+// fence and atomic, one round trip for all partials (cp.async, none
+// waiting on another; register staging through L2 took 5x as long), the
+// folds, and the median, whose serial form's worst output waits on fw * fw
+// shared loads.  Inlined, the combine moved the tile pass's own time by
+// up to 5 % at some shapes, so it stays out of line.
 
 #include <cuda_runtime.h>
 
@@ -100,6 +130,204 @@ struct SolveParams {
   int group;                   // tiles per block of the tile pass (G)
 };
 
+// Fold n tiles' partials, staged in shared memory at `chunk` (stride
+// 2T + 2: the 2T rows, m_p at 2T, eta_p at 2T + 1), into acc: each row and
+// eta (column 2T + 1) is one thread's sum over the tiles in tile order,
+// acc = acc + x * exp((m - m_p)/lam), from 0 when `first`, else continuing
+// acc -- the expressions and order of the combine pass this replaces
+// (pallas_rollout.py:585-617).  Each staged m_p is replaced by its scale.
+// `chunk` may be `acc` itself (one tile): a thread reads its column before
+// it writes it.  Every thread of the block calls it.
+__device__ void fold_tiles(float* chunk, int n, bool first, float m,
+                           float lam, int T, float* acc) {
+  const int stride = 2 * T + 2;
+  __syncthreads();                   // the staged partials, and m, are read
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float* mp = chunk + (size_t)i * stride + 2 * T;
+    *mp = expf((m - *mp) / lam);     // <= 1
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r <= 2 * T; r += blockDim.x) {
+    const int col = r < 2 * T ? r : 2 * T + 1;
+    float a = first ? 0.0f : acc[col];
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const float* pt = chunk + (size_t)i * stride;
+      a = a + pt[col] * pt[2 * T];
+    }
+    acc[col] = a;
+  }
+}
+
+// reflect_median (mppi_device.cuh) for fw <= kRegWindow, the same value
+// bit for bit: the window's fw values are loaded once into registers
+// (the rest NaN, which no comparison counts), and each candidate's ranks
+// are counted there, fully unrolled, so no shared load waits inside the
+// count; the first candidate in window order whose value has rank fw/2
+// wins, as there.  The serial form's worst output, which sets the block's
+// time, waits on fw * fw shared loads.
+constexpr int kRegWindow = 12;
+
+__device__ __forceinline__ float reflect_median_regs(const float* v, int T,
+                                                     int fw, int t) {
+  const int left = fw / 2;
+  const int rank = fw / 2;
+  float w[kRegWindow];
+#pragma unroll
+  for (int i = 0; i < kRegWindow; ++i) {
+    int ji = t - left + i;
+    ji = ji < 0 ? -1 - ji : (ji >= T ? 2 * T - 1 - ji : ji);
+    w[i] = i < fw ? v[ji] : NAN;
+  }
+  float result = 0.0f;
+  bool found = false;
+#pragma unroll
+  for (int i = 0; i < kRegWindow; ++i) {
+    int less = 0, leq = 0;
+#pragma unroll
+    for (int j = 0; j < kRegWindow; ++j) {
+      less += w[j] < w[i];
+      leq += w[j] <= w[i];
+    }
+    const bool hit = i < fw && !found && less <= rank && rank < leq;
+    result = hit ? w[i] : result;
+    found = found || hit;
+  }
+  return result;
+}
+
+// The combine's last step on the folded acc (rows dim-major, eta at
+// 2T + 1): Sum w*eps = rows / eta, the raw rows, or with fuse_update
+// u + the reflect median of rows * (1/eta); then m and eta.  Every thread
+// of the block calls it.
+__device__ void finish_solve(int T, int fw, int normalize, int fuse_update,
+                             float* acc, float m, const float* ub, float* ob,
+                             float* m_out, float* eta_out, int b) {
+  __syncthreads();                   // the folds are done
+  const float eta = acc[2 * T + 1];
+  if (fuse_update) {
+    const float inv_eta = 1.0f / eta;
+    for (int r = threadIdx.x; r < 2 * T; r += blockDim.x) {
+      acc[r] = acc[r] * inv_eta;
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < 2 * T; r += blockDim.x) {
+      const int c = r / T, t = r - c * T;
+      const float* const v = acc + c * T;
+      ob[2 * t + c] = ub[2 * t + c] + (fw <= kRegWindow
+                                           ? reflect_median_regs(v, T, fw, t)
+                                           : reflect_median(v, T, fw, t));
+    }
+  } else {
+    for (int r = threadIdx.x; r < 2 * T; r += blockDim.x) {
+      const int c = r / T, t = r - c * T;
+      ob[2 * t + c] = normalize ? acc[r] / eta : acc[r];
+    }
+  }
+  if (threadIdx.x == 0) {
+    m_out[b] = m;
+    eta_out[b] = eta;
+  }
+}
+
+// Copy n floats from global `src` to shared memory at `dst` (a shared
+// address) with asynchronous 4-byte copies through L2, every thread's in
+// flight at once, then wait for them; the block's threads all call it.
+__device__ __forceinline__ void stage_partials(unsigned dst, const float* src,
+                                               int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(dst + 4u * i), "l"(src + i) : "memory");
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+}
+
+// ---- 4. the combine, on one block per scenario -------------------------
+// Out of line, so that its code stays out of the tile pass's register
+// allocation: inlined, it moved the rollout loop's time by up to 5 %
+// (PERF.md).  Every thread of the block calls it once the tile's partial
+// is in s_fin (one tile a scenario) or in `part`.  The block's shared
+// memory is addressed from its own extern declaration, so every access
+// here is a shared one: s_red (16 floats) at fin_off - 16, s_fin at
+// fin_off, and past it s_reg, free by now.
+__device__ __noinline__ void combine_solve(
+    int T, int n_tiles, int fw, float lam, int normalize, int fuse_update,
+    int fin_off, const float* part, int* count, const float* ub, float* ob,
+    float* m_out, float* eta_out) {
+  extern __shared__ float4 smem4[];
+  float* const s_fin = reinterpret_cast<float*>(smem4) + fin_off;
+  float* const s_red = s_fin - 16;
+  float* const s_reg = s_fin + 2 * T + 2;
+  const int T2 = 2 * T, b = blockIdx.y, lt = threadIdx.x, lane = lt & 31;
+  if (n_tiles == 1) {                // the block's own partial, in s_fin
+    __syncthreads();
+    const float m1 = s_fin[T2];
+    fold_tiles(s_fin, 1, true, m1, lam, T, s_fin);
+    finish_solve(T, fw, normalize, fuse_update, s_fin, m1, ub, ob, m_out,
+                 eta_out, b);
+    return;
+  }
+  // Several tiles: the scenario's last block to arrive combines them.
+  // The barrier orders the block's partials before thread 0's release
+  // fence and arrival; its acquire fence and the barrier after it order
+  // the combining block's reads after every block's partials (the grid
+  // barrier's pattern).  A scenario on one block needs only the barrier.
+  __shared__ int s_last;
+  __syncthreads();
+  if (gridDim.x > 1) {
+    if (lt == 0) {
+      __threadfence();
+      s_last = atomicAdd(count + b, 1) == (int)gridDim.x - 1;
+      if (s_last) count[b] = 0;      // all arrived: ready for the next launch
+      __threadfence();
+    }
+    __syncthreads();
+    if (!s_last) return;
+  }
+  // Stage the partials in s_reg with asynchronous 4-byte copies, all in
+  // flight at once (the launch sizes s_reg to hold them all where they fit
+  // a block; else a chunk of `cap` tiles at a time), and take m = min m_p,
+  // exact in any order: from the staged copy when one chunk holds every
+  // tile, else from global memory.
+  const int stride = T2 + 2;
+  const float* const pb = part + (size_t)b * n_tiles * stride;
+  unsigned dyn;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
+  const int cap = (int)((dyn / sizeof(float) - (fin_off + stride)) / stride);
+  const unsigned s_reg_addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(s_reg));
+  const bool one_chunk = n_tiles <= cap;
+  float mg;
+  if (one_chunk) {
+    stage_partials(s_reg_addr, pb, n_tiles * stride);
+    mg = s_reg[T2];
+    for (int i = lt; i < n_tiles; i += blockDim.x) {
+      mg = fminf(mg, s_reg[(size_t)i * stride + T2]);
+    }
+  } else {
+    mg = __ldcg(pb + T2);
+    for (int i = lt; i < n_tiles; i += blockDim.x) {
+      mg = fminf(mg, __ldcg(pb + (size_t)i * stride + T2));
+    }
+  }
+  mg = warp_min(mg);
+  if (lane == 0) s_red[lt >> 5] = mg;
+  __syncthreads();
+  mg = s_red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) mg = fminf(mg, s_red[w]);
+  for (int c0 = 0; c0 < n_tiles; c0 += cap) {
+    const int n = min(cap, n_tiles - c0);
+    if (!one_chunk) {
+      __syncthreads();               // the last chunk's folds are done
+      stage_partials(s_reg_addr, pb + (size_t)c0 * stride, n * stride);
+    }
+    fold_tiles(s_reg, n, c0 == 0, mg, lam, T, s_fin);
+  }
+  finish_solve(T, fw, normalize, fuse_update, s_fin, mg, ub, ob, m_out,
+               eta_out, b);
+}
+
 // Samples of a tile: `tile`, each on L consecutive threads (L a power of
 // two); a block holds G tiles of the same scenario, tile g on threads
 // [g tile L, (g + 1) tile L), whole warps.  With L > 1 the lanes of a sample
@@ -121,17 +349,24 @@ solve_tile_kernel(const SolveParams p,
                   const float* __restrict__ eps_in,    // (B, K, T, 2) | null
                   float* __restrict__ eps_out,  // (B, K, T, 2) | null
                   float* __restrict__ s_out,           // (B, K)
-                  float* __restrict__ part) {          // (B, n_tiles, 2T+2)
+                  float* __restrict__ part,   // (B, n_tiles, 2T+2) | null
+                  int* __restrict__ count,             // (>= B,) arrivals
+                  float* __restrict__ out,             // (B, T, 2)
+                  float* __restrict__ m_out,           // (B,)
+                  float* __restrict__ eta_out) {       // (B,)
   extern __shared__ float4 smem4[];
   const int K = p.K, T = p.T, W = p.W, tile = p.tile;
   const float4* s_win = smem4;       // W rows
   float* s_u = reinterpret_cast<float*>(smem4 + W);   // 2T, dim-major
   float* s_red = s_u + 2 * T;        // 16 warp partials
+  float* const s_fin = s_red + 16;   // the combine's 2T + 2 floats
+  // the rest: G x tile softmax numerators, then G x 2T x tile:
+  // eps[2t + c][sample]; then the combine's staged partials
+  float* const s_reg = s_fin + 2 * T + 2;
   const int lt = threadIdx.x;
   const int g = lt / (tile * L);     // the thread's tile in the block
-  // G x tile softmax numerators, then G x 2T x tile: eps[2t + c][sample]
-  float* s_e = s_red + 16 + g * tile;
-  float* s_eps = s_red + 16 + p.group * tile + (size_t)g * 2 * T * tile;
+  float* s_e = s_reg + g * tile;
+  float* s_eps = s_reg + p.group * tile + (size_t)g * 2 * T * tile;
 
   const int b = blockIdx.y;
   const int tp = blockIdx.x * p.group + g;   // past n_tiles: all padding
@@ -233,99 +468,38 @@ solve_tile_kernel(const SolveParams p,
   // ---- 3. Sum e*eps and eta_p: one of the tile's warps per row (2T rows
   // of Sum e*eps, both control dims of a horizon step together, then
   // eta_p), lanes striding the tile's samples, so no sum depends on the
-  // lanes a sample or the tiles a block
-  if (tp >= p.n_tiles) return;       // the padding tiles of the last block
-  const size_t pbase = ((size_t)b * p.n_tiles + tp) * (2 * T + 2);
-  const int n_here = min(tile, K - tp * tile);   // >= 1 below n_tiles
-  for (int t = wt; t <= T; t += wpt) {
-    float a1 = 0.0f, a2 = 0.0f;
-    if (t < T) {
-      for (int j = lane; j < n_here; j += 32) {
-        const float ej = s_e[j];
-        a1 = a1 + ej * s_eps[(2 * t) * tile + j];
-        a2 = a2 + ej * s_eps[(2 * t + 1) * tile + j];
+  // lanes a sample or the tiles a block; the tile's partial goes to s_fin
+  // when it is the scenario's one tile, else to the workspace
+  const int T2 = 2 * T;
+  if (tp < p.n_tiles) {              // not a padding tile of the last block
+    float* const dst = p.n_tiles == 1
+        ? s_fin : part + ((size_t)b * p.n_tiles + tp) * (T2 + 2);
+    const int n_here = min(tile, K - tp * tile);   // >= 1 below n_tiles
+    for (int t = wt; t <= T; t += wpt) {
+      float a1 = 0.0f, a2 = 0.0f;
+      if (t < T) {
+        for (int j = lane; j < n_here; j += 32) {
+          const float ej = s_e[j];
+          a1 = a1 + ej * s_eps[(2 * t) * tile + j];
+          a2 = a2 + ej * s_eps[(2 * t + 1) * tile + j];
+        }
+        a1 = warp_sum(a1);
+        a2 = warp_sum(a2);
+        if (lane == 0) {
+          dst[t] = a1;
+          dst[T + t] = a2;
+        }
+      } else {
+        for (int j = lane; j < n_here; j += 32) a1 = a1 + s_e[j];
+        a1 = warp_sum(a1);
+        if (lane == 0) dst[T2 + 1] = a1;
       }
-      a1 = warp_sum(a1);
-      a2 = warp_sum(a2);
-      if (lane == 0) {
-        part[pbase + t] = a1;
-        part[pbase + T + t] = a2;
-      }
-    } else {
-      for (int j = lane; j < n_here; j += 32) a1 = a1 + s_e[j];
-      a1 = warp_sum(a1);
-      if (lane == 0) part[pbase + 2 * T + 1] = a1;
     }
+    if (wt == 0 && lane == 0) dst[T2] = m;
   }
-  if (wt == 0 && lane == 0) part[pbase + 2 * T] = m;
-}
-
-__global__ void __launch_bounds__(1024)
-solve_combine_kernel(const SolveParams p,
-                     const float* __restrict__ u,      // (B, T, 2)
-                     const float* __restrict__ part,   // (B, n_tiles, 2T+2)
-                     float* __restrict__ out,          // (B, T, 2)
-                     float* __restrict__ m_out,        // (B,)
-                     float* __restrict__ eta_out) {    // (B,)
-  extern __shared__ float smem[];
-  const int T = p.T, n_tiles = p.n_tiles;
-  const int stride = 2 * T + 2;
-  float* s_scale = smem;             // n_tiles
-  float* s_w = s_scale + n_tiles;    // 2T, dim-major
-  __shared__ float s_m, s_eta;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const float* pb = part + (size_t)b * n_tiles * stride;
-
-  if (tid == 0) {
-    float m = pb[2 * T];
-    for (int tp = 1; tp < n_tiles; ++tp) m = fminf(m, pb[tp * stride + 2 * T]);
-    s_m = m;
-  }
-  __syncthreads();
-  const float m = s_m;
-  for (int tp = tid; tp < n_tiles; tp += nthr) {
-    s_scale[tp] = expf((m - pb[tp * stride + 2 * T]) / p.lam);   // <= 1
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float eta = 0.0f;
-    for (int tp = 0; tp < n_tiles; ++tp) {
-      eta = eta + pb[tp * stride + 2 * T + 1] * s_scale[tp];
-    }
-    s_eta = eta;
-  }
-  for (int r = tid; r < 2 * T; r += nthr) {
-    float acc = 0.0f;
-    for (int tp = 0; tp < n_tiles; ++tp) {
-      acc = acc + pb[tp * stride + r] * s_scale[tp];
-    }
-    s_w[r] = acc;
-  }
-  __syncthreads();
-  const float eta = s_eta;
-  float* ob = out + (size_t)b * 2 * T;
-  const float* ub = u + (size_t)b * 2 * T;
-  if (p.fuse_update) {
-    const float inv_eta = 1.0f / eta;
-    for (int r = tid; r < 2 * T; r += nthr) s_w[r] = s_w[r] * inv_eta;
-    __syncthreads();
-    for (int r = tid; r < 2 * T; r += nthr) {
-      const int c = r / T, t = r - c * T;
-      ob[2 * t + c] = ub[2 * t + c] + reflect_median(s_w + c * T, T, p.fw, t);
-    }
-  } else {
-    for (int r = tid; r < 2 * T; r += nthr) {
-      const int c = r / T, t = r - c * T;
-      ob[2 * t + c] = p.normalize ? s_w[r] / eta : s_w[r];
-    }
-  }
-  if (tid == 0) {
-    m_out[b] = m;
-    eta_out[b] = eta;
-  }
+  combine_solve(T, p.n_tiles, p.fw, p.lam, p.normalize, p.fuse_update,
+                (int)(s_fin - win_f), part, count,
+                u + (size_t)b * T2, out + (size_t)b * T2, m_out, eta_out);
 }
 
 // Raise a kernel's dynamic shared-memory limit to `smem` when a launch needs
@@ -333,6 +507,7 @@ solve_combine_kernel(const SolveParams p,
 // device (`set`, bytes per device).  The attribute persists, so a closed loop
 // calls cudaFuncSetAttribute once, at its first step.
 static const int kDevices = 64;
+static const size_t kSmemBytes = 232448;   // a block's most, on Hopper
 static cudaError_t fit_smem(const void* fn, size_t smem, size_t* set) {
   if (smem <= 48 * 1024) return cudaSuccess;
   int dev = 0;
@@ -345,55 +520,60 @@ static cudaError_t fit_smem(const void* fn, size_t smem, size_t* set) {
   return e;
 }
 
-static size_t tile_smem_set[3][kDevices], combine_smem_set[kDevices];
+static size_t tile_smem_set[3][kDevices];
 
 extern "C" {
 
-// Launch both passes on `stream`; returns the first failing cudaError_t
+// Launch the solve on `stream`; returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for lanes outside 1, 2, 4, a group below 1 or
-// more than 512 threads a block).
+// more than 512 threads a block, or several tiles a scenario without the
+// workspace `part` and the arrival counters `count`, which must hold B
+// zeros).
 int mppi_solve_launch(const SolveParams* params, int B, const float* x0,
                       const float* u, const float* win, const long long* seed,
                       const long long* step, const long long* koff,
                       const float* eps_in, float* eps_out, float* s_out,
-                      float* part, float* out, float* m_out, float* eta_out,
-                      void* stream) {
+                      float* part, int* count, float* out, float* m_out,
+                      float* eta_out, void* stream) {
   const SolveParams p = *params;
   const cudaStream_t st = (cudaStream_t)stream;
   const int li = p.lanes == 1 ? 0 : p.lanes == 2 ? 1 : p.lanes == 4 ? 2 : -1;
-  if (li < 0 || p.group < 1 || p.group * p.tile * p.lanes > 512) {
+  if (li < 0 || p.group < 1 || p.group * p.tile * p.lanes > 512 ||
+      (p.n_tiles > 1 && (part == nullptr || count == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const void* const tiles[3] = {(const void*)solve_tile_kernel<1>,
                                 (const void*)solve_tile_kernel<2>,
                                 (const void*)solve_tile_kernel<4>};
-  const size_t samples = (size_t)p.group * p.tile;   // a block's
-  const size_t smem = sizeof(float) * ((size_t)4 * p.W + 2 * p.T + 16 +
-                                       samples + 2 * p.T * samples);
+  // the window, controls, warp partials and the combine's 2T + 2, then
+  // the larger of the G tiles' e and eps and, where a block can hold
+  // them, the scenario's tile partials (else the kernel stages them in
+  // chunks of what the eps region holds)
+  const size_t fixed = (size_t)4 * p.W + 2 * p.T + 16 + 2 * p.T + 2;
+  const size_t eps_region = (size_t)p.group * p.tile * (2 * p.T + 1);
+  const size_t staged = (size_t)p.n_tiles * (2 * p.T + 2);
+  const size_t region =
+      p.n_tiles > 1 && staged > eps_region &&
+              sizeof(float) * (fixed + staged) <= kSmemBytes
+          ? staged : eps_region;
+  const size_t smem = sizeof(float) * (fixed + region);
   cudaError_t e = fit_smem(tiles[li], smem, tile_smem_set[li]);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.n_tiles + p.group - 1) / p.group, B);
   const int threads = p.group * p.tile * p.lanes;
   if (p.lanes == 1) {
     solve_tile_kernel<1><<<grid, threads, smem, st>>>(
-        p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part);
+        p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part, count,
+        out, m_out, eta_out);
   } else if (p.lanes == 2) {
     solve_tile_kernel<2><<<grid, threads, smem, st>>>(
-        p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part);
+        p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part, count,
+        out, m_out, eta_out);
   } else {
     solve_tile_kernel<4><<<grid, threads, smem, st>>>(
-        p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part);
+        p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part, count,
+        out, m_out, eta_out);
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const int rows = ((2 * p.T + 31) / 32) * 32;
-  const int cthreads = rows < 1024 ? rows : 1024;
-  const size_t csmem = sizeof(float) * ((size_t)p.n_tiles + 2 * p.T);
-  e = fit_smem((const void*)solve_combine_kernel, csmem, combine_smem_set);
-  if (e != cudaSuccess) return (int)e;
-  solve_combine_kernel<<<B, cthreads, csmem, st>>>(p, u, part, out, m_out,
-                                                   eta_out);
   return (int)cudaGetLastError();
 }
 

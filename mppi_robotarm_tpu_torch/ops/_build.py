@@ -106,11 +106,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_int for every int.
 C_FUNCTIONS = {
     "mppi_sim_launch": ([_P, _I, _I] + [_P] * 9, _I),
-    "mppi_solve_launch": ([_P, _I] + [_P] * 14, _I),
+    "mppi_solve_launch": ([_P, _I] + [_P] * 15, _I),
     "mppi_fleet_launch": ([_P, _I, _I, _I] + [_P] * 9, _I),
     "mppi_fleet_scratch_floats": ([_P], _I),
     "mppi_probe_scale_launch": ([_P, _P, _I, _P], _I),
-    "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _P], _I),
+    "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _I, _P], _I),
     "mppi_error_string": ([_I], ctypes.c_char_p),
     "mppi_sim_params_size": ([], _I),
     "mppi_solve_params_size": ([], _I),

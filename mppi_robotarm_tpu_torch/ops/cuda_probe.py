@@ -5,7 +5,8 @@ almost nothing so that their time is the fixed cost of a launch:
 
 * :func:`probe_scale` (P1, ``triv_kernel``): ``o = x · 1.000001``;
 * :func:`probe_big` (P2, ``big_kernel``): the same ``o`` and a (100, 8, 128)
-  float32 output of zeros, 400 KB, the cost of a large output.
+  float32 output of zeros, 400 KB, the cost of a large output, stored from
+  one block an SM.
 
 The probe shape is (8, 128) float32; any non-empty contiguous float32
 tensor is taken.  CUDA tensors launch the kernels of
@@ -18,11 +19,13 @@ tensor is taken.  CUDA tensors launch the kernels of
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
 from .cuda_sim import _ptr
+from .cuda_solve import _sm_count
 
 SCALE = float(np.float32(1.000001))   # the kernels' float32 constant
 BIG_SHAPE = (100, 8, 128)             # P2's output of zeros
@@ -39,9 +42,10 @@ def probe_scale_reference(x: torch.Tensor) -> torch.Tensor:
     return x * SCALE
 
 
-def probe_big_reference(x: torch.Tensor):
-    """Plain version of P2: (``x · 1.000001``, zeros (100, 8, 128))."""
-    return x * SCALE, torch.zeros(BIG_SHAPE, dtype=x.dtype, device=x.device)
+def probe_big_reference(x: torch.Tensor, big_shape=BIG_SHAPE):
+    """Plain version of P2: (``x · 1.000001``, zeros of ``big_shape``,
+    (100, 8, 128) at the probe shape)."""
+    return x * SCALE, torch.zeros(big_shape, dtype=x.dtype, device=x.device)
 
 
 def _check(x) -> None:
@@ -87,17 +91,22 @@ def probe_scale(x: torch.Tensor) -> torch.Tensor:
     return o
 
 
-def probe_big(x: torch.Tensor):
-    """P2: (``x · 1.000001``, zeros (100, 8, 128)) through
-    ``probe_big_kernel`` on a CUDA tensor, through
-    :func:`probe_big_reference` on a CPU one."""
+def probe_big(x: torch.Tensor, big_shape=BIG_SHAPE):
+    """P2: (``x · 1.000001``, zeros of ``big_shape``) through
+    ``probe_big_kernel`` on a CUDA tensor, one block an SM, through
+    :func:`probe_big_reference` on a CPU one.  ``big_shape`` must hold a
+    multiple of 4 elements (the kernel stores 16-byte units)."""
     global BIG_LAUNCHES
     _check(x)
+    n_big = math.prod(big_shape)
+    if n_big % 4 or not 4 <= n_big <= MAX_ELEMENTS:
+        raise ValueError(f"big_shape must hold a multiple of 4 elements, "
+                         f"4 to {MAX_ELEMENTS}, got {tuple(big_shape)}")
     if x.device.type == "cpu":
-        return probe_big_reference(x)
+        return probe_big_reference(x, big_shape)
     o = torch.empty_like(x)
-    big = torch.empty(BIG_SHAPE, dtype=torch.float32, device=x.device)
+    big = torch.empty(big_shape, dtype=torch.float32, device=x.device)
     _launch("mppi_probe_big_launch", "probe_big_kernel", x, _ptr(x), _ptr(o),
-            x.numel(), _ptr(big), big.numel())
+            x.numel(), _ptr(big), n_big, _sm_count(x.device))
     BIG_LAUNCHES += 1
     return o, big

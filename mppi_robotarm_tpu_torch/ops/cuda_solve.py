@@ -11,10 +11,11 @@ kernel ``_solve_kernel``; ``solve_core`` is the single-scenario shim of
 ``pallas_solve_core``.
 
 The path is picked by where the tensors lie: CUDA tensors launch the
-hand-written kernels of ``csrc/solve_kernel.cu`` (a tile pass and a combine
-pass, built by ``ops/_build.py`` and bound through ``ctypes``) or raise;
-CPU tensors take :func:`solve_batched_reference`, the plain PyTorch
-version.  Nothing falls back from one to the other.
+hand-written kernel of ``csrc/solve_kernel.cu`` (one launch a solve: the
+tiles, then the combine in one block a scenario; built by
+``ops/_build.py`` and bound through ``ctypes``) or raise; CPU tensors take
+:func:`solve_batched_reference`, the plain PyTorch version.  Nothing falls
+back from one to the other.
 
 Noise: with ``eps`` (B, K, T, 2) both read the caller's noise (the parity
 seam); with ``seed`` (B,) scenario b draws Philox4x32-10 normals keyed
@@ -33,9 +34,10 @@ CUDA graphs: a launch copies nothing from the host, so ``solve_batched``
 and ``solve_core`` can be captured in ``torch.cuda.graph`` when every
 operand (``seed``, ``step``, ``k_offset`` included) is already a tensor on
 the device; a missing ``step`` is the kernel's step 0, not a copy.  Call
-once before capturing, which builds and loads the library.  The graph
+once on the device before capturing, which builds and loads the library
+and allocates the arrival counters (:func:`_arrival_counters`).  The graph
 keeps the kernel arguments as they were at capture: the parameter block by
-value, the operands and outputs by address.
+value, the operands, outputs and the capture stream's counters by address.
 """
 
 from __future__ import annotations
@@ -64,13 +66,20 @@ SM_THREADS = 128              # one warp per scheduler of an H100 SM
 TILE_SMS = 132                # the H100 SXM's SMs, fixed for solve_tile
 MAX_SCENARIOS = 65535         # the grid's y extent
 SMEM_BYTES = 232448           # shared memory a block may take on Hopper
+COUNTER_SLOTS = 8             # streams an allocation of counters serves
 
-# Launches of the two kernels made by solve_batched; a run that must show
-# it went through them reads these before and after.  A launch captured in
-# a CUDA graph counts once, at capture: the replays are the graph owner's
-# to count.
-LAUNCHES = 0                  # solve_tile_kernel
-COMBINE_LAUNCHES = 0          # solve_combine_kernel
+# Launches made by solve_batched; a run that must show it went through the
+# kernel reads these before and after.  A launch captured in a CUDA graph
+# counts once, at capture: the replays are the graph owner's to count.
+LAUNCHES = 0                  # solve_tile_kernel, tiles and combine
+COMBINE_LAUNCHES = 0          # separate combine launches: none since the
+                              # combine runs in solve_tile_kernel's last block
+
+# Arrival counters of the kernel's cross-tile combine, (MAX_SCENARIOS,)
+# int32 zeros each, by (device index, stream handle), and each device's
+# slots not yet given to a stream.
+_COUNTERS: dict = {}
+_FREE_COUNTERS: dict = {}
 
 
 class _SolveParams(ctypes.Structure):
@@ -99,18 +108,19 @@ class _SolveParams(ctypes.Structure):
 
 
 def _max_tile(cfg: MPPIConfig) -> int:
-    """The largest tile whose noise (2T floats a sample), window, controls
-    and reductions fit one block's shared memory; at most MAX_TILE."""
-    fixed = 4 * (4 * cfg.search_idx_len + 2 * cfg.horizon + 16)
+    """The largest tile whose noise (2T floats a sample), window, controls,
+    reductions and combine fit one block's shared memory; at most
+    MAX_TILE."""
+    fixed = 4 * (4 * cfg.search_idx_len + 4 * cfg.horizon + 18)
     fit = (SMEM_BYTES - fixed) // (4 * (2 * cfg.horizon + 1))
     return min(MAX_TILE, fit // 32 * 32)
 
 
 def default_tile(K: int, cfg: MPPIConfig) -> int:
     """128 samples a block, grown with K so that the combine reads at most
-    about 128 tile partials (measured on an H100: the tile pass runs no
-    slower, and the serial combine at K=65536 drops from 40 µs at 512 tiles
-    to 15 µs at 128, PERF.md)."""
+    about 128 tile partials (measured on an H100 with the combine as a
+    second launch: the tile pass runs no slower, and the serial combine at
+    K=65536 drops from 40 µs at 512 tiles to 15 µs at 128, PERF.md)."""
     per_partial = -(-K // 128)
     return min(_max_tile(cfg), max(128, -(-per_partial // 32) * 32))
 
@@ -217,13 +227,13 @@ def solve_batched_reference(arm: ArmParams, cfg: MPPIConfig, x0, u, window,
                             tile: Optional[int] = None, emit_eps: bool = True,
                             normalize: bool = True, fuse_update: bool = False,
                             k_local: Optional[int] = None, k_offset=None):
-    """Plain PyTorch version of the solve kernels.
+    """Plain PyTorch version of the solve kernel.
 
     Same arguments and results as :func:`solve_batched`, on any device:
     vectorised over scenarios and samples, a Python loop over the horizon
     (the shared trig-carry rollout) and over the tiles, whose partials it
-    combines as the combine kernel does.  Only the order of the sums inside
-    a tile differs from the kernel.
+    combines as the kernel's combine does.  Only the order of the sums
+    inside a tile differs from the kernel.
     """
     if (seed is None) == (eps is None):
         raise ValueError("provide exactly one of seed= or eps=")
@@ -267,9 +277,11 @@ def tile_partials(s: torch.Tensor, eps: torch.Tensor, tile: int, lam: float):
 
 def combine_reference(m_p, eta_p, rows, u, cfg: MPPIConfig,
                       normalize: bool = True, fuse_update: bool = False):
-    """Plain version of the combine pass: the tile partials rescaled to the
-    common min and summed in tile order, then normalised, left raw, or
-    median-filtered and added to ``u``.  Returns (out (B, T, 2), m, eta)."""
+    """Plain version of the kernel's combine: the tile partials rescaled to
+    the common min and summed in tile order from 0 (with one tile too:
+    ``0 + row · 1``, so a row of -0 comes out +0), then normalised, left
+    raw, or median-filtered and added to ``u``.  Returns (out (B, T, 2), m,
+    eta)."""
     m = torch.amin(m_p, dim=1)
     eta = torch.zeros_like(m)
     acc = torch.zeros_like(rows[:, 0])
@@ -291,7 +303,7 @@ def combine_reference(m_p, eta_p, rows, u, cfg: MPPIConfig,
 @functools.lru_cache(maxsize=64)
 def _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
                   fuse_update, step_stride, lanes, group) -> _SolveParams:
-    """The kernels' parameter block, cached by its arguments (the frozen
+    """The kernel's parameter block, cached by its arguments (the frozen
     configs hash): a closed loop builds it at its first step and passes
     the same one every step after.  Callers never modify it."""
     f4 = ctypes.c_float * 4
@@ -312,11 +324,40 @@ def _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
         group=group)
 
 
+def _arrival_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's arrival counters for launches on ``stream`` of
+    ``device``: (MAX_SCENARIOS,) int32, zero between launches.
+
+    Each (device, stream) keeps its own slot, so solves in flight on two
+    streams never share a counter; the kernel's combining block puts each
+    counter back to 0, so a slot is zeroed once, when its allocation of
+    COUNTER_SLOTS slots is made, and never again.  A graph captures the
+    capture stream's slot by address, and every replay leaves it zero.
+    Slots are handed out during a capture too, but an allocation is not
+    made there (it would come from the graph's pool, zeroed only when the
+    graph replays), so a capture needs one uncaptured call on its device
+    first."""
+    key = (device.index, stream)
+    if key not in _COUNTERS:
+        free = _FREE_COUNTERS.setdefault(device.index, [])
+        if not free:
+            if device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "solve_batched allocates its counters at its first call "
+                    "on a device: make one uncaptured call before capturing "
+                    f"more than {COUNTER_SLOTS} streams' solves")
+            free.extend(torch.zeros((COUNTER_SLOTS, MAX_SCENARIOS),
+                                    dtype=torch.int32, device=device))
+        _COUNTERS[key] = free.pop(0)
+    return _COUNTERS[key]
+
+
 def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
             normalize, fuse_update, k_local, k_offset):
-    """Check the operands and launch csrc/solve_kernel.cu's two passes on
-    the current stream.  Raises on anything the kernels do not take."""
-    global LAUNCHES, COMBINE_LAUNCHES
+    """Check the operands and launch csrc/solve_kernel.cu on the current
+    stream.  Raises on anything the kernel does not take."""
+    global LAUNCHES
     from ._build import load_library
 
     if (seed is None) == (eps is None):
@@ -350,12 +391,13 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
         if v is not None and v.device != device:
             raise ValueError(f"{name} is on {v.device}, expected {device}")
 
-    # one allocation for S, the tile partials, the output and (m, eta)
-    sizes = (B * K, B * n_tiles * (2 * T + 2), B * 2 * T, B, B)
+    # one allocation for S, the tile partials (none for one tile: the
+    # kernel combines it in shared memory), the output and (m, eta)
+    stride = (2 * T + 2) if n_tiles > 1 else 0
+    sizes = (B * K, B * n_tiles * stride, B * 2 * T, B, B)
     s_out, part, out, m, eta = torch.empty(
         sum(sizes), dtype=f32, device=device).split(sizes)
-    s_out, part, out = (s_out.view(B, K), part.view(B, n_tiles, 2 * T + 2),
-                        out.view(B, T, 2))
+    s_out, out = s_out.view(B, K), out.view(B, T, 2)
     eps_out = (torch.empty((B, K, T, 2), dtype=f32, device=device)
                if use_prng and emit_eps else None)
     params = _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
@@ -363,16 +405,19 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        count = _arrival_counters(device, stream)
+        if count.numel() < B:
+            raise ValueError(f"the arrival counters cover {count.numel()} "
+                             f"scenarios, not {B}")
         err = lib.mppi_solve_launch(
             ctypes.byref(params), B, _ptr(x0), _ptr(u), _ptr(window),
             _ptr(seed), _ptr(step), _ptr(koff), _ptr(eps), _ptr(eps_out),
-            _ptr(s_out), _ptr(part), _ptr(out), _ptr(m), _ptr(eta),
-            ctypes.c_void_p(stream))
+            _ptr(s_out), _ptr(part if stride else None), _ptr(count),
+            _ptr(out), _ptr(m), _ptr(eta), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError("solve_kernel launch failed: "
                            + lib.mppi_error_string(err).decode())
     LAUNCHES += 1
-    COMBINE_LAUNCHES += 1
     eps_used = (eps_out if use_prng else eps) if emit_eps else None
     return out, s_out, eps_used, (m, eta)
 
@@ -393,8 +438,9 @@ def solve_batched(arm: ArmParams, cfg: MPPIConfig,
                   k_offset=None):            # (B,) global index of sample 0
     """One solve of B scenarios (see the module docstring for the results).
 
-    Any CUDA operand launches ``csrc/solve_kernel.cu`` or raises; only when
-    every tensor lies on the CPU does :func:`solve_batched_reference` run.
+    Any CUDA operand launches ``csrc/solve_kernel.cu`` (one launch) or
+    raises; only when every tensor lies on the CPU does
+    :func:`solve_batched_reference` run.
     ``tile`` (default :func:`solve_tile`) changes no per-sample cost and
     only the rounding of the cross-tile sums; the kernel's threads per
     sample and tiles per block (:func:`solve_layout`, from the batch and

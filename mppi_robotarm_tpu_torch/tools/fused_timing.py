@@ -18,11 +18,22 @@ K): ``fused_sim_run_batched`` at group 8 (``fleet_kernel``, K3) and group
 1 (``sim_kernel``), µs per launch-step, min of 3 in turns, and the SHA-256
 of each setting's records and u_final.
 
-``--solve``: the device time of the solve kernels (``solve_tile_kernel``,
-K2's tile pass, and ``solve_combine_kernel``) per ``solve_batched`` call,
-by ``torch.profiler`` over 20 calls, on the layout the package picks: at
-K=1024, H=50 for 1, 8 and 64 scenarios, at K=65536 (B=1) and at the
-fleet's 4096 × K=128, T=30.
+``--solve``: per ``solve_batched`` call (PRNG mode, fused update, no noise
+output) on the layout the package picks, at K=1024, H=50 for 1, 8 and 64
+scenarios, at K=100, T=30 for 8, at K=65536 (B=1) and at the fleet's 4096
+× K=128, T=30: the device time of each solve kernel it launches
+(``torch.profiler`` over 20 calls; any kernel whose name holds
+``solve_``, so a tree that still launches a separate combine is timed
+whole), the CUDA-event time per call over 20 calls, eager and as one
+replayed CUDA graph of the 20 calls (no host time between launches), min
+of 3 in turns;
+then the SHA-256 of (out, S, m, η) of one call at lam = 3e5 (tens of
+samples weigh) in each noise mode, PRNG and injected noise drawn on the
+device from a fixed ``torch.Generator`` seed.
+
+``--probes``: the device time per call of P1 and P2 (``probe_scale``,
+``probe_big``, ``torch.profiler`` over 100 calls, min of 3) and whether
+P2's zeros and both outputs equal their plain versions bit for bit.
 
 ``--onpath-seeds S ...``: the per-step loop (``simulate(backend="cuda")``)
 at ``benchmark_preset`` for 1500 steps from ``init_sim(seed=S)`` on the
@@ -41,6 +52,8 @@ defaults need no newer keyword):
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --fleet --samples 90
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --onpath-seeds 0 1 \
         --tile 128
+    PYTHONPATH=<tree> python mppi_robotarm_tpu_torch/tools/fused_timing.py \
+        --solve --label parent
 
 Without an NVIDIA GPU it exits non-zero.
 """
@@ -51,6 +64,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import re
 import subprocess
 import sys
 
@@ -65,6 +79,9 @@ ROUNDS = 3
 ONPATH_STEPS = 1500   # bench.py:143-150: the first 1500 live steps
 FLEET, FLEET_STEPS = 4096, 1000     # BASELINE config 4, chip_smoke phase 14
 SOLVE_CALLS = 20      # solve calls per profiled window
+SOLVE_LAM = 3e5       # --solve's fingerprints: tens of samples carry weight
+PROBE_CALLS = 100     # --probes: calls per profiled window
+PROFILE_TRIES = 3     # profiled windows before one that saw nothing counts
 
 
 def card() -> str:
@@ -96,9 +113,11 @@ def fleet_settings():
 def solve_shapes():
     """(label, B, K, T) of the solve shapes the main paths run: the
     per-step loop at benchmark_preset for 1, 8 and 64 scenarios, the
-    large-K solve and the fleet's per-step solve."""
+    reference config's (one tile a scenario) for 8, the large-K solve and
+    the fleet's per-step solve."""
     return [("K=1024 H=50", 1, 1024, 50), ("K=1024 H=50", 8, 1024, 50),
-            ("K=1024 H=50", 64, 1024, 50), ("K=65536 H=50", 1, 65536, 50),
+            ("K=1024 H=50", 64, 1024, 50), ("K=100 T=30", 8, 100, 30),
+            ("K=65536 H=50", 1, 65536, 50),
             ("fleet 4096 x K=128 T=30", FLEET, 128, 30)]
 
 
@@ -198,66 +217,169 @@ def measure_fleet(device, steps=FLEET_STEPS, samples=128):
     return rows
 
 
-def solve_device_us(fn, calls=SOLVE_CALLS):
-    """Device time per call of each solve kernel that ``fn`` launches
-    (``torch.profiler`` over ``calls`` calls), by kernel name:
-    {"solve_tile_kernel": µs, "solve_combine_kernel": µs}, each the mean
-    time of a launch the profiler saw (a window can lose events at its
-    edges).  A template instance's name counts as its kernel's."""
+def device_total(event) -> float:
+    """An averaged profiler event's own device time, µs (the attribute's
+    name changed across torch releases)."""
+    return (getattr(event, "self_device_time_total", None)
+            or getattr(event, "self_cuda_time_total", 0.0))
+
+
+def profiled_us(fn, calls, keep=lambda key: True, tries=PROFILE_TRIES):
+    """Mean device µs of a launch, by profiler event key, of each kernel
+    that ``calls`` calls of ``fn`` launch and whose key ``keep`` accepts
+    (``torch.profiler``).  A window can lose events at its edges, so the
+    mean of the launches it kept is taken, not their total.  A window has
+    also been seen to come back with no device event at all, so one that
+    kept none is profiled again, ``tries`` windows in all.  Empty if every
+    window came back empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: device_total(e) / e.count for e in prof.key_averages()
+               if device_total(e) > 0 and keep(e.key)}
+        if out:
+            return out
+    return {}
+
+
+def kernel_device_us(fn, calls, match):
+    """Device time per call of each kernel that ``fn`` launches whose name
+    holds ``match`` (:func:`profiled_us` over ``calls`` calls), by kernel
+    name, µs.  A template instance's name counts as its kernel's.  Raises
+    if no window saw one."""
     out = {}
-    for e in prof.key_averages():
-        for name in ("solve_tile_kernel", "solve_combine_kernel"):
-            if name in e.key:
-                t = (getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0.0))
-                out[name] = out.get(name, 0.0) + t / e.count
-    if len(out) != 2:
-        raise RuntimeError(f"the profiler saw no solve kernels: {out}")
+    for key, us in profiled_us(fn, calls, lambda k: match in k).items():
+        name = re.search(r"\w*" + match + r"\w*", key).group(0)
+        out[name] = out.get(name, 0.0) + us
+    if not out:
+        raise RuntimeError(f"the profiler saw no {match} kernel in "
+                           f"{PROFILE_TRIES} windows")
     return out
 
 
-def measure_solve(device):
-    """One row per shape: device µs of the two solve kernels per call, min
-    over ROUNDS profiled windows taken in turns."""
+def solve_device_us(fn, calls=SOLVE_CALLS):
+    """Device µs per call of each solve kernel ``fn`` launches
+    (:func:`kernel_device_us`): {"solve_tile_kernel": µs}, and
+    "solve_combine_kernel" where a tree launches it apart."""
+    return kernel_device_us(fn, calls, "solve_")
+
+
+def solve_inputs(device, B, K, T, lam=None):
+    """(arm, cfg, x0, u, window, PRNG keywords) of ``--solve``'s call at one
+    shape: benchmark_preset at K and T (and ``lam``), B copies of one
+    state and the warm start, windows at staggered indices of the
+    8000-point circle, seeds 0..B-1 at step 0."""
+    arm, cfg, _ = m.benchmark_preset()
+    cfg = dataclasses.replace(cfg, num_samples=K, horizon=T,
+                              lam=lam or cfg.lam)
+    W = cfg.search_idx_len
+    ref = torch.as_tensor(m.synth_circle_path(8000), device=device)
+    x0 = torch.tensor([[1.1522, -1.2661, 0.1, -0.2]],
+                      device=device).repeat(B, 1).contiguous()
+    u = torch.tensor(cfg.warm_start, device=device).repeat(B, T, 1)
+    idx = (7 * torch.arange(B, device=device) % 7000)[:, None] \
+        + torch.arange(W, device=device)
+    kw = dict(seed=torch.arange(B, device=device),
+              step=torch.zeros(B, dtype=torch.int64, device=device),
+              fuse_update=True, emit_eps=False)
+    return arm, cfg, x0, u.contiguous(), ref[idx].contiguous(), kw
+
+
+def solve_digests(device, B, K, T):
+    """{noise mode: SHA-256 of (out, S, m, η)} of one solve at lam =
+    SOLVE_LAM: PRNG mode, and injected N(0, 20·I) noise from a
+    ``torch.Generator`` seeded with B + K + T on the device."""
     from mppi_robotarm_tpu_torch.ops import cuda_solve
 
-    arm, cfg0, _ = m.benchmark_preset()
-    x1 = torch.tensor([[1.1522, -1.2661, 0.1, -0.2]], device=device)
-    ref = torch.as_tensor(m.synth_circle_path(8000), device=device)
+    arm, cfg, x0, u, win, kw = solve_inputs(device, B, K, T, SOLVE_LAM)
+    gen = torch.Generator(device=device).manual_seed(B + K + T)
+    eps = torch.randn((B, K, T, 2), generator=gen, device=device) * 20 ** 0.5
+    out = {}
+    for noise, nkw in (("prng", kw),
+                       ("eps", dict(eps=eps, fuse_update=True))):
+        w, s, _, (mm, eta) = cuda_solve.solve_batched(arm, cfg, x0, u, win,
+                                                      **nkw)
+        out[noise] = digest(w, s, mm, eta)
+    return out
+
+
+def _graph_of(calls):
+    """A CUDA graph of ``calls`` (already warmed up), captured once."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        calls()
+    return graph
+
+
+def measure_solve(device):
+    """One row per shape (:func:`solve_shapes`): device µs of each solve
+    kernel per call and their sum, and CUDA-event µs per call over
+    SOLVE_CALLS calls, eager and replayed as one graph, each the min over
+    ROUNDS taken in turns; then the fingerprints of
+    :func:`solve_digests`."""
+    from mppi_robotarm_tpu_torch.ops import cuda_solve
+
     rows = []
     for shape, B, K, T in solve_shapes():
-        cfg = dataclasses.replace(cfg0, num_samples=K, horizon=T)
-        W = cfg.search_idx_len
-        x0 = x1.repeat(B, 1).contiguous()
-        u = torch.tensor(cfg.warm_start, device=device).repeat(B, T, 1)
-        idx = (7 * torch.arange(B, device=device) % 7000)[:, None] \
-            + torch.arange(W, device=device)
-        kw0 = dict(seed=torch.arange(B, device=device),
-                   step=torch.zeros(B, dtype=torch.int64, device=device),
-                   fuse_update=True, emit_eps=False)
-        rows.append({"shape": shape, "B": B, "runs": [],
-                     "call": (lambda c=cfg, x=x0, uu=u.contiguous(),
-                              w=ref[idx].contiguous(), k=kw0:
+        arm, cfg, x0, u, win, kw = solve_inputs(device, B, K, T)
+        rows.append({"shape": shape, "B": B, "runs": [], "event_us_runs": [],
+                     "graph_us_runs": [],
+                     "call": (lambda c=cfg, x=x0, uu=u, w=win, k=kw:
                               cuda_solve.solve_batched(arm, c, x, uu, w,
                                                        **k))})
     for _ in range(ROUNDS):
         for row in rows:
+            calls = lambda: [row["call"]() for _ in range(SOLVE_CALLS)]
             row["runs"].append(solve_device_us(row["call"]))
-    for row in rows:
-        del row["call"]
-        for name in ("solve_tile_kernel", "solve_combine_kernel"):
-            row[name + "_us"] = min(r[name] for r in row["runs"])
+            row["event_us_runs"].append(_events_ms(calls) * 1e3
+                                        / SOLVE_CALLS)
+            graph = row.get("graph") or row.setdefault("graph",
+                                                       _graph_of(calls))
+            row["graph_us_runs"].append(_events_ms(graph.replay) * 1e3
+                                        / SOLVE_CALLS)
+    for row, (_, B, K, T) in zip(rows, solve_shapes()):
+        del row["call"], row["graph"]
+        names = sorted({k for r in row["runs"] for k in r})
+        row["kernels_us"] = {k: min(r.get(k, 0.0) for r in row["runs"])
+                             for k in names}
+        row["device_us"] = min(sum(r.values()) for r in row["runs"])
+        row["event_us"] = min(row["event_us_runs"])
+        row["graph_us"] = min(row["graph_us_runs"])
         row["runs"] = [{k: round(v, 3) for k, v in r.items()}
                        for r in row["runs"]]
+        row["sha256"] = solve_digests(device, B, K, T)
     return rows
+
+
+def measure_probes(device, calls=PROBE_CALLS):
+    """Device µs per call of P1 and P2 at the probe shape (min of ROUNDS
+    profiled windows, in turns), and whether both equal their plain
+    versions bit for bit."""
+    from mppi_robotarm_tpu_torch.ops import cuda_probe
+
+    x = torch.as_tensor(np.random.default_rng(15).normal(
+        size=(8, 128)).astype(np.float32), device=device)
+    o1 = cuda_probe.probe_scale(x)
+    o2, big = cuda_probe.probe_big(x)
+    want, zeros = cuda_probe.probe_big_reference(x)
+    same = (torch.equal(o1, want) and torch.equal(o2, want)
+            and torch.equal(big, zeros))
+    fns = {"probe_scale_kernel": lambda: cuda_probe.probe_scale(x),
+           "probe_big_kernel": lambda: cuda_probe.probe_big(x)}
+    runs = {k: [] for k in fns}
+    for _ in range(ROUNDS):
+        for name, fn in fns.items():
+            runs[name].append(sum(kernel_device_us(fn, calls,
+                                                   "probe_").values()))
+    return {"us": {k: min(v) for k, v in runs.items()},
+            "runs": {k: [round(t, 4) for t in v] for k, v in runs.items()},
+            "same_bits": same}
 
 
 def steploop_onpath(device, seeds, tile=None, steps=ONPATH_STEPS):
@@ -323,7 +445,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet", action="store_true",
                     help="time the fleet: fleet_kernel against sim_kernel")
     ap.add_argument("--solve", action="store_true",
-                    help="device time of the solve kernels")
+                    help="device and event time of the solve, SHA-256")
+    ap.add_argument("--probes", action="store_true",
+                    help="device time of the probes P1 and P2")
     ap.add_argument("--onpath-seeds", type=int, nargs="+",
                     help="on-path mean of the per-step loop for each seed")
     ap.add_argument("--tile", type=int,
@@ -359,13 +483,25 @@ def main(argv=None) -> int:
     if a.solve:
         rows = measure_solve(device)
         for row in rows:
+            kern = " + ".join(f"{k} {v:.2f}" for k, v in
+                              row["kernels_us"].items())
             print(f"{a.label} [{smi}] solve {row['shape']} B={row['B']}: "
-                  f"solve_tile_kernel {row['solve_tile_kernel_us']:.2f} us + "
-                  f"solve_combine_kernel {row['solve_combine_kernel_us']:.2f}"
-                  f" us device time a call (min of {ROUNDS} windows of "
-                  f"{SOLVE_CALLS})")
+                  f"{kern} us device time a call (min of {ROUNDS} windows "
+                  f"of {SOLVE_CALLS}; sum {row['device_us']:.2f}); "
+                  f"{row['event_us']:.2f} us a call by CUDA events, "
+                  f"{row['graph_us']:.2f} replayed as a graph; "
+                  f"(out, S, m, eta) sha256 prng {row['sha256']['prng']} "
+                  f"eps {row['sha256']['eps']}")
         print(json.dumps({"label": a.label, "card": smi, "solve": rows}))
         return 0
+    if a.probes:
+        got = measure_probes(device)
+        print(f"{a.label} [{smi}] probes: device time a call (min of "
+              f"{ROUNDS} windows of {PROBE_CALLS}): "
+              + ", ".join(f"{k} {v:.4f} us" for k, v in got["us"].items())
+              + f"; outputs == plain versions bitwise: {got['same_bits']}")
+        print(json.dumps({"label": a.label, "card": smi, "probes": got}))
+        return 0 if got["same_bits"] else 1
     rows = measure(device, a.steps, a.clusters, a.horizon, a.samples,
                    a.default)
     for row in rows:

@@ -94,15 +94,21 @@ def _min_event_ms(fn: Callable, reps: int) -> float:
 
 def device_launches(fn: Callable) -> int:
     """Kernels, copies and memsets that ``fn`` puts on the device, as
-    ``torch.profiler`` sees them."""
+    ``torch.profiler`` sees them.  A window has been seen to come back with
+    no device event at all, so one that saw none is tried again, three
+    windows in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        if n:
+            break
+    return n
 
 
 def time_chain(fn: Callable, carry, n: int = N_ITERS,

@@ -14,7 +14,9 @@ and misaligned accesses.  The cases:
   in groups of 8, half of them frozen, 8 steps;
 - ``k2-{1024,65536}``: ``solve_batched`` of one scenario at H=50, PRNG
   mode with the fused update (four lanes a sample at K=1024, one at
-  K=65536 on an H100), and ``k2-1024-b64``: 64 scenarios, one lane.
+  K=65536 on an H100), one launch whose last block of 32 or 128 combines
+  the tiles through the arrival counter, and ``k2-1024-b64``: 64
+  scenarios, one lane, eight blocks of four tiles a scenario.
 
 Run on a machine with an NVIDIA GPU and the CUDA toolkit:
 

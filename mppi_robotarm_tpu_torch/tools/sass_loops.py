@@ -22,11 +22,16 @@ shared loads and the local memory (each local access also by the group
 of its source line: on ``sincosf``'s line it is the Payne-Hanek array,
 elsewhere a register spill), static and per horizon step.
 
+With ``--digest`` it prints the SHA-256 of each kernel's instructions
+instead, so that two builds (two trees, each with its own library) show
+whether a kernel compiled to the same code.
+
 Run on a machine with the CUDA toolkit, after the library is built (any
 kernel call builds it):
 
     python -m mppi_robotarm_tpu_torch.tools.sass_loops [sass.txt]
     python -m mppi_robotarm_tpu_torch.tools.sass_loops --groups [listing ...]
+    python -m mppi_robotarm_tpu_torch.tools.sass_loops --digest [sass.txt]
 
 Without a file it runs ``cuobjdump -sass`` on
 ``build/torch_kernels/libmppi_kernels.so``; ``--groups`` without a file
@@ -36,6 +41,7 @@ otherwise) into ``build/torch_kernels/lineinfo/`` and disassembles it.
 
 from __future__ import annotations
 
+import hashlib
 import re
 import shutil
 import subprocess
@@ -118,6 +124,15 @@ def parse(sass: str):
 def functions(sass: str):
     """{mangled name: [(address, text), ...]} of a cuobjdump -sass dump."""
     return parse(sass)[0]
+
+
+def digests(sass: str):
+    """{mangled name: SHA-256 of its instructions} of a cuobjdump -sass
+    dump; the addresses in it are the function's own, so one code gives
+    one digest wherever the linker put it."""
+    return {name: hashlib.sha256("\n".join(
+        f"{a:x} {t}" for a, t in insns).encode()).hexdigest()
+        for name, insns in functions(sass).items()}
 
 
 def loops(insns):
@@ -352,7 +367,8 @@ def lineinfo_listings(sources, out_dir: Path) -> list:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     by_group = "--groups" in argv
-    files = [a for a in argv if a != "--groups"]
+    by_digest = "--digest" in argv
+    files = [a for a in argv if a not in ("--groups", "--digest")]
     listings = []
     for path in files:
         with open(path) as f:
@@ -366,6 +382,11 @@ def main(argv=None) -> int:
             BUILD_DIR / "lineinfo")
     elif not files:
         listings = [library_sass()]
+    if by_digest:
+        got = {k: v for sass in listings for k, v in digests(sass).items()}
+        for mangled, h in sorted(got.items()):
+            print(f"{mangled} sha256 {h}")
+        return 0 if got else 1
     found = 0
     for sass in listings:
         funcs, locs = parse(sass)

@@ -2,9 +2,11 @@
 scenario (``cuda_sim.cluster_size``), the ``cluster`` keyword's checks, the
 C declarations in ``csrc/`` against their ``ctypes`` bindings (the structs'
 fields and the functions' arguments), and the launch's arguments as the
-wrapper passes them, through a stand-in for the library.  The kernel
-itself, at every cluster size against ``cluster=1``, is tested on the card
-(``tests/test_torch_cuda.py``)."""
+wrapper passes them, through a stand-in for the library; the same for the
+solve kernel's one launch and its arrival counters.  The kernels
+themselves (sim_kernel at every cluster size against ``cluster=1``, the
+solve against its plain version, in graphs and on two streams) are tested
+on the card (``tests/test_torch_cuda.py``)."""
 
 import contextlib
 import ctypes
@@ -254,3 +256,83 @@ def test_launch_error_raises_with_the_cluster(fake_card):
         cuda_sim._launch(*_cpu_args(cfg, steps=1), None,
                          torch.zeros(1, dtype=torch.int64), None)
     assert cuda_sim.LAUNCHES == before
+
+
+# ---- the solve kernel's launch (csrc/solve_kernel.cu) ----------------------
+
+@pytest.fixture
+def fresh_counters(monkeypatch):
+    monkeypatch.setattr(cuda_solve, "_COUNTERS", {})
+    monkeypatch.setattr(cuda_solve, "_FREE_COUNTERS", {})
+
+
+def _solve_cpu_args(cfg, B):
+    x0 = torch.tensor([[1.15, -1.27, 0.1, -0.2]] * B)
+    u = torch.tensor(cfg.warm_start, dtype=torch.float32).repeat(
+        B, cfg.horizon, 1).contiguous()
+    win = torch.as_tensor(P.synth_circle_path(400))[None, :cfg.search_idx_len]
+    return x0, u, win.repeat(B, 1, 1).contiguous()
+
+
+@pytest.mark.parametrize("K,B,n_tiles", [(1024, 1, 32), (1024, 64, 32),
+                                         (65536, 1, 128), (100, 8, 1),
+                                         (128, 4096, 1)])
+def test_solve_launch_is_one_call_with_the_streams_counters(
+        fake_card, fresh_counters, K, B, n_tiles):
+    """One C call a solve, counted in LAUNCHES and not in
+    COMBINE_LAUNCHES; a scenario of one tile gets no workspace (the kernel
+    combines it in shared memory); every launch on a stream gets that
+    stream's zeroed counters."""
+    lib = fake_card(_FakeLib())
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=5)
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES)
+    out, s, eps, (m, eta) = cuda_solve._launch(
+        P.ArmParams(), cfg, *_solve_cpu_args(cfg, B), torch.arange(B), None,
+        None, None, False, True, True, None, None)
+    assert (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES) == (
+        before[0] + 1, before[1])
+    assert out.shape == (B, 5, 2) and s.shape == (B, K) and eps is None
+    (name, a), = lib.calls
+    assert name == "mppi_solve_launch" and a[1] == B
+    assert a[0]._obj.n_tiles == n_tiles
+    part, count = a[11], a[12]
+    assert (part is None) == (n_tiles == 1)
+    counters = cuda_solve._COUNTERS[(None, 7)]
+    assert count.value == counters.data_ptr() and not counters.any()
+    cuda_solve._launch(P.ArmParams(), cfg, *_solve_cpu_args(cfg, B),
+                       torch.arange(B), None, None, None, False, True, True,
+                       None, None)
+    assert lib.calls[1][1][12].value == count.value      # the same slot
+
+
+def test_arrival_counters_give_each_stream_its_own_zeroed_slot(
+        fresh_counters):
+    dev = torch.device("cpu")
+    a, b = (cuda_solve._arrival_counters(dev, st) for st in (7, 9))
+    assert a.shape == (cuda_solve.MAX_SCENARIOS,) and a.dtype == torch.int32
+    assert not a.any() and not b.any()
+    assert cuda_solve._arrival_counters(dev, 7) is a
+    assert a.data_ptr() != b.data_ptr()
+    # one allocation serves COUNTER_SLOTS streams; the next takes another
+    more = [cuda_solve._arrival_counters(dev, st)
+            for st in range(100, 100 + cuda_solve.COUNTER_SLOTS)]
+    slots = [a, b, *more]
+    assert len({t.data_ptr() for t in slots}) == len(slots)
+    base = a.untyped_storage().data_ptr()
+    n = cuda_solve.COUNTER_SLOTS
+    assert [t.untyped_storage().data_ptr() == base for t in slots] == (
+        [True] * n + [False] * 2)
+
+
+def test_arrival_counters_are_not_allocated_during_a_capture(
+        monkeypatch, fresh_counters):
+    """A capture takes a free slot, but allocating one there would come
+    from the graph's pool, zeroed only when the graph replays: it raises."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    dev = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="uncaptured call"):
+        cuda_solve._arrival_counters(dev, 5)
+    spare = torch.zeros(cuda_solve.MAX_SCENARIOS, dtype=torch.int32)
+    cuda_solve._FREE_COUNTERS[0] = [spare]
+    assert cuda_solve._arrival_counters(dev, 5) is spare

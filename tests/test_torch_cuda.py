@@ -2,10 +2,11 @@
 fused closed loop (``sim_kernel``, also at every cluster size against
 ``cluster=1`` bit for bit), the scenario fleet (``fleet_kernel``, also
 against ``sim_kernel`` bit for bit) and the per-step solve
-(``solve_kernel`` with its combine pass).  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
-every test skips.
-The file imports nothing of JAX, so on a GPU machine without JAX it runs
-without the suite's conftest:
+(``solve_kernel``: one launch, the combine in each scenario's last block;
+also in a captured chain and on two streams at once).  Marked ``cuda``:
+without an NVIDIA GPU (and nvcc) every test skips.  The file imports
+nothing of JAX, so on a GPU machine without JAX it runs without the
+suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
@@ -177,8 +178,12 @@ def _check_solve(got, want, normalize=True):
         assert torch.equal(e_k, e_p)
 
 
-@pytest.mark.parametrize("K,T,B", [(1024, 50, 1), (100, 30, 8),
-                                   (65536, 50, 1)])
+@pytest.mark.parametrize("K,T,B", [
+    (1024, 50, 1),      # 32 blocks of one tile, the last one combines
+    (1024, 50, 64),     # 8 blocks of four tiles a scenario
+    (1100, 50, 64),     # 35 tiles, 4 a block: the last block's one is padding
+    (100, 30, 8),       # one tile: the block combines its own partial
+    (65536, 50, 1)])    # 128 tiles of 512
 @pytest.mark.parametrize("noise", ["eps", "prng"])
 def test_solve_kernel_matches_twin(dev, K, T, B, noise):
     cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
@@ -190,8 +195,9 @@ def test_solve_kernel_matches_twin(dev, K, T, B, noise):
                step=torch.arange(B, device=dev) * 5 + 3))
     before = (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES)
     got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
-    assert (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES) == tuple(
-        v + 1 for v in before)
+    # one launch, and no separate combine
+    assert (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES) == (
+        before[0] + 1, before[1])
     want = cuda_solve.solve_batched_reference(ARM, cfg, x0, u, win, **kw)
     _check_solve(got, want)
     again = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
@@ -200,6 +206,9 @@ def test_solve_kernel_matches_twin(dev, K, T, B, noise):
         assert torch.equal(a, b)            # deterministic: same bits
     if noise == "prng":
         assert torch.equal(got[2][0], philox_epsilon(7, 3, cfg, dev))
+    # the combining blocks put every counter back to 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not cuda_solve._COUNTERS[(dev.index, stream)].any()
 
 
 @pytest.mark.parametrize("noise", ["eps", "prng"])
@@ -279,23 +288,121 @@ def test_solve_kernel_every_layout_matches_twin(dev, K, T, B, noise):
     _check_solve(got, want)
 
 
-@pytest.mark.parametrize("K,T,B", [(1024, 50, 64), (1024, 50, 8),
-                                   (128, 30, 64)])
+@pytest.mark.parametrize("K,T,B", [(1024, 50, 1), (1024, 50, 64),
+                                   (1024, 50, 8), (128, 30, 64),
+                                   (100, 30, 8)])
 def test_solve_kernel_batch_equals_single(dev, K, T, B):
-    """Scenario 0 of a batch gives the bits of its solve alone, though the
-    two take different lanes per sample (at K=1024: 1 or 2 against 4)."""
+    """Scenarios of a batch give the bits of their solves alone, though the
+    two take different lanes per sample (at K=1024: 1 or 2 against 4) and
+    tiles a block, so other blocks combine them."""
     cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
                               lam=3e5)
     x0, u, win = _solve_inputs(dev, B, K, T, K)
     kw = dict(seed=torch.arange(B, device=dev) + 9,
               step=torch.full((B,), 4, device=dev), fuse_update=True)
     many = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
-    alone = cuda_solve.solve_batched(
-        ARM, cfg, x0[:1], u[:1], win[:1], fuse_update=True,
-        seed=kw["seed"][:1], step=kw["step"][:1])
-    for a, b in zip((many[0], many[1], *many[3]),
-                    (alone[0], alone[1], *alone[3])):
-        assert torch.equal(a[:1], b)
+    for i in sorted({0, B // 2, B - 1}):
+        one = slice(i, i + 1)
+        alone = cuda_solve.solve_batched(
+            ARM, cfg, x0[one], u[one], win[one], fuse_update=True,
+            seed=kw["seed"][one], step=kw["step"][one])
+        for a, b in zip((many[0], many[1], *many[3]),
+                        (alone[0], alone[1], *alone[3])):
+            assert torch.equal(a[one], b), i
+
+
+def _solve_chain(cfg, x0, u, win, seed, n):
+    """n solves, each from the last one's u + 1e-6·Σwε, seed + 1 each."""
+    for _ in range(n):
+        w, _, _, _ = cuda_solve.solve_batched(ARM, cfg, x0, u, win,
+                                              seed=seed, emit_eps=False)
+        u, seed = u + 1e-6 * w, seed + 1
+    return u, seed
+
+
+@pytest.mark.parametrize("K,B", [(1024, 1), (1024, 64), (100, 8)])
+def test_solve_kernel_graph_chain_equals_eager(dev, K, B):
+    """A captured chain of 100 solves replays the eager chain's bits, twice:
+    each launch leaves its arrival counters at 0 for the next one and for
+    the next replay."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=50,
+                              lam=3e5)
+    x0, u, win = _solve_inputs(dev, B, K, 50, 3)
+    seed = torch.arange(B, device=dev) * 11
+    want = _solve_chain(cfg, x0, u, win, seed, 100)
+    static_u, static_seed = u.clone(), seed.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = _solve_chain(cfg, x0, static_u, win, static_seed, 100)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = _solve_chain(cfg, x0, u, win, seed, 100)       # eager after it
+    assert torch.equal(again[0], want[0])
+
+
+def test_solve_kernel_two_streams_at_once_equal_in_turn(dev):
+    """Solves of many blocks a scenario launched on two streams at once give
+    the bits they give one after the other: each stream has its own arrival
+    counters."""
+    calls = []
+    for K, B, seed0 in ((65536, 1, 5), (1024, 64, 9), (65536, 1, 17)):
+        cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K,
+                                  horizon=50, lam=3e5)
+        x0, u, win = _solve_inputs(dev, B, K, 50, seed0)
+        seed = torch.arange(B, device=dev) + seed0
+        calls.append(lambda c=cfg, x=x0, uu=u, w=win, sd=seed:
+                     cuda_solve.solve_batched(ARM, c, x, uu, w, seed=sd,
+                                              fuse_update=True,
+                                              emit_eps=False))
+    want = [call() for call in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    got = [None] * len(calls)
+    for _ in range(3):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(dev))
+        for i, call in enumerate(calls):
+            with torch.cuda.stream(streams[i % 2]):
+                got[i] = call()
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            for a, b in zip((w[0], w[1], *w[3]), (g[0], g[1], *g[3])):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fw", [1, 2, 12, 13, 25])
+def test_solve_kernel_median_windows(dev, fw):
+    """The combine's median counts ranks in registers up to a window of
+    12 and falls back to the serial count above; both match the twin's
+    median filter."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=1024, horizon=50,
+                              lam=3e5, filter_window=fw)
+    x0, u, win = _solve_inputs(dev, 2, 1024, 50, fw)
+    kw = dict(seed=torch.tensor([3, 8], device=dev), step=2,
+              fuse_update=True)
+    _check_solve(cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw),
+                 cuda_solve.solve_batched_reference(ARM, cfg, x0, u, win,
+                                                    **kw))
+
+
+def test_solve_kernel_stages_partials_in_chunks(dev):
+    """625 tiles of 32 (K=20000) are more partials than a block's shared
+    memory holds: the combining block folds them a chunk at a time, in
+    tile order, with the bits of one chunk's order (the twin's)."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=20000, horizon=50,
+                              lam=3e5)
+    assert cuda_solve._plan(cfg, 20000, 32, True, True)[1] == 625
+    x0, u, win = _solve_inputs(dev, 2, 20000, 50, 6)
+    kw = dict(seed=torch.tensor([1, 5], device=dev), step=7, tile=32,
+              fuse_update=True)
+    got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
+    _check_solve(got, cuda_solve.solve_batched_reference(ARM, cfg, x0, u,
+                                                         win, **kw))
+    again = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
+    for a, b in zip((got[0], *got[3]), (again[0], *again[3])):
+        assert torch.equal(a, b)
 
 
 def test_solve_kernel_tiles_give_the_same_costs(dev):

@@ -11,8 +11,9 @@ JAX's ``pallas_solve_core(interpret=True)``, with the tolerances of
 S rtol 2e-5, Σwε and the carried u atol 2e-5); the wrappers' checks.
 
 Marked ``cuda`` and skipped without a card: the kernels against their plain
-versions, each graph chain against its eager chain bit for bit, and a
-captured ``solve_batched`` against an uncaptured one.  JAX is imported only
+versions (P2, one block an SM, also at sizes its blocks do not divide),
+each graph chain against its eager chain bit for bit, and a captured
+``solve_batched`` against an uncaptured one.  JAX is imported only
 inside the CPU tests, so on a GPU machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_probe.py -m cuda
@@ -157,6 +158,19 @@ def test_cpu_launches_nothing_and_validates():
             probe(x.transpose(0, 2))
 
 
+def test_probe_big_takes_whole_16_byte_units_of_zeros():
+    """P2's zeros may take any shape of a multiple of 4 floats (the
+    kernel stores 16-byte units); the plain version makes that shape."""
+    x = torch.as_tensor(_probe_input(3))
+    for shape in ((97, 132), (4,), (2, 50, 4)):
+        o, b = cuda_probe.probe_big(x, big_shape=shape)
+        assert b.shape == shape and not b.any()
+        assert torch.equal(o, x * cuda_probe.SCALE)
+    for bad in ((3,), (5, 7), (0, 4)):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            cuda_probe.probe_big(x, big_shape=bad)
+
+
 def test_chains_run_on_the_cpu_and_time_chain_needs_cuda():
     """Each chain's step runs eagerly on CPU tensors through the plain
     versions; timing and the command line need a CUDA device."""
@@ -205,6 +219,23 @@ def test_probe_kernels_match_plain(dev, shape):
     assert torch.equal(o, cuda_probe.probe_scale_reference(x))
     assert torch.equal(ob, o)
     assert b.shape == cuda_probe.BIG_SHAPE and not bool(b.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big_shape", [
+    (100, 8, 128),     # the probe: 25,600 16-byte stores
+    (97, 132),         # 3,201 stores: the blocks' threads do not divide it
+    (4,),              # one store
+    (1000, 1000)])     # 4 MB: several passes a thread
+def test_probe_big_matches_plain_at_any_size(dev, big_shape):
+    x = torch.as_tensor(_probe_input(4), device=dev)
+    big_ref = cuda_probe.probe_big_reference(x, big_shape)[1]
+    for _ in range(2):    # the second into memory that held other values
+        o, b = cuda_probe.probe_big(x, big_shape=big_shape)
+        torch.cuda.synchronize()
+        assert torch.equal(o, cuda_probe.probe_scale_reference(x))
+        assert torch.equal(b, big_ref)
+        torch.full(big_shape, 7.0, device=dev)       # dirty the pool
 
 
 @pytest.mark.cuda

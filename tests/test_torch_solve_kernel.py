@@ -1,7 +1,8 @@
 """The per-step solve kernel's plain twin (``ops/cuda_solve.py::
 solve_batched_reference``) against the JAX package's ``pallas_solve_batched``
 in interpret mode, on the same NumPy noise, plus the twin's own contracts:
-tile-size independence and the Philox stream of PRNG mode.
+tile-size independence, the Philox stream of PRNG mode, and the combine of
+one tile, which the kernel does in the tile's own block.
 
 The softmax temperature is raised to lam = 3e5 so that tens of samples
 carry weight (at the presets' lam = 1 the costs' spread makes the weights
@@ -9,7 +10,8 @@ one-hot and the cross-tile combine would be tested on a single sample).
 Tolerances: JAX's eps mode rolls out with the direct trig form and the port
 with the trig carry, so S agrees to rtol 2e-5 (measured ~4e-7); Σwε and
 u_new to atol 2e-5, the raw (unnormalised) rows to rtol 2e-5 of their
-largest magnitude, and (m, η) to rtol 2e-5.
+largest magnitude, and (m, η) to rtol 2e-5.  JAX's kernel runs at tile 128
+throughout; the port at 128 unless a case names its own tile.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ from mppi_robotarm_tpu.ops.pallas_rollout import pallas_solve_batched
 from mppi_robotarm_tpu.ops.waypoint import slice_window
 from mppi_robotarm_tpu_torch.ops import cuda_solve
 from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
+from mppi_robotarm_tpu_torch.ops.filters import median_filter_reflect
 from _torch_port_helpers import configs, eps_noise, n, t
 
 F32 = torch.float32
@@ -48,7 +51,7 @@ def _inputs(ref_path, B, K, T, seed):
     return x0, u, win, np.full((B,), 30.0, np.float32)
 
 
-# (B, K, T, cfg overrides, call options)
+# (B, K, T, cfg overrides, call options; "tile" is the port's, default 128)
 CASES = {
     "multi_tile": (1, 300, 8, {}, {}),
     "batch": (3, 256, 6, {}, {}),
@@ -58,6 +61,15 @@ CASES = {
                      {"normalize": False, "k_offset": [0, 150]}),
     "fuse_update": (2, 300, 12, {}, {"fuse_update": True}),
     "u_clamp": (1, 300, 6, {"u_clamp": 12.0}, {}),
+    # one tile a scenario: the kernel combines it from its block's shared
+    # memory, with the cross-tile expressions
+    "one_tile_fuse_update": (3, 100, 12, {}, {"fuse_update": True}),
+    "one_tile_raw_k_offset": (2, 128, 8,
+                              {"exploration": 0.5, "num_samples": 512},
+                              {"normalize": False, "k_offset": [0, 150]}),
+    # ten tiles of 32 (the last ragged) against JAX's three of 128
+    "tiles_of_32_fuse_update": (2, 300, 12, {},
+                                {"fuse_update": True, "tile": 32}),
 }
 
 
@@ -69,6 +81,8 @@ def test_twin_matches_jax_kernel(ref_path, case):
     x0, u, win, nv = _inputs(ref_path, B, K, T, seed=K + T)
     eps = eps_noise(B + K, (B, K, T, 2))
     k_local = K if K != cp.num_samples else None
+    opts = dict(opts)
+    tile = opts.pop("tile", 128)
     koff = opts.get("k_offset")
     jopts = dict(opts, k_local=k_local,
                  k_offset=None if koff is None else jnp.asarray(koff))
@@ -80,7 +94,7 @@ def test_twin_matches_jax_kernel(ref_path, case):
                  k_offset=None if koff is None else torch.tensor(koff))
     w_p, s_p, e_p, (m_p, eta_p) = cuda_solve.solve_batched(
         P.ArmParams(), cp, t(x0, F32), t(u, F32), t(win, F32), t(nv, F32),
-        eps=t(eps, F32), tile=128, **popts)
+        eps=t(eps, F32), tile=tile, **popts)
     np.testing.assert_array_equal(n(e_p), np.asarray(e_j))
     np.testing.assert_allclose(n(s_p), np.asarray(s_j), rtol=RTOL_S)
     w_j = np.asarray(w_j)
@@ -112,6 +126,39 @@ def test_tile_size_does_not_change_the_solve(ref_path):
         np.testing.assert_allclose(n(out[0]), n(base[0]), rtol=2e-6,
                                    atol=1e-7)
         np.testing.assert_allclose(n(out[3][1]), n(base[3][1]), rtol=2e-6)
+
+
+@pytest.mark.parametrize("mode", ["raw", "normalize", "fuse_update"])
+def test_combine_of_one_tile_is_the_direct_expressions(mode):
+    """combine_reference at n_tiles == 1 is, bit for bit, m = m_p, scale =
+    exp((m - m_p)/lam), eta = 0 + eta_p·scale and each row 0 + row·scale
+    before the output step; so a row of -0 comes out +0, which the
+    shortened eta = eta_p, row = row would not give."""
+    B, T = 3, 12
+    cfg = configs(64, T, lam=LAM)[1]
+    rng = np.random.default_rng(7)
+    m_p = t(rng.normal(size=(B, 1)) * 100, F32)
+    eta_p = t(rng.uniform(1, 50, size=(B, 1)), F32)
+    rows = t(rng.normal(size=(B, 1, T, 2)), F32)
+    rows[0, 0, 3] = -0.0                    # a row of -0 in both dims
+    u = t(rng.normal(size=(B, T, 2)), F32)
+    kw = {"raw": dict(normalize=False), "normalize": {},
+          "fuse_update": dict(fuse_update=True)}[mode]
+    out, m, eta = cuda_solve.combine_reference(m_p, eta_p, rows, u, cfg, **kw)
+    scale = torch.exp((m_p[:, 0] - m_p[:, 0]) / cfg.lam)
+    want_eta = 0.0 + eta_p[:, 0] * scale
+    acc = 0.0 + rows[:, 0] * scale[:, None, None]
+    assert torch.equal(m, m_p[:, 0]) and torch.equal(eta, want_eta)
+    if mode == "raw":
+        assert torch.equal(out, acc)
+        assert not torch.signbit(out[0, 3]).any()   # -0 came out +0
+        assert torch.signbit(rows[0, 0, 3]).all()
+    elif mode == "normalize":
+        assert torch.equal(out, acc / want_eta[:, None, None])
+    else:
+        weps = acc * (1.0 / want_eta)[:, None, None]
+        med = median_filter_reflect(weps.transpose(0, 1), cfg.filter_window)
+        assert torch.equal(out, u + med.transpose(0, 1))
 
 
 def test_prng_mode_draws_philox_epsilon(ref_path):

@@ -1,8 +1,9 @@
 """The port's measurement tools on the CPU: ``tools/sass_loops.py`` on
 saved listings in ``cuobjdump -sass``'s and ``nvdisasm -gi``'s formats, the
 parts of ``tools/fused_timing.py`` that need no card (the launch settings
-of its three modes, the fingerprint and the on-path mean), and the
-argument handling of ``tools/sanitize.py``."""
+of its three modes, the fingerprint and the on-path mean), the argument
+handling of ``tools/sanitize.py``, and ``tools/combine_clocks.py``'s
+stamps against the solve kernel's source."""
 
 import numpy as np
 import pytest
@@ -10,7 +11,8 @@ import torch
 
 import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.ops import cuda_sim
-from mppi_robotarm_tpu_torch.tools import fused_timing, sanitize, sass_loops
+from mppi_robotarm_tpu_torch.tools import (combine_clocks, fused_timing,
+                                           sanitize, sass_loops)
 
 # A rollout loop 0x30-0xf0 holding two of the three Philox multiplies (one
 # hoisted before it), with a window scan 0x60-0xa0 (two rows a pass) and a
@@ -237,10 +239,28 @@ def test_fused_timing_fleet_settings_put_k3_before_k1():
 
 def test_fused_timing_solve_shapes_cover_every_k1024_layout():
     """B = 1, 8 and 64 at K=1024 take 4, 2 and 1 lanes a sample on an
-    H100; then the large-K solve and the fleet's per-step solve."""
+    H100; then the reference config's one tile a scenario, the large-K
+    solve and the fleet's per-step solve."""
     assert [s[1:] for s in fused_timing.solve_shapes()] == [
-        (1, 1024, 50), (8, 1024, 50), (64, 1024, 50), (1, 65536, 50),
-        (4096, 128, 30)]
+        (1, 1024, 50), (8, 1024, 50), (64, 1024, 50), (8, 100, 30),
+        (1, 65536, 50), (4096, 128, 30)]
+
+
+def test_sass_digests_tell_kernels_and_builds_apart(tmp_path, capsys):
+    """One digest a kernel, the same for the same instructions at another
+    place in the library, another for one changed instruction."""
+    got = sass_loops.digests(_listing())
+    assert len(got) == 2 and len(set(got.values())) == 2
+    moved = _listing().replace("Fatbin elf code:", "Fatbin elf code:\n")
+    assert sass_loops.digests(moved) == got
+    changed = _listing().replace("FADD R14, R14, R15", "FMUL R14, R14, R15")
+    sim = next(k for k in got if "sim_kernel" in k)
+    assert sass_loops.digests(changed)[sim] != got[sim]
+    f = tmp_path / "lib.sass"
+    f.write_text(_listing())
+    assert sass_loops.main(["--digest", str(f)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert sorted(lines) == sorted(f"{k} sha256 {v}" for k, v in got.items())
 
 
 def test_fused_timing_onpath_seeds_force_the_tile_through_plan(monkeypatch):
@@ -263,6 +283,87 @@ def test_fused_timing_onpath_seeds_force_the_tile_through_plan(monkeypatch):
     with pytest.raises(RuntimeError, match="stop"):
         fused_timing.steploop_onpath(torch.device("cpu"), [0])
     assert seen[1] == (32, 32, 1, 4)       # K=1024's own tile
+
+
+class _Event:
+    def __init__(self, key, total, count):
+        self.key, self.self_device_time_total, self.count = key, total, count
+
+
+def _fake_profiler(monkeypatch, windows):
+    """torch.profiler.profile stand-in whose n-th window holds the events
+    ``windows[n]``; returns the list that grows by one a window."""
+    import torch.profiler
+
+    opened = []
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            opened.append(None)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return windows[len(opened) - 1]
+
+        events = key_averages
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    return opened
+
+
+def test_fused_timing_profiled_us_tries_again_after_an_empty_window(
+        monkeypatch):
+    """A window that kept no device event is profiled again; the first one
+    that kept any gives each kernel's mean a launch, filtered by key."""
+    opened = _fake_profiler(monkeypatch, [
+        [], [_Event("cpu_op", 0.0, 3)],
+        [_Event("solve_tile_kernel<4>", 120.0, 2),
+         _Event("other_kernel", 9.0, 3)]])
+    calls = []
+    got = fused_timing.profiled_us(lambda: calls.append(1), 5,
+                                   lambda k: "solve_" in k)
+    assert got == {"solve_tile_kernel<4>": 60.0}
+    assert len(opened) == 3 and len(calls) == 1 + 3 * 5
+    assert fused_timing.PROFILE_TRIES == 3
+
+
+def test_fused_timing_kernel_device_us_raises_after_every_window_empty(
+        monkeypatch):
+    opened = _fake_profiler(monkeypatch, [[]] * 3)
+    assert fused_timing.profiled_us(lambda: None, 2) == {}
+    opened.clear()
+    with pytest.raises(RuntimeError, match="no probe_ kernel in 3 windows"):
+        fused_timing.kernel_device_us(lambda: None, 2, "probe_")
+    assert len(opened) == 3
+
+
+def test_fused_timing_kernel_device_us_names_a_template_by_its_kernel(
+        monkeypatch):
+    _fake_profiler(monkeypatch, [[
+        _Event("void solve_tile_kernel<4>(SolveParams)", 40.0, 4),
+        _Event("void solve_tile_kernel<2>(SolveParams)", 30.0, 3)]])
+    assert fused_timing.solve_device_us(lambda: None, 4) == {
+        "solve_tile_kernel": 20.0}
+
+
+def test_overhead_device_launches_tries_again_after_an_empty_window(
+        monkeypatch):
+    from torch.autograd import DeviceType
+
+    from mppi_robotarm_tpu_torch.tools import overhead
+
+    cpu, cuda = _Event("op", 0.0, 1), _Event("k", 1.0, 1)
+    cpu.device_type, cuda.device_type = DeviceType.CPU, DeviceType.CUDA
+    opened = _fake_profiler(monkeypatch, [[cpu], [cpu, cuda, cuda]])
+    assert overhead.device_launches(lambda: None) == 2
+    assert len(opened) == 2
 
 
 def test_sanitize_arguments_and_commands():
@@ -348,3 +449,18 @@ def test_sanitize_stops_where_the_device_is_not_supported(monkeypatch,
         capsys.readouterr().out)
     monkeypatch.setattr(sanitize, "sanitizer_path", lambda: None)
     assert sanitize.main([]) == 1
+
+
+def test_combine_clocks_stamps_fit_the_solve_kernel(monkeypatch):
+    """Every stamp's anchor is in csrc/solve_kernel.cu once: a stamp at
+    the combine's entry, one after each of its four pieces (the one-tile
+    path's end included), so an edit of the combine that moves an anchor
+    fails here and not on the card."""
+    src = (combine_clocks.PACKAGE / "csrc" / "solve_kernel.cu").read_text()
+    out = combine_clocks.instrument(src)
+    assert out.count("clock64()") == 6 and "clock64" not in src
+    assert out.count("ob[3] = (float)(clock64() - ck") == 2
+    with pytest.raises(ValueError, match="anchor"):
+        combine_clocks.instrument(src.replace("if (!s_last) return;", ""))
+    monkeypatch.setattr(combine_clocks.shutil, "which", lambda name: None)
+    assert combine_clocks.main([]) == 1
