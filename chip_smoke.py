@@ -34,10 +34,13 @@ Phases (any failure raises and exits non-zero):
      == the twin's bit for bit and == philox_epsilon for up to 8 scenarios,
      two runs the same bits;
   8. the per-step path, ``simulate(benchmark_preset, seed 0, 4000 steps,
-     backend="cuda")``: one solve-kernel launch a step (so at least one a
-     live step) and no separate combine launch, finite records, on-path
-     mean < 42 mm, its first 8 steps == phase 4's fused run within the
-     bands of phase 2;
+     backend="cuda")``, which replays CUDA graphs of
+     ``sim/loop.py::_GRAPH_STEPS`` steps: one solve-kernel launch a step
+     (so at least one a live step) and no separate combine launch, finite
+     records, on-path mean < 42 mm, records and final state == the eager
+     chunked loop's (``sim/loop.py::_step_loop(graphs=False)``) bit for
+     bit, its first 8 steps == phase 4's fused run within the bands of
+     phase 2;
   9. the batch, ``simulate_batch(backend="cuda")`` at 4096 scenarios x
      K=128, T=30 for 50 steps: finite records, scenario 0 == its run alone
      bit for bit;
@@ -47,9 +50,10 @@ Phases (any failure raises and exits non-zero):
      K=128, T=30), each with the layout that ``cuda_solve.solve_layout``
      picks (the tile from K, the lanes a sample and tiles a block from the
      batch and the card's SMs), the
-     per-step loop's µs/step and device
-     idle share (device-busy µs/step from a profiled window against the
-     unprofiled µs/step), the batch's scenario-steps/s;
+     per-step loop's µs/step and device idle share (device-busy µs/step
+     from a profiled window against the unprofiled µs/step) as replayed
+     graphs beside the eager chunked loop's, in turns, with the graphs'
+     length and capture seconds, the batch's scenario-steps/s;
  11. the fleet kernel against the fused kernel and against its plain
      twin, eps and PRNG modes: K=128/T=30, B=64, group=8 on a 120-row
      path with half the scenarios frozen from the start, K=100/T=30,
@@ -413,6 +417,7 @@ def main() -> int:
     import mppi_robotarm_tpu_torch as m
     from mppi_robotarm_tpu_torch.ops import _build, cuda_sim, cuda_solve
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
+    from mppi_robotarm_tpu_torch.sim import loop
     from mppi_robotarm_tpu_torch.tools import fused_timing, overhead, sass_loops
 
     check("jax" not in sys.modules, "the port imported JAX")
@@ -585,6 +590,8 @@ def main() -> int:
     s_err = max(s_err, ds)
 
     # ---- 8. the per-step path ------------------------------------------
+    graph_steps = loop._GRAPH_STEPS
+    loop._GRAPHS.clear()
     cuda_solve.LAUNCHES = cuda_solve.COMBINE_LAUNCHES = 0
     t0 = time.perf_counter()
     final_p, rec_p = m.simulate(arm, cfg, sim, ref, state0, STEPS,
@@ -593,10 +600,30 @@ def main() -> int:
     loop_wall = time.perf_counter() - t0
     solve_launches = cuda_solve.LAUNCHES
     combine_launches = cuda_solve.COMBINE_LAUNCHES
+    captures = {g.n: g.capture_s for g in loop._GRAPHS.values()}
     live = int((~rec_p.done).sum())
-    print(f"per-step path: simulate(backend='cuda') {STEPS} steps, "
-          f"solve_tile_kernel launches {solve_launches}, separate combine "
-          f"launches {combine_launches}, live steps {live}")
+    print(f"per-step path: simulate(backend='cuda') {STEPS} steps as "
+          f"replayed CUDA graphs of {graph_steps} steps (captured: "
+          + ", ".join(f"{n} steps in {t:.3f} s" for n, t in
+                      sorted(captures.items()))
+          + f"), solve_tile_kernel launches {solve_launches}, separate "
+          f"combine launches {combine_launches}, live steps {live}, "
+          f"{loop_wall:.3f} s wall with the captures")
+    check(captures and len(captures) <= 2 and max(captures) == graph_steps,
+          f"the per-step path captured {sorted(captures)}, not chunks of "
+          f"{graph_steps} steps")
+    final_e, rec_e = loop._step_loop(arm, cfg, sim, ref,
+                                     loop._as_batch(state0), STEPS,
+                                     graphs=False)
+    for field, a, b in zip(rec_p._fields, rec_p, rec_e):
+        check(torch.equal(a, b[:, 0]),
+              f"per-step record {field}: graphs != the eager chunked loop")
+    check(all(torch.equal(a, b[0]) for a, b in zip(
+        (final_p.step, final_p.q, final_p.dq, *final_p.mppi, final_p.done),
+        (final_e.step, final_e.q, final_e.dq, *final_e.mppi, final_e.done))),
+        "per-step final state: graphs != the eager chunked loop")
+    print(f"per-step path: records and final state == the eager chunked "
+          f"loop's, bitwise, over {STEPS} steps")
     check(solve_launches == STEPS >= live,
           f"the per-step path made {solve_launches} solve launches in "
           f"{STEPS} steps, not one a step")
@@ -676,32 +703,71 @@ def main() -> int:
               f"{[round(t * 1e3, 2) for t in ev]}; plain twin "
               f"{min(plain) * 1e3:.1f} us/solve")
 
-    loop_steps = 1000
-    lt = cuda_time(lambda: m.simulate(arm, cfg, sim, ref, state0, loop_steps,
-                                      backend="cuda"), 3)
-    loop_us = min(lt) / loop_steps * 1e3
-    steps_w = 300
-    for _ in range(fused_timing.PROFILE_TRIES):  # a window can come back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            m.simulate(arm, cfg, sim, ref, state0, steps_w, backend="cuda")
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t0
-        busy_us = sum(fused_timing.device_total(e)
-                      for e in prof.key_averages()) / steps_w
-        if busy_us > 0:
-            break
-    check(busy_us > 0, f"the profiler saw no device time in "
-          f"{fused_timing.PROFILE_TRIES} windows of the per-step loop")
-    idle = 1.0 - busy_us / loop_us      # the profiler slows the host only
-    print(f"timing [{card}]: per-step loop {loop_us:.2f} us/step by CUDA "
-          f"events over {loop_steps} steps, runs {[round(t, 1) for t in lt]} "
+    loop_steps, steps_w = 1000, 300
+    one0 = loop._as_batch(state0)
+    # the graphs through the public entry; the eager loop is reached only
+    # through the private loop, on the state made a batch of one beforehand
+    loops = {"graphs": lambda n: m.simulate(arm, cfg, sim, ref, state0, n,
+                                            backend="cuda"),
+             "eager": lambda n: loop._step_loop(arm, cfg, sim, ref, one0, n,
+                                                graphs=False)}
+    for n in (loop_steps, steps_w):     # capture the graphs before timing
+        loops["graphs"](n)
+    lt = {k: [] for k in loops}
+    for _ in range(3):
+        for k, run in loops.items():
+            lt[k] += cuda_time(lambda: run(loop_steps), 1)
+    loop_us, busy_us, idle, window, breakdown = {}, {}, {}, {}, {}
+    for k, run in loops.items():
+        loop_us[k] = min(lt[k]) / loop_steps * 1e3
+        for _ in range(fused_timing.PROFILE_TRIES):  # a window can be empty
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(steps_w)
+                torch.cuda.synchronize()
+                window[k] = time.perf_counter() - t0
+            events = [(e.key, e.count, fused_timing.device_total(e))
+                      for e in prof.key_averages()
+                      if fused_timing.device_total(e) > 0]
+            busy_us[k] = sum(t for _, _, t in events) / steps_w
+            if busy_us[k] > 0:
+                break
+        check(busy_us[k] > 0, f"the profiler saw no device time in "
+              f"{fused_timing.PROFILE_TRIES} windows of the per-step loop "
+              f"({k})")
+        idle[k] = 1.0 - busy_us[k] / loop_us[k]  # the profiler slows the host
+        # where a step's device time goes: the solve, the copies, the rest
+        part = {"solve": 0.0, "copies": 0.0, "other": 0.0}
+        n_other = 0
+        for key, cnt, t in events:
+            kind = ("solve" if "solve_" in key else
+                    "copies" if "memcpy" in key.lower() else "other")
+            part[kind] += t / steps_w
+            n_other += cnt if kind == "other" else 0
+        breakdown[k] = (part, n_other / steps_w)
+    print(f"timing [{card}]: per-step loop, simulate(backend='cuda') as "
+          f"CUDA graphs of {graph_steps} steps {loop_us['graphs']:.2f} us/step by CUDA events over "
+          f"{loop_steps} steps, runs {[round(t, 1) for t in lt['graphs']]} "
           f"ms ({loop_wall / STEPS * 1e6:.2f} us/step by wall clock over "
-          f"phase 8's {STEPS}) vs sim_kernel {kern_ms * 1e3:.2f} us/step; "
-          f"device busy {busy_us:.2f} us/step in a profiled {steps_w}-step "
-          f"window ({window / steps_w * 1e6:.2f} us/step under the "
-          f"profiler); idle share {idle:.3f} of the unprofiled "
-          f"{loop_us:.2f} us/step")
+          f"phase 8's {STEPS}, captures included: "
+          + ", ".join(f"{n} steps {t:.3f} s" for n, t in
+                      sorted(captures.items()))
+          + f"); eager chunked loop (_step_loop(graphs=False)) "
+          f"{loop_us['eager']:.2f} us/step, runs "
+          f"{[round(t, 1) for t in lt['eager']]} ms; sim_kernel "
+          f"{kern_ms * 1e3:.2f} us/step")
+    for k in loops:
+        part, n_other = breakdown[k]
+        print(f"timing [{card}]: per-step loop ({k}): device busy "
+              f"{busy_us[k]:.2f} us/step in a profiled {steps_w}-step window "
+              f"({window[k] / steps_w * 1e6:.2f} us/step under the "
+              f"profiler; solve_tile_kernel {part['solve']:.2f}, copies "
+              f"{part['copies']:.2f}, {n_other:.1f} other kernels "
+              f"{part['other']:.2f} us/step); idle share {idle[k]:.3f} of "
+              f"the unprofiled {loop_us[k]:.2f} us/step"
+              + (" (below 0: the profiled kernels ran longer than the "
+                 "unprofiled steps, so the device did not idle)"
+                 if idle[k] < 0 else ""))
     bt = cuda_time(run_batch, 3)
     rate = BATCH * BATCH_STEPS / (min(bt) / 1e3)
     print(f"timing [{card}]: batch {BATCH} x {BATCH_STEPS} steps "
@@ -970,7 +1036,9 @@ def main() -> int:
     p2_plain_ms = device_ms("probe_big plain",
                             lambda: cuda_probe.probe_big_reference(xp))
     print(f"timing [{card}]: device time per call over {PROBE_TIME_CALLS} "
-          f"calls: probe_scale_kernel {p1_ms * 1e3:.3f} us, plain "
+          f"calls: probe_scale_kernel {p1_ms * 1e3:.3f} us (the scalar "
+          f"design, kept: one-block and one-warp float4 designs measured "
+          f"slower, PERF.md), plain "
           f"{p1_plain_ms * 1e3:.3f} us, torch.mul {p1_lib_ms * 1e3:.3f} us; "
           f"probe_big_kernel {p2_ms * 1e3:.3f} us, plain "
           f"{p2_plain_ms * 1e3:.3f} us"

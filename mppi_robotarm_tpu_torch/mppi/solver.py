@@ -90,23 +90,39 @@ def _median_update(u_prev, w_eps_raw, cfg: MPPIConfig):
     return u_prev + w.movedim(0, -2)
 
 
+def _solve_options(cfg: MPPIConfig) -> dict:
+    """The layout options the cuda backend's solve passes to
+    ``cuda_solve.solve_batched``.  With ``fuse_update`` the kernel also
+    applies the median (Q10) and the u update (Q3) and returns u_new."""
+    return dict(tile=None, normalize=True,
+                fuse_update=cfg.filter_window <= 2 * cfg.horizon)
+
+
+def step_solve_plan(cfg: MPPIConfig, batch: int, device) -> tuple:
+    """The launch layout (tile, n_tiles, lanes, group) that
+    ``cuda_solve._plan`` gives the cuda backend's solve of ``batch``
+    scenarios of ``cfg.num_samples`` samples on ``device`` now."""
+    o = _solve_options(cfg)
+    return cuda_solve._plan(cfg, cfg.num_samples, o["tile"], o["normalize"],
+                            o["fuse_update"], batch,
+                            cuda_solve._sm_count(device))
+
+
 def _solve_kernels(arm, cfg, observed_x, u_prev, window, valid, seed, eps,
                    step, want_eps):
     """The cuda backend's K×T sweep for (B, ...) inputs: the kernels'
     outputs cast back to the state's dtype.  Returns (u_seq, S, eps)."""
     f32 = torch.float32
     dtype = u_prev.dtype
-    # with fuse_update the kernel also applies the median (Q10) and the
-    # u update (Q3) and returns u_new
-    fuse = cfg.filter_window <= 2 * cfg.horizon
+    opts = _solve_options(cfg)
     out, s, eps_used, _ = cuda_solve.solve_batched(
         arm, cfg, observed_x.to(f32).contiguous(),
         u_prev.to(f32).contiguous(), window.to(f32).contiguous(),
         valid.sum(dim=-1), seed=seed,
         eps=None if eps is None else eps.to(f32).contiguous(), step=step,
-        emit_eps=want_eps or eps is not None, fuse_update=fuse)
+        emit_eps=want_eps or eps is not None, **opts)
     out = out.to(dtype)
-    u_seq = out if fuse else _median_update(u_prev, out, cfg)
+    u_seq = out if opts["fuse_update"] else _median_update(u_prev, out, cfg)
     return u_seq, s.to(dtype), eps_used
 
 

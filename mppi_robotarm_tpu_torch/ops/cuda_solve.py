@@ -37,11 +37,14 @@ the device; a missing ``step`` is the kernel's step 0, not a copy.  Call
 once on the device before capturing, which builds and loads the library
 and allocates the arrival counters (:func:`_arrival_counters`).  The graph
 keeps the kernel arguments as they were at capture: the parameter block by
-value, the operands, outputs and the capture stream's counters by address.
+value, the operands, outputs and the capture stream's counters by address
+(or, inside :func:`counters_of`, the counters of the stream it is
+replayed on).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -80,6 +83,9 @@ COMBINE_LAUNCHES = 0          # separate combine launches: none since the
 # slots not yet given to a stream.
 _COUNTERS: dict = {}
 _FREE_COUNTERS: dict = {}
+# (device index, launch stream) -> the stream whose counters its launches
+# take instead of its own, while a counters_of block is open.
+_COUNTERS_OF: dict = {}
 
 
 class _SolveParams(ctypes.Structure):
@@ -332,7 +338,8 @@ def _arrival_counters(device: torch.device, stream: int) -> torch.Tensor:
     streams never share a counter; the kernel's combining block puts each
     counter back to 0, so a slot is zeroed once, when its allocation of
     COUNTER_SLOTS slots is made, and never again.  A graph captures the
-    capture stream's slot by address, and every replay leaves it zero.
+    capture stream's slot (or :func:`counters_of`'s) by address, and every
+    replay leaves it zero.
     Slots are handed out during a capture too, but an allocation is not
     made there (it would come from the graph's pool, zeroed only when the
     graph replays), so a capture needs one uncaptured call on its device
@@ -351,6 +358,22 @@ def _arrival_counters(device: torch.device, stream: int) -> torch.Tensor:
                                     dtype=torch.int32, device=device))
         _COUNTERS[key] = free.pop(0)
     return _COUNTERS[key]
+
+
+@contextlib.contextmanager
+def counters_of(device: torch.device, stream: int, on: int):
+    """Inside the block, solves launched on stream ``on`` of ``device``
+    take the arrival counters of stream ``stream`` (both handles).  A graph
+    captured on a side stream ``on`` and replayed on ``stream`` then uses
+    the counters that ``stream``'s own solves use, in order with them, and
+    the side stream needs no slot of its own.  Make the block's first call
+    uncaptured if ``stream`` may have no slot yet."""
+    key = (device.index, on)
+    _COUNTERS_OF[key] = stream
+    try:
+        yield
+    finally:
+        del _COUNTERS_OF[key]
 
 
 def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
@@ -405,7 +428,8 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        count = _arrival_counters(device, stream)
+        count = _arrival_counters(
+            device, _COUNTERS_OF.get((device.index, stream), stream))
         if count.numel() < B:
             raise ValueError(f"the arrival counters cover {count.numel()} "
                              f"scenarios, not {B}")

@@ -9,7 +9,6 @@ upper middle order statistic (rank s//2), without averaging.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
@@ -22,10 +21,12 @@ def median_filter_reflect(x: torch.Tensor, size: int) -> torch.Tensor:
     t = x.shape[0]
     left = size // 2
     # edge-inclusive reflection with period 2t: ... b a | a b c d | d c ...
-    idx = np.arange(-left, t - left + size - 1)
+    # The indices are made on x's device, so a CUDA graph can capture the
+    # filter: a copy from the host would stop the capture.
+    idx = torch.arange(-left, t - left + size - 1, device=x.device)
     period = 2 * t
-    j = np.mod(idx, period)
-    j = np.where(j < t, j, period - 1 - j)
-    xp = x[torch.as_tensor(j, device=x.device)]
+    j = torch.remainder(idx, period)
+    j = torch.where(j < t, j, period - 1 - j)
+    xp = x[j]
     windows = torch.stack([xp[k:k + t] for k in range(size)], dim=0)
     return torch.sort(windows, dim=0).values[size // 2]

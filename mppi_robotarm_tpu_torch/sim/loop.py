@@ -9,8 +9,10 @@ The loops:
   * :func:`simulate` — a Python loop over :func:`sim_step`; the path end
     becomes a ``done`` flag that freezes the state.  ``backend="eager"``
     solves in PyTorch in any dtype; ``backend="cuda"`` solves each step
-    through the solve kernels (``ops/cuda_solve.py``) in float32, keeping
-    step, seed and waypoint index on the device so the host never waits;
+    through the solve kernel (``ops/cuda_solve.py``) in float32, keeping
+    step, seed and waypoint index on the device so the host never waits,
+    and on the card runs the steps as replayed CUDA graphs of
+    ``_GRAPH_STEPS`` steps (the JAX package's one ``lax.scan``);
   * :func:`simulate_python` — the eager loop with the reference-exact
     ``IndexError``;
   * :func:`simulate_batch` — B independent scenarios (BASELINE config 4);
@@ -28,6 +30,8 @@ noise and a chained run continues one long run's stream.
 
 from __future__ import annotations
 
+import time
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -41,7 +45,9 @@ from ..mppi.solver import (
     init_state,
     solve,
     solve_batched,
+    step_solve_plan,
 )
+from ..ops import cuda_solve
 from ..ops.cuda_rollout import philox_epsilon
 from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
 from ..ops.weights import effective_sample_size, weight_entropy
@@ -287,11 +293,16 @@ def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
 
     Same semantics per scenario as :func:`simulate`.  ``backend="eager"``
     runs :func:`simulate` scenario by scenario; ``backend="cuda"`` solves
-    all B through one launch of the solve kernels per step, keyed by each
+    all B through one launch of the solve kernel per step, keyed by each
     scenario's constant seed and absolute step, so scenario b's run equals
-    its run alone.  ``eps_per_step``: optional (num_steps, B, K, T, 2),
-    step-major (:func:`simulate_fused_batch` takes it scenario-major, as the
-    JAX package does).  Returns (final batched SimState, SimRecord of
+    its run alone.  On CUDA tensors without ``eps_per_step`` the steps run
+    as CUDA graphs of ``_GRAPH_STEPS`` steps, captured at a shape's first
+    call, cached, and replayed one after the other (a failed capture
+    raises); on CPU tensors, or with ``eps_per_step``, the same steps run
+    eagerly, with the same bits (:func:`_step_loop`).  ``eps_per_step``:
+    optional (num_steps, B, K, T, 2), step-major
+    (:func:`simulate_fused_batch` takes it scenario-major, as the JAX
+    package does).  Returns (final batched SimState, SimRecord of
     (num_steps, B, ...)).
     """
     if backend == "eager":
@@ -312,21 +323,210 @@ def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                                   for f in zip(*(r for _, r in runs))))
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
+    graphs = states0.q.device.type == "cuda" and eps_per_step is None
+    return _step_loop(arm, cfg, sim, ref_path, states0, num_steps,
+                      eps_per_step, graphs)
 
+
+# The per-step loop on the card runs as CUDA graphs of _GRAPH_STEPS steps
+# each (the last, shorter chunk as a graph of its own), replayed one after
+# the other; each keeps its input state in its own buffers and leaves the
+# chunk's final state there, so the next replay continues it.  16 steps gave
+# the shortest 4000-step run at benchmark_preset, captures included, on an
+# H100 (of 1, 8, 16, 32, 64 and 256: a replay every step costs host time,
+# a longer graph more capture; PERF.md).
+_GRAPH_STEPS = 16
+_GRAPH_CACHE_SIZE = 8        # captured chunks kept, least recently used out
+_GRAPHS: "OrderedDict" = OrderedDict()
+_CAPTURE_STREAMS: dict = {}  # device index -> the stream captures run on
+
+
+class _StepGraph(NamedTuple):
+    """A captured chunk of ``n`` steps: its graph, the state it reads and
+    leaves (seed included), its copy of the path, its (n, B, ...) record
+    rows, the seconds its capture and instantiation took, and the solve
+    launches the capture recorded (``n``: one a step)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    state: SimState
+    ref: torch.Tensor
+    rows: tuple
+    n: int
+    capture_s: float
+    launches: int
+
+
+def _row_buffers(n: int, states: SimState) -> tuple:
+    """Empty (n, B, ...) record rows of a batched state, in the order
+    :func:`_steps_into` writes them: q, dq, u, wp_idx, cost_min,
+    cost_mean, ess, entropy, done."""
+    B, device = states.q.shape[0], states.q.device
+    x, u = states.q.dtype, states.mppi.u_prev.dtype
+    e = lambda dtype, *s: torch.empty((n, B, *s), dtype=dtype, device=device)
+    return (e(x, 2), e(x, 2), e(u, 2), e(states.mppi.wp_idx.dtype),
+            e(u), e(u), e(u), e(u), e(torch.bool))
+
+
+def _steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                ref_path: torch.Tensor, states: SimState, eps_chunk,
+                rows: tuple) -> SimState:
+    """``rows[0].shape[0]`` steps of :func:`_step_batch`, step i writing its
+    record row into slot i of each of ``rows`` in place; returns the last
+    state.  No host synchronisation, so a CUDA graph can capture it."""
+    for i in range(rows[0].shape[0]):
+        eps = None if eps_chunk is None else eps_chunk[i]
+        states, res = _step_batch(arm, cfg, sim, ref_path, states, eps)
+        for dst, v in zip(rows, (
+                states.q, states.dq, res.u0, states.mppi.wp_idx,
+                torch.amin(res.costs, dim=-1), torch.mean(res.costs, dim=-1),
+                effective_sample_size(res.weights),
+                weight_entropy(res.weights), states.done)):
+            dst[i].copy_(v)
+    return states
+
+
+def _state_tensors(states: SimState) -> tuple:
+    return (states.step, states.q, states.dq, states.mppi.u_prev,
+            states.mppi.wp_idx, states.seed, states.done)
+
+
+def _as_state(t: tuple) -> SimState:
+    step, q, dq, u_prev, wp_idx, seed, done = t
+    return SimState(step=step, q=q, dq=dq,
+                    mppi=MPPIState(u_prev=u_prev, wp_idx=wp_idx), seed=seed,
+                    done=done)
+
+
+def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream):
+    """Everything a captured chunk bakes in: the device and the caller's
+    stream, the configs, the shapes and dtypes of the state and the path,
+    the chunk's steps, and the solve's layout as the solver plans it now
+    (so a graph captured under one plan is never replayed under
+    another)."""
+    device = states.q.device
+    plan = step_solve_plan(cfg, states.q.shape[0], device)
+    return (device.index, stream.cuda_stream, arm, cfg, sim, n, plan,
+            tuple(ref_path.shape), ref_path.dtype,
+            tuple((tuple(v.shape), v.dtype) for v in _state_tensors(states)))
+
+
+def _capture(arm, cfg, sim, ref_path, states: SimState, n: int,
+             stream) -> _StepGraph:
+    """Capture :func:`_steps_into` over ``n`` steps, then the copy of its
+    final state back into the input buffers, on the stream the loop owns on
+    the device, for replay on the caller's ``stream``; the solves take
+    ``stream``'s arrival counters (``cuda_solve.counters_of``), so a replay
+    shares them only with work that runs in order with it.
+
+    First one step runs uncaptured on the loop's stream, on scratch copies
+    of the state: it loads the kernels, raises the solve kernel's
+    shared-memory limit and gives ``stream`` its arrival counters, none of
+    which a capture may do.  The solve launches the capture records are
+    counted into the graph's ``launches`` (it raises unless that is one a
+    step) and the replays add them to ``cuda_solve.LAUNCHES``; the
+    warm-up's launch, and the capture's, which executes nothing, are not
+    counted there."""
+    device = states.q.device
+    launches = cuda_solve.LAUNCHES
+    own = _CAPTURE_STREAMS.get(device.index)
+    if own is None:
+        own = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+    static = _as_state(tuple(v.clone() for v in _state_tensors(states)))
+    ref = ref_path.clone()
+    rows = _row_buffers(n, states)
+    own.wait_stream(stream)
+    with cuda_solve.counters_of(device, stream.cuda_stream, own.cuda_stream):
+        with torch.cuda.stream(own):
+            scratch = _as_state(tuple(v.clone()
+                                      for v in _state_tensors(states)))
+            _steps_into(arm, cfg, sim, ref, scratch, None,
+                        tuple(r[:1].clone() for r in rows))
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        captured = cuda_solve.LAUNCHES
+        with torch.cuda.graph(graph, stream=own):
+            final = _steps_into(arm, cfg, sim, ref, static, None, rows)
+            for dst, src in zip(_state_tensors(static),
+                                _state_tensors(final)):
+                if dst is not src:
+                    dst.copy_(src)
+        captured = cuda_solve.LAUNCHES - captured
+        capture_s = time.perf_counter() - t0
+    cuda_solve.LAUNCHES = launches
+    if captured != n:
+        raise RuntimeError(f"a captured chunk of {n} steps holds {captured} "
+                           f"solve kernel launches, not one a step")
+    return _StepGraph(graph, static, ref, rows, n, capture_s, captured)
+
+
+def _step_graph(arm, cfg, sim, ref_path, states: SimState, n: int
+                ) -> _StepGraph:
+    """The cached chunk of ``n`` steps for these inputs on the current
+    stream, captured at its first use."""
+    stream = torch.cuda.current_stream(states.q.device)
+    key = _graph_key(arm, cfg, sim, ref_path, states, n, stream)
+    g = _GRAPHS.pop(key, None)
+    if g is None:
+        g = _capture(arm, cfg, sim, ref_path, states, n, stream)
+    _GRAPHS[key] = g
+    while len(_GRAPHS) > _GRAPH_CACHE_SIZE:
+        _GRAPHS.popitem(last=False)
+    return g
+
+
+def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, num_steps,
+                   rows: tuple) -> SimState:
+    """The run as replays of captured chunks: each chunk's input state and
+    path are copied into its graph's buffers (skipped when the last replay
+    was of the same graph, which left its state there), then its record
+    rows out into ``rows``.  Each replay adds the solve launches its
+    capture recorded to ``cuda_solve.LAUNCHES``."""
+    cur = _state_tensors(states)
+    last = None
+    for start in range(0, num_steps, _GRAPH_STEPS):
+        n = min(_GRAPH_STEPS, num_steps - start)
+        g = _step_graph(arm, cfg, sim, ref_path, _as_state(cur), n)
+        if g is not last:
+            for dst, src in zip(_state_tensors(g.state), cur):
+                dst.copy_(src)
+            g.ref.copy_(ref_path)
+        g.graph.replay()
+        cuda_solve.LAUNCHES += g.launches
+        for dst, src in zip(rows, g.rows):
+            dst[start:start + n].copy_(src)
+        cur, last = _state_tensors(g.state), g
+    # the graphs' buffers are overwritten by their next replay
+    return _as_state(tuple(v.clone() for v in cur))
+
+
+def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+               ref_path: torch.Tensor, states0: SimState, num_steps: int,
+               eps_per_step=None, graphs: bool = True):
+    """:func:`simulate_batch`'s cuda backend.  With ``graphs`` (a CUDA
+    state, no injected noise) the steps run as replayed CUDA graphs of
+    ``_GRAPH_STEPS`` steps (:func:`_replay_chunks`); a capture or replay
+    that fails raises.  Otherwise the same chunks of steps run eagerly, as
+    on CPU tensors (through the solve kernel's plain twin) and with
+    ``eps_per_step``, whose noise is a new input every step (up to 126 MB
+    a step at 4096 × K=128, T=30), not something a graph could keep.  The
+    two give the same bits.  Tests and the timing tool call this with
+    ``graphs=False`` on the card to hold the graphs to the eager loop."""
     device = states0.q.device
     states = states0._replace(seed=torch.as_tensor(
         states0.seed, dtype=torch.int64, device=device))
-    rows = []
-    for i in range(num_steps):
-        eps = None if eps_per_step is None else eps_per_step[i]
-        states, res = _step_batch(arm, cfg, sim, ref_path, states, eps)
-        rows.append((states.q, states.dq, res.u0, states.mppi.wp_idx,
-                     torch.amin(res.costs, dim=-1),
-                     torch.mean(res.costs, dim=-1),
-                     effective_sample_size(res.weights),
-                     weight_entropy(res.weights), states.done))
-    q, dq, u, wp, cmin, cmean, ess, ent, done = (
-        torch.stack(f) for f in zip(*rows))
+    rows = _row_buffers(num_steps, states)
+    if graphs:
+        states = _replay_chunks(arm, cfg, sim, ref_path, states, num_steps,
+                                rows)
+    else:
+        for start in range(0, num_steps, _GRAPH_STEPS):
+            n = min(_GRAPH_STEPS, num_steps - start)
+            states = _steps_into(
+                arm, cfg, sim, ref_path, states,
+                None if eps_per_step is None
+                else eps_per_step[start:start + n],
+                tuple(r[start:start + n] for r in rows))
+    q, dq, u, wp, cmin, cmean, ess, ent, done = rows
     # the FK, reference rows and path-end zeroing of every step at once
     x1, y1, x2, y2 = fk_full(q[..., 0], q[..., 1], arm)
     idx = torch.clamp(states0.step.to(device)

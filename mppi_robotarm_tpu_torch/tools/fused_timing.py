@@ -32,8 +32,21 @@ samples weigh) in each noise mode, PRNG and injected noise drawn on the
 device from a fixed ``torch.Generator`` seed.
 
 ``--probes``: the device time per call of P1 and P2 (``probe_scale``,
-``probe_big``, ``torch.profiler`` over 100 calls, min of 3) and whether
-P2's zeros and both outputs equal their plain versions bit for bit.
+``probe_big``) and of ``torch.mul`` on P1's input (``torch.profiler`` over
+100 calls, min of 3, in turns), and whether P2's zeros and both outputs
+equal their plain versions bit for bit, P1's also at 1027 elements (no
+vector width divides it) and on a view 4 bytes past a 16-byte boundary.
+
+``--steploop``: the per-step loop (``simulate_batch(backend="cuda")``)
+as replayed CUDA graphs of S steps, for each S of ``--chunks`` (default 1,
+8, 16, 32, 64, 256; ``sim/loop.py::_GRAPH_STEPS`` set to each in turn), against
+the eager chunked loop (``sim/loop.py::_step_loop(graphs=False)``): at
+``benchmark_preset`` (B=1) over 1000 steps and on the fleet of
+``chip_smoke.py``'s phase 9 over 50 steps, each µs/step by CUDA events,
+min of 3 in turns, the SHA-256 of records and final state, each S's
+capture-and-instantiate seconds, and at ``benchmark_preset`` the wall
+seconds of a 4000-step run from an empty graph cache (capture included;
+min of 3, in turns).
 
 ``--onpath-seeds S ...``: the per-step loop (``simulate(backend="cuda")``)
 at ``benchmark_preset`` for 1500 steps from ``init_sim(seed=S)`` on the
@@ -52,6 +65,7 @@ defaults need no newer keyword):
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --fleet --samples 90
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --onpath-seeds 0 1 \
         --tile 128
+    python -m mppi_robotarm_tpu_torch.tools.fused_timing --steploop
     PYTHONPATH=<tree> python mppi_robotarm_tpu_torch/tools/fused_timing.py \
         --solve --label parent
 
@@ -67,6 +81,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -82,6 +97,9 @@ SOLVE_CALLS = 20      # solve calls per profiled window
 SOLVE_LAM = 3e5       # --solve's fingerprints: tens of samples carry weight
 PROBE_CALLS = 100     # --probes: calls per profiled window
 PROFILE_TRIES = 3     # profiled windows before one that saw nothing counts
+STEPLOOP_STEPS = 1000  # --steploop at benchmark_preset
+STEPLOOP_CHUNKS = (1, 8, 16, 32, 64, 256)   # --steploop: graph lengths
+FLEET_LOOP_STEPS = 50  # --steploop on the fleet, chip_smoke's phase 9
 
 
 def card() -> str:
@@ -363,23 +381,100 @@ def measure_probes(device, calls=PROBE_CALLS):
     versions bit for bit."""
     from mppi_robotarm_tpu_torch.ops import cuda_probe
 
-    x = torch.as_tensor(np.random.default_rng(15).normal(
-        size=(8, 128)).astype(np.float32), device=device)
+    rng = np.random.default_rng(15)
+    x = torch.as_tensor(rng.normal(size=(8, 128)).astype(np.float32),
+                        device=device)
     o1 = cuda_probe.probe_scale(x)
     o2, big = cuda_probe.probe_big(x)
     want, zeros = cuda_probe.probe_big_reference(x)
     same = (torch.equal(o1, want) and torch.equal(o2, want)
             and torch.equal(big, zeros))
+    odd = torch.as_tensor(rng.normal(size=1028).astype(np.float32),
+                          device=device)
+    for v in (odd[:1027], odd[1:]):     # ragged; 4 bytes past 16
+        same = same and torch.equal(cuda_probe.probe_scale(v),
+                                    cuda_probe.probe_scale_reference(v))
     fns = {"probe_scale_kernel": lambda: cuda_probe.probe_scale(x),
-           "probe_big_kernel": lambda: cuda_probe.probe_big(x)}
+           "probe_big_kernel": lambda: cuda_probe.probe_big(x),
+           "torch.mul": lambda: torch.mul(x, cuda_probe.SCALE)}
     runs = {k: [] for k in fns}
     for _ in range(ROUNDS):
         for name, fn in fns.items():
-            runs[name].append(sum(kernel_device_us(fn, calls,
-                                                   "probe_").values()))
+            runs[name].append(sum(
+                profiled_us(fn, calls).values() if name == "torch.mul"
+                else kernel_device_us(fn, calls, "probe_").values()))
     return {"us": {k: min(v) for k, v in runs.items()},
             "runs": {k: [round(t, 4) for t in v] for k, v in runs.items()},
             "same_bits": same}
+
+
+def _run_digest(final, rec) -> str:
+    return digest(*rec, final.step, final.q, final.dq, *final.mppi,
+                  final.done)
+
+
+def measure_steploop(device, chunks=STEPLOOP_CHUNKS):
+    """Rows of the per-step loop's timing (see ``--steploop``): for each
+    case (``benchmark_preset`` over STEPLOOP_STEPS steps, the fleet over
+    FLEET_LOOP_STEPS), the eager chunked loop and a graph loop per chunk
+    length S, in turns, ROUNDS rounds: µs/step (min), the runs' ms, the
+    SHA-256 of records and final state, and per S the capture seconds of
+    each graph it captured (by steps)."""
+    from mppi_robotarm_tpu_torch.sim import loop
+
+    arm, cfg, sim = m.benchmark_preset()
+    ref = torch.as_tensor(m.synth_circle_path(8000), device=device)
+    one = loop._as_batch(m.init_sim(cfg, sim, seed=0, device=device))
+    cases = [("benchmark_preset", (arm, cfg, sim, ref, one), STEPLOOP_STEPS),
+             (f"fleet {FLEET} x K=128 T=30", fleet_inputs(device),
+              FLEET_LOOP_STEPS)]
+    keep = loop._GRAPH_STEPS
+    out = []
+    try:
+        for case, args, steps in cases:
+            rows = [{"case": case, "setting": "eager", "S": keep,
+                     "runs_ms": []}]
+            rows += [{"case": case, "setting": f"graph S={S}", "S": S,
+                      "runs_ms": []} for S in chunks]
+            loop._GRAPHS.clear()
+            for row in rows:
+                loop._GRAPH_STEPS = row["S"]
+                graphs = row["setting"] != "eager"
+                before = set(loop._GRAPHS)
+                row["sha256"] = _run_digest(*loop._step_loop(
+                    *args, steps, graphs=graphs))
+                row["capture_s"] = {g.n: g.capture_s for k, g in
+                                    loop._GRAPHS.items() if k not in before}
+            for _ in range(ROUNDS):
+                for row in rows:
+                    loop._GRAPH_STEPS = row["S"]
+                    graphs = row["setting"] != "eager"
+                    row["runs_ms"].append(_events_ms(
+                        lambda: loop._step_loop(*args, steps,
+                                                graphs=graphs)))
+            for row in rows:
+                row["steps"] = steps
+                row["us_per_step"] = min(row["runs_ms"]) / steps * 1e3
+            if case == "benchmark_preset":
+                # a 4000-step run from an empty cache, capture included,
+                # min of ROUNDS in turns
+                for _ in range(ROUNDS):
+                    for row in rows[1:]:
+                        loop._GRAPH_STEPS = row["S"]
+                        loop._GRAPHS.clear()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        loop._step_loop(*args, STEPS, graphs=True)
+                        torch.cuda.synchronize()
+                        row.setdefault("run_4000_runs_s", []).append(
+                            time.perf_counter() - t0)
+                for row in rows[1:]:
+                    row["run_4000_s"] = min(row["run_4000_runs_s"])
+            loop._GRAPHS.clear()
+            out += rows
+    finally:
+        loop._GRAPH_STEPS = keep
+    return out
 
 
 def steploop_onpath(device, seeds, tile=None, steps=ONPATH_STEPS):
@@ -448,6 +543,11 @@ def main(argv=None) -> int:
                     help="device and event time of the solve, SHA-256")
     ap.add_argument("--probes", action="store_true",
                     help="device time of the probes P1 and P2")
+    ap.add_argument("--steploop", action="store_true",
+                    help="the per-step loop: eager against CUDA graphs")
+    ap.add_argument("--chunks", type=int, nargs="+",
+                    default=list(STEPLOOP_CHUNKS),
+                    help="--steploop: the graphs' lengths in steps")
     ap.add_argument("--onpath-seeds", type=int, nargs="+",
                     help="on-path mean of the per-step loop for each seed")
     ap.add_argument("--tile", type=int,
@@ -467,6 +567,26 @@ def main(argv=None) -> int:
                   f"{ONPATH_STEPS} steps; records sha256 {row['sha256']}")
         print(json.dumps({"label": a.label, "card": smi, "onpath": rows}))
         return 0
+    if a.steploop:
+        rows = measure_steploop(device, a.chunks)
+        for row in rows:
+            cap = ", ".join(f"{n} steps {t:.3f} s" for n, t in
+                            sorted(row["capture_s"].items()))
+            print(f"{a.label} [{smi}] per-step loop {row['case']} "
+                  f"{row['setting']}: {row['us_per_step']:.2f} us/step over "
+                  f"{row['steps']} steps, runs "
+                  f"{[round(t, 2) for t in row['runs_ms']]} ms"
+                  + (f"; capture {cap}" if cap else "")
+                  + (f"; a {STEPS}-step run from an empty cache "
+                     f"{row['run_4000_s']:.3f} s (runs "
+                     f"{[round(t, 3) for t in row['run_4000_runs_s']]})"
+                     if "run_4000_s" in row else "")
+                  + f"; records+final sha256 {row['sha256']}")
+        same = all(len({r["sha256"] for r in rows if r["case"] == c}) == 1
+                   for c in {r["case"] for r in rows})
+        print(json.dumps({"label": a.label, "card": smi, "steploop": rows,
+                          "same_bits": same}))
+        return 0 if same else 1
     if a.fleet:
         samples = a.samples or 128
         rows = measure_fleet(device, samples=samples)

@@ -305,6 +305,25 @@ def test_solve_launch_is_one_call_with_the_streams_counters(
     assert lib.calls[1][1][12].value == count.value      # the same slot
 
 
+def test_solves_inside_counters_of_take_that_streams_slot(fake_card,
+                                                           fresh_counters):
+    """Inside ``counters_of(device, 9, on=7)`` a launch on stream 7 takes
+    stream 9's counters (a graph captured on a side stream for replay on
+    stream 9); outside it, its own again."""
+    lib = fake_card(_FakeLib())
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=1024, horizon=5)
+    launch = lambda: cuda_solve._launch(
+        P.ArmParams(), cfg, *_solve_cpu_args(cfg, 1), torch.arange(1), None,
+        None, None, False, True, True, None, None)
+    with cuda_solve.counters_of(torch.device("cpu"), 9, 7):
+        launch()
+    launch()
+    (_, inside), (_, outside) = lib.calls
+    assert inside[12].value == cuda_solve._COUNTERS[(None, 9)].data_ptr()
+    assert outside[12].value == cuda_solve._COUNTERS[(None, 7)].data_ptr()
+    assert inside[12].value != outside[12].value
+    assert not cuda_solve._COUNTERS_OF
+
 def test_arrival_counters_give_each_stream_its_own_zeroed_slot(
         fresh_counters):
     dev = torch.device("cpu")
