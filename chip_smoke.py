@@ -88,7 +88,31 @@ Phases (any failure raises and exits non-zero):
      torch op, P1, P2, the solve at K=1024, H=50 with and without the noise
      output), each eager and as one replayed CUDA graph, the graph's final
      carry equal to the eager chain's bit for bit; the probes' device time
-     beside their plain versions' and, for P1, ``torch.mul``'s.
+     beside their plain versions' and, for P1, ``torch.mul``'s;
+ 16. the sample-sharded solve in one process: K=1024, H=50 at B=1 and 8 cut
+     into 2 and 4 launches of the solve kernel with ``k_offset`` and
+     ``normalize=False``, combined by ``parallel/sharded.py::
+     combine_partials``, against one unsharded launch, eps and PRNG modes:
+     S and m bit for bit, Σwε and u_new within 2e-5, η within 2e-5
+     relative;
+ 17. real 2-process runs on cuda:0 over gloo through ``parallel/dryrun.py``
+     (``--size full``): a (1 x 2) mesh runs the sample-sharded step
+     (``make_sharded_sim_step(backend="cuda")``, PRNG) at benchmark_preset
+     on ``synth_circle_path(2000)`` for 1500 steps: both shards the same
+     bits, the first 8 steps within phase 2's bands of
+     ``simulate(backend="cuda")``, on-path mean < 42 mm, µs/step and the
+     all-reduces' µs a solve; a (2 x 1) mesh runs the fleet
+     (``make_sharded_fleet``) on phase 12's 4096 x K=128, T=30 for 2000
+     steps: each rank's records and final state == its rows of phase 12's
+     unsharded run bit for bit, a ``save_/load_checkpoint_dist`` round trip
+     bit for bit, µs per launch-step with both ranks on the card;
+ 18. the debug path: ``checked_solve(backend="cuda")`` clean mid-path,
+     raising at the path end and on a NaN ``u_prev``; the graph loop under
+     ``debug_mode`` (checks between chunks) == phase 8's records;
+ 19. ``generate_circle_path(2000)`` on cuda against the CPU (x, y within
+     1e-6, dq 1e-5, u 1e-3) with its seconds, and 20 steps of the compat
+     layer's ``MPPIControllerForPathTracking`` on the solve kernel under
+     ``np.random.seed(0)``: finite, on-path mean < 42 mm.
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -113,6 +137,7 @@ import os
 import shutil
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -400,6 +425,68 @@ def solve_compare(label, cuda_solve, philox_epsilon, arm, cfg, ref, B,
              f"{len(range(0, B, max(1, B // 8)))} scenarios"
              if noise == "prng" else ""))
     return float((s_k - s_p).abs().max()), dw
+
+
+def shard_compare(label, cuda_solve, sharded, arm, cfg, ref, B, S, device,
+                  rng, noise):
+    """Phase 16: K split into S launches of the solve kernel (k_offset,
+    normalize=False), combined by ``sharded.combine_partials`` over the
+    stacked shards, against one unsharded launch on the same inputs: S and
+    m bit for bit, Σwε and u_new within W_TOL, η within W_TOL relative.
+    Returns (max |Δ Σwε|, max |Δ u_new|)."""
+    import torch
+
+    from mppi_robotarm_tpu_torch.mppi.solver import _median_update
+
+    T, K = cfg.horizon, cfg.num_samples
+    x0 = torch.as_tensor((np.array([1.1522, -1.2661, 0.1, -0.2])
+                          + rng.normal(scale=0.01, size=(B, 4))
+                          ).astype(np.float32), device=device)
+    u = torch.as_tensor((np.array([10.0, -2.0]) + rng.normal(size=(B, T, 2))
+                         ).astype(np.float32), device=device)
+    starts = 11 * torch.arange(B, device=device) % (
+        ref.shape[0] - cfg.search_idx_len)
+    win = ref[starts[:, None] + torch.arange(cfg.search_idx_len,
+                                             device=device)].contiguous()
+    if noise == "eps":
+        eps = torch.as_tensor((rng.normal(size=(B, K, T, 2)) * np.sqrt(
+            20.0)).astype(np.float32), device=device)
+        noise_kw = lambda r0, r1: dict(eps=eps[:, r0:r1].contiguous())
+    else:
+        seed = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, size=B),
+                               device=device)
+        step = torch.as_tensor(rng.integers(0, 4000, size=B), device=device)
+        noise_kw = lambda r0, r1: dict(seed=seed, step=step)
+    w1, s1, _, (m1, eta1) = cuda_solve.solve_batched(
+        arm, cfg, x0, u, win, emit_eps=False, **noise_kw(0, K))
+    u1 = cuda_solve.solve_batched(arm, cfg, x0, u, win, emit_eps=False,
+                                  fuse_update=True, **noise_kw(0, K))[0]
+    kl = K // S
+    parts = [cuda_solve.solve_batched(
+        arm, cfg, x0, u, win, emit_eps=False, normalize=False, k_local=kl,
+        k_offset=torch.full((B,), r * kl, device=device),
+        **noise_kw(r * kl, (r + 1) * kl)) for r in range(S)]
+    stacked = lambda x, op: (x.amin(0, keepdim=True) if op == "min"
+                             else x.sum(0, keepdim=True)).expand_as(x)
+    m, eta, a = sharded.combine_partials(
+        torch.stack([p[3][0] for p in parts]),
+        torch.stack([p[3][1] for p in parts]),
+        torch.stack([p[0] for p in parts]), cfg.lam, stacked)
+    w_eps = a[0] / eta[0][:, None, None]
+    u_new = _median_update(u, w_eps, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.cat([p[1] for p in parts], 1), s1),
+          f"{label}: shard S differs from the unsharded solve's")
+    check(torch.equal(m[0], m1), f"{label}: combined m differs")
+    dw = float((w_eps - w1).abs().max())
+    du = float((u_new - u1).abs().max())
+    deta = float(((eta[0] - eta1).abs() / eta1).max())
+    check(dw <= W_TOL and du <= W_TOL and deta <= W_TOL,
+          f"{label}: Σwε off by {dw}, u_new by {du}, η by {deta} relative")
+    tiles = {cuda_solve.solve_tile(cfg, k) for k in (K, kl)}
+    print(f"{label}: S and m bitwise; max|dΣwε| {dw:.3g}, max|du_new| "
+          f"{du:.3g}, max rel dη {deta:.3g} (tiles {sorted(tiles)})")
+    return dw, du
 
 
 def main() -> int:
@@ -1045,6 +1132,208 @@ def main() -> int:
           + (f"; by CUDA events, as {fused_timing.PROFILE_TRIES} profiled "
              f"windows saw no device time: {', '.join(by_events)}"
              if by_events else ""))
+
+    # ---- 16. the sample-sharded solve, in one process ------------------
+    from mppi_robotarm_tpu_torch.models.arm import fk_full
+    from mppi_robotarm_tpu_torch.parallel import dryrun, sharded
+
+    shard_err = 0.0
+    for B in (1, 8):
+        for S in (2, 4):
+            for noise in ("eps", "prng"):
+                shard_err = max(shard_err, *shard_compare(
+                    f"sharded solve {noise} K=1024 H=50 B={B} S={S}",
+                    cuda_solve, sharded, arm, cfg_w, ref, B, S, device, rng,
+                    noise))
+
+    # ---- 17. real 2-process runs on cuda:0 over gloo -------------------
+    dr_root = os.path.join(ROOT, "build", "chip_smoke_dryrun")  # gitignored
+    shutil.rmtree(dr_root, ignore_errors=True)
+
+    def run_dryrun(name, data, samples, program):
+        out_dir = os.path.join(dr_root, name)
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--world", "2", "--data", str(data), "--samples",
+                          str(samples), "--device", "cuda", "--out", out_dir,
+                          "--size", "full", "--programs", program])
+        check(rc == 0, f"dryrun {name} exited {rc}")
+        ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+                 for r in range(2)]
+        check(not any(bool(z["jax_imported"]) for z in ranks),
+              f"dryrun {name}: a rank imported JAX")
+        return ranks, time.perf_counter() - t0
+
+    (_, _, (cfg_s, path_s, _, steps_s), (cfg_fl, _, fleet_b, fleet_n)) = \
+        dryrun.problem("full", 1, 2)
+    ranks, wall = run_dryrun("1x2", 1, 2, "step-cuda")
+    for f in ("q", "u0", "wp_idx", "done", "final_u_prev"):
+        check(np.array_equal(ranks[0][f"step-cuda_{f}"],
+                             ranks[1][f"step-cuda_{f}"]),
+              f"sharded step: the two sample shards hold different {f}")
+    ref_s = torch.as_tensor(path_s, device=device)
+    _, rec_s = m.simulate(arm, cfg_s, sim, ref_s, state0, CMP_STEPS,
+                          backend="cuda")
+    z = ranks[0]
+    q_s = torch.as_tensor(z["step-cuda_q"][:, 0], device=device)
+    u_s = torch.as_tensor(z["step-cuda_u0"][:, 0], device=device)
+    dq_s = (q_s[:CMP_STEPS] - rec_s.q).abs().amax(1).cpu().numpy()
+    du_s = (u_s[:CMP_STEPS] - rec_s.u).abs().amax(1).cpu().numpy()
+    for i in range(CMP_STEPS):
+        check(dq_s[i] <= Q_TOL * 4 ** i and du_s[i] <= U_TOL * 4 ** i,
+              f"sharded step {i}: q off by {dq_s[i]}, u by {du_s[i]} from "
+              f"simulate(backend='cuda')")
+    check(np.array_equal(z["step-cuda_wp_idx"][:CMP_STEPS, 0],
+                         rec_s.wp_idx.cpu().numpy()),
+          "sharded step: wp_idx differs from simulate(backend='cuda')")
+    _, _, x2s, y2s = fk_full(q_s[:, 0], q_s[:, 1], arm)
+    onpath_s, n_live_s = fused_timing.live_onpath_mm(
+        types.SimpleNamespace(ee=torch.stack([x2s, y2s], -1),
+                              done=torch.as_tensor(z["step-cuda_done"][:, 0])),
+        path_s[:, 0:2])
+    check(np.isfinite(z["step-cuda_q"]).all(), "sharded step not finite")
+    check(onpath_s < ONPATH_GATE_MM, f"sharded step on-path {onpath_s:.3f}")
+    step_us = [float(r["step-cuda_us_per_step"]) for r in ranks]
+    coll_us = [float(r["step-cuda_collective_us_per_solve"]) for r in ranks]
+    # the solve kernel's launches each rank counted in its step loop
+    sharded_launches = [int(r["step-cuda_solve_launches"]) for r in ranks]
+    check(sharded_launches == [steps_s, steps_s],
+          f"sharded step: solve_kernel launches by rank {sharded_launches}, "
+          f"expected one a step ({steps_s})")
+    print(f"sharded step [{card}]: mesh 1x2 (data x samples) on cuda:0 over "
+          f"gloo, benchmark_preset, {steps_s} steps on a {len(path_s)}-point "
+          f"path, PRNG: both shards hold the same block; first {CMP_STEPS} "
+          f"steps within phase 2's bands of simulate(backend='cuda') (max|dq| "
+          f"{np.array2string(dq_s, precision=2)}); on-path mean "
+          f"{onpath_s:.3f} mm over {n_live_s} live steps (gate "
+          f"{ONPATH_GATE_MM} mm); {step_us[0]:.1f} / {step_us[1]:.1f} us/step "
+          f"by rank, the 2 all-reduces {coll_us[0]:.1f} / {coll_us[1]:.1f} "
+          f"us a solve (device synchronised around each); "
+          f"{sharded_launches[0]} / {sharded_launches[1]} solve_kernel "
+          f"launches by rank (counted in the ranks); {wall:.1f} s "
+          f"with the ranks' start")
+    ranks, wall = run_dryrun("2x1", 2, 1, "fleet")
+    b_loc = fleet_b // 2
+    check(cfg_fl == cfg_b and fleet_n == FLEET_STEPS and fleet_b == BATCH,
+          "the dryrun's fleet is not phase 12's")
+    for z in ranks:
+        d = int(z["data_rank"])
+        rows = slice(d * b_loc, (d + 1) * b_loc)
+        for f in dryrun.FLEET_FIELDS:
+            check(np.array_equal(z[f"fleet_{f}"],
+                                 getattr(rec_f, f)[:, rows].cpu().numpy()),
+                  f"sharded fleet rank {d}: {f} != the unsharded fleet's")
+        check(np.array_equal(z["fleet_u_final"],
+                             final_f.mppi.u_prev[rows].cpu().numpy())
+              and np.array_equal(z["fleet_step"],
+                                 final_f.step[rows].cpu().numpy()),
+              f"sharded fleet rank {d}: final state != the unsharded fleet's")
+        check(bool(z["fleet_checkpoint_bitwise"]),
+              f"sharded fleet rank {d}: checkpoint round trip not bitwise")
+    fleet_us = [float(z["fleet_us_per_launch_step"]) for z in ranks]
+    print(f"sharded fleet [{card}]: mesh 2x1 on cuda:0 over gloo, {BATCH} x "
+          f"K=128, T=30, {FLEET_STEPS} steps, {b_loc} scenarios a rank: each "
+          f"rank's records, u_final and step == its rows of phase 12's "
+          f"unsharded simulate_fused_batch, bitwise; dist checkpoint round "
+          f"trip bitwise; {fleet_us[0]:.2f} / {fleet_us[1]:.2f} us per "
+          f"launch-step by rank with both ranks on the card (phase 14: "
+          f"{fleet_ms * 1e3:.2f} for all {BATCH} alone); {wall:.1f} s with "
+          f"the ranks' start")
+
+    # ---- 18. the debug path on the card --------------------------------
+    from mppi_robotarm_tpu_torch.utils.debug import checked_solve, debug_mode
+
+    obs_p = torch.cat([final_p.q, final_p.dq])
+    err, res_c = checked_solve(arm, cfg, ref, obs_p, final_p.mppi,
+                               backend="cuda", seed=0, step=final_p.step)
+    check(err.get() is None and bool(torch.isfinite(res_c.u0).all()),
+          f"checked_solve mid-path: {err.get()}")
+    # two rows before the end of the circle cut at its first closing row,
+    # the EE at the circle's start (= its end): the index reaches the end
+    # (on the whole circle the closing rows tie in x, y and the first wins,
+    # the reference's tie rule, so the index stays below the end there)
+    xy_moves = np.any(np.diff(path_np[:, :2], axis=0) != 0, axis=1)
+    cut = torch.as_tensor(path_np[:np.flatnonzero(xy_moves).max() + 2],
+                          device=device)
+    err_end, res_end = checked_solve(
+        arm, cfg, cut, torch.cat([state0.q, state0.dq]),
+        state0.mppi._replace(wp_idx=torch.tensor(len(cut) - 2,
+                                                 device=device)),
+        backend="cuda", seed=0)
+    check(int(res_end.state.wp_idx) == len(cut) - 1,
+          f"checked_solve near the end: index {int(res_end.state.wp_idx)}, "
+          f"not the last row {len(cut) - 1}")
+    poisoned = state0.mppi._replace(
+        u_prev=torch.full_like(state0.mppi.u_prev, float("nan")))
+    err_nan, _ = checked_solve(arm, cfg, ref, obs_p, poisoned, backend="cuda",
+                               seed=0)
+    for e, kind in ((err_end, IndexError), (err_nan, FloatingPointError)):
+        try:
+            e.throw()
+        except kind as raised:
+            print(f"checked_solve(backend='cuda'): raised {kind.__name__}: "
+                  f"{raised}")
+        else:
+            raise RuntimeError(f"checked_solve did not raise {kind.__name__}")
+    with debug_mode():
+        _, rec_d = m.simulate(arm, cfg, sim, ref, state0, 2 * graph_steps,
+                              backend="cuda")
+    check(all(torch.equal(a, b[:2 * graph_steps])
+              for a, b in zip(rec_d, rec_p)),
+          "debug_mode changed the graph loop's records")
+    print(f"debug: checked_solve(backend='cuda') clean mid-path (step "
+          f"{int(final_p.step)}), raises at the path end and on a NaN "
+          f"u_prev; the graph loop under debug_mode (checks between chunks) "
+          f"== phase 8's records over {2 * graph_steps} steps, bitwise")
+
+    # ---- 19. pathgen and compat on the card ----------------------------
+    from mppi_robotarm_tpu_torch.compat import (Arm_Dynamic,
+                                                MPPIControllerForPathTracking)
+    from mppi_robotarm_tpu_torch.sim.pathgen import generate_circle_path
+
+    t0 = time.perf_counter()
+    gen = generate_circle_path(arm, 2000)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen_cpu = generate_circle_path(arm, 2000, device="cpu")
+    gen_cpu_s = time.perf_counter() - t0
+    dg = (gen.cpu() - gen_cpu).abs().amax(0).numpy()
+    check(np.isfinite(gen.cpu().numpy()).all() and dg[0:2].max() <= 1e-6
+          and dg[2:4].max() <= 1e-5 and dg[4:6].max() <= 1e-3,
+          f"generate_circle_path on cuda vs the CPU: max |d| by column {dg}")
+    print(f"pathgen: generate_circle_path(2000) on cuda {gen_s:.2f} s, on the "
+          f"CPU {gen_cpu_s:.2f} s; max |cuda - cpu| by column "
+          f"{np.array2string(dg, precision=2)} (bands x, y 1e-6, dq 1e-5, "
+          f"u 1e-3)")
+    ref_c = m.synth_circle_path(2000, dtype=np.float64)
+    np.random.seed(0)
+    ctrl = MPPIControllerForPathTracking(
+        delta_t=0.006, ref_path=ref_c, horizon_step_T=30,
+        number_of_samples_K=100, param_exploration=0.0, param_lambda=100.0,
+        param_alpha=0.98, sigma=np.array([[20.0, 0.0], [0.0, 20.0]]),
+        stage_cost_weight=np.array([0.5, 0.5, 5.0, 5.0]),
+        terminal_cost_weight=np.array([5.0, 5.0, 50.0, 50.0]))
+    launches_c = cuda_solve.LAUNCHES
+    qc, dqc, ee_c = np.array([1.1522, -1.2661]), np.zeros(2), []
+    for _ in range(20):
+        u0c, *_ = ctrl.calc_control_input(np.concatenate([qc, dqc]))
+        dqc = dqc + 0.003 * Arm_Dynamic(qc, dqc, u0c)
+        qc = qc + 0.003 * dqc
+        ee_c.append([np.cos(qc[0]) + np.cos(qc.sum()),
+                     np.sin(qc[0]) + np.sin(qc.sum())])
+    ee_c = np.asarray(ee_c)
+    onpath_c = float(np.linalg.norm(ee_c[:, None] - ref_c[None, :, 0:2],
+                                    axis=-1).min(1).mean() * 1e3)
+    check(np.isfinite(ee_c).all() and onpath_c < ONPATH_GATE_MM
+          and cuda_solve.LAUNCHES - launches_c == 20,
+          f"compat on cuda: on-path {onpath_c:.3f} mm, "
+          f"{cuda_solve.LAUNCHES - launches_c} solve launches")
+    print(f"compat: 20 steps of MPPIControllerForPathTracking(backend='cuda')"
+          f" under np.random.seed(0), one solve_kernel launch a step; finite;"
+          f" on-path mean {onpath_c:.3f} mm (gate {ONPATH_GATE_MM} mm)")
+
+    check("jax" not in sys.modules,
+          "the port imported JAX during phases 2-19")
 
     # ---- bounds, from this run's shapes (see ``bound``) ----------------
     f4 = 4

@@ -6,11 +6,14 @@ and inverts the inertia matrix analytically.  The expressions keep the JAX
 version's operation order, so float64 results agree to rounding.
 
 Quirks kept: Q1 (the ``+ l1``/``+ l2`` inertia terms) and the semi-implicit
-Euler order (``dq += ddq·dt``, then ``q += dq_new·dt``).
+Euler order (``dq += ddq·dt``, then ``q += dq_new·dt``).  The reference's
+legacy control law (computed torque with an outer PD loop) is here too:
+``sim/pathgen.py`` regenerates the reference path with it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -64,6 +67,26 @@ def arm_step(q1, q2, dq1, dq2, u1, u2, dt, p: ArmParams):
     in the plant (quirk Q2).
     """
     ddq1, ddq2 = arm_ddq(q1, q2, dq1, dq2, u1, u2, p)
+    dq1n = dq1 + ddq1 * dt
+    dq2n = dq2 + ddq2 * dt
+    q1n = q1 + dq1n * dt
+    q2n = q2 + dq2n * dt
+    return q1n, q2n, dq1n, dq2n
+
+
+def arm_step_fblin(q1, q2, dq1, dq2, v1, v2, dt, p: ArmParams):
+    """The reference's ``_F1`` variant (control.py:265-295, never called):
+    one semi-implicit Euler step whose input v is a commanded acceleration,
+    pre-compensated by feedback linearization with gravity zeroed.
+
+    ``u = M·v + C·dq`` then ``ddq = M⁻¹(u − C·dq)`` (g = 0): the two
+    cancel analytically, so ddq is v up to rounding, but the step goes
+    through the real M/C arithmetic, as the reference does, rather than
+    taking ddq = v.
+    """
+    p0 = dataclasses.replace(p, g=0.0)
+    u1, u2 = feedback_linearization(q1, q2, dq1, dq2, v1, v2, p0)
+    ddq1, ddq2 = arm_ddq(q1, q2, dq1, dq2, u1, u2, p0)
     dq1n = dq1 + ddq1 * dt
     dq2n = dq2 + ddq2 * dt
     q1n = q1 + dq1n * dt
@@ -125,3 +148,21 @@ def ik_circle(theta: torch.Tensor, l1: float = 1.0, l2: float = 1.0,
     x2d = 2.0 * torch.arctan((2.0 * ye * l1 - term) / denom)
     r = torch.stack([x1d, x2d - x1d], dim=-1)
     return r, xe, ye
+
+
+def feedback_linearization(q1, q2, dq1, dq2, v1, v2, p: ArmParams):
+    """Computed-torque law ``u = M·v + C·dq + G`` (utils.py:65-84), the
+    reference's legacy control path."""
+    m11, m12, m21, m22 = mass_matrix(q2, p)
+    g1, g2 = gravity_vector(q1, q2, p)
+    h = p.m2 * p.l1 * p.lc2 * torch.sin(q2)
+    cdq1 = -h * dq2 * dq1 + (-h * dq1 - h * dq2) * dq2
+    cdq2 = h * dq1 * dq1
+    u1 = m11 * v1 + m12 * v2 + cdq1 + g1
+    u2 = m21 * v1 + m22 * v2 + cdq2 + g2
+    return u1, u2
+
+
+def pd_outer_loop(q, dq, r, dr, ddr, kp: float = 100.0, kd: float = 20.0):
+    """Outer-loop PD law ``v = ddr - KD·(dq-dr) - KP·(q-r)`` (utils.py:87-93)."""
+    return ddr - kd * (dq - dr) - kp * (q - r)

@@ -38,6 +38,7 @@ from ..ops.noise import sample_epsilon, sigma_cholesky, sigma_inverse
 from ..ops.rollout import rollout_costs, rollout_trajectory
 from ..ops.waypoint import update_waypoint_index
 from ..ops.weights import mppi_weights
+from ..utils import debug
 
 
 class MPPIState(NamedTuple):
@@ -155,7 +156,6 @@ def solve(
         raise ValueError("provide exactly one of eps= or "
                          + ("generator=" if backend == "eager" else "seed="))
     cfg.validate()
-    dtype = state.u_prev.dtype
     device = state.u_prev.device
 
     x_obs, y_obs = fk_ee(observed_x[0], observed_x[1], cfg.l1, cfg.l2)
@@ -173,10 +173,23 @@ def solve(
             one(step), want_eps)
         u_seq, s = u_seq[0], s[0]
         next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
-        return SolveResult(u0=next_state.u_prev[0], u_seq=u_seq,
-                           state=next_state, path_end=path_end, costs=s,
-                           weights=mppi_weights(s, cfg.lam),
-                           eps=None if eps is None else eps[0])
+        res = SolveResult(u0=next_state.u_prev[0], u_seq=u_seq,
+                          state=next_state, path_end=path_end, costs=s,
+                          weights=mppi_weights(s, cfg.lam),
+                          eps=None if eps is None else eps[0])
+    else:
+        res = _solve_eager(arm, cfg, observed_x, state, eps, generator,
+                           window, valid, wp_idx, path_end)
+    if debug.active():
+        debug.check_solve("solve", res, ref_path.shape[0])
+    return res
+
+
+def _solve_eager(arm, cfg, observed_x, state, eps, generator, window, valid,
+                 wp_idx, path_end) -> SolveResult:
+    """The eager backend of :func:`solve` after the waypoint update."""
+    dtype = state.u_prev.dtype
+    device = state.u_prev.device
 
     if eps is None:
         eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,

@@ -4,15 +4,18 @@
 source, all started together) and links the objects into one shared library
 with a plain C interface, ``build/torch_kernels/libmppi_kernels.so`` at the
 root of the checkout, which ``ctypes`` loads.  A digest of the sources and
-flags sits beside the library, so an edit to a source rebuilds it.  The
-build reports ``ptxas``'s figures (registers, shared memory, spills).
-Nothing here runs at import: the CPU tests import every module and have no
-``nvcc``.
+flags sits beside the library, so an edit to a source rebuilds it.  A
+build holds an exclusive ``flock`` on ``BUILD_DIR/build.lock``, so ranks
+or processes that reach their first launch together build once, the rest
+waiting and then finding the library current.  The build reports
+``ptxas``'s figures (registers, shared memory, spills).  Nothing here
+runs at import: the CPU tests import every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -73,9 +76,19 @@ def build() -> str:
     digest = _digest(sources + sorted(_CSRC.glob("*.cuh")))
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+    current = lambda: (lib.exists() and stamp.exists()
+                       and stamp.read_text() == digest)
+    if current():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when closed
+        if current():                          # built while we waited
+            return ""
+        return _compile(sources, lib, stamp, digest)
+
+
+def _compile(sources, lib: Path, stamp: Path, digest: str) -> str:
     nvcc = _nvcc()
     tag = os.getpid()
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]

@@ -5,11 +5,16 @@ dimension over the horizon axis, reproduced bit for bit for ``s <= 2T``:
 the window of output i spans offsets ``[-(s//2), s - s//2 - 1]``, 'reflect'
 repeats the edge sample (NumPy's 'symmetric'), and an even window takes the
 upper middle order statistic (rank s//2), without averaging.
+:func:`moving_average_filter` is the reference's other, unused smoother
+(control.py:329-344).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 
 def median_filter_reflect(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -30,3 +35,26 @@ def median_filter_reflect(x: torch.Tensor, size: int) -> torch.Tensor:
     xp = x[j]
     windows = torch.stack([xp[k:k + t] for k in range(size)], dim=0)
     return torch.sort(windows, dim=0).values[size // 2]
+
+
+def moving_average_filter(x: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Edge-corrected moving average over axis 0 of ``x`` (T, D)
+    (reference control.py:329-344, never called there): NumPy's
+    'same'-mode convolution with a uniform kernel per column, then the
+    reference's renormalisation factors on the first and last
+    ``ceil(w/2)`` samples."""
+    t = x.shape[0]
+    b = torch.full((window_size,), 1.0 / window_size, dtype=x.dtype,
+                   device=x.device)
+    # np.convolve(a, b, 'same') keeps the middle t of the full convolution
+    full = F.conv1d(x.T[:, None], b.flip(0)[None, None],
+                    padding=window_size - 1)[:, 0].T
+    start = (window_size - 1) // 2
+    out = full[start:start + t]
+    n_conv = math.ceil(window_size / 2)
+    scale = torch.ones(t, dtype=x.dtype, device=x.device)
+    scale[0] = window_size / n_conv
+    for i in range(1, n_conv):
+        scale[i] = window_size / (i + n_conv)
+        scale[t - i] = window_size / (i + n_conv - (window_size % 2))
+    return out * scale[:, None]

@@ -51,6 +51,7 @@ from ..ops import cuda_solve
 from ..ops.cuda_rollout import philox_epsilon
 from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
 from ..ops.weights import effective_sample_size, weight_entropy
+from ..utils import debug
 
 
 class SimState(NamedTuple):
@@ -259,7 +260,11 @@ def simulate(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     rows = []
     for i in range(num_steps):
         eps = None if eps_per_step is None else eps_per_step[i]
+        prev = state
         state, res = sim_step(arm, cfg, sim, ref_path, state, eps=eps)
+        if debug.active():
+            debug.check_step("simulate", prev, state, ref_path.shape[0],
+                             u=res.u0)
         rows.append(_record(arm, ref_path, state, res, step0 + i + 1))
     return state, SimRecord(*(torch.stack(f) for f in zip(*rows)))
 
@@ -480,7 +485,9 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, num_steps,
     path are copied into its graph's buffers (skipped when the last replay
     was of the same graph, which left its state there), then its record
     rows out into ``rows``.  Each replay adds the solve launches its
-    capture recorded to ``cuda_solve.LAUNCHES``."""
+    capture recorded to ``cuda_solve.LAUNCHES``.  Under
+    ``utils/debug.py::debug_mode`` each chunk's state is checked after its
+    replay, outside the graph."""
     cur = _state_tensors(states)
     last = None
     for start in range(0, num_steps, _GRAPH_STEPS):
@@ -490,11 +497,16 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, num_steps,
             for dst, src in zip(_state_tensors(g.state), cur):
                 dst.copy_(src)
             g.ref.copy_(ref_path)
+        before = (_as_state(tuple(v.clone() for v in cur))
+                  if debug.active() else None)
         g.graph.replay()
         cuda_solve.LAUNCHES += g.launches
         for dst, src in zip(rows, g.rows):
             dst[start:start + n].copy_(src)
         cur, last = _state_tensors(g.state), g
+        if before is not None:
+            debug.check_step("simulate_batch (graph chunk)", before,
+                             g.state, ref_path.shape[0], n, u=g.rows[2])
     # the graphs' buffers are overwritten by their next replay
     return _as_state(tuple(v.clone() for v in cur))
 
@@ -521,11 +533,16 @@ def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     else:
         for start in range(0, num_steps, _GRAPH_STEPS):
             n = min(_GRAPH_STEPS, num_steps - start)
+            before = states
             states = _steps_into(
                 arm, cfg, sim, ref_path, states,
                 None if eps_per_step is None
                 else eps_per_step[start:start + n],
                 tuple(r[start:start + n] for r in rows))
+            if debug.active():
+                debug.check_step("simulate_batch (chunk)", before, states,
+                                 ref_path.shape[0], n,
+                                 u=rows[2][start:start + n])
     q, dq, u, wp, cmin, cmean, ess, ent, done = rows
     # the FK, reference rows and path-end zeroing of every step at once
     x1, y1, x2, y2 = fk_full(q[..., 0], q[..., 1], arm)
@@ -624,6 +641,7 @@ def simulate_fused_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                                                             device)
     for start in range(0, num_steps, chunk):
         n = min(chunk, num_steps - start)
+        before = (step, q, dq, u, wp, seeds, done)
         rows, u = fused_sim_run_batched(
             arm, cfg, sim, ref, q, dq, u, wp, seeds, n,
             eps=(None if eps_per_step is None else
@@ -639,6 +657,11 @@ def simulate_fused_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         q, dq = r[-1, :, 0:2].contiguous(), r[-1, :, 2:4].contiguous()
         wp, done = part.wp_idx[-1], part.done[-1]
         step = step + torch.sum(~part.done, dim=0)
+        if debug.active():
+            debug.check_step("simulate_fused_batch (launch)",
+                             _as_state(before),
+                             _as_state((step, q, dq, u, wp, seeds, done)),
+                             ref.shape[0], n, u=part.u)
     final = SimState(step=step, q=q, dq=dq,
                      mppi=MPPIState(u_prev=u, wp_idx=wp),
                      seed=states0.seed, done=done)

@@ -14,6 +14,11 @@ files:
 
 The noise stream is keyed by (seed, absolute step), so a resumed run
 continues it bit for bit.
+
+:func:`save_checkpoint_dist` / :func:`load_checkpoint_dist` are the
+counterpart of the JAX package's orbax pair (a checkpoint directory
+written by all processes together): ``torch.distributed.checkpoint``, each
+rank writing its 'data' block of a batched state under keys of its block.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert import seed_from_key_data
 from ..device import resolve_device
@@ -87,3 +93,59 @@ def load_checkpoint(path: str, dtype=None, device=None) -> SimState:
         mppi=MPPIState(u_prev=as_f(z["u_prev"]), wp_idx=as_i(z["wp_idx"])),
         seed=seed,
         done=torch.as_tensor(z["done"].astype(bool), device=device))
+
+
+def _dist_prefix(mesh) -> str:
+    from ..parallel.mesh import DATA_AXIS, axis_rank
+
+    return f"data{0 if mesh is None else axis_rank(mesh, DATA_AXIS)}."
+
+
+def save_checkpoint_dist(path: str, state: SimState, mesh=None) -> None:
+    """Save this rank's block of a SimState into the checkpoint directory
+    ``path`` through ``torch.distributed.checkpoint``, collectively with
+    every rank of the process group.
+
+    Each rank writes its block (``parallel/sharded.py::scenario_shard``) under
+    keys ``data{d}.<field>`` of its 'data' coordinate d on ``mesh``; ranks
+    that share a block (the 'samples' axis) hold the same tensors, which
+    the checkpoint writes once.  With no ``mesh`` and no process group it
+    is a one-process save."""
+    import torch.distributed.checkpoint as dcp
+
+    fields = {"step": state.step, "q": state.q, "dq": state.dq,
+              "u_prev": state.mppi.u_prev, "wp_idx": state.mppi.wp_idx,
+              "seed": state.seed, "done": state.done}
+    prefix = _dist_prefix(mesh)
+    dcp.save({prefix + k: torch.as_tensor(v).detach().cpu().clone()
+              for k, v in fields.items()}, checkpoint_id=path,
+             no_dist=not dist.is_initialized())
+
+
+def load_checkpoint_dist(path: str, mesh=None, dtype=None,
+                         device=None) -> SimState:
+    """Restore this rank's block saved by :func:`save_checkpoint_dist` on a
+    mesh of the same 'data' size, on ``device`` (default ``cuda``), bit
+    for bit.  ``dtype`` casts q, dq and u_prev (default: as saved)."""
+    import torch.distributed.checkpoint as dcp
+
+    prefix = _dist_prefix(mesh)
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    names = ("step", "q", "dq", "u_prev", "wp_idx", "seed", "done")
+    missing = [n for n in names if prefix + n not in meta]
+    if missing:
+        raise ValueError(f"checkpoint {path} has no {prefix}* fields "
+                         f"{missing}")
+    sd = {prefix + n: torch.empty(tuple(meta[prefix + n].size),
+                                  dtype=meta[prefix + n].properties.dtype)
+          for n in names}
+    dcp.load(sd, checkpoint_id=path, no_dist=not dist.is_initialized())
+    device = resolve_device(device)
+    z = {n: sd[prefix + n] for n in names}
+    as_f = lambda v: v.to(device=device, dtype=dtype or v.dtype)
+    seed = z["seed"].to(device) if z["q"].dim() == 2 else int(z["seed"])
+    return SimState(
+        step=z["step"].to(device), q=as_f(z["q"]), dq=as_f(z["dq"]),
+        mppi=MPPIState(u_prev=as_f(z["u_prev"]),
+                       wp_idx=z["wp_idx"].to(device)),
+        seed=seed, done=z["done"].to(device))
