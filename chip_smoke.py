@@ -36,7 +36,8 @@ Phases (any failure raises and exits non-zero):
   8. the per-step path, ``simulate(benchmark_preset, seed 0, 4000 steps,
      backend="cuda")``, which replays CUDA graphs of
      ``sim/loop.py::_GRAPH_STEPS`` steps: one solve-kernel launch a step
-     (so at least one a live step) and no separate combine launch, finite
+     (so at least one a live step), one step head and one step tail
+     (``ops/cuda_step.py``) a step, and no separate combine launch, finite
      records, on-path mean < 42 mm, records and final state == the eager
      chunked loop's (``sim/loop.py::_step_loop(graphs=False)``) bit for
      bit, its first 8 steps == phase 4's fused run within the bands of
@@ -53,7 +54,10 @@ Phases (any failure raises and exits non-zero):
      per-step loop's µs/step and device idle share (device-busy µs/step
      from a profiled window against the unprofiled µs/step) as replayed
      graphs beside the eager chunked loop's, in turns, with the graphs'
-     length and capture seconds, the batch's scenario-steps/s;
+     length and capture seconds and a step's device split (the solve, the
+     step head, the step tail, copies, other kernels), the batch's
+     scenario-steps/s and µs/step; the step kernels' plain versions per
+     call at benchmark_preset;
  11. the fleet kernel against the fused kernel and against its plain
      twin, eps and PRNG modes: K=128/T=30, B=64, group=8 on a 120-row
      path with half the scenarios frozen from the start, K=100/T=30,
@@ -112,7 +116,18 @@ Phases (any failure raises and exits non-zero):
  19. ``generate_circle_path(2000)`` on cuda against the CPU (x, y within
      1e-6, dq 1e-5, u 1e-3) with its seconds, and 20 steps of the compat
      layer's ``MPPIControllerForPathTracking`` on the solve kernel under
-     ``np.random.seed(0)``: finite, on-path mean < 42 mm.
+     ``np.random.seed(0)``: finite, on-path mean < 42 mm;
+ 20. the step kernels (``csrc/step_kernel.cu``: the head before the solve,
+     the tail after it) against their plain versions on the same card
+     tensors over 8 steps of the per-step loop, the solve kernel between
+     them, at benchmark_preset for B=1 on the 8000-point circle and for
+     B=64 on its first 200 rows (spread indices, every 8th scenario frozen,
+     four near the path end): the state, controls, index, done, FK,
+     reference rows and min cost bit for bit, the mean cost, ESS and
+     entropy within 2e-6 relative, the entropy's relative to at least its
+     range log K (the kernel's sums over K run in another order than
+     torch's reductions, and a near-deterministic softmax has an entropy
+     near 0).
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -133,6 +148,7 @@ the script fails.
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import sys
@@ -145,6 +161,7 @@ STEPS = 4000          # the benchmark's chain length
 CMP_STEPS = 8         # kernel-vs-twin comparison length
 Q_TOL, U_TOL = 2e-6, 2e-5          # step i: q within Q_TOL·4^i, u U_TOL·4^i
 STATS_RTOL = 1e-4                  # stats lanes at step 0, relative
+STEP_STATS_RTOL = 2e-6             # phase 20: the step tail's sums over K
 ONPATH_GATE_MM = 42.0              # bench.py:160
 HA_GATE_MM = 18.0                  # bench.py:175
 SOLVE_LAM = 3e5       # phase 7: tens of samples carry weight (at the
@@ -348,6 +365,84 @@ def compare_records(label, a, b):
     print(f"{label}: within the bands for {CMP_STEPS} steps")
 
 
+def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
+                 states, steps=CMP_STEPS):
+    """Phase 20: ``steps`` steps of the per-step loop (the step head, the
+    solve kernel, the step tail) with the step kernels and with their
+    plain versions, on the same card tensors; everything bit for bit but
+    the mean cost, ESS and entropy, which must agree within
+    STEP_STATS_RTOL relative, the entropy relative to the larger of
+    itself and its range log K (a softmax on one sample has an entropy
+    near 0, where one rounding of a weight near 1 is a large share).  At
+    every step of the kernels' run the plain head also runs on the same
+    state, and the head kernel's four outputs (x0, the new index, the
+    path end, the window) must equal its.  Returns the largest absolute
+    error of the head's outputs and of those three statistics."""
+    import torch
+
+    head_err = 0.0
+
+    def run(head, tail):
+        nonlocal head_err
+        st, clock = states, states.step.clone()
+        rows = loop._row_buffers(steps, st, ref)
+        for i in range(steps):
+            h = head(cfg, ref, st.q, st.dq, st.mppi.wp_idx)
+            if head is cuda_step.step_head:
+                p = cuda_step.step_head_plain(cfg, ref, st.q, st.dq,
+                                              st.mppi.wp_idx)
+                d = max(float((a.double() - b.double()).abs().max())
+                        for a, b in zip(h, p))
+                head_err = max(head_err, d)
+                check(all(torch.equal(a, b) for a, b in zip(h, p)),
+                      f"{label}: step {i}: the step head kernel's x0, index,"
+                      f" path end or window differs from the plain head's "
+                      f"(max |d| {d:.3g})")
+            x0, wp, path_end, window = h
+            u_seq, s, _ = solve_kernels(arm, cfg, x0, st.mppi.u_prev, window,
+                                        st.seed, None, st.step, False)
+            *nxt, clock = tail(arm, cfg, sim, ref,
+                               *loop._state_tensors(st)[:5], st.done, wp,
+                               path_end, u_seq, s, clock,
+                               tuple(r[i] for r in rows))
+            st = loop._as_state((*nxt[:5], st.seed, nxt[5]))
+        return st, rows
+
+    kern = run(cuda_step.step_head, cuda_step.step_tail)
+    plain = run(cuda_step.step_head_plain, cuda_step.step_tail_plain)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(
+        loop._state_tensors(kern[0]), loop._state_tensors(plain[0]))),
+        f"{label}: the step kernels' final state differs from the plain "
+        f"versions'")
+    err, rel = 0.0, 0.0
+    for name, a, b in zip(("q", "dq", "u", "ee", "elbow", "ref_xy", "wp_idx",
+                           "cost_min", "cost_mean", "ess", "weight_entropy",
+                           "done"), kern[1], plain[1]):
+        if name in ("cost_mean", "ess", "weight_entropy"):
+            d = (a - b).abs()
+            floor = (math.log(cfg.num_samples) if name == "weight_entropy"
+                     else 1e-30)
+            r = float((d / b.abs().clamp_min(floor)).max())
+            check(r <= STEP_STATS_RTOL,
+                  f"{label}: {name} off by {r:.3g} relative")
+            err, rel = max(err, float(d.max())), max(rel, r)
+        else:
+            check(torch.equal(a, b), f"{label}: record {name} differs from "
+                  f"the plain versions'")
+    B = states.q.shape[0]
+    print(f"{label}: the step kernels == their plain versions over {steps} "
+          f"steps of {B} scenario(s) (K={cfg.num_samples}): the head's x0, "
+          f"index, path end and window at every step (max |d| "
+          f"{head_err:.3g}), state, q, dq, "
+          f"u, ee, elbow, ref_xy, wp_idx, cost_min, done bitwise; cost_mean, "
+          f"ess, entropy within {rel:.3g} relative (the entropy's to at "
+          f"least log K; max |d| {err:.3g}; band {STEP_STATS_RTOL}); "
+          f"{int(kern[1][-1][-1].sum())} scenario(s) "
+          f"done at the end")
+    return head_err, err
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of ops / PEAK_OPS and nbytes /
     PEAK_BYTES, in ms, and which of the two it is.  ``ops`` counts each
@@ -502,7 +597,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import mppi_robotarm_tpu_torch as m
-    from mppi_robotarm_tpu_torch.ops import _build, cuda_sim, cuda_solve
+    from mppi_robotarm_tpu_torch.mppi.solver import _solve_kernels
+    from mppi_robotarm_tpu_torch.ops import (_build, cuda_sim, cuda_solve,
+                                             cuda_step)
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
     from mppi_robotarm_tpu_torch.sim import loop
     from mppi_robotarm_tpu_torch.tools import fused_timing, overhead, sass_loops
@@ -680,6 +777,7 @@ def main() -> int:
     graph_steps = loop._GRAPH_STEPS
     loop._GRAPHS.clear()
     cuda_solve.LAUNCHES = cuda_solve.COMBINE_LAUNCHES = 0
+    cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
     t0 = time.perf_counter()
     final_p, rec_p = m.simulate(arm, cfg, sim, ref, state0, STEPS,
                                 backend="cuda")
@@ -687,14 +785,18 @@ def main() -> int:
     loop_wall = time.perf_counter() - t0
     solve_launches = cuda_solve.LAUNCHES
     combine_launches = cuda_solve.COMBINE_LAUNCHES
+    head_launches = cuda_step.HEAD_LAUNCHES
+    tail_launches = cuda_step.TAIL_LAUNCHES
     captures = {g.n: g.capture_s for g in loop._GRAPHS.values()}
     live = int((~rec_p.done).sum())
     print(f"per-step path: simulate(backend='cuda') {STEPS} steps as "
           f"replayed CUDA graphs of {graph_steps} steps (captured: "
           + ", ".join(f"{n} steps in {t:.3f} s" for n, t in
                       sorted(captures.items()))
-          + f"), solve_tile_kernel launches {solve_launches}, separate "
-          f"combine launches {combine_launches}, live steps {live}, "
+          + f"), solve_tile_kernel launches {solve_launches}, "
+          f"step_head_kernel {head_launches}, step_tail_kernel "
+          f"{tail_launches}, separate combine launches {combine_launches}, "
+          f"live steps {live}, "
           f"{loop_wall:.3f} s wall with the captures")
     check(captures and len(captures) <= 2 and max(captures) == graph_steps,
           f"the per-step path captured {sorted(captures)}, not chunks of "
@@ -716,6 +818,10 @@ def main() -> int:
           f"{STEPS} steps, not one a step")
     check(combine_launches == 0,
           f"the per-step path made {combine_launches} combine launches")
+    check(head_launches == tail_launches == STEPS,
+          f"the per-step path made {head_launches} step head and "
+          f"{tail_launches} step tail launches in {STEPS} steps, not one of "
+          f"each a step")
     for field, v in zip(rec_p._fields, rec_p):
         if v.dtype.is_floating_point:
             check(bool(torch.isfinite(v).all()), f"per-step {field} not finite")
@@ -823,11 +929,15 @@ def main() -> int:
               f"{fused_timing.PROFILE_TRIES} windows of the per-step loop "
               f"({k})")
         idle[k] = 1.0 - busy_us[k] / loop_us[k]  # the profiler slows the host
-        # where a step's device time goes: the solve, the copies, the rest
-        part = {"solve": 0.0, "copies": 0.0, "other": 0.0}
+        # where a step's device time goes: the solve, the step head and
+        # tail, the copies, the rest
+        part = {"solve": 0.0, "head": 0.0, "tail": 0.0, "copies": 0.0,
+                "other": 0.0}
         n_other = 0
         for key, cnt, t in events:
             kind = ("solve" if "solve_" in key else
+                    "head" if "step_head" in key else
+                    "tail" if "step_tail" in key else
                     "copies" if "memcpy" in key.lower() else "other")
             part[kind] += t / steps_w
             n_other += cnt if kind == "other" else 0
@@ -848,8 +958,10 @@ def main() -> int:
         print(f"timing [{card}]: per-step loop ({k}): device busy "
               f"{busy_us[k]:.2f} us/step in a profiled {steps_w}-step window "
               f"({window[k] / steps_w * 1e6:.2f} us/step under the "
-              f"profiler; solve_tile_kernel {part['solve']:.2f}, copies "
-              f"{part['copies']:.2f}, {n_other:.1f} other kernels "
+              f"profiler; solve_tile_kernel {part['solve']:.2f}, "
+              f"step_head_kernel {part['head']:.2f}, step_tail_kernel "
+              f"{part['tail']:.2f}, copies "
+              f"{part['copies']:.2f}, {n_other:.2f} other kernels "
               f"{part['other']:.2f} us/step); idle share {idle[k]:.3f} of "
               f"the unprofiled {loop_us[k]:.2f} us/step"
               + (" (below 0: the profiled kernels ran longer than the "
@@ -859,7 +971,31 @@ def main() -> int:
     rate = BATCH * BATCH_STEPS / (min(bt) / 1e3)
     print(f"timing [{card}]: batch {BATCH} x {BATCH_STEPS} steps "
           f"{min(bt):.2f} ms (runs {[round(t, 2) for t in bt]}), "
+          f"{min(bt) / BATCH_STEPS * 1e3:.2f} us/step, "
           f"{rate:,.0f} scenario-steps/s")
+    head_ms = breakdown["graphs"][0]["head"] / 1e3  # one launch a step
+    tail_ms = breakdown["graphs"][0]["tail"] / 1e3
+    check(head_ms > 0 and tail_ms > 0, "the profiled graph loop showed no "
+          "step_head_kernel or step_tail_kernel time")
+    # the step kernels' plain versions at the main path's shape, a call
+    st1 = loop._as_batch(final_p)._replace(
+        seed=torch.zeros(1, dtype=torch.int64, device=device))
+    ph = cuda_step.step_head_plain(cfg, ref, st1.q, st1.dq, st1.mppi.wp_idx)
+    u_seq1, s1, _ = _solve_kernels(arm, cfg, ph[0], st1.mppi.u_prev, ph[3],
+                                   st1.seed, None, st1.step, False)
+    row1 = tuple(r[0] for r in loop._row_buffers(1, st1, ref))
+    tail_args = (arm, cfg, sim, ref, *loop._state_tensors(st1)[:5], st1.done,
+                 ph[1], ph[2], u_seq1, s1, st1.step.clone(), row1)
+    plain_head_ms = min(cuda_time(lambda: [cuda_step.step_head_plain(
+        cfg, ref, st1.q, st1.dq, st1.mppi.wp_idx) for _ in range(20)],
+        3)) / 20
+    plain_tail_ms = min(cuda_time(lambda: [cuda_step.step_tail_plain(
+        *tail_args) for _ in range(20)], 3)) / 20
+    print(f"timing [{card}]: the step kernels at benchmark_preset B=1, "
+          f"device time a launch in the graph loop: step_head_kernel "
+          f"{head_ms * 1e3:.3f} us, step_tail_kernel {tail_ms * 1e3:.3f} "
+          f"us; their plain versions (CUDA events over 20 calls, min of 3) "
+          f"{plain_head_ms * 1e3:.2f} us and {plain_tail_ms * 1e3:.2f} us")
 
     # ---- 11. the fleet kernel against the fused kernel and its twin ----
     fleet_err = 0.0
@@ -1332,8 +1468,28 @@ def main() -> int:
           f" under np.random.seed(0), one solve_kernel launch a step; finite;"
           f" on-path mean {onpath_c:.3f} mm (gate {ONPATH_GATE_MM} mm)")
 
+    # ---- 20. the step kernels against their plain versions -------------
+    head_err, step_err = step_compare(
+        "step kernels B=1 benchmark_preset", loop, cuda_step, _solve_kernels,
+        arm, cfg, sim, ref, loop._as_batch(state0)._replace(
+            seed=torch.zeros(1, dtype=torch.int64, device=device)))
+    ref200 = ref[:200].contiguous()
+    st64 = m.init_sim_batch(cfg, sim, np.arange(64), q0=(
+        np.array([sim.q0]) + 0.02 * np.random.default_rng(20).normal(
+            size=(64, 2))).astype(np.float32), device=device)
+    wp64 = torch.arange(64, device=device) * 3
+    wp64[-4:] = torch.tensor([196, 197, 198, 197], device=device)
+    st64 = st64._replace(
+        mppi=st64.mppi._replace(wp_idx=wp64),
+        done=torch.arange(64, device=device) % 8 == 5,
+        step=torch.arange(64, device=device) % 5)
+    errs = step_compare("step kernels B=64 benchmark_preset", loop,
+                        cuda_step, _solve_kernels, arm, cfg, sim, ref200,
+                        st64)
+    head_err, step_err = max(head_err, errs[0]), max(step_err, errs[1])
+
     check("jax" not in sys.modules,
-          "the port imported JAX during phases 2-19")
+          "the port imported JAX during phases 2-20")
 
     # ---- bounds, from this run's shapes (see ``bound``) ----------------
     f4 = 4
@@ -1369,6 +1525,22 @@ def main() -> int:
          + BATCH * FLEET_TIME_STEPS * cuda_sim.REC_LANES * f4
          + BATCH * (2 * (2 + 2 + 2 * cfg_b.horizon) * f4 + 3 * 8))
         / FLEET_TIME_STEPS)
+    # the step kernels at the main path's shape (B=1), a launch: the head
+    # reads q, dq, the index and the rows its scan and its new window need
+    # (W plus the run's mean advance a step) and writes x0, the index, the
+    # flag and the window; the tail reads S, u_seq, u_prev, the state, the
+    # head's index and flag and a reference row and writes u_prev, the next
+    # state and the record row (float32 lanes, 8-byte ints, 1-byte flags).  Operations by hand from csrc/step_kernel.cu: the head
+    # 9 for fk_ee and 7 a row (two differences, two squares, a sum, the
+    # scale, the compare), the tail ~60 for the plant (arm_ddq, two Euler
+    # updates), 10 for fk_full and 20 a sample for the three passes over S
+    wp_p = rec_p.wp_idx.double()
+    adv = float((wp_p[1:] - wp_p[:-1]).mean())
+    head_bound = bound(9 + 7 * W, (4 + (W + adv) * 4 + 4 + W * 4) * f4
+                       + 2 * 8 + 1)
+    tail_bound = bound(20 * cfg.num_samples + 70,
+                       (cfg.num_samples + 3 * 2 * cfg.horizon + 4 + 4 + 2
+                        + 6 * 2 + 4) * f4 + 8 * 8 + 4)
     p1_bound = bound(xp.numel(), 2 * xp.numel() * f4)
     p2_bound = bound(xp.numel(), (2 * xp.numel() + b2.numel()) * f4)
     print(f"bounds [{card}]: sim_kernel {k1_bound[0] * 1e3:.4f} us/step "
@@ -1376,7 +1548,9 @@ def main() -> int:
           f"{k2_bound[0] * 1e3:.4f} us ({k2_bound[1]}), fleet_kernel "
           f"{k3_bound[0] * 1e3:.4f} us/launch-step ({k3_bound[1]}, "
           f"{fleet_live} of {BATCH * FLEET_TIME_STEPS} scenario-steps "
-          f"live), probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
+          f"live), step_head_kernel {head_bound[0] * 1e3:.5f} us "
+          f"({head_bound[1]}), step_tail_kernel {tail_bound[0] * 1e3:.5f} us "
+          f"({tail_bound[1]}), probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
           f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
           f"({p2_bound[1]})")
     issue_us = lambda ops: ops / UNFUSED_OPS * 1e6
@@ -1412,7 +1586,16 @@ def main() -> int:
               p1_plain_ms, p1_bound, p1_lib_ms),
         entry("probe_big_kernel", "probe_kernels.cu",
               "tools/tpu_overhead.py:59", big_launches, probe_err, p2_ms,
-              p2_plain_ms, p2_bound)]}))
+              p2_plain_ms, p2_bound),
+        entry("step_head_kernel", "step_kernel.cu",
+              "mppi_robotarm_tpu/mppi/solver.py:215 (the waypoint advance "
+              "of solve_batched_pallas, fused by XLA; no Pallas kernel)",
+              head_launches, head_err, head_ms, plain_head_ms, head_bound),
+        entry("step_tail_kernel", "step_kernel.cu",
+              "mppi_robotarm_tpu/sim/loop.py:86 (sim_step's plant, freeze "
+              "and record under simulate's scan :122-163, fused by XLA; no "
+              "Pallas kernel)", tail_launches, step_err, tail_ms,
+              plain_tail_ms, tail_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

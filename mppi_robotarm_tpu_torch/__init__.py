@@ -3,10 +3,12 @@
 The same MPPI path-tracking engine for the 2-link planar arm, in PyTorch,
 with hand-written CUDA kernels for Hopper, built at first use: the whole
 closed loop in one launch (``csrc/sim_kernel.cu``), a fleet of small-K
-scenarios, one warp each (``csrc/fleet_kernel.cu``, behind
-``simulate_fused_batch``), and the per-step solve (``csrc/solve_kernel.cu``)
-behind ``backend="cuda"``; ``csrc/probe_kernels.cu`` holds two launch-cost
-probes, which ``python -m mppi_robotarm_tpu_torch.tools.overhead`` times.
+scenarios, up to four warps each (``csrc/fleet_kernel.cu``, behind
+``simulate_fused_batch``), and the per-step loop's solve
+(``csrc/solve_kernel.cu``) between its step head and tail
+(``csrc/step_kernel.cu``) behind ``backend="cuda"``;
+``csrc/probe_kernels.cu`` holds two launch-cost probes, which
+``python -m mppi_robotarm_tpu_torch.tools.overhead`` times.
 ``python -m mppi_robotarm_tpu_torch.cli`` is the command-line interface.
 State is made on the GPU unless ``device="cpu"`` is asked for.  The JAX
 package stays the reference each part is checked against; this package
@@ -43,6 +45,7 @@ from .sim.loop import (
     simulate_fused_batch,
     simulate_python,
 )
+from .sim.pathgen import generate_circle_path, save_path_file
 from .sim.paths import (
     load_joint_log,
     load_ref_path,
@@ -60,6 +63,7 @@ __all__ = [
     "solve_batched", "viz_rollouts",
     "SimRecord", "SimState", "init_sim", "init_sim_batch", "simulate",
     "simulate_batch", "simulate_fused", "simulate_fused_batch",
-    "simulate_python", "load_joint_log", "load_ref_path",
-    "ref_path_from_joint_log", "synth_circle_path",
+    "simulate_python", "generate_circle_path", "save_path_file",
+    "load_joint_log", "load_ref_path", "ref_path_from_joint_log",
+    "synth_circle_path",
 ]

@@ -14,9 +14,10 @@ waypoint index advances once per solve from the observed state (Q5); the
 path-end condition (Q6) comes back as a ``path_end`` flag.
 
 Two backends, as the JAX package has 'xla' and 'pallas': ``"eager"`` (the
-default) rolls out in PyTorch in any dtype; ``"cuda"`` runs the K×T sweep,
+default) rolls out in PyTorch in any dtype; ``"cuda"`` runs the waypoint
+advance through the step head of ``ops/cuda_step.py`` and the K×T sweep,
 the softmax, Σwε and (when ``filter_window <= 2T``) the median and update
-through the solve kernels of ``ops/cuda_solve.py`` in float32, with noise
+through the solve kernels of ``ops/cuda_solve.py``, both in float32, with noise
 injected or drawn in the kernel from (seed, step).  ``solve_batched`` is
 the B-scenario solve through one kernel launch (``solve_batched_pallas``).
 :func:`viz_rollouts` re-rolls a solve's samples and its optimal sequence
@@ -32,7 +33,7 @@ import torch
 from ..config import ArmParams, MPPIConfig
 from ..device import resolve_device
 from ..models.arm import fk_ee
-from ..ops import cuda_solve
+from ..ops import cuda_solve, cuda_step
 from ..ops.filters import median_filter_reflect
 from ..ops.noise import sample_epsilon, sigma_cholesky, sigma_inverse
 from ..ops.rollout import rollout_costs, rollout_trajectory
@@ -109,17 +110,19 @@ def step_solve_plan(cfg: MPPIConfig, batch: int, device) -> tuple:
                             cuda_solve._sm_count(device))
 
 
-def _solve_kernels(arm, cfg, observed_x, u_prev, window, valid, seed, eps,
-                   step, want_eps):
+def _solve_kernels(arm, cfg, observed_x, u_prev, window, seed, eps, step,
+                   want_eps):
     """The cuda backend's K×T sweep for (B, ...) inputs: the kernels'
-    outputs cast back to the state's dtype.  Returns (u_seq, S, eps)."""
+    outputs cast back to the state's dtype.  Returns (u_seq, S, eps).  The
+    window's validity mask is not passed: no version of the solve reads
+    it (``ops/cuda_solve.py``)."""
     f32 = torch.float32
     dtype = u_prev.dtype
     opts = _solve_options(cfg)
     out, s, eps_used, _ = cuda_solve.solve_batched(
         arm, cfg, observed_x.to(f32).contiguous(),
         u_prev.to(f32).contiguous(), window.to(f32).contiguous(),
-        valid.sum(dim=-1), seed=seed,
+        None, seed=seed,
         eps=None if eps is None else eps.to(f32).contiguous(), step=step,
         emit_eps=want_eps or eps is not None, **opts)
     out = out.to(dtype)
@@ -158,28 +161,32 @@ def solve(
     cfg.validate()
     device = state.u_prev.device
 
-    x_obs, y_obs = fk_ee(observed_x[0], observed_x[1], cfg.l1, cfg.l2)
-    wp_idx, window, valid = update_waypoint_index(
-        ref_path, state.wp_idx, x_obs, y_obs, cfg.search_idx_len,
-        cfg.dist_scale)
-    path_end = wp_idx >= ref_path.shape[0] - 1
-
     if backend == "cuda":
+        # a batch of one through the step head and the solve kernel
         one = lambda v: None if v is None else torch.as_tensor(
             v, device=device).reshape(1)
+        _, wp_idx, path_end, window = cuda_step.step_head(
+            cfg, ref_path, observed_x[None, 0:2], observed_x[None, 2:4],
+            one(state.wp_idx))
         u_seq, s, eps = _solve_kernels(
-            arm, cfg, observed_x[None], state.u_prev[None], window[None],
-            valid[None], one(seed), None if eps is None else eps[None],
-            one(step), want_eps)
+            arm, cfg, observed_x[None], state.u_prev[None], window,
+            one(seed), None if eps is None else eps[None], one(step),
+            want_eps)
         u_seq, s = u_seq[0], s[0]
-        next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
+        next_state = MPPIState(u_prev=shift_warm_start(u_seq),
+                               wp_idx=wp_idx[0])
         res = SolveResult(u0=next_state.u_prev[0], u_seq=u_seq,
-                          state=next_state, path_end=path_end, costs=s,
+                          state=next_state, path_end=path_end[0], costs=s,
                           weights=mppi_weights(s, cfg.lam),
                           eps=None if eps is None else eps[0])
     else:
+        x_obs, y_obs = fk_ee(observed_x[0], observed_x[1], cfg.l1, cfg.l2)
+        wp_idx, window, valid = update_waypoint_index(
+            ref_path, state.wp_idx, x_obs, y_obs, cfg.search_idx_len,
+            cfg.dist_scale)
         res = _solve_eager(arm, cfg, observed_x, state, eps, generator,
-                           window, valid, wp_idx, path_end)
+                           window, valid, wp_idx,
+                           wp_idx >= ref_path.shape[0] - 1)
     if debug.active():
         debug.check_solve("solve", res, ref_path.shape[0])
     return res
@@ -221,11 +228,12 @@ def solve_batched(
     eps: Optional[torch.Tensor] = None,   # (B, K, T, 2) injected noise
     step=None,                    # (B,) or () int absolute closed-loop step
 ) -> SolveResult:
-    """B-scenario solve through ONE launch of the solve kernels.
+    """B-scenario solve through ONE launch of the solve kernel.
 
     The counterpart of the JAX package's ``solve_batched_pallas``: the
-    waypoint update, weights and warm-start shift are batched PyTorch, the
-    K×T sweep one ``ops/cuda_solve.py::solve_batched`` call.  Pass
+    waypoint update is ``ops/cuda_step.py::step_head`` (its kernel on the
+    card), the K×T sweep one ``ops/cuda_solve.py::solve_batched`` call, the
+    weights and warm-start shift batched PyTorch.  Pass
     scenario-constant ``seeds`` and the absolute ``step``: the kernel keys
     its stream by both, so no two (scenario, step) pairs share noise and a
     resumed run continues its stream.  Every field of the result has a
@@ -234,13 +242,10 @@ def solve_batched(
     if (seeds is None) == (eps is None):
         raise ValueError("provide exactly one of seeds= or eps=")
     cfg.validate()
-    x_obs, y_obs = fk_ee(observed_x[:, 0], observed_x[:, 1], cfg.l1, cfg.l2)
-    wp_idx, window, valid = update_waypoint_index(
-        ref_path, state.wp_idx, x_obs, y_obs, cfg.search_idx_len,
-        cfg.dist_scale)
-    path_end = wp_idx >= ref_path.shape[0] - 1
+    _, wp_idx, path_end, window = cuda_step.step_head(
+        cfg, ref_path, observed_x[:, 0:2], observed_x[:, 2:4], state.wp_idx)
     u_seq, s, eps = _solve_kernels(arm, cfg, observed_x, state.u_prev,
-                                   window, valid, seeds, eps, step, False)
+                                   window, seeds, eps, step, False)
     next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
     return SolveResult(u0=next_state.u_prev[:, 0], u_seq=u_seq,
                        state=next_state, path_end=path_end, costs=s,

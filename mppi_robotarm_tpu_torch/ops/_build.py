@@ -124,9 +124,14 @@ C_FUNCTIONS = {
     "mppi_fleet_scratch_floats": ([_P], _I),
     "mppi_probe_scale_launch": ([_P, _P, _I, _P], _I),
     "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _I, _P], _I),
+    "mppi_step_head_launch": ([_P, _P, _I, _P], _I),
+    "mppi_step_tail_launch": ([_P, _P, _I, _I, _P], _I),
     "mppi_error_string": ([_I], ctypes.c_char_p),
     "mppi_sim_params_size": ([], _I),
     "mppi_solve_params_size": ([], _I),
+    "mppi_step_params_size": ([], _I),
+    "mppi_step_head_args_size": ([], _I),
+    "mppi_step_tail_args_size": ([], _I),
 }
 
 
@@ -137,6 +142,7 @@ def load_library() -> ctypes.CDLL:
     has the size of its ctypes mirror."""
     from .cuda_sim import _SimParams
     from .cuda_solve import _SolveParams
+    from .cuda_step import _HeadArgs, _StepParams, _TailArgs
 
     print(build(), file=sys.stderr, end="")
     lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
@@ -145,4 +151,7 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes, fn.restype = argtypes, restype
     _check_abi(lib, "mppi_sim_params_size", _SimParams)
     _check_abi(lib, "mppi_solve_params_size", _SolveParams)
+    _check_abi(lib, "mppi_step_params_size", _StepParams)
+    _check_abi(lib, "mppi_step_head_args_size", _HeadArgs)
+    _check_abi(lib, "mppi_step_tail_args_size", _TailArgs)
     return lib

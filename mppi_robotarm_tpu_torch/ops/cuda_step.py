@@ -1,0 +1,338 @@
+"""The per-step loop's step body around the solve kernel: wrappers, CUDA
+kernels, plain versions.
+
+A cuda-backend step (``sim/loop.py``) is three launches on the card:
+
+* :func:`step_head` — the observed state ``x0 = [q, dq]``, the waypoint
+  advance (``fk_ee``, the nearest row of the window, the path-end flag) and
+  the window at the new index, which the solve reads;
+* the solve kernel (``ops/cuda_solve.py``);
+* :func:`step_tail` — the freeze flag, the warm-start shift, the plant
+  (:func:`plant_step`), the kept state and step counter, and, when given
+  one, the step's record row, written in place: q, dq, u0, end effector,
+  elbow, reference row, index, the costs' min and mean, the weights' ESS
+  and entropy, done, zeroed where done as the record is.
+
+They are the port's counterpart of what XLA fuses around the Pallas solve
+in the JAX package's jitted ``simulate`` (``mppi_robotarm_tpu/sim/loop.py::
+sim_step``, ``:86``, under the scan at ``:122-163``).  The path is picked by
+where the tensors lie: CUDA tensors launch ``csrc/step_kernel.cu`` (built
+by ``ops/_build.py``, bound through ``ctypes``) or raise; CPU tensors take
+:func:`step_head_plain` and :func:`step_tail_plain`, the torch code the
+kernels replaced.  Nothing falls back from one to the other.
+
+Bits: the head and the tail's state, controls, index, done, FK and
+reference row are the plain versions' bit for bit (the same float32
+operations in the same order); the statistics are sums over K in the
+kernel's fixed order (``csrc/step_kernel.cu``), which depends on K alone.
+A launch copies nothing from the host, so both can be captured in a CUDA
+graph; each adds one to its count (:data:`HEAD_LAUNCHES`,
+:data:`TAIL_LAUNCHES`) where it launches, at capture for a captured one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import ArmParams, MPPIConfig, SimConfig
+from ..models.arm import arm_ddq, fk_ee, fk_full
+from .cuda_sim import _ArmConsts, _arm_consts, _check_tensor
+from .waypoint import update_waypoint_index
+from .weights import effective_sample_size, mppi_weights, weight_entropy
+
+# Launches of step_head_kernel and step_tail_kernel; a run that must show it
+# went through them reads these before and after.
+HEAD_LAUNCHES = 0
+TAIL_LAUNCHES = 0
+
+MAX_THREADS = 1024            # step_tail_kernel's threads a scenario
+
+
+class _StepParams(ctypes.Structure):
+    """Mirror of ``StepParams`` in csrc/step_kernel.cu, field for field."""
+
+    _fields_ = [
+        ("arm", _ArmConsts),
+        ("l1c", ctypes.c_float), ("l2c", ctypes.c_float),
+        ("dist_scale", ctypes.c_float), ("dt_p", ctypes.c_float),
+        ("dist1", ctypes.c_float), ("dist2", ctypes.c_float),
+        ("inv_lam", ctypes.c_float), ("inv_k", ctypes.c_float),
+        ("K", ctypes.c_int), ("T", ctypes.c_int), ("W", ctypes.c_int),
+        ("n_ref", ctypes.c_int),
+    ]
+
+
+_P = ctypes.c_void_p
+
+
+class _HeadArgs(ctypes.Structure):
+    """Mirror of ``HeadArgs`` in csrc/step_kernel.cu."""
+
+    _fields_ = [(n, _P) for n in ("q", "dq", "wp", "ref", "x0", "wp_out",
+                                  "path_end", "window")] + [
+        ("q_stride", ctypes.c_int), ("dq_stride", ctypes.c_int)]
+
+
+_TAIL_IN = ("step", "q", "dq", "u_prev", "wp", "done", "wp_new", "path_end",
+            "u_seq", "s", "ref", "clock")
+_TAIL_OUT = ("step_out", "q_out", "dq_out", "u_out", "wp_out", "done_out",
+             "clock_out")
+_TAIL_ROW = ("r_q", "r_dq", "r_u", "r_ee", "r_elbow", "r_ref", "r_wp",
+             "r_cmin", "r_cmean", "r_ess", "r_ent", "r_done")
+
+
+class _TailArgs(ctypes.Structure):
+    """Mirror of ``TailArgs`` in csrc/step_kernel.cu."""
+
+    _fields_ = [(n, _P) for n in _TAIL_IN + _TAIL_OUT + _TAIL_ROW]
+
+
+def step_tail_threads(K: int) -> int:
+    """Threads a scenario of the tail kernel: K rounded up to a warp, at
+    most :data:`MAX_THREADS`.  It sets the order of the statistics' sums,
+    so it depends on K alone."""
+    return min(MAX_THREADS, -(-K // 32) * 32)
+
+
+@functools.lru_cache(maxsize=64)
+def _step_params(arm: Optional[ArmParams], cfg: MPPIConfig,
+                 sim: Optional[SimConfig], n_ref: int) -> _StepParams:
+    """The kernels' parameter block, cached by its arguments (the frozen
+    configs hash); callers never modify it.  The head reads neither the
+    arm nor the plant (None leaves their fields 0).  ``inv_lam`` is 1/λ
+    rounded as torch rounds a scalar divisor on the card (float32 1 /
+    float32 λ), ``inv_k`` the factor of torch.mean."""
+    f32 = np.float32
+    p = _StepParams(
+        l1c=cfg.l1, l2c=cfg.l2, dist_scale=cfg.dist_scale,
+        inv_lam=float(f32(1.0) / f32(cfg.lam)),
+        inv_k=float(f32(1.0) / f32(cfg.num_samples)), K=cfg.num_samples,
+        T=cfg.horizon, W=cfg.search_idx_len, n_ref=n_ref)
+    if arm is not None:
+        p.arm = _arm_consts(arm)
+    if sim is not None:
+        p.dt_p, p.dist1, p.dist2 = sim.dt, *sim.disturbance
+    return p
+
+
+def plant_step(arm: ArmParams, sim: SimConfig, q, dq, u):
+    """Plant integration ``dq += dt·ddq; q += dt·dq_new`` (run.py:53-55),
+    with the optional constant disturbance torque; q, dq, u (..., 2)."""
+    ddq1, ddq2 = arm_ddq(q[..., 0], q[..., 1], dq[..., 0], dq[..., 1],
+                         u[..., 0] + sim.disturbance[0],
+                         u[..., 1] + sim.disturbance[1], arm)
+    dq = dq + sim.dt * torch.stack([ddq1, ddq2], dim=-1)
+    q = q + sim.dt * dq
+    return q, dq
+
+
+def _kinds(*tensors) -> set:
+    return {t.device.type for t in tensors if isinstance(t, torch.Tensor)}
+
+
+def _f32(t):
+    """A float tensor in float32 (itself if it is already); anything else
+    as it is, for the launchers' checks."""
+    if isinstance(t, torch.Tensor) and t.is_floating_point():
+        return t.to(torch.float32)
+    return t
+
+
+# ---- the head ---------------------------------------------------------------
+
+def step_head_plain(cfg: MPPIConfig, ref: torch.Tensor, q, dq, wp_idx):
+    """Plain version of the head for B scenarios: q, dq (B, 2) (views with
+    a row stride are taken), wp_idx (B,).  Returns (x0 (B, 4), the new
+    index (B,), path_end (B,), window (B, W, 4)), x0 in the dtype of q and
+    the window in that of the path."""
+    x0 = torch.cat([q, dq], dim=-1)
+    x, y = fk_ee(q[:, 0], q[:, 1], cfg.l1, cfg.l2)
+    wp, window, _ = update_waypoint_index(ref, wp_idx, x, y,
+                                          cfg.search_idx_len, cfg.dist_scale)
+    return x0, wp, wp >= ref.shape[0] - 1, window
+
+
+def _rows_of(name, t, B, dtype, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != (B, 2) \
+            or t.stride(1) != 1:
+        raise ValueError(f"{name} must be a ({B}, 2) {dtype} tensor on "
+                         f"{device} with unit column stride, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _head_launch(cfg, ref, q, dq, wp_idx):
+    global HEAD_LAUNCHES
+    from ._build import load_library
+
+    device, f32, i64 = ref.device, torch.float32, torch.int64
+    B, W = q.shape[0], cfg.search_idx_len
+    x_dtype, ref_dtype = q.dtype, ref.dtype
+    ref, q, dq = _f32(ref), _f32(q), _f32(dq)
+    _check_tensor("ref", ref, (ref.shape[0], 4), f32, device)
+    _rows_of("q", q, B, f32, device)
+    _rows_of("dq", dq, B, f32, device)
+    _check_tensor("wp_idx", wp_idx, (B,), i64, device)
+    if B < 1 or ref.shape[0] < 1:
+        raise ValueError(f"need a scenario and a path row, got B={B}, "
+                         f"{ref.shape[0]} rows")
+    x0 = torch.empty((B, 4), dtype=f32, device=device)
+    wp = torch.empty((B,), dtype=i64, device=device)
+    path_end = torch.empty((B,), dtype=torch.bool, device=device)
+    window = torch.empty((B, W, 4), dtype=f32, device=device)
+    args = _HeadArgs(q=q.data_ptr(), dq=dq.data_ptr(),
+                     wp=wp_idx.data_ptr(), ref=ref.data_ptr(),
+                     x0=x0.data_ptr(),
+                     wp_out=wp.data_ptr(), path_end=path_end.data_ptr(),
+                     window=window.data_ptr(), q_stride=q.stride(0),
+                     dq_stride=dq.stride(0))
+    params = _step_params(None, cfg, None, ref.shape[0])
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.mppi_step_head_launch(
+            ctypes.byref(params), ctypes.byref(args), B,
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err:
+        raise RuntimeError("step_head_kernel launch failed: "
+                           + lib.mppi_error_string(err).decode())
+    HEAD_LAUNCHES += 1
+    return x0.to(x_dtype), wp, path_end, window.to(ref_dtype)
+
+
+def step_head(cfg: MPPIConfig, ref: torch.Tensor, q, dq, wp_idx):
+    """The step's head (see the module docstring): CUDA tensors launch
+    ``step_head_kernel`` (in float32: float q, dq and path are cast to it
+    and the results back to their dtypes; int64 index) or raise; CPU
+    tensors take :func:`step_head_plain`.  Returns (x0 (B, 4), the new
+    index, path_end, window (B, W, 4))."""
+    kinds = _kinds(ref, q, dq, wp_idx)
+    if kinds == {"cpu"}:
+        return step_head_plain(cfg, ref, q, dq, wp_idx)
+    return _head_launch(cfg, ref, q, dq, wp_idx)
+
+
+# ---- the tail ---------------------------------------------------------------
+
+def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                    ref: torch.Tensor, step, q, dq, u_prev, wp_idx, done,
+                    wp_new, path_end, u_seq, s, clock=None,
+                    row: Optional[tuple] = None):
+    """Plain version of the tail for B scenarios, in the dtypes of its
+    inputs: the state before the step (step, q, dq, u_prev, wp_idx, done),
+    the head's new index and path end, the solve's updated controls u_seq
+    (B, T, 2) and costs s (B, K), and the run's step counter ``clock``
+    (B,) or None.  Writes the step's record row into ``row`` (twelve (B,
+    ...) tensors in ``SimRecord``'s field order; needs ``clock``) when
+    given.  Returns the state after the step (step, q, dq, u_prev,
+    wp_idx, done) and clock + 1 (None without a clock)."""
+    done = done | path_end
+    # solver.shift_warm_start: drop u[0], repeat the last row
+    u_next = torch.cat([u_seq[..., 1:, :], u_seq[..., -1:, :]], dim=-2)
+    u0 = u_next[:, 0]
+    q_new, dq_new = plant_step(arm, sim, q, dq, u0)
+    keep = lambda new, old: torch.where(
+        done.view(-1, *(1,) * (new.dim() - 1)), old, new)
+    out = (step + torch.where(done, 0, 1), keep(q_new, q), keep(dq_new, dq),
+           keep(u_next, u_prev), keep(wp_new, wp_idx), done,
+           None if clock is None else clock + 1)
+    if row is not None:
+        nq = out[1]
+        x1, y1, x2, y2 = fk_full(nq[:, 0], nq[:, 1], arm)
+        w = mppi_weights(s, cfg.lam)
+        zero = lambda v: torch.where(
+            done.view(-1, *(1,) * (v.dim() - 1)), torch.zeros_like(v), v)
+        idx = torch.clamp(clock + 1, max=ref.shape[0] - 1)
+        for dst, v in zip(row, (
+                nq, out[2], zero(u0), torch.stack([x2, y2], dim=-1),
+                torch.stack([x1, y1], dim=-1), ref[idx, 0:2], out[4],
+                zero(torch.amin(s, dim=-1)), zero(torch.mean(s, dim=-1)),
+                zero(effective_sample_size(w)), zero(weight_entropy(w)),
+                done)):
+            dst.copy_(v)
+    return out
+
+
+def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
+                 clock, row):
+    global TAIL_LAUNCHES
+    from ._build import load_library
+
+    device, f32, i64 = ref.device, torch.float32, torch.int64
+    dtypes = [getattr(v, "dtype", None) for v in state]
+    step, q, dq, u_prev, wp_idx, done = map(_f32, state)
+    u_seq, s, ref = _f32(u_seq), _f32(s), _f32(ref)
+    B, K, T = q.shape[0], cfg.num_samples, cfg.horizon
+    if B < 1 or ref.shape[0] < 1:
+        raise ValueError(f"need a scenario and a path row, got B={B}, "
+                         f"{ref.shape[0]} rows")
+    if row is not None and clock is None:
+        raise ValueError("a record row needs the run's step counter clock")
+    b2, bb = (B, 2), torch.bool
+    shapes = dict(step=((B,), i64), q=(b2, f32), dq=(b2, f32),
+                  u_prev=((B, T, 2), f32), wp=((B,), i64), done=((B,), bb),
+                  wp_new=((B,), i64), path_end=((B,), bb),
+                  u_seq=((B, T, 2), f32), s=((B, K), f32),
+                  ref=((ref.shape[0], 4), f32), clock=((B,), i64))
+    ins = dict(zip(_TAIL_IN, (step, q, dq, u_prev, wp_idx, done, wp_new,
+                              path_end, u_seq, s, ref, clock)))
+    for name, t in ins.items():
+        if t is not None:
+            _check_tensor(name, t, *shapes[name], device)
+    outs = [torch.empty_like(v) for v in (step, q, dq, u_prev, wp_idx, done)]
+    outs.append(None if clock is None else torch.empty_like(clock))
+    written = row
+    if row is not None:
+        if len(row) != len(_TAIL_ROW):
+            raise ValueError(f"a record row is {len(_TAIL_ROW)} tensors, "
+                             f"got {len(row)}")
+        # a float row of another dtype is written through a float32 copy
+        written = tuple(
+            torch.empty(t.shape, dtype=f32, device=t.device)
+            if _f32(t) is not t else t for t in row)
+        for name, t, (shape, dtype) in zip(_TAIL_ROW, written, (
+                (b2, f32),) * 6 + (((B,), i64),) + (((B,), f32),) * 4
+                + (((B,), bb),)):
+            _check_tensor(name, t, shape, dtype, device)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (*ins.values(), *outs, *(written or (None,) * 12))]
+    args = _TailArgs(*ptrs)
+    params = _step_params(arm, cfg, sim, ref.shape[0])
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.mppi_step_tail_launch(
+            ctypes.byref(params), ctypes.byref(args), B,
+            step_tail_threads(K),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err:
+        raise RuntimeError("step_tail_kernel launch failed: "
+                           + lib.mppi_error_string(err).decode())
+    TAIL_LAUNCHES += 1
+    for dst, t in zip(row or (), written or ()):
+        if dst is not t:
+            dst.copy_(t)
+    return (*(v.to(d) for v, d in zip(outs, dtypes)), outs[6])
+
+
+def step_tail(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+              ref: torch.Tensor, step, q, dq, u_prev, wp_idx, done, wp_new,
+              path_end, u_seq, s, clock=None, row: Optional[tuple] = None):
+    """The step's tail (see the module docstring and
+    :func:`step_tail_plain` for the arguments and results): CUDA tensors
+    launch ``step_tail_kernel`` (contiguous float, int64 and bool tensors;
+    it runs in float32, float operands cast to it and the results and the
+    record row back to their dtypes) or raise; CPU tensors take
+    :func:`step_tail_plain`."""
+    state = (step, q, dq, u_prev, wp_idx, done)
+    kinds = _kinds(ref, *state, wp_new, path_end, u_seq, s, clock,
+                   *(row or ()))
+    if kinds == {"cpu"}:
+        return step_tail_plain(arm, cfg, sim, ref, *state, wp_new, path_end,
+                               u_seq, s, clock, row)
+    return _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq,
+                        s, clock, row)

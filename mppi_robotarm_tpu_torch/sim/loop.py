@@ -8,10 +8,12 @@ controller model runs at 2·dt, quirk Q2), records the state, and raises
 The loops:
   * :func:`simulate` — a Python loop over :func:`sim_step`; the path end
     becomes a ``done`` flag that freezes the state.  ``backend="eager"``
-    solves in PyTorch in any dtype; ``backend="cuda"`` solves each step
-    through the solve kernel (``ops/cuda_solve.py``) in float32, keeping
-    step, seed and waypoint index on the device so the host never waits,
-    and on the card runs the steps as replayed CUDA graphs of
+    solves in PyTorch in any dtype; ``backend="cuda"`` runs each step as
+    three kernels in float32 (``ops/cuda_step.py``'s head, the solve kernel
+    of ``ops/cuda_solve.py``, ``cuda_step``'s tail: plant, freeze, record
+    row; a float64 state goes through them cast and comes back float64),
+    keeping step, seed and waypoint index on the device so the host
+    never waits, and on the card runs the steps as replayed CUDA graphs of
     ``_GRAPH_STEPS`` steps (the JAX package's one ``lax.scan``);
   * :func:`simulate_python` — the eager loop with the reference-exact
     ``IndexError``;
@@ -20,8 +22,8 @@ The loops:
   * :func:`simulate_fused` — the whole loop in one launch of the fused
     CUDA kernel (``ops/cuda_sim.py``), float32;
   * :func:`simulate_fused_batch` — B scenarios' whole loops in one launch:
-    the fleet kernel (one warp per scenario) at K <= 128, the fused kernel
-    otherwise.
+    the fleet kernel (up to four warps a scenario) at K <= 128, the fused
+    kernel otherwise.
 
 Without injected noise every loop draws the counter-based Philox stream
 keyed by (``SimState.seed``, absolute step), so all of them see the same
@@ -38,18 +40,20 @@ import torch
 
 from ..config import ArmParams, MPPIConfig, SimConfig
 from ..device import resolve_device
-from ..models.arm import arm_ddq, fk_full
+from ..models.arm import fk_full
 from ..mppi.solver import (
     MPPIState,
     SolveResult,
+    _solve_kernels,
     init_state,
     solve,
     solve_batched,
     step_solve_plan,
 )
-from ..ops import cuda_solve
+from ..ops import cuda_solve, cuda_step
 from ..ops.cuda_rollout import philox_epsilon
 from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
+from ..ops.cuda_step import plant_step
 from ..ops.weights import effective_sample_size, weight_entropy
 from ..utils import debug
 
@@ -125,41 +129,22 @@ def init_sim_batch(cfg: MPPIConfig, sim: SimConfig, seeds, q0=None,
     )
 
 
-def plant_step(arm: ArmParams, sim: SimConfig, q, dq, u):
-    """Plant integration ``dq += dt·ddq; q += dt·dq_new`` (run.py:53-55),
-    with the optional constant disturbance torque; q, dq, u (..., 2)."""
-    ddq1, ddq2 = arm_ddq(q[..., 0], q[..., 1], dq[..., 0], dq[..., 1],
-                         u[..., 0] + sim.disturbance[0],
-                         u[..., 1] + sim.disturbance[1], arm)
-    dq = dq + sim.dt * torch.stack([ddq1, ddq2], dim=-1)
-    q = q + sim.dt * dq
-    return q, dq
-
-
 def _step_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                 ref_path: torch.Tensor, states: SimState,
                 eps: Optional[torch.Tensor]):
-    """One cuda-backend step of B scenarios: solve_batched → plant →
-    freeze.  No host synchronisation: the seed and step go to the kernel
-    as device tensors."""
+    """One cuda-backend step of B scenarios with its SolveResult (for
+    :func:`sim_step`): solve_batched (the step head and the solve kernel),
+    then the step tail (plant, freeze) without a record row.  No host
+    synchronisation: the seed and step go to the kernels as device
+    tensors."""
     observed = torch.cat([states.q, states.dq], dim=-1)
     res = solve_batched(arm, cfg, ref_path, observed, states.mppi,
                         seeds=states.seed if eps is None else None, eps=eps,
                         step=states.step)
-    done = states.done | res.path_end
-    q_new, dq_new = plant_step(arm, sim, states.q, states.dq, res.u0)
-    keep = lambda new, old: torch.where(
-        done.view(-1, *(1,) * (new.dim() - 1)), old, new)
-    next_states = SimState(
-        step=states.step + torch.where(done, 0, 1),
-        q=keep(q_new, states.q),
-        dq=keep(dq_new, states.dq),
-        mppi=MPPIState(u_prev=keep(res.state.u_prev, states.mppi.u_prev),
-                       wp_idx=keep(res.state.wp_idx, states.mppi.wp_idx)),
-        seed=states.seed,
-        done=done,
-    )
-    return next_states, res
+    step, q, dq, u_prev, wp, done, _ = cuda_step.step_tail(
+        arm, cfg, sim, ref_path, *_state_tensors(states)[:5], states.done,
+        res.state.wp_idx, res.path_end, res.u_seq, res.costs)
+    return _as_state((step, q, dq, u_prev, wp, states.seed, done)), res
 
 
 def _as_batch(state: SimState) -> SimState:
@@ -348,46 +333,56 @@ _CAPTURE_STREAMS: dict = {}  # device index -> the stream captures run on
 
 class _StepGraph(NamedTuple):
     """A captured chunk of ``n`` steps: its graph, the state it reads and
-    leaves (seed included), its copy of the path, its (n, B, ...) record
-    rows, the seconds its capture and instantiation took, and the solve
-    launches the capture recorded (``n``: one a step)."""
+    leaves (seed included) and the run's step counter (the loop's
+    ``clock``), its copy of the path, its (n, B, ...) record rows, the
+    seconds its capture and instantiation took, and the launches the
+    capture recorded, one a step each: the solve kernel's (``launches``)
+    and the step head's and tail's (``step_launches``)."""
 
     graph: "torch.cuda.CUDAGraph"
     state: SimState
+    clock: torch.Tensor
     ref: torch.Tensor
     rows: tuple
     n: int
     capture_s: float
     launches: int
+    step_launches: tuple
 
 
-def _row_buffers(n: int, states: SimState) -> tuple:
-    """Empty (n, B, ...) record rows of a batched state, in the order
-    :func:`_steps_into` writes them: q, dq, u, wp_idx, cost_min,
-    cost_mean, ess, entropy, done."""
+def _row_buffers(n: int, states: SimState, ref_path: torch.Tensor) -> tuple:
+    """Empty (n, B, ...) record rows of a batched state, one a field of
+    :class:`SimRecord` and in its order, in the dtypes of the state's
+    fields and the path (the step tail writes each step's row)."""
     B, device = states.q.shape[0], states.q.device
     x, u = states.q.dtype, states.mppi.u_prev.dtype
     e = lambda dtype, *s: torch.empty((n, B, *s), dtype=dtype, device=device)
-    return (e(x, 2), e(x, 2), e(u, 2), e(states.mppi.wp_idx.dtype),
-            e(u), e(u), e(u), e(u), e(torch.bool))
+    return (e(x, 2), e(x, 2), e(u, 2), e(x, 2), e(x, 2),
+            e(ref_path.dtype, 2), e(states.mppi.wp_idx.dtype), e(u), e(u),
+            e(u), e(u), e(torch.bool))
 
 
 def _steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
-                ref_path: torch.Tensor, states: SimState, eps_chunk,
-                rows: tuple) -> SimState:
-    """``rows[0].shape[0]`` steps of :func:`_step_batch`, step i writing its
-    record row into slot i of each of ``rows`` in place; returns the last
-    state.  No host synchronisation, so a CUDA graph can capture it."""
+                ref_path: torch.Tensor, states: SimState,
+                clock: torch.Tensor, eps_chunk, rows: tuple):
+    """``rows[0].shape[0]`` steps, each the step head, the solve kernel and
+    the step tail, step i writing its record row into slot i of each of
+    ``rows`` in place; ``clock`` is the run's step counter (the reference
+    rows' index).  Returns the last state and clock.  No host
+    synchronisation, so a CUDA graph can capture it."""
     for i in range(rows[0].shape[0]):
         eps = None if eps_chunk is None else eps_chunk[i]
-        states, res = _step_batch(arm, cfg, sim, ref_path, states, eps)
-        for dst, v in zip(rows, (
-                states.q, states.dq, res.u0, states.mppi.wp_idx,
-                torch.amin(res.costs, dim=-1), torch.mean(res.costs, dim=-1),
-                effective_sample_size(res.weights),
-                weight_entropy(res.weights), states.done)):
-            dst[i].copy_(v)
-    return states
+        x0, wp, path_end, window = cuda_step.step_head(
+            cfg, ref_path, states.q, states.dq, states.mppi.wp_idx)
+        u_seq, s, _ = _solve_kernels(
+            arm, cfg, x0, states.mppi.u_prev, window,
+            states.seed if eps is None else None, eps, states.step, False)
+        step, q, dq, u_prev, wp, done, clock = cuda_step.step_tail(
+            arm, cfg, sim, ref_path, *_state_tensors(states)[:5],
+            states.done, wp, path_end, u_seq, s, clock,
+            tuple(r[i] for r in rows))
+        states = _as_state((step, q, dq, u_prev, wp, states.seed, done))
+    return states, clock
 
 
 def _state_tensors(states: SimState) -> tuple:
@@ -400,6 +395,10 @@ def _as_state(t: tuple) -> SimState:
     return SimState(step=step, q=q, dq=dq,
                     mppi=MPPIState(u_prev=u_prev, wp_idx=wp_idx), seed=seed,
                     done=done)
+
+
+def _step_launch_counts() -> tuple:
+    return cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES
 
 
 def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream):
@@ -415,56 +414,69 @@ def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream):
             tuple((tuple(v.shape), v.dtype) for v in _state_tensors(states)))
 
 
-def _capture(arm, cfg, sim, ref_path, states: SimState, n: int,
-             stream) -> _StepGraph:
+def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
+             clock=None) -> _StepGraph:
     """Capture :func:`_steps_into` over ``n`` steps, then the copy of its
-    final state back into the input buffers, on the stream the loop owns on
-    the device, for replay on the caller's ``stream``; the solves take
-    ``stream``'s arrival counters (``cuda_solve.counters_of``), so a replay
-    shares them only with work that runs in order with it.
+    final state and clock back into the input buffers, on the stream the
+    loop owns on the device, for replay on the caller's ``stream``; the
+    solves take ``stream``'s arrival counters (``cuda_solve.counters_of``),
+    so a replay shares them only with work that runs in order with it.
 
     First one step runs uncaptured on the loop's stream, on scratch copies
     of the state: it loads the kernels, raises the solve kernel's
     shared-memory limit and gives ``stream`` its arrival counters, none of
-    which a capture may do.  The solve launches the capture records are
-    counted into the graph's ``launches`` (it raises unless that is one a
-    step) and the replays add them to ``cuda_solve.LAUNCHES``; the
-    warm-up's launch, and the capture's, which executes nothing, are not
-    counted there."""
+    which a capture may do.  The launches the capture records are counted
+    into the graph (it raises unless each kernel's is one a step) and the
+    replays add them to ``cuda_solve.LAUNCHES`` and ``cuda_step``'s
+    counts; the warm-up's launches, and the capture's, which execute
+    nothing, are not counted there.  ``clock`` is the run's step counter at
+    the chunk's start (default: the state's step)."""
     device = states.q.device
-    launches = cuda_solve.LAUNCHES
+    clock = states.step if clock is None else clock
+    launches, step_launches = cuda_solve.LAUNCHES, _step_launch_counts()
     own = _CAPTURE_STREAMS.get(device.index)
     if own is None:
         own = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
     static = _as_state(tuple(v.clone() for v in _state_tensors(states)))
+    static_clock = clock.clone()
     ref = ref_path.clone()
-    rows = _row_buffers(n, states)
+    rows = _row_buffers(n, states, ref_path)
     own.wait_stream(stream)
     with cuda_solve.counters_of(device, stream.cuda_stream, own.cuda_stream):
         with torch.cuda.stream(own):
             scratch = _as_state(tuple(v.clone()
                                       for v in _state_tensors(states)))
-            _steps_into(arm, cfg, sim, ref, scratch, None,
+            _steps_into(arm, cfg, sim, ref, scratch, clock.clone(), None,
                         tuple(r[:1].clone() for r in rows))
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         captured = cuda_solve.LAUNCHES
+        step_captured = _step_launch_counts()
         with torch.cuda.graph(graph, stream=own):
-            final = _steps_into(arm, cfg, sim, ref, static, None, rows)
-            for dst, src in zip(_state_tensors(static),
-                                _state_tensors(final)):
+            final, final_clock = _steps_into(arm, cfg, sim, ref, static,
+                                             static_clock, None, rows)
+            for dst, src in zip((*_state_tensors(static), static_clock),
+                                (*_state_tensors(final), final_clock)):
                 if dst is not src:
                     dst.copy_(src)
         captured = cuda_solve.LAUNCHES - captured
+        step_captured = tuple(
+            a - b for a, b in zip(_step_launch_counts(), step_captured))
         capture_s = time.perf_counter() - t0
     cuda_solve.LAUNCHES = launches
+    cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES = step_launches
     if captured != n:
         raise RuntimeError(f"a captured chunk of {n} steps holds {captured} "
                            f"solve kernel launches, not one a step")
-    return _StepGraph(graph, static, ref, rows, n, capture_s, captured)
+    if step_captured != (n, n):
+        raise RuntimeError(f"a captured chunk of {n} steps holds "
+                           f"{step_captured} step head and tail kernel "
+                           f"launches, not one of each a step")
+    return _StepGraph(graph, static, static_clock, ref, rows, n, capture_s,
+                      captured, step_captured)
 
 
-def _step_graph(arm, cfg, sim, ref_path, states: SimState, n: int
+def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int
                 ) -> _StepGraph:
     """The cached chunk of ``n`` steps for these inputs on the current
     stream, captured at its first use."""
@@ -472,43 +484,46 @@ def _step_graph(arm, cfg, sim, ref_path, states: SimState, n: int
     key = _graph_key(arm, cfg, sim, ref_path, states, n, stream)
     g = _GRAPHS.pop(key, None)
     if g is None:
-        g = _capture(arm, cfg, sim, ref_path, states, n, stream)
+        g = _capture(arm, cfg, sim, ref_path, states, n, stream, clock)
     _GRAPHS[key] = g
     while len(_GRAPHS) > _GRAPH_CACHE_SIZE:
         _GRAPHS.popitem(last=False)
     return g
 
 
-def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, num_steps,
-                   rows: tuple) -> SimState:
-    """The run as replays of captured chunks: each chunk's input state and
-    path are copied into its graph's buffers (skipped when the last replay
-    was of the same graph, which left its state there), then its record
-    rows out into ``rows``.  Each replay adds the solve launches its
-    capture recorded to ``cuda_solve.LAUNCHES``.  Under
-    ``utils/debug.py::debug_mode`` each chunk's state is checked after its
-    replay, outside the graph."""
-    cur = _state_tensors(states)
+def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
+                   num_steps, rows: tuple) -> SimState:
+    """The run as replays of captured chunks: each chunk's input state,
+    clock and path are copied into its graph's buffers (skipped when the
+    last replay was of the same graph, which left its state there), then
+    its record rows out into ``rows``.  Each replay adds the launches its
+    capture recorded to ``cuda_solve.LAUNCHES`` and ``cuda_step``'s
+    counts.  Under ``utils/debug.py::debug_mode`` each chunk's state is
+    checked after its replay, outside the graph."""
+    cur = (*_state_tensors(states), clock)
     last = None
     for start in range(0, num_steps, _GRAPH_STEPS):
         n = min(_GRAPH_STEPS, num_steps - start)
-        g = _step_graph(arm, cfg, sim, ref_path, _as_state(cur), n)
+        g = _step_graph(arm, cfg, sim, ref_path, _as_state(cur[:7]), cur[7],
+                        n)
         if g is not last:
-            for dst, src in zip(_state_tensors(g.state), cur):
+            for dst, src in zip((*_state_tensors(g.state), g.clock), cur):
                 dst.copy_(src)
             g.ref.copy_(ref_path)
-        before = (_as_state(tuple(v.clone() for v in cur))
+        before = (_as_state(tuple(v.clone() for v in cur[:7]))
                   if debug.active() else None)
         g.graph.replay()
         cuda_solve.LAUNCHES += g.launches
+        cuda_step.HEAD_LAUNCHES += g.step_launches[0]
+        cuda_step.TAIL_LAUNCHES += g.step_launches[1]
         for dst, src in zip(rows, g.rows):
             dst[start:start + n].copy_(src)
-        cur, last = _state_tensors(g.state), g
+        cur, last = (*_state_tensors(g.state), g.clock), g
         if before is not None:
             debug.check_step("simulate_batch (graph chunk)", before,
                              g.state, ref_path.shape[0], n, u=g.rows[2])
     # the graphs' buffers are overwritten by their next replay
-    return _as_state(tuple(v.clone() for v in cur))
+    return _as_state(tuple(v.clone() for v in cur[:7]))
 
 
 def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
@@ -526,16 +541,18 @@ def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     device = states0.q.device
     states = states0._replace(seed=torch.as_tensor(
         states0.seed, dtype=torch.int64, device=device))
-    rows = _row_buffers(num_steps, states)
+    # the run's step counter: step i's reference row is step0 + i + 1
+    clock = states0.step.to(device).clone()
+    rows = _row_buffers(num_steps, states, ref_path)
     if graphs:
-        states = _replay_chunks(arm, cfg, sim, ref_path, states, num_steps,
-                                rows)
+        states = _replay_chunks(arm, cfg, sim, ref_path, states, clock,
+                                num_steps, rows)
     else:
         for start in range(0, num_steps, _GRAPH_STEPS):
             n = min(_GRAPH_STEPS, num_steps - start)
             before = states
-            states = _steps_into(
-                arm, cfg, sim, ref_path, states,
+            states, clock = _steps_into(
+                arm, cfg, sim, ref_path, states, clock,
                 None if eps_per_step is None
                 else eps_per_step[start:start + n],
                 tuple(r[start:start + n] for r in rows))
@@ -543,19 +560,7 @@ def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                 debug.check_step("simulate_batch (chunk)", before, states,
                                  ref_path.shape[0], n,
                                  u=rows[2][start:start + n])
-    q, dq, u, wp, cmin, cmean, ess, ent, done = rows
-    # the FK, reference rows and path-end zeroing of every step at once
-    x1, y1, x2, y2 = fk_full(q[..., 0], q[..., 1], arm)
-    idx = torch.clamp(states0.step.to(device)
-                      + torch.arange(1, num_steps + 1, device=device)[:, None],
-                      max=ref_path.shape[0] - 1)
-    zero = lambda v: torch.where(done.view(*done.shape, *(1,) * (v.dim() - 2)),
-                                 torch.zeros_like(v), v)
-    return states._replace(seed=states0.seed), SimRecord(
-        q=q, dq=dq, u=zero(u), ee=torch.stack([x2, y2], dim=-1),
-        elbow=torch.stack([x1, y1], dim=-1), ref_xy=ref_path[idx, 0:2],
-        wp_idx=wp, cost_min=zero(cmin), cost_mean=zero(cmean), ess=zero(ess),
-        weight_entropy=zero(ent), done=done)
+    return states._replace(seed=states0.seed), SimRecord(*rows)
 
 
 # A launch writes 48 B of kernel rows per scenario-step, which the

@@ -48,11 +48,22 @@ capture-and-instantiate seconds, and at ``benchmark_preset`` the wall
 seconds of a 4000-step run from an empty graph cache (capture included;
 min of 3, in turns).
 
+``--split``: where one step of the per-step loop spends its device time,
+at ``benchmark_preset`` (B=1) and on the fleet of ``chip_smoke.py``'s
+phase 9: a profiled run of the loop as replayed CUDA graphs, by kernel
+name (launches and device µs a step), then each piece of the step
+(:func:`split_pieces`: the step kernels' plain versions, the torch code
+they replaced, cut by source; the solve kernel; the step kernels)
+profiled alone on the same state.
+
 ``--onpath-seeds S ...``: the per-step loop (``simulate(backend="cuda")``)
 at ``benchmark_preset`` for 1500 steps from ``init_sim(seed=S)`` on the
-8000-point circle: its on-path mean and the SHA-256 of its records, per
-seed; ``--tile`` forces the solve's samples per block, which sets the
-rounding of its cross-tile sums.
+8000-point circle: its on-path mean and the SHA-256 of its records (and of
+each field), per seed; ``--tile`` forces the solve's samples per block,
+which sets the rounding of its cross-tile sums; ``--out DIR`` writes each
+seed's records to ``DIR/seed<S>.npz``, and ``--compare-records A B``
+(no card needed) holds two such directories field by field: bit for bit,
+or the largest absolute and relative difference.
 
 The script imports the package by name and never by a relative import, so
 it also times another checkout's package, ``<tree>`` below (one that
@@ -66,6 +77,7 @@ defaults need no newer keyword):
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --onpath-seeds 0 1 \
         --tile 128
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --steploop
+    python -m mppi_robotarm_tpu_torch.tools.fused_timing --split
     PYTHONPATH=<tree> python mppi_robotarm_tpu_torch/tools/fused_timing.py \
         --solve --label parent
 
@@ -78,6 +90,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -100,6 +113,7 @@ PROFILE_TRIES = 3     # profiled windows before one that saw nothing counts
 STEPLOOP_STEPS = 1000  # --steploop at benchmark_preset
 STEPLOOP_CHUNKS = (1, 8, 16, 32, 64, 256)   # --steploop: graph lengths
 FLEET_LOOP_STEPS = 50  # --steploop on the fleet, chip_smoke's phase 9
+SPLIT_CALLS = 20      # --split: calls of each piece per profiled window
 
 
 def card() -> str:
@@ -477,10 +491,118 @@ def measure_steploop(device, chunks=STEPLOOP_CHUNKS):
     return out
 
 
-def steploop_onpath(device, seeds, tile=None, steps=ONPATH_STEPS):
+def profile_calls(fn, calls, tries=PROFILE_TRIES) -> dict:
+    """{profiler key: (launches a call, device µs a call)} of every device
+    event (kernel, memcpy, memset) that ``calls`` calls of ``fn`` make, from
+    one ``torch.profiler`` window after one unprofiled call; a window that
+    saw nothing is profiled again, ``tries`` windows in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: (e.count / calls, device_total(e) / calls)
+               for e in prof.key_averages() if device_total(e) > 0}
+        if out:
+            return out
+    return {}
+
+
+def split_cases(device):
+    """(case, (arm, cfg, sim, ref, batched state), steps a profiled window)
+    of ``--split``: benchmark_preset at B=1 on the 8000-point circle and
+    the 4096-scenario fleet of ``chip_smoke.py``'s phase 9."""
+    from mppi_robotarm_tpu_torch.sim import loop
+
+    arm, cfg, sim = m.benchmark_preset()
+    ref = torch.as_tensor(m.synth_circle_path(8000), device=device)
+    one = loop._as_batch(m.init_sim(cfg, sim, seed=0, device=device))
+    return [("benchmark_preset B=1", (arm, cfg, sim, ref, one), 64),
+            (f"fleet {FLEET} x K=128 T=30", fleet_inputs(device), 16)]
+
+
+def split_pieces(arm, cfg, sim, ref, st):
+    """One step's work cut by source, as (label, source, callable) on the
+    batched state ``st``: the torch code the step kernels replaced, as
+    their plain versions run it (the step head's waypoint advance, the
+    plant alone, the step tail without and with its record row), the solve
+    kernel, and the two step kernels, on the same state."""
+    from mppi_robotarm_tpu_torch.mppi import solver
+    from mppi_robotarm_tpu_torch.ops import cuda_step
+    from mppi_robotarm_tpu_torch.sim import loop
+
+    head = lambda fn: fn(cfg, ref, st.q, st.dq, st.mppi.wp_idx)
+    x0, wp, path_end, window = head(cuda_step.step_head_plain)
+
+    def solve():
+        return solver._solve_kernels(arm, cfg, x0, st.mppi.u_prev, window,
+                                     st.seed, None, st.step, False)
+
+    u_seq, s, _ = solve()
+    state = (*loop._state_tensors(st)[:5], st.done)
+    row = tuple(r[0] for r in loop._row_buffers(1, st, ref))
+    tail = lambda fn, r: fn(arm, cfg, sim, ref, *state, wp, path_end, u_seq,
+                            s, st.step, r)
+    plain = "ops/cuda_step.py::step_tail_plain"
+    return [
+        ("waypoint advance", "ops/cuda_step.py::step_head_plain",
+         lambda: head(cuda_step.step_head_plain)),
+        ("solve kernel (K2)", "mppi/solver.py::_solve_kernels", solve),
+        ("plant", "ops/cuda_step.py::plant_step",
+         lambda: cuda_step.plant_step(arm, sim, st.q, st.dq, u_seq[:, 1])),
+        ("shift, plant, freeze", plain + " without a row",
+         lambda: tail(cuda_step.step_tail_plain, None)),
+        ("shift, plant, freeze, record row", plain + " with the row",
+         lambda: tail(cuda_step.step_tail_plain, row)),
+        ("step head kernel", "ops/cuda_step.py::step_head",
+         lambda: head(cuda_step.step_head)),
+        ("step tail kernel", "ops/cuda_step.py::step_tail",
+         lambda: tail(cuda_step.step_tail, row)),
+    ]
+
+
+def measure_split(device, calls=SPLIT_CALLS):
+    """Per case of :func:`split_cases`: the device time and launches of one
+    step of the per-step loop as replayed CUDA graphs of ``_GRAPH_STEPS``
+    (a profiled run of ``steps`` steps from a state 32 steps into the run,
+    by kernel name; the run's own copies out of the graphs' buffers and
+    its record are in it), then of each of :func:`split_pieces` on that
+    state (``calls`` calls each)."""
+    from mppi_robotarm_tpu_torch.sim import loop
+
+    out = []
+    for case, (arm, cfg, sim, ref, st0), steps in split_cases(device):
+        st, _ = loop._step_loop(arm, cfg, sim, ref, st0, 32)
+        st = st._replace(seed=torch.as_tensor(st0.seed, device=device))
+        graph = profile_calls(
+            lambda: loop._step_loop(arm, cfg, sim, ref, st, steps), 1)
+        by_kernel = {k: (n / steps, us / steps) for k, (n, us)
+                     in graph.items()}
+        pieces = []
+        for label, source, fn in split_pieces(arm, cfg, sim, ref, st):
+            got = profile_calls(fn, calls)
+            pieces.append({"piece": label, "source": source,
+                           "launches": sum(n for n, _ in got.values()),
+                           "us": sum(us for _, us in got.values()),
+                           "kernels": sorted(got)})
+        out.append({"case": case, "steps": steps, "graph_by_kernel":
+                    by_kernel, "graph_launches": sum(
+                        n for n, _ in by_kernel.values()),
+                    "graph_us": sum(us for _, us in by_kernel.values()),
+                    "pieces": pieces})
+    return out
+
+
+def steploop_onpath(device, seeds, tile=None, steps=ONPATH_STEPS, out=None):
     """Per seed: the on-path mean, mm, and the records' SHA-256 of the
     per-step loop at ``benchmark_preset`` from ``init_sim(seed)``, its
-    solves on ``tile`` samples a block (None: the package's choice).
+    solves on ``tile`` samples a block (None: the package's choice), and
+    each record field's SHA-256; with ``out``, each seed's records go to
+    ``out/seed<S>.npz``.
 
     The tile is forced through ``cuda_solve._plan``, which every tree of
     the port calls with the tile as its third argument."""
@@ -494,18 +616,44 @@ def steploop_onpath(device, seeds, tile=None, steps=ONPATH_STEPS):
         arm, cfg, sim = m.benchmark_preset()
         path = m.synth_circle_path(8000)
         ref = torch.as_tensor(path, device=device)
-        out = []
+        rows = []
         for seed in seeds:
             _, rec = m.simulate(arm, cfg, sim, ref,
                                 m.init_sim(cfg, sim, seed=seed,
                                            device=device), steps,
                                 backend="cuda")
-            out.append({"seed": seed, "tile": tile or "default",
-                        "onpath_mm": live_onpath_mm(rec, path[:, 0:2])[0],
-                        "sha256": digest(*rec)})
-        return out
+            rows.append({"seed": seed, "tile": tile or "default",
+                         "onpath_mm": live_onpath_mm(rec, path[:, 0:2])[0],
+                         "sha256": digest(*rec),
+                         "fields": {f: digest(v)[:16] for f, v in
+                                    zip(rec._fields, rec)}})
+            if out:
+                os.makedirs(out, exist_ok=True)
+                np.savez(os.path.join(out, f"seed{seed}.npz"),
+                         **{f: v.cpu().numpy()
+                            for f, v in zip(rec._fields, rec)})
+        return rows
     finally:
         cuda_solve._plan = plan
+
+
+def compare_records(dir_a: str, dir_b: str) -> list:
+    """Per ``seed<S>.npz`` in both directories (``--onpath-seeds --out``)
+    and per record field: equal bit for bit or not, the largest absolute
+    and relative difference."""
+    rows = []
+    for name in sorted(set(os.listdir(dir_a)) & set(os.listdir(dir_b))):
+        with np.load(os.path.join(dir_a, name)) as a, \
+                np.load(os.path.join(dir_b, name)) as b:
+            for f in a.files:
+                x, y = a[f].astype(np.float64), b[f].astype(np.float64)
+                d = np.abs(x - y)
+                rows.append({"file": name, "field": f,
+                             "equal": bool(np.array_equal(a[f], b[f])),
+                             "max_abs": float(d.max()),
+                             "max_rel": float((d / np.maximum(
+                                 np.abs(y), 1e-30)).max())})
+    return rows
 
 
 def onpath_means(device, steps=STEPS):
@@ -548,11 +696,28 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", type=int, nargs="+",
                     default=list(STEPLOOP_CHUNKS),
                     help="--steploop: the graphs' lengths in steps")
+    ap.add_argument("--split", action="store_true",
+                    help="a per-step loop step's device time by kernel "
+                    "and by source")
     ap.add_argument("--onpath-seeds", type=int, nargs="+",
                     help="on-path mean of the per-step loop for each seed")
     ap.add_argument("--tile", type=int,
                     help="--onpath-seeds: the solve's samples per block")
+    ap.add_argument("--out", help="--onpath-seeds: write each seed's "
+                    "records to OUT/seed<S>.npz")
+    ap.add_argument("--compare-records", nargs=2, metavar=("A", "B"),
+                    help="compare two --out directories field by field "
+                    "(needs no card)")
     a = ap.parse_args(argv)
+    if a.compare_records:
+        rows = compare_records(*a.compare_records)
+        for r in rows:
+            print(f"{a.label} {r['file']} {r['field']}: "
+                  + ("equal bit for bit" if r["equal"] else
+                     f"differs: max |d| {r['max_abs']:.6g}, max relative "
+                     f"{r['max_rel']:.6g}"))
+        print(json.dumps({"label": a.label, "compare": rows}))
+        return 0
     if not torch.cuda.is_available():
         print("fused_timing: no CUDA device; it times the GPU",
               file=sys.stderr)
@@ -560,12 +725,28 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     smi = card()
     if a.onpath_seeds:
-        rows = steploop_onpath(device, a.onpath_seeds, a.tile)
+        rows = steploop_onpath(device, a.onpath_seeds, a.tile, out=a.out)
         for row in rows:
             print(f"{a.label} [{smi}] per-step loop seed {row['seed']} tile "
                   f"{row['tile']}: on-path {row['onpath_mm']:.3f} mm over "
                   f"{ONPATH_STEPS} steps; records sha256 {row['sha256']}")
         print(json.dumps({"label": a.label, "card": smi, "onpath": rows}))
+        return 0
+    if a.split:
+        rows = measure_split(device)
+        for row in rows:
+            print(f"{a.label} [{smi}] split {row['case']}: the graph loop "
+                  f"{row['graph_us']:.2f} us device time and "
+                  f"{row['graph_launches']:.2f} launches a step (a profiled "
+                  f"{row['steps']}-step run)")
+            for key, (n, us) in sorted(row["graph_by_kernel"].items(),
+                                       key=lambda kv: -kv[1][1]):
+                print(f"{a.label}   graph kernel {n:7.3f} a step "
+                      f"{us:9.3f} us  {key[:110]}")
+            for p in row["pieces"]:
+                print(f"{a.label}   piece {p['piece']} ({p['source']}): "
+                      f"{p['launches']:.2f} launches, {p['us']:.3f} us")
+        print(json.dumps({"label": a.label, "card": smi, "split": rows}))
         return 0
     if a.steploop:
         rows = measure_steploop(device, a.chunks)

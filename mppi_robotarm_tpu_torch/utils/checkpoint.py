@@ -18,7 +18,9 @@ continues it bit for bit.
 :func:`save_checkpoint_dist` / :func:`load_checkpoint_dist` are the
 counterpart of the JAX package's orbax pair (a checkpoint directory
 written by all processes together): ``torch.distributed.checkpoint``, each
-rank writing its 'data' block of a batched state under keys of its block.
+rank writing its 'data' block of a batched state under keys of its block
+beside the mesh's 'data' size; a restore on another 'data' size joins the
+blocks and cuts the fleet anew, so it never returns part of it.
 """
 
 from __future__ import annotations
@@ -95,10 +97,31 @@ def load_checkpoint(path: str, dtype=None, device=None) -> SimState:
         done=torch.as_tensor(z["done"].astype(bool), device=device))
 
 
-def _dist_prefix(mesh) -> str:
-    from ..parallel.mesh import DATA_AXIS, axis_rank
+_DIST_NAMES = ("step", "q", "dq", "u_prev", "wp_idx", "seed", "done")
+_DATA_SIZE = "data_size"      # the 'data' size of the mesh a save was cut on
 
-    return f"data{0 if mesh is None else axis_rank(mesh, DATA_AXIS)}."
+
+def _data_axis(mesh) -> tuple:
+    """(size, this rank's coordinate) of ``mesh``'s 'data' axis; (1, 0)
+    without a mesh."""
+    from ..parallel.mesh import DATA_AXIS, axis_rank, axis_size
+
+    if mesh is None:
+        return 1, 0
+    return axis_size(mesh, DATA_AXIS), axis_rank(mesh, DATA_AXIS)
+
+
+def _dist_state_dict(state: SimState, mesh=None) -> dict:
+    """What one rank writes: its block's fields under ``data{d}.<field>``
+    and the mesh's 'data' size, on the CPU."""
+    size, d = _data_axis(mesh)
+    fields = {"step": state.step, "q": state.q, "dq": state.dq,
+              "u_prev": state.mppi.u_prev, "wp_idx": state.mppi.wp_idx,
+              "seed": state.seed, "done": state.done}
+    sd = {f"data{d}.{k}": torch.as_tensor(v).detach().cpu().clone()
+          for k, v in fields.items()}
+    sd[_DATA_SIZE] = torch.tensor(size)
+    return sd
 
 
 def save_checkpoint_dist(path: str, state: SimState, mesh=None) -> None:
@@ -107,41 +130,67 @@ def save_checkpoint_dist(path: str, state: SimState, mesh=None) -> None:
     every rank of the process group.
 
     Each rank writes its block (``parallel/sharded.py::scenario_shard``) under
-    keys ``data{d}.<field>`` of its 'data' coordinate d on ``mesh``; ranks
-    that share a block (the 'samples' axis) hold the same tensors, which
-    the checkpoint writes once.  With no ``mesh`` and no process group it
-    is a one-process save."""
+    keys ``data{d}.<field>`` of its 'data' coordinate d on ``mesh``, and the
+    mesh's 'data' size under ``data_size``; ranks that share a block (the
+    'samples' axis) hold the same tensors, which the checkpoint writes
+    once.  With no ``mesh`` and no process group it is a one-process
+    save."""
     import torch.distributed.checkpoint as dcp
 
-    fields = {"step": state.step, "q": state.q, "dq": state.dq,
-              "u_prev": state.mppi.u_prev, "wp_idx": state.mppi.wp_idx,
-              "seed": state.seed, "done": state.done}
-    prefix = _dist_prefix(mesh)
-    dcp.save({prefix + k: torch.as_tensor(v).detach().cpu().clone()
-              for k, v in fields.items()}, checkpoint_id=path,
+    dcp.save(_dist_state_dict(state, mesh), checkpoint_id=path,
              no_dist=not dist.is_initialized())
 
 
 def load_checkpoint_dist(path: str, mesh=None, dtype=None,
                          device=None) -> SimState:
-    """Restore this rank's block saved by :func:`save_checkpoint_dist` on a
-    mesh of the same 'data' size, on ``device`` (default ``cuda``), bit
-    for bit.  ``dtype`` casts q, dq and u_prev (default: as saved)."""
+    """Restore this rank's block of the state saved by
+    :func:`save_checkpoint_dist`, on ``device`` (default ``cuda``), bit
+    for bit; ``dtype`` casts q, dq and u_prev (default: as saved).
+
+    On a mesh of the save's 'data' size each rank reads its own block.  On
+    another size (``mesh=None`` is size 1) it reads every block, joins them
+    in data order into the whole fleet and cuts that by its own 'data'
+    coordinate (``parallel/sharded.py::scenario_shard``), as the JAX
+    package's orbax restore gives the whole state on any mesh; it raises
+    where the fleet cannot be cut so (a single scenario, or a batch the
+    new size does not divide).  A checkpoint without ``data_size`` counts
+    its ``data{d}`` blocks."""
     import torch.distributed.checkpoint as dcp
 
-    prefix = _dist_prefix(mesh)
     meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
-    names = ("step", "q", "dq", "u_prev", "wp_idx", "seed", "done")
-    missing = [n for n in names if prefix + n not in meta]
+    no_dist = not dist.is_initialized()
+    if _DATA_SIZE in meta:
+        got = {_DATA_SIZE: torch.empty((), dtype=torch.int64)}
+        dcp.load(got, checkpoint_id=path, no_dist=no_dist)
+        saved = int(got[_DATA_SIZE])
+    else:
+        saved = len({k.split(".", 1)[0] for k in meta if "." in k})
+    size, d = _data_axis(mesh)
+    blocks = [f"data{d}."] if size == saved else [
+        f"data{b}." for b in range(saved)]
+    missing = [b + n for b in blocks for n in _DIST_NAMES
+               if b + n not in meta]
     if missing:
-        raise ValueError(f"checkpoint {path} has no {prefix}* fields "
-                         f"{missing}")
-    sd = {prefix + n: torch.empty(tuple(meta[prefix + n].size),
-                                  dtype=meta[prefix + n].properties.dtype)
-          for n in names}
-    dcp.load(sd, checkpoint_id=path, no_dist=not dist.is_initialized())
+        raise ValueError(f"checkpoint {path} has no fields {missing} "
+                         f"(this rank's block: data{d}.*)")
+    sd = {b + n: torch.empty(tuple(meta[b + n].size),
+                             dtype=meta[b + n].properties.dtype)
+          for b in blocks for n in _DIST_NAMES}
+    dcp.load(sd, checkpoint_id=path, no_dist=no_dist)
+    z = {n: torch.cat([sd[b + n] for b in blocks]) if len(blocks) > 1
+         else sd[blocks[0] + n] for n in _DIST_NAMES}
+    if size != saved:
+        if z["q"].dim() != 2:
+            raise ValueError(
+                f"checkpoint {path} holds one scenario, saved on a 'data' "
+                f"size of {saved}: a mesh of 'data' size {size} cannot cut "
+                f"it into blocks (this rank's block: data{d}.*)")
+        if mesh is not None:
+            from ..parallel.sharded import scenario_shard
+
+            z = dict(zip(_DIST_NAMES, scenario_shard(
+                mesh, tuple(z[n] for n in _DIST_NAMES))))
     device = resolve_device(device)
-    z = {n: sd[prefix + n] for n in names}
     as_f = lambda v: v.to(device=device, dtype=dtype or v.dtype)
     seed = z["seed"].to(device) if z["q"].dim() == 2 else int(z["seed"])
     return SimState(

@@ -1,6 +1,7 @@
 """The port's config copy equals the JAX package's, and the port never
 imports JAX."""
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -61,6 +62,7 @@ def test_port_never_imports_jax():
             "mppi_robotarm_tpu_torch.ops.cuda_sim, "
             "mppi_robotarm_tpu_torch.ops.cuda_solve, "
             "mppi_robotarm_tpu_torch.ops.cuda_probe, "
+            "mppi_robotarm_tpu_torch.ops.cuda_step, "
             "mppi_robotarm_tpu_torch.ops._build, "
             "mppi_robotarm_tpu_torch.tools.overhead, "
             "mppi_robotarm_tpu_torch.tools.fused_timing, "
@@ -77,3 +79,24 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_root_exports_everything_the_jax_root_does():
+    """The port's ``__all__`` holds every name of the JAX package's, read
+    from the JAX file's text (importing it would import JAX), and each
+    name resolves at the port's root."""
+    import mppi_robotarm_tpu_torch as port
+
+    with open(os.path.join(REPO, "mppi_robotarm_tpu", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    jax_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and any(getattr(t, "id", None) == "__all__"
+                           for t in node.targets))
+    assert "generate_circle_path" in jax_all and "save_path_file" in jax_all
+    assert set(jax_all) <= set(port.__all__), sorted(
+        set(jax_all) - set(port.__all__))
+    for name in port.__all__:
+        assert hasattr(port, name), name
+    from mppi_robotarm_tpu_torch import (  # noqa: F401
+        generate_circle_path, save_path_file)

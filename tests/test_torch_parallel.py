@@ -658,6 +658,68 @@ def test_dist_checkpoint_world_of_one(tmp_path):
                              device="cpu")
 
 
+def _save_as_ranks(path, st, shape):
+    """What a collective save of ``st`` by the ranks of a (shape[0] x 1)
+    mesh writes, each its block: their state dicts, merged, in one
+    one-process save (the ranks' replicated ``data_size`` once)."""
+    import torch.distributed.checkpoint as dcp
+
+    from mppi_robotarm_tpu_torch.parallel.sharded import scenario_shard
+    from mppi_robotarm_tpu_torch.utils import checkpoint
+
+    sd = {}
+    for d in range(shape[0]):
+        mesh = FakeMesh(shape, (d, 0))
+        sd.update(checkpoint._dist_state_dict(scenario_shard(mesh, st),
+                                              mesh))
+    dcp.save(sd, checkpoint_id=path, no_dist=True)
+
+
+@pytest.mark.parametrize("restore", [None, (1, 1), (4, 1), (2, 1)])
+def test_dist_checkpoint_restores_the_whole_fleet_on_any_data_size(
+        tmp_path, restore):
+    """A (2 x 1) save of a 4-scenario fleet, restored with ``mesh=None``
+    or on a (1 x 1) mesh, gives the whole fleet; on a (4 x 1) mesh each
+    rank its one scenario; on the save's own (2 x 1) each rank its block:
+    never part of the fleet in silence."""
+    from mppi_robotarm_tpu_torch.utils.checkpoint import load_checkpoint_dist
+
+    cfg = P.MPPIConfig()
+    st = P.init_sim_batch(cfg, PSIM, [3, 4, 5, 6], device="cpu")
+    st, _ = P.simulate_fused_batch(PARM, dataclasses.replace(
+        cfg, num_samples=16, horizon=30), PSIM, torch.as_tensor(
+            P.synth_circle_path(300)), st, 2)
+    path = str(tmp_path / "ck")
+    _save_as_ranks(path, st, (2, 1))
+    ranks = [None] if restore is None else [
+        FakeMesh(restore, (d, 0)) for d in range(restore[0])]
+    backs = [load_checkpoint_dist(path, mesh, device="cpu")
+             for mesh in ranks]
+    whole = [torch.cat(v) for v in zip(*(ploop._state_tensors(b)
+                                         for b in backs))]
+    for a, b in zip(ploop._state_tensors(st), whole):
+        assert torch.equal(a, b)
+    assert all(b.q.shape[0] == 4 // len(ranks) for b in backs)
+
+
+def test_dist_checkpoint_refuses_a_cut_it_cannot_make(tmp_path):
+    """A fleet the new 'data' size does not divide, and a single scenario
+    on a mesh of several blocks, raise."""
+    from mppi_robotarm_tpu_torch.utils.checkpoint import (
+        load_checkpoint_dist, save_checkpoint_dist)
+
+    st = P.init_sim_batch(P.MPPIConfig(), PSIM, [3, 4, 5, 6], device="cpu")
+    _save_as_ranks(str(tmp_path / "b"), st, (2, 1))
+    with pytest.raises(ValueError, match="not divisible"):
+        load_checkpoint_dist(str(tmp_path / "b"), FakeMesh((3, 1), (0, 0)),
+                             device="cpu")
+    save_checkpoint_dist(str(tmp_path / "s"), P.init_sim(
+        P.MPPIConfig(), PSIM, seed=2, device="cpu"))
+    with pytest.raises(ValueError, match="one scenario"):
+        load_checkpoint_dist(str(tmp_path / "s"), FakeMesh((2, 1), (0, 0)),
+                             device="cpu")
+
+
 def test_build_lock_compiles_once(tmp_path, monkeypatch):
     """Two builds at once (two ranks reaching their first launch) compile
     the library once: the second waits on the lock, then finds it

@@ -29,7 +29,7 @@ import torch
 
 import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.models.arm import fk_full
-from mppi_robotarm_tpu_torch.ops import cuda_solve
+from mppi_robotarm_tpu_torch.ops import cuda_solve, cuda_step
 from mppi_robotarm_tpu_torch.ops.weights import (effective_sample_size,
                                                  weight_entropy)
 from mppi_robotarm_tpu_torch.sim import loop as ploop
@@ -239,7 +239,8 @@ def fake_capture(monkeypatch):
     capture runs its block once, as a capture records it, and a replay
     runs nothing.  Returns a function that makes every per-step solve
     count ``n`` launches in ``cuda_solve.LAUNCHES``, as the kernel's
-    wrapper counts its one (the plain twin counts none)."""
+    wrapper counts its one (the plain twin counts none), and the step's
+    head and tail one each in ``cuda_step``'s counts, as theirs do."""
     class Graph:
         def replay(self):
             pass
@@ -254,6 +255,18 @@ def fake_capture(monkeypatch):
     monkeypatch.setattr(ploop, "_CAPTURE_STREAMS", {})
     monkeypatch.setattr(ploop, "_GRAPHS", OrderedDict())
     solve = cuda_solve.solve_batched
+    head, tail = cuda_step.step_head, cuda_step.step_tail
+
+    def counted_head(*a, **k):
+        cuda_step.HEAD_LAUNCHES += 1
+        return head(*a, **k)
+
+    def counted_tail(*a, **k):
+        cuda_step.TAIL_LAUNCHES += 1
+        return tail(*a, **k)
+
+    monkeypatch.setattr(cuda_step, "step_head", counted_head)
+    monkeypatch.setattr(cuda_step, "step_tail", counted_tail)
 
     def launches_a_solve(n):
         def counted(*a, **k):

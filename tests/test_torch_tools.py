@@ -464,3 +464,45 @@ def test_combine_clocks_stamps_fit_the_solve_kernel(monkeypatch):
         combine_clocks.instrument(src.replace("if (!s_last) return;", ""))
     monkeypatch.setattr(combine_clocks.shutil, "which", lambda name: None)
     assert combine_clocks.main([]) == 1
+
+
+def test_fused_timing_split_pieces_run_on_the_cpu():
+    """--split's pieces (the step kernels' plain versions cut by source,
+    the solve, then the two step kernels) run on a small batched state;
+    the card only times them."""
+    import dataclasses
+
+    from mppi_robotarm_tpu_torch.sim import loop
+
+    arm, cfg, sim = P.benchmark_preset()
+    cfg = dataclasses.replace(cfg, num_samples=32, horizon=6)
+    ref = torch.as_tensor(P.synth_circle_path(300))
+    st = P.init_sim_batch(cfg, sim, [1, 2, 3], device="cpu")
+    st, _ = loop._step_loop(arm, cfg, sim, ref, st, 2, graphs=False)
+    pieces = fused_timing.split_pieces(arm, cfg, sim, ref, st)
+    labels = [label for label, _, _ in pieces]
+    assert labels[-2:] == ["step head kernel", "step tail kernel"]
+    assert "plant" in labels and "waypoint advance" in labels
+    for _, source, fn in pieces:
+        assert "::" in source
+        fn()
+
+
+def test_fused_timing_compare_records_field_by_field(tmp_path):
+    """--compare-records: equal fields bit for bit, others with their
+    largest absolute and relative differences; only seeds in both."""
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    q = np.arange(6, dtype=np.float32).reshape(3, 2)
+    ess = np.array([10.0, 20.0, 40.0], np.float32)
+    np.savez(a / "seed0.npz", q=q, ess=ess)
+    np.savez(b / "seed0.npz", q=q, ess=ess * np.float32(1.5))
+    np.savez(a / "seed1.npz", q=q)
+    rows = {r["field"]: r for r in fused_timing.compare_records(str(a),
+                                                                str(b))}
+    assert set(rows) == {"q", "ess"}
+    assert rows["q"]["equal"] and rows["q"]["max_abs"] == 0.0
+    assert not rows["ess"]["equal"]
+    assert rows["ess"]["max_abs"] == 20.0
+    assert abs(rows["ess"]["max_rel"] - 1 / 3) < 1e-12
