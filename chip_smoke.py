@@ -36,8 +36,9 @@ Phases (any failure raises and exits non-zero):
   8. the per-step path, ``simulate(benchmark_preset, seed 0, 4000 steps,
      backend="cuda")``, which replays CUDA graphs of
      ``sim/loop.py::_GRAPH_STEPS`` steps: one solve-kernel launch a step
-     (so at least one a live step), one step head and one step tail
-     (``ops/cuda_step.py``) a step, and no separate combine launch, finite
+     (so at least one a live step), one step tail (``ops/cuda_step.py``)
+     a step, one step head a chunk and the other steps' heads carried by
+     the tails, and no separate combine launch, finite
      records, on-path mean < 42 mm, records and final state == the eager
      chunked loop's (``sim/loop.py::_step_loop(graphs=False)``) bit for
      bit, its first 8 steps == phase 4's fused run within the bands of
@@ -55,9 +56,9 @@ Phases (any failure raises and exits non-zero):
      from a profiled window against the unprofiled µs/step) as replayed
      graphs beside the eager chunked loop's, in turns, with the graphs'
      length and capture seconds and a step's device split (the solve, the
-     step head, the step tail, copies, other kernels), the batch's
-     scenario-steps/s and µs/step; the step kernels' plain versions per
-     call at benchmark_preset;
+     step head, the step tail carrying the next head, copies, other
+     kernels), the batch's scenario-steps/s and µs/step; the step kernels'
+     plain versions per call at benchmark_preset;
  11. the fleet kernel against the fused kernel and against its plain
      twin, eps and PRNG modes: K=128/T=30, B=64, group=8 on a 120-row
      path with half the scenarios frozen from the start, K=100/T=30,
@@ -117,17 +118,25 @@ Phases (any failure raises and exits non-zero):
      1e-6, dq 1e-5, u 1e-3) with its seconds, and 20 steps of the compat
      layer's ``MPPIControllerForPathTracking`` on the solve kernel under
      ``np.random.seed(0)``: finite, on-path mean < 42 mm;
- 20. the step kernels (``csrc/step_kernel.cu``: the head before the solve,
-     the tail after it) against their plain versions on the same card
-     tensors over 8 steps of the per-step loop, the solve kernel between
-     them, at benchmark_preset for B=1 on the 8000-point circle and for
-     B=64 on its first 200 rows (spread indices, every 8th scenario frozen,
-     four near the path end): the state, controls, index, done, FK,
-     reference rows and min cost bit for bit, the mean cost, ESS and
-     entropy within 2e-6 relative, the entropy's relative to at least its
-     range log K (the kernel's sums over K run in another order than
-     torch's reductions, and a near-deterministic softmax has an entropy
-     near 0).
+ 20. the step kernels (``csrc/step_kernel.cu``: the head before a chunk's
+     first solve, the tail after each solve, carrying the next step's
+     head) against their plain versions on the same card tensors over 8
+     steps of the per-step loop, the solve kernel between them, at
+     benchmark_preset for B=1 on the 8000-point circle and for B=64 on its
+     first 200 rows (spread indices, every 8th scenario frozen, four near
+     the path end), and at phase 9's fleet shape (4096 x K=128, T=30, from
+     phase 9's final state, every 8th scenario frozen, four near the path
+     end: several scenarios a block, one statistics warp each), with the
+     tail's layout (``cuda_step.step_tail_layout``) at each shape: the
+     head kernel's outputs and, at
+     every step, the head the tail carries equal to the plain head on the
+     same state; the state, controls, index, done, FK, reference rows and
+     min cost bit for bit, the mean cost, ESS and entropy within 2e-6
+     relative, the entropy's relative to at least its range log K (the
+     kernel's sums over K run in another order than torch's reductions,
+     and a near-deterministic softmax has an entropy near 0), and equal
+     to their order in torch (``cuda_step.tail_stats_ordered``) bit for
+     bit.
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -367,45 +376,63 @@ def compare_records(label, a, b):
 
 def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
                  states, steps=CMP_STEPS):
-    """Phase 20: ``steps`` steps of the per-step loop (the step head, the
-    solve kernel, the step tail) with the step kernels and with their
-    plain versions, on the same card tensors; everything bit for bit but
-    the mean cost, ESS and entropy, which must agree within
-    STEP_STATS_RTOL relative, the entropy relative to the larger of
-    itself and its range log K (a softmax on one sample has an entropy
-    near 0, where one rounding of a weight near 1 is a large share).  At
-    every step of the kernels' run the plain head also runs on the same
-    state, and the head kernel's four outputs (x0, the new index, the
-    path end, the window) must equal its.  Returns the largest absolute
-    error of the head's outputs and of those three statistics."""
+    """Phase 20: ``steps`` steps of the per-step loop's chunk (the step
+    head, then each step the solve kernel and the step tail, which carries
+    the next step's head) with the step kernels and with their plain
+    versions, on the same card tensors; everything bit for bit but the
+    mean cost, ESS and entropy, which must agree within STEP_STATS_RTOL
+    relative, the entropy relative to the larger of itself and its range
+    log K (a softmax on one sample has an entropy near 0, where one
+    rounding of a weight near 1 is a large share), and must equal
+    ``cuda_step.tail_stats_ordered`` of the step's costs bit for bit
+    (zeroed where done).  The plain head also runs on the state the head
+    kernel starts from and on the state after every step of the kernels'
+    run: the head kernel's four outputs (x0, the new index, the path end,
+    the window), and at every step the head the tail kernel carries, must
+    equal its.  Returns the largest absolute error of the heads' outputs
+    and of those three statistics."""
     import torch
 
     head_err = 0.0
 
-    def run(head, tail):
+    def same_head(h, st, what):
         nonlocal head_err
+        p = cuda_step.step_head_plain(cfg, ref, st.q, st.dq, st.mppi.wp_idx)
+        d = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(h, p))
+        head_err = max(head_err, d)
+        check(all(torch.equal(a, b) for a, b in zip(h, p)),
+              f"{label}: {what}: x0, index, path end or window differs "
+              f"from the plain head's (max |d| {d:.3g})")
+
+    def run(head, tail):
+        kernels = tail is cuda_step.step_tail
         st, clock = states, states.step.clone()
         rows = loop._row_buffers(steps, st, ref)
+        h = head(cfg, ref, st.q, st.dq, st.mppi.wp_idx)
+        if kernels:
+            same_head(h, st, "the step head kernel")
         for i in range(steps):
-            h = head(cfg, ref, st.q, st.dq, st.mppi.wp_idx)
-            if head is cuda_step.step_head:
-                p = cuda_step.step_head_plain(cfg, ref, st.q, st.dq,
-                                              st.mppi.wp_idx)
-                d = max(float((a.double() - b.double()).abs().max())
-                        for a, b in zip(h, p))
-                head_err = max(head_err, d)
-                check(all(torch.equal(a, b) for a, b in zip(h, p)),
-                      f"{label}: step {i}: the step head kernel's x0, index,"
-                      f" path end or window differs from the plain head's "
-                      f"(max |d| {d:.3g})")
             x0, wp, path_end, window = h
             u_seq, s, _ = solve_kernels(arm, cfg, x0, st.mppi.u_prev, window,
                                         st.seed, None, st.step, False)
-            *nxt, clock = tail(arm, cfg, sim, ref,
-                               *loop._state_tensors(st)[:5], st.done, wp,
-                               path_end, u_seq, s, clock,
-                               tuple(r[i] for r in rows))
+            *nxt, clock, h = tail(arm, cfg, sim, ref,
+                                  *loop._state_tensors(st)[:5], st.done, wp,
+                                  path_end, u_seq, s, clock,
+                                  tuple(r[i] for r in rows), carry_head=True)
             st = loop._as_state((*nxt[:5], st.seed, nxt[5]))
+            if kernels:
+                same_head(h, st, f"step {i}: the head the step tail kernel "
+                          f"carries")
+                twin = cuda_step.tail_stats_ordered(s, cfg.lam)
+                for name, got, want in zip(
+                        ("cost_min", "cost_mean", "ess", "weight_entropy"),
+                        (rows[7][i], rows[8][i], rows[9][i], rows[10][i]),
+                        twin):
+                    want = torch.where(st.done, torch.zeros_like(want), want)
+                    check(torch.equal(got, want),
+                          f"{label}: step {i}: {name} differs from its "
+                          f"order in torch (tail_stats_ordered)")
         return st, rows
 
     kern = run(cuda_step.step_head, cuda_step.step_tail)
@@ -431,13 +458,19 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
             check(torch.equal(a, b), f"{label}: record {name} differs from "
                   f"the plain versions'")
     B = states.q.shape[0]
+    from mppi_robotarm_tpu_torch.ops.cuda_solve import _sm_count
+
+    layout = cuda_step.step_tail_layout(cfg.num_samples, B,
+                                        _sm_count(states.q.device))
     print(f"{label}: the step kernels == their plain versions over {steps} "
-          f"steps of {B} scenario(s) (K={cfg.num_samples}): the head's x0, "
-          f"index, path end and window at every step (max |d| "
+          f"steps of {B} scenario(s) (K={cfg.num_samples}; the tail's "
+          f"layout {layout}): the head kernel's x0, index, path end and "
+          f"window, and the head the tail carries at every step (max |d| "
           f"{head_err:.3g}), state, q, dq, "
           f"u, ee, elbow, ref_xy, wp_idx, cost_min, done bitwise; cost_mean, "
           f"ess, entropy within {rel:.3g} relative (the entropy's to at "
-          f"least log K; max |d| {err:.3g}; band {STEP_STATS_RTOL}); "
+          f"least log K; max |d| {err:.3g}; band {STEP_STATS_RTOL}) and "
+          f"== tail_stats_ordered bitwise; "
           f"{int(kern[1][-1][-1].sum())} scenario(s) "
           f"done at the end")
     return head_err, err
@@ -778,6 +811,7 @@ def main() -> int:
     loop._GRAPHS.clear()
     cuda_solve.LAUNCHES = cuda_solve.COMBINE_LAUNCHES = 0
     cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
+    cuda_step.CARRIED_HEADS = 0
     t0 = time.perf_counter()
     final_p, rec_p = m.simulate(arm, cfg, sim, ref, state0, STEPS,
                                 backend="cuda")
@@ -787,6 +821,8 @@ def main() -> int:
     combine_launches = cuda_solve.COMBINE_LAUNCHES
     head_launches = cuda_step.HEAD_LAUNCHES
     tail_launches = cuda_step.TAIL_LAUNCHES
+    carried_heads = cuda_step.CARRIED_HEADS
+    chunks = -(-STEPS // graph_steps)
     captures = {g.n: g.capture_s for g in loop._GRAPHS.values()}
     live = int((~rec_p.done).sum())
     print(f"per-step path: simulate(backend='cuda') {STEPS} steps as "
@@ -795,7 +831,8 @@ def main() -> int:
                       sorted(captures.items()))
           + f"), solve_tile_kernel launches {solve_launches}, "
           f"step_head_kernel {head_launches}, step_tail_kernel "
-          f"{tail_launches}, separate combine launches {combine_launches}, "
+          f"{tail_launches} ({carried_heads} carrying the next step's "
+          f"head), separate combine launches {combine_launches}, "
           f"live steps {live}, "
           f"{loop_wall:.3f} s wall with the captures")
     check(captures and len(captures) <= 2 and max(captures) == graph_steps,
@@ -818,10 +855,13 @@ def main() -> int:
           f"{STEPS} steps, not one a step")
     check(combine_launches == 0,
           f"the per-step path made {combine_launches} combine launches")
-    check(head_launches == tail_launches == STEPS,
+    check((head_launches, tail_launches, carried_heads)
+          == (chunks, STEPS, STEPS - chunks),
           f"the per-step path made {head_launches} step head and "
-          f"{tail_launches} step tail launches in {STEPS} steps, not one of "
-          f"each a step")
+          f"{tail_launches} step tail launches, {carried_heads} of them "
+          f"carrying the head, in {STEPS} steps, not a head a chunk of "
+          f"{graph_steps} ({chunks}) and a tail a step, all but each "
+          f"chunk's last carrying the head")
     for field, v in zip(rec_p._fields, rec_p):
         if v.dtype.is_floating_point:
             check(bool(torch.isfinite(v).all()), f"per-step {field} not finite")
@@ -933,15 +973,15 @@ def main() -> int:
         # tail, the copies, the rest
         part = {"solve": 0.0, "head": 0.0, "tail": 0.0, "copies": 0.0,
                 "other": 0.0}
-        n_other = 0
+        n_by = dict.fromkeys(part, 0)
         for key, cnt, t in events:
             kind = ("solve" if "solve_" in key else
                     "head" if "step_head" in key else
                     "tail" if "step_tail" in key else
                     "copies" if "memcpy" in key.lower() else "other")
             part[kind] += t / steps_w
-            n_other += cnt if kind == "other" else 0
-        breakdown[k] = (part, n_other / steps_w)
+            n_by[kind] += cnt
+        breakdown[k] = (part, n_by)
     print(f"timing [{card}]: per-step loop, simulate(backend='cuda') as "
           f"CUDA graphs of {graph_steps} steps {loop_us['graphs']:.2f} us/step by CUDA events over "
           f"{loop_steps} steps, runs {[round(t, 1) for t in lt['graphs']]} "
@@ -954,15 +994,17 @@ def main() -> int:
           f"{[round(t, 1) for t in lt['eager']]} ms; sim_kernel "
           f"{kern_ms * 1e3:.2f} us/step")
     for k in loops:
-        part, n_other = breakdown[k]
+        part, n_by = breakdown[k]
         print(f"timing [{card}]: per-step loop ({k}): device busy "
               f"{busy_us[k]:.2f} us/step in a profiled {steps_w}-step window "
               f"({window[k] / steps_w * 1e6:.2f} us/step under the "
               f"profiler; solve_tile_kernel {part['solve']:.2f}, "
-              f"step_head_kernel {part['head']:.2f}, step_tail_kernel "
-              f"{part['tail']:.2f}, copies "
-              f"{part['copies']:.2f}, {n_other:.2f} other kernels "
-              f"{part['other']:.2f} us/step); idle share {idle[k]:.3f} of "
+              f"step_head_kernel {part['head']:.2f} "
+              f"({n_by['head'] / steps_w:.4f} a step), step_tail_kernel "
+              f"carrying the next head {part['tail']:.2f}, copies "
+              f"{part['copies']:.2f}, {n_by['other'] / steps_w:.2f} other "
+              f"kernels {part['other']:.2f} us/step); idle share "
+              f"{idle[k]:.3f} of "
               f"the unprofiled {loop_us[k]:.2f} us/step"
               + (" (below 0: the profiled kernels ran longer than the "
                  "unprofiled steps, so the device did not idle)"
@@ -973,10 +1015,13 @@ def main() -> int:
           f"{min(bt):.2f} ms (runs {[round(t, 2) for t in bt]}), "
           f"{min(bt) / BATCH_STEPS * 1e3:.2f} us/step, "
           f"{rate:,.0f} scenario-steps/s")
-    head_ms = breakdown["graphs"][0]["head"] / 1e3  # one launch a step
-    tail_ms = breakdown["graphs"][0]["tail"] / 1e3
-    check(head_ms > 0 and tail_ms > 0, "the profiled graph loop showed no "
+    # a launch's device time: the head's one a chunk, the tail's one a step
+    part, n_by = breakdown["graphs"]
+    check(part["head"] > 0 and part["tail"] > 0 and n_by["head"] > 0
+          and n_by["tail"] > 0, "the profiled graph loop showed no "
           "step_head_kernel or step_tail_kernel time")
+    head_ms = part["head"] * steps_w / n_by["head"] / 1e3
+    tail_ms = part["tail"] * steps_w / n_by["tail"] / 1e3
     # the step kernels' plain versions at the main path's shape, a call
     st1 = loop._as_batch(final_p)._replace(
         seed=torch.zeros(1, dtype=torch.int64, device=device))
@@ -990,11 +1035,13 @@ def main() -> int:
         cfg, ref, st1.q, st1.dq, st1.mppi.wp_idx) for _ in range(20)],
         3)) / 20
     plain_tail_ms = min(cuda_time(lambda: [cuda_step.step_tail_plain(
-        *tail_args) for _ in range(20)], 3)) / 20
+        *tail_args, carry_head=True) for _ in range(20)], 3)) / 20
     print(f"timing [{card}]: the step kernels at benchmark_preset B=1, "
           f"device time a launch in the graph loop: step_head_kernel "
-          f"{head_ms * 1e3:.3f} us, step_tail_kernel {tail_ms * 1e3:.3f} "
-          f"us; their plain versions (CUDA events over 20 calls, min of 3) "
+          f"{head_ms * 1e3:.3f} us (one a chunk of {graph_steps} steps), "
+          f"step_tail_kernel carrying the next head {tail_ms * 1e3:.3f} "
+          f"us; their plain versions (CUDA events over 20 calls, min of 3; "
+          f"the tail's followed by the plain head on its outputs) "
           f"{plain_head_ms * 1e3:.2f} us and {plain_tail_ms * 1e3:.2f} us")
 
     # ---- 11. the fleet kernel against the fused kernel and its twin ----
@@ -1487,6 +1534,22 @@ def main() -> int:
                         cuda_step, _solve_kernels, arm, cfg, sim, ref200,
                         st64)
     head_err, step_err = max(head_err, errs[0]), max(step_err, errs[1])
+    wp_f = final_b.mppi.wp_idx.clone()
+    wp_f[-4:] = torch.tensor([1996, 1997, 1998, 1997], device=device)
+    st_f = final_b._replace(
+        mppi=final_b.mppi._replace(wp_idx=wp_f),
+        done=final_b.done | (torch.arange(BATCH, device=device) % 8 == 5))
+    errs = step_compare(f"step kernels fleet B={BATCH} K=128 T=30", loop,
+                        cuda_step, _solve_kernels, arm, cfg_b, sim, ref_b,
+                        st_f)
+    head_err, step_err = max(head_err, errs[0]), max(step_err, errs[1])
+    print("step kernels: the tail's layout (statistics warps, logical "
+          "lanes a lane, scenarios a block, samples a logical lane in "
+          "registers): " + "; ".join(
+              f"{shape} {cuda_step.step_tail_layout(k, b, sm_count)}"
+              for shape, k, b in (("B=1 K=1024", cfg.num_samples, 1),
+                                  ("B=64 K=1024", cfg.num_samples, 64),
+                                  (f"fleet B={BATCH} K=128", 128, BATCH))))
 
     check("jax" not in sys.modules,
           "the port imported JAX during phases 2-20")
@@ -1530,17 +1593,23 @@ def main() -> int:
     # (W plus the run's mean advance a step) and writes x0, the index, the
     # flag and the window; the tail reads S, u_seq, u_prev, the state, the
     # head's index and flag and a reference row and writes u_prev, the next
-    # state and the record row (float32 lanes, 8-byte ints, 1-byte flags).  Operations by hand from csrc/step_kernel.cu: the head
-    # 9 for fk_ee and 7 a row (two differences, two squares, a sum, the
-    # scale, the compare), the tail ~60 for the plant (arm_ddq, two Euler
-    # updates), 10 for fk_full and 20 a sample for the three passes over S
+    # state and the record row (float32 lanes, 8-byte ints, 1-byte flags),
+    # and the head it carries reads the rows and writes the head's outputs
+    # (its state is the tail's).  Operations by hand from
+    # csrc/step_kernel.cu: the head 9 for fk_ee and 7 a row (two
+    # differences, two squares, a sum, the scale, the compare), the tail
+    # ~60 for the plant (arm_ddq, two Euler updates), 10 for fk_full, 20 a
+    # sample for the statistics over S, and the carried head's
     wp_p = rec_p.wp_idx.double()
     adv = float((wp_p[1:] - wp_p[:-1]).mean())
-    head_bound = bound(9 + 7 * W, (4 + (W + adv) * 4 + 4 + W * 4) * f4
-                       + 2 * 8 + 1)
-    tail_bound = bound(20 * cfg.num_samples + 70,
+    head_rows = ((W + adv) * 4 + 4 + W * 4) * f4 + 8 + 1
+    # (the head's work weighs as the share of the run's tails that carried
+    # it, as the tail's time is the mean over all of them)
+    head_bound = bound(9 + 7 * W, 4 * f4 + 8 + head_rows)
+    carried = carried_heads / tail_launches
+    tail_bound = bound(20 * cfg.num_samples + 70 + carried * (9 + 7 * W),
                        (cfg.num_samples + 3 * 2 * cfg.horizon + 4 + 4 + 2
-                        + 6 * 2 + 4) * f4 + 8 * 8 + 4)
+                        + 6 * 2 + 4) * f4 + 8 * 8 + 4 + carried * head_rows)
     p1_bound = bound(xp.numel(), 2 * xp.numel() * f4)
     p2_bound = bound(xp.numel(), (2 * xp.numel() + b2.numel()) * f4)
     print(f"bounds [{card}]: sim_kernel {k1_bound[0] * 1e3:.4f} us/step "
@@ -1549,8 +1618,9 @@ def main() -> int:
           f"{k3_bound[0] * 1e3:.4f} us/launch-step ({k3_bound[1]}, "
           f"{fleet_live} of {BATCH * FLEET_TIME_STEPS} scenario-steps "
           f"live), step_head_kernel {head_bound[0] * 1e3:.5f} us "
-          f"({head_bound[1]}), step_tail_kernel {tail_bound[0] * 1e3:.5f} us "
-          f"({tail_bound[1]}), probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
+          f"({head_bound[1]}), step_tail_kernel carrying the next head "
+          f"{tail_bound[0] * 1e3:.5f} us ({tail_bound[1]}), "
+          f"probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
           f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
           f"({p2_bound[1]})")
     issue_us = lambda ops: ops / UNFUSED_OPS * 1e6
@@ -1593,8 +1663,9 @@ def main() -> int:
               head_launches, head_err, head_ms, plain_head_ms, head_bound),
         entry("step_tail_kernel", "step_kernel.cu",
               "mppi_robotarm_tpu/sim/loop.py:86 (sim_step's plant, freeze "
-              "and record under simulate's scan :122-163, fused by XLA; no "
-              "Pallas kernel)", tail_launches, step_err, tail_ms,
+              "and record under simulate's scan :122-163, with the next "
+              "step's waypoint advance, mppi/solver.py:215, fused by XLA; "
+              "no Pallas kernel)", tail_launches, step_err, tail_ms,
               plain_tail_ms, tail_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -125,7 +125,7 @@ C_FUNCTIONS = {
     "mppi_probe_scale_launch": ([_P, _P, _I, _P], _I),
     "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _I, _P], _I),
     "mppi_step_head_launch": ([_P, _P, _I, _P], _I),
-    "mppi_step_tail_launch": ([_P, _P, _I, _I, _P], _I),
+    "mppi_step_tail_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "mppi_error_string": ([_I], ctypes.c_char_p),
     "mppi_sim_params_size": ([], _I),
     "mppi_solve_params_size": ([], _I),

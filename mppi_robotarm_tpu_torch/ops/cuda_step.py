@@ -1,7 +1,8 @@
 """The per-step loop's step body around the solve kernel: wrappers, CUDA
 kernels, plain versions.
 
-A cuda-backend step (``sim/loop.py``) is three launches on the card:
+A chunk of the cuda-backend loop (``sim/loop.py``) is one :func:`step_head`
+launch, then two launches a step on the card:
 
 * :func:`step_head` — the observed state ``x0 = [q, dq]``, the waypoint
   advance (``fk_ee``, the nearest row of the window, the path-end flag) and
@@ -11,7 +12,9 @@ A cuda-backend step (``sim/loop.py``) is three launches on the card:
   (:func:`plant_step`), the kept state and step counter, and, when given
   one, the step's record row, written in place: q, dq, u0, end effector,
   elbow, reference row, index, the costs' min and mean, the weights' ESS
-  and entropy, done, zeroed where done as the record is.
+  and entropy, done, zeroed where done as the record is; with
+  ``carry_head`` also the next step's head on the new state, so the next
+  step needs no head launch.
 
 They are the port's counterpart of what XLA fuses around the Pallas solve
 in the JAX package's jitted ``simulate`` (``mppi_robotarm_tpu/sim/loop.py::
@@ -23,18 +26,21 @@ kernels replaced.  Nothing falls back from one to the other.
 
 Bits: the head and the tail's state, controls, index, done, FK and
 reference row are the plain versions' bit for bit (the same float32
-operations in the same order); the statistics are sums over K in the
-kernel's fixed order (``csrc/step_kernel.cu``), which depends on K alone.
-A launch copies nothing from the host, so both can be captured in a CUDA
-graph; each adds one to its count (:data:`HEAD_LAUNCHES`,
-:data:`TAIL_LAUNCHES`) where it launches, at capture for a captured one.
+operations in the same order), and the carried head is the head kernel's
+on the tail's outputs; the statistics are sums over K in the kernel's
+fixed order (:func:`tail_stats_ordered`), which depends on K alone, not on
+the tail's layout (:func:`step_tail_layout`).  A launch copies nothing from
+the host, so both can be captured in a CUDA graph; each adds one to its
+count (:data:`HEAD_LAUNCHES`, :data:`TAIL_LAUNCHES`, and
+:data:`CARRIED_HEADS` for a tail that carries the head) where it launches,
+at capture for a captured one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,12 +51,19 @@ from .cuda_sim import _ArmConsts, _arm_consts, _check_tensor
 from .waypoint import update_waypoint_index
 from .weights import effective_sample_size, mppi_weights, weight_entropy
 
-# Launches of step_head_kernel and step_tail_kernel; a run that must show it
-# went through them reads these before and after.
+# Launches of step_head_kernel and step_tail_kernel, and the tail launches
+# that carried the next step's head; a run that must show it went through
+# them reads these before and after.
 HEAD_LAUNCHES = 0
 TAIL_LAUNCHES = 0
+CARRIED_HEADS = 0
 
-MAX_THREADS = 1024            # step_tail_kernel's threads a scenario
+MAX_THREADS = 1024            # the statistics' logical lanes at most
+# (lanes, cap) of each step_tail_kernel the library holds (the switch of
+# csrc/step_kernel.cu::mppi_step_tail_launch): four logical lanes a lane
+# with a sample each in registers (K <= MAX_THREADS), and two that read S
+# again each pass (any K)
+TAIL_BUILT = frozenset({(4, 1), (2, 0)})
 
 
 class _StepParams(ctypes.Structure):
@@ -93,10 +106,118 @@ class _TailArgs(ctypes.Structure):
 
 
 def step_tail_threads(K: int) -> int:
-    """Threads a scenario of the tail kernel: K rounded up to a warp, at
-    most :data:`MAX_THREADS`.  It sets the order of the statistics' sums,
-    so it depends on K alone."""
+    """The statistics' logical lanes n: K rounded up to a warp, at most
+    :data:`MAX_THREADS`.  It sets the order of the statistics' sums
+    (:func:`tail_stats_ordered`), so it depends on K alone."""
     return min(MAX_THREADS, -(-K // 32) * 32)
+
+
+class TailLayout(NamedTuple):
+    """How ``step_tail_kernel`` runs a scenario's statistics on the card;
+    no layout moves a bit."""
+
+    warps: int    # statistics warps a scenario, beside its control warp
+    lanes: int    # logical lanes a physical lane (logical warps a warp)
+    group: int    # scenarios a block
+    cap: int      # samples a logical lane in registers (0: S read each pass)
+
+
+def step_tail_layout(K: int, B: int, sm_count: Optional[int] = None
+                     ) -> TailLayout:
+    """The tail's layout for B scenarios of K samples on a card of
+    ``sm_count`` SMs.  Up to K = :data:`MAX_THREADS` a logical lane holds
+    one sample and a lane four logical lanes (8 statistics warps at K =
+    1024, one at K <= 128); above it a lane holds two logical lanes, which
+    read S again each pass.  While the batch leaves SMs free a block holds
+    one scenario, else as many as make 8 warps."""
+    nw = step_tail_threads(K) // 32
+    lanes, cap = (4, 1) if K <= MAX_THREADS else (2, 0)
+    warps = -(-nw // lanes)
+    group = 1
+    if sm_count is not None and B > sm_count:
+        group = max(1, 8 // (warps + 1))
+    return TailLayout(warps, lanes, min(group, B), cap)
+
+
+def tail_layout_fits(layout: TailLayout) -> bool:
+    """Whether ``step_tail_kernel`` takes ``layout``: built for its lanes
+    and cap, a block within the threads its build's registers allow (576
+    with several statistics warps a scenario or cap 0, 1024 with one
+    statistics warp of cap 1), and at most 15 scenarios a block where they
+    need named barriers (several statistics warps);
+    csrc/step_kernel.cu::launch_tail checks the same, and that a cap of 1
+    holds a logical lane's samples (K <= :data:`MAX_THREADS`)."""
+    narrow = layout.warps == 1 and layout.cap == 1
+    return ((layout.lanes, layout.cap) in TAIL_BUILT and layout.group >= 1
+            and layout.group * (layout.warps + 1) * 32
+            <= (1024 if narrow else 576)
+            and (layout.warps == 1 or layout.group <= 15))
+
+
+def tail_stats_ordered(s: torch.Tensor, lam: float):
+    """The step tail's statistics of costs ``s`` (B, K) float32 in the
+    kernel's order, in torch ops: (min, mean, ESS, entropy), each (B,).
+
+    n = :func:`step_tail_threads` (K) logical lanes; lane t takes samples
+    t, t + n, ... in order (a min and a sum from 0), each logical warp of
+    32 lanes folds by an xor butterfly (16, 8, 4, 2, 1; lane 0's result),
+    the warps' results are folded in warp order (the sum from 0).  e =
+    exp(-(s - min) * fl(1/lam)), eta = the sum of e; w = e / eta, ESS = 1
+    / the sum of w^2, entropy = -(the sum of w log max(w, 1e-38) over w >
+    0), mean = the sum of s times fl(1/K).  Exact float32 operations, so
+    it gives the kernel's bits wherever torch's exp and log give
+    ``expf``'s and ``logf``'s."""
+    f32 = torch.float32
+    B, K = s.shape
+    n = step_tail_threads(K)
+    chunks = [s[:, i:i + n] for i in range(0, K, n)]
+    pad = lambda c, v: torch.nn.functional.pad(c, (0, n - c.shape[1]),
+                                               value=v)
+    lanes = torch.arange(32, device=s.device)
+
+    def fold(acc, op, first):
+        """Lane sums (B, n) -> the kernel's total (B,)."""
+        v = acc.view(B, n // 32, 32)
+        for o in (16, 8, 4, 2, 1):
+            v = op(v, v[..., lanes ^ o])
+        v = v[..., 0]
+        t = v[:, 0] if first else torch.zeros(B, dtype=f32, device=s.device)
+        for w in range(1 if first else 0, n // 32):
+            t = op(t, v[:, w])
+        return t
+
+    def nan_min(a, b):
+        return torch.where(torch.isnan(a), a, torch.where(
+            torch.isnan(b), b, torch.minimum(a, b)))
+
+    add = lambda a, b: a + b
+    mn = torch.full((B, n), float("inf"), dtype=f32, device=s.device)
+    sm = torch.zeros((B, n), dtype=f32, device=s.device)
+    for c in chunks:
+        mn = nan_min(mn, pad(c, float("inf")))
+        sm = sm + pad(c, 0.0)
+    rho = fold(mn, nan_min, True)
+    total = fold(sm, add, False)
+    inv_lam = torch.tensor(float(np.float32(1.0) / np.float32(lam)),
+                           dtype=f32, device=s.device)
+    e = [torch.exp(-(c - rho[:, None]) * inv_lam) for c in chunks]
+    eta_l = torch.zeros((B, n), dtype=f32, device=s.device)
+    for c in e:
+        eta_l = eta_l + pad(c, 0.0)
+    eta = fold(eta_l, add, False)
+    w2 = torch.zeros((B, n), dtype=f32, device=s.device)
+    wl = torch.zeros((B, n), dtype=f32, device=s.device)
+    for c in e:
+        w = c / eta[:, None]
+        w2 = w2 + pad(w * w, 0.0)
+        wl = wl + pad(torch.where(
+            w > 0, w * torch.log(torch.clamp_min(w, 1e-38)),
+            torch.zeros_like(w)), 0.0)
+    inv_k = torch.tensor(float(np.float32(1.0) / np.float32(K)), dtype=f32,
+                         device=s.device)
+    one = torch.ones(B, dtype=f32, device=s.device)
+    return (rho, total * inv_k, one / fold(w2, add, False),
+            -fold(wl, add, False))
 
 
 @functools.lru_cache(maxsize=64)
@@ -167,6 +288,19 @@ def _rows_of(name, t, B, dtype, device):
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _head_outputs(B, W, device):
+    """The head's outputs, empty: x0 (B, 4), the index (B,), path_end
+    (B,), the window (B, W, 4), and the ``_HeadArgs`` pointing at them
+    (the inputs' fields unset)."""
+    out = (torch.empty((B, 4), dtype=torch.float32, device=device),
+           torch.empty((B,), dtype=torch.int64, device=device),
+           torch.empty((B,), dtype=torch.bool, device=device),
+           torch.empty((B, W, 4), dtype=torch.float32, device=device))
+    return out, _HeadArgs(x0=out[0].data_ptr(), wp_out=out[1].data_ptr(),
+                          path_end=out[2].data_ptr(),
+                          window=out[3].data_ptr())
+
+
 def _head_launch(cfg, ref, q, dq, wp_idx):
     global HEAD_LAUNCHES
     from ._build import load_library
@@ -182,16 +316,10 @@ def _head_launch(cfg, ref, q, dq, wp_idx):
     if B < 1 or ref.shape[0] < 1:
         raise ValueError(f"need a scenario and a path row, got B={B}, "
                          f"{ref.shape[0]} rows")
-    x0 = torch.empty((B, 4), dtype=f32, device=device)
-    wp = torch.empty((B,), dtype=i64, device=device)
-    path_end = torch.empty((B,), dtype=torch.bool, device=device)
-    window = torch.empty((B, W, 4), dtype=f32, device=device)
-    args = _HeadArgs(q=q.data_ptr(), dq=dq.data_ptr(),
-                     wp=wp_idx.data_ptr(), ref=ref.data_ptr(),
-                     x0=x0.data_ptr(),
-                     wp_out=wp.data_ptr(), path_end=path_end.data_ptr(),
-                     window=window.data_ptr(), q_stride=q.stride(0),
-                     dq_stride=dq.stride(0))
+    (x0, wp, path_end, window), args = _head_outputs(B, W, device)
+    args.q, args.dq, args.wp, args.ref = (q.data_ptr(), dq.data_ptr(),
+                                          wp_idx.data_ptr(), ref.data_ptr())
+    args.q_stride, args.dq_stride = q.stride(0), dq.stride(0)
     params = _step_params(None, cfg, None, ref.shape[0])
     lib = load_library()
     with torch.cuda.device(device):
@@ -222,7 +350,7 @@ def step_head(cfg: MPPIConfig, ref: torch.Tensor, q, dq, wp_idx):
 def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                     ref: torch.Tensor, step, q, dq, u_prev, wp_idx, done,
                     wp_new, path_end, u_seq, s, clock=None,
-                    row: Optional[tuple] = None):
+                    row: Optional[tuple] = None, carry_head: bool = False):
     """Plain version of the tail for B scenarios, in the dtypes of its
     inputs: the state before the step (step, q, dq, u_prev, wp_idx, done),
     the head's new index and path end, the solve's updated controls u_seq
@@ -230,7 +358,9 @@ def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     (B,) or None.  Writes the step's record row into ``row`` (twelve (B,
     ...) tensors in ``SimRecord``'s field order; needs ``clock``) when
     given.  Returns the state after the step (step, q, dq, u_prev,
-    wp_idx, done) and clock + 1 (None without a clock)."""
+    wp_idx, done) and clock + 1 (None without a clock), and with
+    ``carry_head`` also the next step's head, :func:`step_head_plain` on
+    that state."""
     done = done | path_end
     # solver.shift_warm_start: drop u[0], repeat the last row
     u_next = torch.cat([u_seq[..., 1:, :], u_seq[..., -1:, :]], dim=-2)
@@ -255,16 +385,33 @@ def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                 zero(effective_sample_size(w)), zero(weight_entropy(w)),
                 done)):
             dst.copy_(v)
+    if carry_head:
+        return (*out, step_head_plain(cfg, ref, out[1], out[2], out[4]))
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _tail_layout_on(K: int, B: int, device: torch.device) -> TailLayout:
+    """:func:`step_tail_layout` on ``device``'s SM count, resolved once a
+    shape (the eager loop calls the tail every step)."""
+    from .cuda_solve import _sm_count
+
+    return step_tail_layout(K, B, _sm_count(device))
+
+
 def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
-                 clock, row):
-    global TAIL_LAUNCHES
+                 clock, row, carry_head=False,
+                 layout: Optional[TailLayout] = None):
+    """The tail kernel's launch; ``layout`` (default
+    :func:`step_tail_layout` on this card) forces one, for the layout
+    A/Bs of ``tools/fused_timing.py --split --tail-layouts`` and the card
+    tests."""
+    global TAIL_LAUNCHES, CARRIED_HEADS
     from ._build import load_library
 
     device, f32, i64 = ref.device, torch.float32, torch.int64
     dtypes = [getattr(v, "dtype", None) for v in state]
+    ref_dtype = ref.dtype
     step, q, dq, u_prev, wp_idx, done = map(_f32, state)
     u_seq, s, ref = _f32(u_seq), _f32(s), _f32(ref)
     B, K, T = q.shape[0], cfg.num_samples, cfg.horizon
@@ -302,37 +449,51 @@ def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
     ptrs = [None if t is None else t.data_ptr()
             for t in (*ins.values(), *outs, *(written or (None,) * 12))]
     args = _TailArgs(*ptrs)
+    head, head_args = (_head_outputs(B, cfg.search_idx_len, device)
+                       if carry_head else (None, None))
+    if layout is None:
+        layout = _tail_layout_on(K, B, device)
     params = _step_params(arm, cfg, sim, ref.shape[0])
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.mppi_step_tail_launch(
-            ctypes.byref(params), ctypes.byref(args), B,
-            step_tail_threads(K),
+            ctypes.byref(params), ctypes.byref(args),
+            None if head_args is None else ctypes.byref(head_args), B,
+            step_tail_threads(K), layout.lanes, layout.cap, layout.group,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if err:
-        raise RuntimeError("step_tail_kernel launch failed: "
+        raise RuntimeError(f"step_tail_kernel launch failed ({layout}): "
                            + lib.mppi_error_string(err).decode())
     TAIL_LAUNCHES += 1
+    CARRIED_HEADS += int(carry_head)
     for dst, t in zip(row or (), written or ()):
         if dst is not t:
             dst.copy_(t)
-    return (*(v.to(d) for v, d in zip(outs, dtypes)), outs[6])
+    nxt = (*(v.to(d) for v, d in zip(outs, dtypes)), outs[6])
+    if not carry_head:
+        return nxt
+    x0, wp, end, window = head
+    return (*nxt, (x0.to(dtypes[1]), wp, end, window.to(ref_dtype)))
 
 
 def step_tail(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
               ref: torch.Tensor, step, q, dq, u_prev, wp_idx, done, wp_new,
-              path_end, u_seq, s, clock=None, row: Optional[tuple] = None):
+              path_end, u_seq, s, clock=None, row: Optional[tuple] = None,
+              carry_head: bool = False):
     """The step's tail (see the module docstring and
     :func:`step_tail_plain` for the arguments and results): CUDA tensors
-    launch ``step_tail_kernel`` (contiguous float, int64 and bool tensors;
-    it runs in float32, float operands cast to it and the results and the
-    record row back to their dtypes) or raise; CPU tensors take
-    :func:`step_tail_plain`."""
+    launch ``step_tail_kernel`` in the layout of :func:`step_tail_layout`
+    (contiguous float, int64 and bool tensors; it runs in float32, float
+    operands cast to it and the results, the record row and the carried
+    head back to their dtypes) or raise; CPU tensors take
+    :func:`step_tail_plain`.  With ``carry_head`` the results end with the
+    next step's head, (x0, index, path_end, window) as :func:`step_head`
+    gives them on the new state."""
     state = (step, q, dq, u_prev, wp_idx, done)
     kinds = _kinds(ref, *state, wp_new, path_end, u_seq, s, clock,
                    *(row or ()))
     if kinds == {"cpu"}:
         return step_tail_plain(arm, cfg, sim, ref, *state, wp_new, path_end,
-                               u_seq, s, clock, row)
+                               u_seq, s, clock, row, carry_head)
     return _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq,
-                        s, clock, row)
+                        s, clock, row, carry_head)

@@ -9,9 +9,10 @@ The loops:
   * :func:`simulate` — a Python loop over :func:`sim_step`; the path end
     becomes a ``done`` flag that freezes the state.  ``backend="eager"``
     solves in PyTorch in any dtype; ``backend="cuda"`` runs each step as
-    three kernels in float32 (``ops/cuda_step.py``'s head, the solve kernel
-    of ``ops/cuda_solve.py``, ``cuda_step``'s tail: plant, freeze, record
-    row; a float64 state goes through them cast and comes back float64),
+    the solve kernel of ``ops/cuda_solve.py`` and ``ops/cuda_step.py``'s
+    tail (plant, freeze, record row, the next step's head), after one
+    ``cuda_step`` head a chunk, all in float32 (a float64 state goes
+    through them cast and comes back float64),
     keeping step, seed and waypoint index on the device so the host
     never waits, and on the card runs the steps as replayed CUDA graphs of
     ``_GRAPH_STEPS`` steps (the JAX package's one ``lax.scan``);
@@ -336,8 +337,9 @@ class _StepGraph(NamedTuple):
     leaves (seed included) and the run's step counter (the loop's
     ``clock``), its copy of the path, its (n, B, ...) record rows, the
     seconds its capture and instantiation took, and the launches the
-    capture recorded, one a step each: the solve kernel's (``launches``)
-    and the step head's and tail's (``step_launches``)."""
+    capture recorded: the solve kernel's (``launches``, one a step) and
+    the step kernels' (``step_launches``: one head, a tail a step, and the
+    n - 1 tails that carried the next head)."""
 
     graph: "torch.cuda.CUDAGraph"
     state: SimState
@@ -365,22 +367,28 @@ def _row_buffers(n: int, states: SimState, ref_path: torch.Tensor) -> tuple:
 def _steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                 ref_path: torch.Tensor, states: SimState,
                 clock: torch.Tensor, eps_chunk, rows: tuple):
-    """``rows[0].shape[0]`` steps, each the step head, the solve kernel and
-    the step tail, step i writing its record row into slot i of each of
-    ``rows`` in place; ``clock`` is the run's step counter (the reference
-    rows' index).  Returns the last state and clock.  No host
+    """``rows[0].shape[0]`` steps: the step head of the first, then each
+    step the solve kernel and the step tail, which carries the next step's
+    head but on the last step; step i writes its record row into slot i
+    of each of ``rows`` in place; ``clock`` is the run's step counter (the
+    reference rows' index).  Returns the last state and clock.  No host
     synchronisation, so a CUDA graph can capture it."""
-    for i in range(rows[0].shape[0]):
+    n = rows[0].shape[0]
+    head = cuda_step.step_head(cfg, ref_path, states.q, states.dq,
+                               states.mppi.wp_idx)
+    for i in range(n):
         eps = None if eps_chunk is None else eps_chunk[i]
-        x0, wp, path_end, window = cuda_step.step_head(
-            cfg, ref_path, states.q, states.dq, states.mppi.wp_idx)
+        x0, wp, path_end, window = head
         u_seq, s, _ = _solve_kernels(
             arm, cfg, x0, states.mppi.u_prev, window,
             states.seed if eps is None else None, eps, states.step, False)
-        step, q, dq, u_prev, wp, done, clock = cuda_step.step_tail(
+        carry = i + 1 < n
+        out = cuda_step.step_tail(
             arm, cfg, sim, ref_path, *_state_tensors(states)[:5],
             states.done, wp, path_end, u_seq, s, clock,
-            tuple(r[i] for r in rows))
+            tuple(r[i] for r in rows), carry_head=carry)
+        step, q, dq, u_prev, wp, done, clock = out[:7]
+        head = out[7] if carry else None
         states = _as_state((step, q, dq, u_prev, wp, states.seed, done))
     return states, clock
 
@@ -398,17 +406,20 @@ def _as_state(t: tuple) -> SimState:
 
 
 def _step_launch_counts() -> tuple:
-    return cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES
+    return (cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
+            cuda_step.CARRIED_HEADS)
 
 
 def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream):
     """Everything a captured chunk bakes in: the device and the caller's
     stream, the configs, the shapes and dtypes of the state and the path,
-    the chunk's steps, and the solve's layout as the solver plans it now
-    (so a graph captured under one plan is never replayed under
-    another)."""
+    the chunk's steps, and the solve's and the step tail's layouts as the
+    solver and ``cuda_step`` plan them now (so a graph captured under one
+    plan is never replayed under another)."""
     device = states.q.device
-    plan = step_solve_plan(cfg, states.q.shape[0], device)
+    B = states.q.shape[0]
+    plan = (step_solve_plan(cfg, B, device),
+            cuda_step._tail_layout_on(cfg.num_samples, B, device))
     return (device.index, stream.cuda_stream, arm, cfg, sim, n, plan,
             tuple(ref_path.shape), ref_path.dtype,
             tuple((tuple(v.shape), v.dtype) for v in _state_tensors(states)))
@@ -426,10 +437,11 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
     of the state: it loads the kernels, raises the solve kernel's
     shared-memory limit and gives ``stream`` its arrival counters, none of
     which a capture may do.  The launches the capture records are counted
-    into the graph (it raises unless each kernel's is one a step) and the
-    replays add them to ``cuda_solve.LAUNCHES`` and ``cuda_step``'s
-    counts; the warm-up's launches, and the capture's, which execute
-    nothing, are not counted there.  ``clock`` is the run's step counter at
+    into the graph (it raises unless they are a solve and a tail a step,
+    one head, and n - 1 tails that carried the head) and the replays add
+    them to ``cuda_solve.LAUNCHES`` and ``cuda_step``'s counts; the
+    warm-up's launches, and the capture's, which execute nothing, are not
+    counted there.  ``clock`` is the run's step counter at
     the chunk's start (default: the state's step)."""
     device = states.q.device
     clock = states.step if clock is None else clock
@@ -464,14 +476,15 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
             a - b for a, b in zip(_step_launch_counts(), step_captured))
         capture_s = time.perf_counter() - t0
     cuda_solve.LAUNCHES = launches
-    cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES = step_launches
+    (cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
+     cuda_step.CARRIED_HEADS) = step_launches
     if captured != n:
         raise RuntimeError(f"a captured chunk of {n} steps holds {captured} "
                            f"solve kernel launches, not one a step")
-    if step_captured != (n, n):
+    if step_captured != (1, n, n - 1):
         raise RuntimeError(f"a captured chunk of {n} steps holds "
-                           f"{step_captured} step head and tail kernel "
-                           f"launches, not one of each a step")
+                           f"{step_captured} step head, tail and carried "
+                           f"head launches, not (1, {n}, {n - 1})")
     return _StepGraph(graph, static, static_clock, ref, rows, n, capture_s,
                       captured, step_captured)
 
@@ -516,6 +529,7 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
         cuda_solve.LAUNCHES += g.launches
         cuda_step.HEAD_LAUNCHES += g.step_launches[0]
         cuda_step.TAIL_LAUNCHES += g.step_launches[1]
+        cuda_step.CARRIED_HEADS += g.step_launches[2]
         for dst, src in zip(rows, g.rows):
             dst[start:start + n].copy_(src)
         cur, last = (*_state_tensors(g.state), g.clock), g

@@ -53,8 +53,13 @@ at ``benchmark_preset`` (B=1) and on the fleet of ``chip_smoke.py``'s
 phase 9: a profiled run of the loop as replayed CUDA graphs, by kernel
 name (launches and device µs a step), then each piece of the step
 (:func:`split_pieces`: the step kernels' plain versions, the torch code
-they replaced, cut by source; the solve kernel; the step kernels)
-profiled alone on the same state.
+they replaced, cut by source; the solve kernel; the step kernels, the tail
+also carrying the next head) profiled alone on the same state.
+``--tail-layouts L:G ...`` also times the step tail carrying the head in
+each of these layouts on the same state (L logical lanes a lane, G
+scenarios a block; the warps and the cap follow from the shape and the
+build, :func:`tail_layout_of`; a layout the kernel does not take at a
+shape is left out there).
 
 ``--onpath-seeds S ...``: the per-step loop (``simulate(backend="cuda")``)
 at ``benchmark_preset`` for 1500 steps from ``init_sim(seed=S)`` on the
@@ -78,6 +83,8 @@ defaults need no newer keyword):
         --tile 128
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --steploop
     python -m mppi_robotarm_tpu_torch.tools.fused_timing --split
+    python -m mppi_robotarm_tpu_torch.tools.fused_timing --split \
+        --tail-layouts 2:1 4:8
     PYTHONPATH=<tree> python mppi_robotarm_tpu_torch/tools/fused_timing.py \
         --solve --label parent
 
@@ -525,12 +532,15 @@ def split_cases(device):
             (f"fleet {FLEET} x K=128 T=30", fleet_inputs(device), 16)]
 
 
-def split_pieces(arm, cfg, sim, ref, st):
+def split_pieces(arm, cfg, sim, ref, st, tail_layouts=()):
     """One step's work cut by source, as (label, source, callable) on the
     batched state ``st``: the torch code the step kernels replaced, as
     their plain versions run it (the step head's waypoint advance, the
     plant alone, the step tail without and with its record row), the solve
-    kernel, and the two step kernels, on the same state."""
+    kernel, and the two step kernels, on the same state, the tail also
+    carrying the next head: in the package's layout, then in each of
+    ``tail_layouts`` (specs of :func:`tail_layout_of`) the kernel takes
+    at this shape."""
     from mppi_robotarm_tpu_torch.mppi import solver
     from mppi_robotarm_tpu_torch.ops import cuda_step
     from mppi_robotarm_tpu_torch.sim import loop
@@ -548,6 +558,17 @@ def split_pieces(arm, cfg, sim, ref, st):
     tail = lambda fn, r: fn(arm, cfg, sim, ref, *state, wp, path_end, u_seq,
                             s, st.step, r)
     plain = "ops/cuda_step.py::step_tail_plain"
+    carried = "ops/cuda_step.py::step_tail(carry_head=True)"
+    forced = []
+    for spec in tail_layouts:
+        lay = tail_layout_of(spec, cfg.num_samples, st.q.shape[0])
+        if lay is not None:
+            forced.append((
+                f"step tail kernel carrying the head, layout {spec} "
+                f"{tuple(lay)}", "ops/cuda_step.py::_tail_launch(layout=)",
+                lambda lay=lay: cuda_step._tail_launch(
+                    arm, cfg, sim, ref, state, wp, path_end, u_seq, s,
+                    st.step, row, carry_head=True, layout=lay)))
     return [
         ("waypoint advance", "ops/cuda_step.py::step_head_plain",
          lambda: head(cuda_step.step_head_plain)),
@@ -558,6 +579,11 @@ def split_pieces(arm, cfg, sim, ref, st):
          lambda: tail(cuda_step.step_tail_plain, None)),
         ("shift, plant, freeze, record row", plain + " with the row",
          lambda: tail(cuda_step.step_tail_plain, row)),
+        ("step tail kernel carrying the head", carried,
+         lambda: cuda_step.step_tail(
+             arm, cfg, sim, ref, *state, wp, path_end, u_seq, s, st.step,
+             row, carry_head=True)),
+        *forced,
         ("step head kernel", "ops/cuda_step.py::step_head",
          lambda: head(cuda_step.step_head)),
         ("step tail kernel", "ops/cuda_step.py::step_tail",
@@ -565,15 +591,35 @@ def split_pieces(arm, cfg, sim, ref, st):
     ]
 
 
-def measure_split(device, calls=SPLIT_CALLS):
-    """Per case of :func:`split_cases`: the device time and launches of one
-    step of the per-step loop as replayed CUDA graphs of ``_GRAPH_STEPS``
-    (a profiled run of ``steps`` steps from a state 32 steps into the run,
-    by kernel name; the run's own copies out of the graphs' buffers and
-    its record are in it), then of each of :func:`split_pieces` on that
-    state (``calls`` calls each)."""
+def tail_layout_of(spec: str, K: int, B: int):
+    """The step tail's layout "L:G" at K samples and B scenarios: L
+    logical lanes a lane on the build that has them (so ceil(n / 32 / L)
+    statistics warps), at most G scenarios a block; None where the kernel
+    does not take it."""
+    from mppi_robotarm_tpu_torch.ops import cuda_step
+
+    lanes, group = map(int, spec.split(":"))
+    cap = dict(cuda_step.TAIL_BUILT).get(lanes)
+    n = cuda_step.step_tail_threads(K)
+    if cap is None or (cap and -(-K // n) > cap):
+        return None
+    lay = cuda_step.TailLayout(-(-(n // 32) // lanes), lanes, min(group, B),
+                               cap)
+    return lay if cuda_step.tail_layout_fits(lay) else None
+
+
+def measure_split(device, calls=SPLIT_CALLS, tail_layouts=()):
+    """Per case of :func:`split_cases`: the device time and launches of
+    one step of the per-step loop as replayed CUDA graphs of
+    ``_GRAPH_STEPS`` (a profiled run of ``steps`` steps from a state 32
+    steps into the run, by kernel name; the run's own copies out of the
+    graphs' buffers and its record are in it), then of each of
+    :func:`split_pieces` on that state (``calls`` calls each), the step
+    tail also in each of ``tail_layouts``."""
+    from mppi_robotarm_tpu_torch.ops import cuda_step
     from mppi_robotarm_tpu_torch.sim import loop
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     out = []
     for case, (arm, cfg, sim, ref, st0), steps in split_cases(device):
         st, _ = loop._step_loop(arm, cfg, sim, ref, st0, 32)
@@ -583,13 +629,17 @@ def measure_split(device, calls=SPLIT_CALLS):
         by_kernel = {k: (n / steps, us / steps) for k, (n, us)
                      in graph.items()}
         pieces = []
-        for label, source, fn in split_pieces(arm, cfg, sim, ref, st):
+        for label, source, fn in split_pieces(arm, cfg, sim, ref, st,
+                                              tail_layouts):
             got = profile_calls(fn, calls)
             pieces.append({"piece": label, "source": source,
                            "launches": sum(n for n, _ in got.values()),
                            "us": sum(us for _, us in got.values()),
                            "kernels": sorted(got)})
-        out.append({"case": case, "steps": steps, "graph_by_kernel":
+        layout = list(cuda_step.step_tail_layout(
+            cfg.num_samples, st0.q.shape[0], sms))
+        out.append({"case": case, "layout": layout, "steps": steps,
+                    "graph_by_kernel":
                     by_kernel, "graph_launches": sum(
                         n for n, _ in by_kernel.values()),
                     "graph_us": sum(us for _, us in by_kernel.values()),
@@ -699,6 +749,8 @@ def main(argv=None) -> int:
     ap.add_argument("--split", action="store_true",
                     help="a per-step loop step's device time by kernel "
                     "and by source")
+    ap.add_argument("--tail-layouts", nargs="+", metavar="L:G",
+                    help="--split: also time the step tail in each layout")
     ap.add_argument("--onpath-seeds", type=int, nargs="+",
                     help="on-path mean of the per-step loop for each seed")
     ap.add_argument("--tile", type=int,
@@ -733,9 +785,10 @@ def main(argv=None) -> int:
         print(json.dumps({"label": a.label, "card": smi, "onpath": rows}))
         return 0
     if a.split:
-        rows = measure_split(device)
+        rows = measure_split(device, tail_layouts=a.tail_layouts or ())
         for row in rows:
-            print(f"{a.label} [{smi}] split {row['case']}: the graph loop "
+            print(f"{a.label} [{smi}] split {row['case']} tail layout "
+                  f"{row['layout']}: the graph loop "
                   f"{row['graph_us']:.2f} us device time and "
                   f"{row['graph_launches']:.2f} launches a step (a profiled "
                   f"{row['steps']}-step run)")

@@ -26,9 +26,11 @@ done, FK and reference row bit for bit, min S bit for bit and the mean,
 ESS and entropy within 2e-6 relative, the entropy's relative to at least
 its range log K (the kernel sums over K in another order, and a
 near-deterministic softmax has an entropy near 0, where one rounding of a
-weight near 1 is a large share of it); and float64 card tensors through
-the kernels (the head, the tail, ``simulate_batch`` and ``solve``), which
-give the float32 run's bits, cast.  The file imports JAX inside a
+weight near 1 is a large share of it); the head the tail carries equal to
+the head kernel's on the tail's outputs; the graph loop's launches (a head
+a chunk, a tail a step); and float64 card tensors through the kernels (the
+head, the tail, ``simulate_batch`` and ``solve``), which give the float32
+run's bits, cast.  The file imports JAX inside a
 ``try``, so on a GPU machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_step_tail.py -m cuda
@@ -425,20 +427,56 @@ def test_kernels_equal_their_plain_versions(dev, K, T, B):
 
 @pytest.mark.cuda
 def test_graph_loop_runs_one_head_and_one_tail_a_step(dev):
+    """A chunk of n steps launches one step head, then a solve and a tail
+    a step, n - 1 of the tails carrying the next step's head: a head a
+    chunk, a tail and a solve a step."""
     cfg = _cfg(512, 16)
     ref = torch.as_tensor(P.synth_circle_path(2000), device=dev)
     states = P.init_sim_batch(cfg, SIM, [1, 2], device=dev)
     steps = 2 * ploop._GRAPH_STEPS + 3
+    chunks = -(-steps // ploop._GRAPH_STEPS)
     for _ in range(2):
         before = (cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
-                  cuda_solve.LAUNCHES)
+                  cuda_step.CARRIED_HEADS, cuda_solve.LAUNCHES)
         P.simulate_batch(ARM, cfg, SIM, ref, states, steps, backend="cuda")
         torch.cuda.synchronize()
         assert (cuda_step.HEAD_LAUNCHES - before[0],
                 cuda_step.TAIL_LAUNCHES - before[1],
-                cuda_solve.LAUNCHES - before[2]) == (steps,) * 3
-    assert all(g.step_launches == (g.n, g.n)
+                cuda_step.CARRIED_HEADS - before[2],
+                cuda_solve.LAUNCHES - before[3]) == (
+                    chunks, steps, steps - chunks, steps)
+    assert all(g.step_launches == (1, g.n, g.n - 1)
                for g in ploop._GRAPHS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 64])
+def test_carried_head_equals_the_head_kernel_on_the_tail_outputs(dev, B):
+    """The tail's carried head (x0, index, path end, window) against
+    ``step_head_kernel`` run on the tail's q, dq and index, bit for bit,
+    with frozen scenarios and the path end among them; the tail's other
+    outputs are those of the tail that carries no head."""
+    cfg = _cfg(1024, 50)
+    for seed in range(3):
+        ref, state, clock, u_seq, s = _inputs(cfg, B, F32, dev, seed)
+        _, wp_new, path_end, _ = cuda_step.step_head(cfg, ref, state[1],
+                                                     state[2], state[4])
+        rows = [_row(B, F32, F32, dev) for _ in range(2)]
+        *got, head = cuda_step.step_tail(ARM, cfg, SIM, ref, *state, wp_new,
+                                         path_end, u_seq, s, clock, rows[0],
+                                         carry_head=True)
+        want = cuda_step.step_tail(ARM, cfg, SIM, ref, *state, wp_new,
+                                   path_end, u_seq, s, clock, rows[1])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in zip(*rows))
+        if B > 1:
+            assert bool(got[5].any()) and not bool(got[5].all())
+            assert bool((got[4] >= ref.shape[0] - 3).any())
+        ref_head = cuda_step._head_launch(cfg, ref, got[1], got[2], got[4])
+        for name, a, b in zip(("x0", "wp", "path_end", "window"), head,
+                              ref_head):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -240,7 +240,8 @@ def fake_capture(monkeypatch):
     runs nothing.  Returns a function that makes every per-step solve
     count ``n`` launches in ``cuda_solve.LAUNCHES``, as the kernel's
     wrapper counts its one (the plain twin counts none), and the step's
-    head and tail one each in ``cuda_step``'s counts, as theirs do."""
+    head and tail one each in ``cuda_step``'s counts, and a tail that
+    carries the next head one in ``CARRIED_HEADS``, as theirs do."""
     class Graph:
         def replay(self):
             pass
@@ -263,6 +264,7 @@ def fake_capture(monkeypatch):
 
     def counted_tail(*a, **k):
         cuda_step.TAIL_LAUNCHES += 1
+        cuda_step.CARRIED_HEADS += int(k.get("carry_head", False))
         return tail(*a, **k)
 
     monkeypatch.setattr(cuda_step, "step_head", counted_head)

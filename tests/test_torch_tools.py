@@ -488,6 +488,18 @@ def test_fused_timing_split_pieces_run_on_the_cpu():
         fn()
 
 
+@pytest.mark.parametrize("spec,K,B,want", [
+    ("4:1", 1024, 1, (8, 4, 1, 1)), ("2:1", 1024, 1, (16, 2, 1, 0)),
+    ("4:8", 128, 4096, (1, 4, 8, 1)), ("2:4", 128, 4096, (2, 2, 4, 0)),
+    ("4:1", 4096, 1, None), ("1:1", 128, 1, None), ("4:32", 128, 4096,
+                                                     None)])
+def test_fused_timing_tail_layout_specs(spec, K, B, want):
+    """--tail-layouts L:G: the build with L lanes, its warps and cap from
+    the shape, None where the kernel does not take the layout."""
+    got = fused_timing.tail_layout_of(spec, K, B)
+    assert (None if got is None else tuple(got)) == want
+
+
 def test_fused_timing_compare_records_field_by_field(tmp_path):
     """--compare-records: equal fields bit for bit, others with their
     largest absolute and relative differences; only seeds in both."""
