@@ -102,11 +102,16 @@ Phases (any failure raises and exits non-zero):
      relative;
  17. real 2-process runs on cuda:0 over gloo through ``parallel/dryrun.py``
      (``--size full``): a (1 x 2) mesh runs the sample-sharded step
-     (``make_sharded_sim_step(backend="cuda")``, PRNG) at benchmark_preset
-     on ``synth_circle_path(2000)`` for 1500 steps: both shards the same
-     bits, the first 8 steps within phase 2's bands of
-     ``simulate(backend="cuda")``, on-path mean < 42 mm, µs/step and the
-     all-reduces' µs a solve; a (2 x 1) mesh runs the fleet
+     (``make_sharded_sim_step(backend="cuda")``, PRNG: a step the step
+     head, the solve kernel, MIN, ``shard_scale_kernel``, SUM,
+     ``shard_finish_kernel`` and the step tail) at benchmark_preset on
+     ``synth_circle_path(2000)`` for 1500 steps: both shards the same
+     bits, one launch of each of the five kernels a step by rank (counted
+     in the ranks), the rows (q, u0, wp_idx, done) and the final state
+     bit for bit those of the same step through the step kernels' plain
+     versions (``step-plain``), the first 8 steps within phase 2's bands
+     of ``simulate(backend="cuda")``, on-path mean < 42 mm, µs/step and
+     the all-reduces' µs a solve; a (2 x 1) mesh runs the fleet
      (``make_sharded_fleet``) on phase 12's 4096 x K=128, T=30 for 2000
      steps: each rank's records and final state == its rows of phase 12's
      unsharded run bit for bit, a ``save_/load_checkpoint_dist`` round trip
@@ -136,7 +141,18 @@ Phases (any failure raises and exits non-zero):
      kernel's sums over K run in another order than torch's reductions,
      and a near-deterministic softmax has an entropy near 0), and equal
      to their order in torch (``cuda_step.tail_stats_ordered``) bit for
-     bit.
+     bit;
+ 21. the sample-sharded step's kernels (``csrc/shard_kernel.cu``, the
+     rescale before the SUM and the finish after it) and the step kernels
+     around them against their plain versions on the same card tensors:
+     8 steps of the step (head, the solve kernel on each of two shards of
+     K_local 512 with k_offset, MIN, rescale, SUM, finish, tail) with the
+     shards stacked in one process as phase 16 stacks them, at
+     benchmark_preset for B=1 on the 8000-point circle and for B=64 on its
+     first 200 rows (every 8th scenario at the last row, four near it),
+     eps and PRNG modes, filter windows 1, 10 and 2T + 3: every output of
+     every step bit for bit, one launch of each kernel a step; the two
+     kernels' device time at B=1 beside their plain versions'.
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -155,6 +171,7 @@ the script fails.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -476,6 +493,87 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
     return head_err, err
 
 
+def shard_step_compare(label, sharded, cuda_solve, arm, cfg, sim, ref,
+                       state, noise, rng, steps=CMP_STEPS):
+    """Phase 21: ``steps`` sample-sharded steps of B scenarios in one
+    process, the two shards stacked as phase 16 stacks them: the step
+    head, the solve kernel on each shard (k_offset, normalize=False),
+    MIN, the rescale, SUM, the finish and the step tail (no row, done all
+    false), once with the step kernels (``sharded._kernels``) and once
+    with their plain versions (``sharded._plain_versions``) on the same
+    card tensors.  Every output of every step (the head's four, the
+    summed message, u_seq, and the tail's q, dq, u_prev, index) must be
+    bit for bit the plain versions', one launch of each kernel a step.
+    Returns the largest absolute difference of the message and u_seq."""
+    import torch
+
+    from mppi_robotarm_tpu_torch.ops import cuda_shard, cuda_step
+
+    B, T, K = state[0].shape[0], cfg.horizon, cfg.num_samples
+    kl, device = K // 2, ref.device
+    tail_cfg = dataclasses.replace(cfg, num_samples=kl)
+    stacked = lambda x, op: (x.amin(0, keepdim=True) if op == "min"
+                             else x.sum(0, keepdim=True)).expand_as(x)
+    eps = (torch.as_tensor((rng.normal(size=(steps, B, K, T, 2)) * np.sqrt(
+        20.0)).astype(np.float32), device=device) if noise == "eps"
+        else None)
+    seeds = torch.arange(B, device=device) + 3
+    zero = torch.zeros(B, dtype=torch.int64, device=device)
+    not_done = torch.zeros(B, dtype=torch.bool, device=device)
+
+    def run(ops):
+        head, scale, finish, tail = ops
+        q, dq, u, wp = state
+        rows = []
+        for i in range(steps):
+            x0, wp_new, end, window = head(cfg, ref, q, dq, wp)
+            parts = [cuda_solve.solve_batched(
+                arm, cfg, x0, u, window, emit_eps=False, normalize=False,
+                k_local=kl, k_offset=torch.full((B,), r * kl, device=device),
+                **(dict(eps=eps[i][:, r * kl:(r + 1) * kl].contiguous())
+                   if noise == "eps" else
+                   dict(seed=seeds, step=torch.full((B,), i, device=device))))
+                for r in range(2)]
+            _, packed = sharded._combine(
+                torch.stack([p[3][0] for p in parts]),
+                torch.stack([p[3][1] for p in parts]),
+                torch.stack([p[0] for p in parts]), cfg.lam, stacked, scale)
+            u_seq = finish(cfg, packed[0], u)
+            _, q, dq, u, wp, _, _ = tail(arm, tail_cfg, sim, ref, zero, q, dq,
+                                         u, wp, not_done, wp_new, end, u_seq,
+                                         parts[0][1])
+            rows.append((x0, wp_new, end, window, packed[0], u_seq, q, dq, u,
+                         wp))
+        return rows
+
+    counts = lambda: (cuda_step.HEAD_LAUNCHES, cuda_shard.SCALE_LAUNCHES,
+                      cuda_shard.FINISH_LAUNCHES, cuda_step.TAIL_LAUNCHES)
+    before = counts()
+    kern = run(sharded._kernels())
+    torch.cuda.synchronize()
+    made = [b - a for a, b in zip(before, counts())]
+    plain = run(sharded._plain_versions())
+    torch.cuda.synchronize()
+    check(made == [steps] * 4, f"{label}: head, scale, finish and tail "
+          f"launches {made}, expected {steps} each")
+    err = 0.0
+    names = ("x0", "index", "path_end", "window", "message", "u_seq", "q",
+             "dq", "u_prev", "index after")
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        for name, x, y in zip(names, a, b):
+            if name in ("message", "u_seq"):
+                err = max(err, float((x - y).abs().max()))
+            check(torch.equal(x, y), f"{label}: step {i}: {name} differs "
+                  f"from the plain versions'")
+    frozen = int(kern[-1][2].sum())
+    print(f"{label}: {steps} sharded steps (2 shards of K_local {kl}, "
+          f"stacked), the step kernels == their plain versions bitwise: the "
+          f"head, the summed message, u_seq, q, dq, u_prev and index; one "
+          f"head, scale, finish and tail launch a step; {frozen} of {B} "
+          f"scenario(s) at the path end at the last step")
+    return err
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of ops / PEAK_OPS and nbytes /
     PEAK_BYTES, in ms, and which of the two it is.  ``ops`` counts each
@@ -624,8 +722,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 1
-
-    import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1333,12 +1429,12 @@ def main() -> int:
     dr_root = os.path.join(ROOT, "build", "chip_smoke_dryrun")  # gitignored
     shutil.rmtree(dr_root, ignore_errors=True)
 
-    def run_dryrun(name, data, samples, program):
+    def run_dryrun(name, data, samples, *programs):
         out_dir = os.path.join(dr_root, name)
         t0 = time.perf_counter()
         rc = dryrun.main(["--world", "2", "--data", str(data), "--samples",
                           str(samples), "--device", "cuda", "--out", out_dir,
-                          "--size", "full", "--programs", program])
+                          "--size", "full", "--programs", *programs])
         check(rc == 0, f"dryrun {name} exited {rc}")
         ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
                  for r in range(2)]
@@ -1348,11 +1444,33 @@ def main() -> int:
 
     (_, _, (cfg_s, path_s, _, steps_s), (cfg_fl, _, fleet_b, fleet_n)) = \
         dryrun.problem("full", 1, 2)
-    ranks, wall = run_dryrun("1x2", 1, 2, "step-cuda")
-    for f in ("q", "u0", "wp_idx", "done", "final_u_prev"):
+    ranks, wall = run_dryrun("1x2", 1, 2, "step-cuda", "step-plain")
+    step_fields = ("q", "u0", "wp_idx", "done", "final_dq", "final_u_prev",
+                   "final_step")
+    for f in step_fields:
         check(np.array_equal(ranks[0][f"step-cuda_{f}"],
                              ranks[1][f"step-cuda_{f}"]),
               f"sharded step: the two sample shards hold different {f}")
+        # the same step through the plain versions of the step kernels
+        for z in ranks:
+            check(np.array_equal(z[f"step-cuda_{f}"], z[f"step-plain_{f}"]),
+                  f"sharded step rank {int(z['samples_rank'])}: {f} differs "
+                  f"from the plain versions' step")
+    # each kernel's launches each rank counted in its step loop: one a step
+    # on the kernels' step; the plain versions' step launches the solve
+    by_rank = {name: [int(z[f"step-cuda_{name}_launches"]) for z in ranks]
+               for name in dryrun.LAUNCH_COUNTS}
+    plain_by_rank = {name: [int(z[f"step-plain_{name}_launches"])
+                            for z in ranks]
+                     for name in dryrun.LAUNCH_COUNTS}
+    check(all(v == [steps_s, steps_s] for v in by_rank.values()),
+          f"sharded step: launches by rank {by_rank}, expected one of each "
+          f"a step ({steps_s})")
+    check(plain_by_rank == {name: [steps_s if name == "solve" else 0] * 2
+                            for name in by_rank},
+          f"sharded step through the plain versions: launches by rank "
+          f"{plain_by_rank}")
+    plain_us = [float(r["step-plain_us_per_step"]) for r in ranks]
     ref_s = torch.as_tensor(path_s, device=device)
     _, rec_s = m.simulate(arm, cfg_s, sim, ref_s, state0, CMP_STEPS,
                           backend="cuda")
@@ -1377,11 +1495,6 @@ def main() -> int:
     check(onpath_s < ONPATH_GATE_MM, f"sharded step on-path {onpath_s:.3f}")
     step_us = [float(r["step-cuda_us_per_step"]) for r in ranks]
     coll_us = [float(r["step-cuda_collective_us_per_solve"]) for r in ranks]
-    # the solve kernel's launches each rank counted in its step loop
-    sharded_launches = [int(r["step-cuda_solve_launches"]) for r in ranks]
-    check(sharded_launches == [steps_s, steps_s],
-          f"sharded step: solve_kernel launches by rank {sharded_launches}, "
-          f"expected one a step ({steps_s})")
     print(f"sharded step [{card}]: mesh 1x2 (data x samples) on cuda:0 over "
           f"gloo, benchmark_preset, {steps_s} steps on a {len(path_s)}-point "
           f"path, PRNG: both shards hold the same block; first {CMP_STEPS} "
@@ -1390,10 +1503,13 @@ def main() -> int:
           f"{onpath_s:.3f} mm over {n_live_s} live steps (gate "
           f"{ONPATH_GATE_MM} mm); {step_us[0]:.1f} / {step_us[1]:.1f} us/step "
           f"by rank, the 2 all-reduces {coll_us[0]:.1f} / {coll_us[1]:.1f} "
-          f"us a solve (device synchronised around each); "
-          f"{sharded_launches[0]} / {sharded_launches[1]} solve_kernel "
-          f"launches by rank (counted in the ranks); {wall:.1f} s "
-          f"with the ranks' start")
+          f"us a solve (device synchronised around each); launches by rank "
+          f"(counted in the ranks): " + ", ".join(
+              f"{name} {v[0]} / {v[1]}" for name, v in by_rank.items())
+          + f"; rows (q, u0, wp_idx, done) and final dq, u_prev, step == "
+          f"the same step through the plain versions of the step kernels "
+          f"(step-plain, {plain_us[0]:.1f} / {plain_us[1]:.1f} us/step), "
+          f"bitwise; {wall:.1f} s with the ranks' start")
     ranks, wall = run_dryrun("2x1", 2, 1, "fleet")
     b_loc = fleet_b // 2
     check(cfg_fl == cfg_b and fleet_n == FLEET_STEPS and fleet_b == BATCH,
@@ -1551,8 +1667,67 @@ def main() -> int:
                                   ("B=64 K=1024", cfg.num_samples, 64),
                                   (f"fleet B={BATCH} K=128", 128, BATCH))))
 
+    # ---- 21. the sharded step's kernels against their plain versions --
+    from mppi_robotarm_tpu_torch.ops import cuda_shard
+
+    T = cfg.horizon
+    wp_s = torch.arange(64, device=device) * 3
+    wp_s[::8] = ref200.shape[0] - 1
+    wp_s[-4:] = torch.tensor([196, 197, 198, 197], device=device)
+    shard_starts = (
+        ("B=1", ref, (state0.q[None], state0.dq[None],
+                      state0.mppi.u_prev[None], state0.mppi.wp_idx[None])),
+        ("B=64", ref200, (st64.q, st64.dq, st64.mppi.u_prev, wp_s)))
+    s34_err = 0.0
+    for fw in (1, 10, 2 * T + 3):
+        cfg_fw = dataclasses.replace(cfg, filter_window=fw)
+        for shape, path, start in shard_starts:
+            for noise in ("eps", "prng"):
+                s34_err = max(s34_err, shard_step_compare(
+                    f"sharded step kernels {shape} {noise} filter_window "
+                    f"{fw}", sharded, cuda_solve, arm, cfg_fw, sim, path,
+                    start, noise, rng))
+    # S3 and S4 at the main path's shape (B=1, T=50, filter_window 10): a
+    # launch's device time, and their plain versions' by CUDA events
+    sm_a = shard_starts[0][2]
+    x0_1, wp1, end1, win1_s = cuda_step.step_head(cfg, ref, *sm_a[:2],
+                                                  sm_a[3])
+    kl = cfg.num_samples // 2
+    parts1 = [cuda_solve.solve_batched(
+        arm, cfg, x0_1, sm_a[2], win1_s, emit_eps=False, normalize=False,
+        k_local=kl, k_offset=torch.full((1,), r * kl, device=device),
+        seed=torch.zeros(1, dtype=torch.int64, device=device),
+        step=torch.zeros(1, dtype=torch.int64, device=device))
+        for r in range(2)]
+    m1s = torch.minimum(parts1[0][3][0], parts1[1][3][0])
+    scale_args = (m1s, parts1[0][3][0], parts1[0][3][1], parts1[0][0],
+                  cfg.lam)
+    # the finish reads the summed message, as the step does
+    msg1 = sum(cuda_shard.shard_scale(m1s, p[3][0], p[3][1], p[0], cfg.lam)
+               for p in parts1)
+    finish_args = (cfg, msg1, sm_a[2])
+    scale_ms = sum(fused_timing.profiled_us(
+        lambda: cuda_shard.shard_scale(*scale_args), PROBE_TIME_CALLS,
+        lambda k: "shard_scale" in k).values()) / 1e3
+    finish_ms = sum(fused_timing.profiled_us(
+        lambda: cuda_shard.shard_finish(*finish_args), PROBE_TIME_CALLS,
+        lambda k: "shard_finish" in k).values()) / 1e3
+    check(scale_ms > 0 and finish_ms > 0, "the profiler saw no "
+          "shard_scale_kernel or shard_finish_kernel time")
+    plain_scale_ms = min(cuda_time(lambda: [cuda_shard.shard_scale_plain(
+        *scale_args) for _ in range(20)], 3)) / 20
+    plain_finish_ms = min(cuda_time(lambda: [cuda_shard.shard_finish_plain(
+        *finish_args) for _ in range(20)], 3)) / 20
+    print(f"timing [{card}]: the sharded step's kernels at benchmark_preset "
+          f"B=1 (K_local {kl}, T {T}, filter_window {cfg.filter_window}), "
+          f"device time a launch: shard_scale_kernel {scale_ms * 1e3:.3f} "
+          f"us, shard_finish_kernel {finish_ms * 1e3:.3f} us; their plain "
+          f"versions (CUDA events over 20 calls, min of 3) "
+          f"{plain_scale_ms * 1e3:.2f} us and {plain_finish_ms * 1e3:.2f} "
+          f"us")
+
     check("jax" not in sys.modules,
-          "the port imported JAX during phases 2-20")
+          "the port imported JAX during phases 2-21")
 
     # ---- bounds, from this run's shapes (see ``bound``) ----------------
     f4 = 4
@@ -1610,6 +1785,15 @@ def main() -> int:
     tail_bound = bound(20 * cfg.num_samples + 70 + carried * (9 + 7 * W),
                        (cfg.num_samples + 3 * 2 * cfg.horizon + 4 + 4 + 2
                         + 6 * 2 + 4) * f4 + 8 * 8 + 4 + carried * head_rows)
+    # the sharded step's kernels at the main path's shape (B=1, T=50), a
+    # launch: the rescale reads m, m_s, η_s and A_s (2T) and writes the
+    # message (1 + 2T); a difference, a multiply and an exp, then a
+    # multiply an element.  The finish reads the message and u_prev and
+    # writes u_seq; a division and an add an element and at most 2 fw^2
+    # compares (the count stops at the median's rank)
+    scale_bound = bound(3 + 1 + 2 * T, (3 + 2 * T + 1 + 2 * T) * f4)
+    finish_bound = bound(2 * T * (2 + 2 * cfg.filter_window ** 2),
+                         (1 + 2 * T + 2 * T + 2 * T) * f4)
     p1_bound = bound(xp.numel(), 2 * xp.numel() * f4)
     p2_bound = bound(xp.numel(), (2 * xp.numel() + b2.numel()) * f4)
     print(f"bounds [{card}]: sim_kernel {k1_bound[0] * 1e3:.4f} us/step "
@@ -1622,7 +1806,9 @@ def main() -> int:
           f"{tail_bound[0] * 1e3:.5f} us ({tail_bound[1]}), "
           f"probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
           f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
-          f"({p2_bound[1]})")
+          f"({p2_bound[1]}), shard_scale_kernel {scale_bound[0] * 1e3:.5f} "
+          f"us ({scale_bound[1]}), shard_finish_kernel "
+          f"{finish_bound[0] * 1e3:.5f} us ({finish_bound[1]})")
     issue_us = lambda ops: ops / UNFUSED_OPS * 1e6
     print(f"operations at the unfused FP32 issue rate, "
           f"{UNFUSED_OPS / 1e12:g} T/s (not bound_ms) [{card}]: sim_kernel "
@@ -1666,7 +1852,17 @@ def main() -> int:
               "and record under simulate's scan :122-163, with the next "
               "step's waypoint advance, mppi/solver.py:215, fused by XLA; "
               "no Pallas kernel)", tail_launches, step_err, tail_ms,
-              plain_tail_ms, tail_bound)]}))
+              plain_tail_ms, tail_bound),
+        entry("shard_scale_kernel", "shard_kernel.cu",
+              "mppi_robotarm_tpu/parallel/sharded.py:139-142 (the rescale "
+              "of _solve_local_pallas between its pmin and psum, fused by "
+              "XLA; no Pallas kernel)", by_rank["scale"][0], s34_err,
+              scale_ms, plain_scale_ms, scale_bound),
+        entry("shard_finish_kernel", "shard_kernel.cu",
+              "mppi_robotarm_tpu/parallel/sharded.py:143-149 (Σwε = A/η, the "
+              "median filter and the u update after the psum, fused by XLA; "
+              "no Pallas kernel)", by_rank["finish"][0], s34_err, finish_ms,
+              plain_finish_ms, finish_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

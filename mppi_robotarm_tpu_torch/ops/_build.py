@@ -112,11 +112,11 @@ def _check_abi(lib, fn: str, struct) -> None:
                            f"fields and the kernel's struct differ")
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # (argtypes, restype) of each C function of the library, in the order of
 # its declaration in csrc/: c_void_p for every pointer and the stream,
-# c_int for every int.
+# c_int for every int, c_float for every float.
 C_FUNCTIONS = {
     "mppi_sim_launch": ([_P, _I, _I] + [_P] * 9, _I),
     "mppi_solve_launch": ([_P, _I] + [_P] * 15, _I),
@@ -126,6 +126,8 @@ C_FUNCTIONS = {
     "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _I, _P], _I),
     "mppi_step_head_launch": ([_P, _P, _I, _P], _I),
     "mppi_step_tail_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "mppi_shard_scale_launch": ([_P] * 5 + [_I, _I, _F, _P], _I),
+    "mppi_shard_finish_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "mppi_error_string": ([_I], ctypes.c_char_p),
     "mppi_sim_params_size": ([], _I),
     "mppi_solve_params_size": ([], _I),

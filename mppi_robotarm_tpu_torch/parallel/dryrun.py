@@ -7,12 +7,15 @@ writing its blocks to ``OUT/rank{r}.npz``:
 
     python -m mppi_robotarm_tpu_torch.parallel.dryrun --world N --data D \\
         --samples S --device cuda|cpu --out DIR [--size tiny|full] \\
-        [--programs step-eager step-cuda fleet]
+        [--programs step-eager step-cuda step-plain fleet]
 
 Programs (PRNG mode; every scenario's seed is its index):
   * ``step-eager`` / ``step-cuda`` — the sample-sharded closed-loop step
     (``make_sharded_sim_step``) on each backend, run for ``steps`` steps:
     per step the block's q, u0, wp_idx and done, and the final state;
+  * ``step-plain`` — ``step-cuda`` with the step's head, rescale, finish
+    and tail run as their plain versions (``plain=True``), the yardstick
+    of ``step-cuda``'s bits on the card;
   * ``fleet`` — the data-sharded fleet (``make_sharded_fleet``): the
     block's records (all but the fields derived from q) and final state,
     and whether that state came back bit for bit from a
@@ -25,8 +28,10 @@ H = 50), one scenario a data rank, on ``synth_circle_path(2000)`` for
 1500 steps, and the fleet of 4096 scenarios × K = 128, T = 30 (q0 as
 :func:`fleet_q0` gives it) for 2000 steps.  Each rank also
 stores µs a step (host clock, device synchronised), its 'samples'
-all-reduces' µs a solve, the solve kernel's launches in the step's loop,
-and whether it imported JAX.
+all-reduces' µs a solve, the launches of the solve kernel and of the four
+step kernels (``ops/cuda_step.py``'s head and tail,
+``ops/cuda_shard.py``'s scale and finish) in the step's loop, and
+whether it imported JAX.
 
 On ``cuda`` the ranks share the machine's cards round robin; NCCL refuses
 two ranks on one card, so they then talk over gloo (``parallel/mesh.py``).
@@ -47,7 +52,9 @@ import time
 
 import numpy as np
 
-PROGRAMS = ("step-eager", "step-cuda", "fleet")
+PROGRAMS = ("step-eager", "step-cuda", "step-plain", "fleet")
+# the kernels whose launches the step loop counts (see _launches)
+LAUNCH_COUNTS = ("solve", "head", "scale", "finish", "tail")
 FLEET_FIELDS = ("q", "dq", "u", "wp_idx", "done", "cost_min", "cost_mean",
                 "ess", "weight_entropy")
 TIMEOUT_S = 600.0       # seconds the ranks may take together
@@ -106,28 +113,38 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _launches() -> dict:
+    """The kernels' launch counts now, by :data:`LAUNCH_COUNTS`' names."""
+    from ..ops import cuda_shard, cuda_solve, cuda_step
+
+    return dict(zip(LAUNCH_COUNTS, (
+        cuda_solve.LAUNCHES, cuda_step.HEAD_LAUNCHES,
+        cuda_shard.SCALE_LAUNCHES, cuda_shard.FINISH_LAUNCHES,
+        cuda_step.TAIL_LAUNCHES)))
+
+
 def step_program(arm, cfg, sim, mesh, backend: str, ref, states, steps: int,
-                 reduce=None) -> dict:
+                 reduce=None, plain: bool = False) -> dict:
     """``steps`` steps of ``make_sharded_sim_step`` on the block
     ``states``, PRNG mode: the absolute step advances while a scenario is
     live, as in ``simulate_batch``.  Returns the per-step rows (q, u0,
     wp_idx, done stacked over steps), the final dq, u_prev and step, the
     host seconds (device synchronised), the collective seconds and calls,
-    and the solve kernel's launches in the loop (``cuda_solve.LAUNCHES``'
-    growth: one a step on the card's cuda backend, none on the CPU)."""
+    and each kernel's launches in the loop (``{name}_launches`` for
+    :data:`LAUNCH_COUNTS`: one of each a step on the card's cuda backend,
+    none on the CPU or with ``plain``)."""
     import torch
 
-    from ..ops import cuda_solve
     from .sharded import SamplesAllReduce, make_sharded_sim_step
 
     reduce = reduce or SamplesAllReduce(mesh, timed=True)
     step_fn = make_sharded_sim_step(arm, cfg, sim, mesh, backend=backend,
-                                    reduce=reduce)
+                                    reduce=reduce, plain=plain)
     q, dq, u, wp = (states.q, states.dq, states.mppi.u_prev,
                     states.mppi.wp_idx)
     step, done = states.step, states.done
     rows = {"q": [], "u0": [], "wp_idx": [], "done": []}
-    launches = cuda_solve.LAUNCHES
+    launches = _launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         q, dq, u, wp, end, u0 = step_fn(ref, q, dq, u, wp, states.seed, step)
@@ -139,9 +156,10 @@ def step_program(arm, cfg, sim, mesh, backend: str, ref, states, steps: int,
     seconds = time.perf_counter() - t0
     out = {k: torch.stack(v) for k, v in rows.items()}
     out.update(final_dq=dq, final_u_prev=u, final_step=step, seconds=seconds,
-               solve_launches=cuda_solve.LAUNCHES - launches,
                collective_seconds=getattr(reduce, "seconds", 0.0),
                collective_calls=getattr(reduce, "calls", 0))
+    out.update({f"{k}_launches": v - launches[k]
+                for k, v in _launches().items()})
     return out
 
 
@@ -195,10 +213,11 @@ def run_rank(a) -> dict:
         states = scenario_shard(mesh, init_sim_batch(
             cfg, sim, np.arange(B), device=device))
         dist.barrier()
-        res = step_program(arm, cfg, sim, mesh, prog.split("-")[1], ref,
-                           states, steps)
+        res = step_program(arm, cfg, sim, mesh,
+                           "eager" if prog == "step-eager" else "cuda", ref,
+                           states, steps, plain=prog == "step-plain")
         for k in ("q", "u0", "wp_idx", "done", "final_dq", "final_u_prev",
-                  "final_step", "solve_launches"):
+                  "final_step", *(f"{n}_launches" for n in LAUNCH_COUNTS)):
             out[f"{prog}_{k}"] = res[k]
         out[f"{prog}_us_per_step"] = res["seconds"] / steps * 1e6
         out[f"{prog}_collective_us_per_solve"] = (

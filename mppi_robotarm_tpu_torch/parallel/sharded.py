@@ -14,6 +14,12 @@ rank is a process that holds its block of every operand, as a
     combine of :func:`combine_partials`: MIN on m, then one SUM on
     [η·exp((m − m_s)/λ), A·exp((m − m_s)/λ)] (η and A share a message).
 
+On the card a cuda-backend step is seven launches a rank: the step head
+(``ops/cuda_step.py``: waypoint advance and window), the solve kernel,
+MIN, ``shard_scale`` (``ops/cuda_shard.py``: the rescale, packed), SUM,
+``shard_finish`` (Σwε = A/η, median, u update) and the step tail (shift,
+plant, freeze).  CPU tensors take each kernel's plain version.
+
 The exploration split (Q9) depends on the global sample index, so a rank
 of 'samples' coordinate r solves samples r·K_local .. (r + 1)·K_local − 1
 (``k_offset``).  In PRNG mode the kernel draws those samples' slice of the
@@ -27,6 +33,8 @@ instead; the eps mode takes such draws injected.)
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 from typing import Callable, Optional
 
@@ -36,7 +44,7 @@ import torch.distributed as dist
 from ..config import ArmParams, MPPIConfig, SimConfig
 from ..models.arm import fk_ee
 from ..mppi.solver import _median_update, shift_warm_start
-from ..ops import cuda_solve
+from ..ops import cuda_shard, cuda_solve, cuda_step
 from ..ops.cuda_rollout import philox_epsilon_batch
 from ..ops.noise import sigma_inverse
 from ..ops.rollout import rollout_costs
@@ -82,17 +90,23 @@ class SamplesAllReduce:
         return t
 
 
+def _combine(m_loc, eta_loc, a_loc, lam: float, reduce: Reduce, scale):
+    """MIN on m, the packed message by ``scale``, SUM on it: (m, the summed
+    message (..., B, 1 + 2T))."""
+    m = reduce(m_loc.clone(), "min")
+    packed = scale(m.contiguous(), m_loc, eta_loc, a_loc, lam)
+    return m, reduce(packed.contiguous(), "sum")
+
+
 def combine_partials(m_loc, eta_loc, a_loc, lam: float, reduce: Reduce):
     """The two-level online-softmax combine across sample shards: each
-    shard's (min cost m_s, η_s, raw Σe·ε A_s) rescaled to the common min,
+    shard's (min cost m_s, η_s, raw Σe·ε A_s) rescaled to the common min
+    (``cuda_shard.shard_scale``),
         m = MIN m_s,  η = SUM η_s·exp((m − m_s)/λ),  A = SUM A_s·exp(...).
     m_loc, eta_loc (..., B), a_loc (..., B, T, 2).  Returns (m, η, A)."""
-    m = reduce(m_loc.clone(), "min")
-    scale = torch.exp((m - m_loc) / lam)
-    packed = torch.cat([(eta_loc * scale)[..., None],
-                        (a_loc * scale[..., None, None]).flatten(-2)], dim=-1)
-    packed = reduce(packed.contiguous(), "sum")
-    return m, packed[..., 0], packed[..., 1:].unflatten(-1, a_loc.shape[-2:])
+    m, packed = _combine(m_loc, eta_loc, a_loc, lam, reduce,
+                         cuda_shard.shard_scale)
+    return (m, *cuda_shard.unpack(packed))
 
 
 def _waypoints(cfg: MPPIConfig, ref_path, observed, wp_idx):
@@ -132,27 +146,50 @@ def _solve_eager(arm: ArmParams, cfg: MPPIConfig, ref_path, observed, u_prev,
     return _finish(cfg, u_prev, w_eps, wp_new, path_end, s_local, w_local)
 
 
-def _solve_cuda(arm: ArmParams, cfg: MPPIConfig, ref_path, observed, u_prev,
-                wp_idx, k_offset: int, reduce: Reduce, eps=None, seeds=None,
-                step=None, k_local: Optional[int] = None):
-    """The kernel block solve (``_solve_local_pallas``): one launch of
-    ``ops/cuda_solve.py::solve_batched`` on the rank's samples, raw Σe·ε
-    and (m, η) out, then :func:`combine_partials`."""
-    f32, dtype = torch.float32, u_prev.dtype
-    wp_new, window, _, path_end = _waypoints(cfg, ref_path, observed, wp_idx)
-    B, device = observed.shape[0], observed.device
-    koff = torch.full((B,), k_offset, dtype=torch.int64, device=device)
+# The cuda backend's step head, rescale, finish and tail: the wrappers
+# (kernels on the card), or their plain versions on any device, the
+# yardstick that the card's step is held to (parallel/dryrun.py's
+# step-plain).
+def _kernels():
+    return (cuda_step.step_head, cuda_shard.shard_scale,
+            cuda_shard.shard_finish, cuda_step.step_tail)
+
+
+def _plain_versions():
+    return (cuda_step.step_head_plain, cuda_shard.shard_scale_plain,
+            cuda_shard.shard_finish_plain, cuda_step.step_tail_plain)
+
+
+@functools.lru_cache(maxsize=16)
+def _offsets(B: int, k_offset: int, device: torch.device):
+    """The solve's k_offset column (B,), and the tail's zero step counter
+    and done flags: made once a shape, read only."""
+    return (torch.full((B,), k_offset, dtype=torch.int64, device=device),
+            torch.zeros((B,), dtype=torch.int64, device=device),
+            torch.zeros((B,), dtype=torch.bool, device=device))
+
+
+def _solve_cuda(arm: ArmParams, cfg: MPPIConfig, ref_path, q, dq, u_prev,
+                wp_idx, k_offset: int, reduce: Reduce, ops, eps=None,
+                seeds=None, step=None, k_local: Optional[int] = None):
+    """The kernel block solve (``_solve_local_pallas``): the step head, one
+    launch of ``ops/cuda_solve.py::solve_batched`` on the rank's samples
+    (raw Σe·ε and (m, η) out), :func:`combine_partials` and the finish.
+    ``ops`` is :func:`_kernels` or :func:`_plain_versions`.  Returns
+    (u_seq, m, η, S, the new index, path_end)."""
+    head, scale, finish, _ = ops
+    f32 = torch.float32
+    x0, wp_new, path_end, window = head(cfg, ref_path, q, dq, wp_idx)
+    koff = _offsets(q.shape[0], k_offset, q.device)[0]
     a_local, s_local, _, (m_loc, eta_loc) = cuda_solve.solve_batched(
-        arm, cfg, observed.to(f32).contiguous(), u_prev.to(f32).contiguous(),
+        arm, cfg, x0.to(f32).contiguous(), u_prev.to(f32).contiguous(),
         window.to(f32).contiguous(), seed=seeds,
         eps=None if eps is None else eps.to(f32).contiguous(), step=step,
         emit_eps=False, normalize=False, fuse_update=False, k_local=k_local,
         k_offset=koff)
-    m, eta, a = combine_partials(m_loc, eta_loc, a_local, cfg.lam, reduce)
-    w_local = (torch.exp(-(s_local - m[:, None]) / cfg.lam)
-               / eta[:, None]).to(dtype)
-    return _finish(cfg, u_prev, (a / eta[:, None, None]).to(dtype), wp_new,
-                   path_end, s_local.to(dtype), w_local)
+    m, packed = _combine(m_loc, eta_loc, a_local, cfg.lam, reduce, scale)
+    return (finish(cfg, packed, u_prev), m, cuda_shard.unpack(packed)[0],
+            s_local, wp_new, path_end)
 
 
 def _check_samples_divisible(cfg: MPPIConfig, mesh) -> None:
@@ -204,20 +241,33 @@ def make_sharded_solve(arm: ArmParams, cfg: MPPIConfig, mesh,
         if eps.shape[1] != k_local:
             raise ValueError(f"eps holds {eps.shape[1]} samples a scenario, "
                              f"this shard solves {k_local}")
-        if backend == "cuda":
-            return _solve_cuda(arm, cfg, ref_path, observed, u_prev, wp_idx,
-                               k_offset, reduce, eps=eps)
-        return _solve_eager(arm, cfg, ref_path, observed, u_prev, wp_idx,
-                            eps, k_offset, reduce)
+        if backend == "eager":
+            return _solve_eager(arm, cfg, ref_path, observed, u_prev, wp_idx,
+                                eps, k_offset, reduce)
+        dtype = u_prev.dtype
+        u_seq, m, eta, s_local, wp_new, path_end = _solve_cuda(
+            arm, cfg, ref_path, observed[:, :2], observed[:, 2:], u_prev,
+            wp_idx, k_offset, reduce, _kernels(), eps=eps)
+        w_local = (torch.exp(-(s_local - m[:, None]) / cfg.lam)
+                   / eta[:, None]).to(dtype)
+        # the reference applies the SHIFTED first element (control.py:148-152)
+        u_next = shift_warm_start(u_seq)
+        return (u_next[:, 0], u_seq, u_next, wp_new, path_end,
+                s_local.to(dtype), w_local)
 
     return solve
 
 
 def make_sharded_sim_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                           mesh, backend: str = "eager", noise: str = "prng",
-                          reduce: Optional[Reduce] = None):
+                          reduce: Optional[Reduce] = None,
+                          plain: bool = False):
     """One sharded closed-loop step of this rank's block: solve, plant,
-    freeze at the path end.
+    freeze at the path end.  On the cuda backend the step head, the solve
+    kernel, the combine's two kernels and the step tail (see the module
+    docstring); ``plain=True`` runs the four step kernels' plain versions
+    instead, on any device (the solve kernel stays), the yardstick that
+    the card's step is held to bit for bit.
 
     Returns ``f(ref_path, q (B_local, 2), dq, u_prev (B_local, T, 2),
     wp_idx (B_local,), seeds=None, step=None, eps=None) -> (q', dq',
@@ -234,6 +284,8 @@ def make_sharded_sim_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         raise ValueError(f"unknown noise mode {noise!r}")
     k_local, k_offset = _shard_samples(cfg, mesh)
     reduce = reduce or SamplesAllReduce(mesh)
+    # the tail reads the shard's costs, (B_local, K_local)
+    tail_cfg = dataclasses.replace(cfg, num_samples=k_local)
 
     def step_fn(ref_path, q, dq, u_prev, wp_idx, seeds=None, step=None,
                 eps=None):
@@ -241,23 +293,32 @@ def make_sharded_sim_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                 noise == "prng" and (seeds is None or step is None)):
             raise ValueError("noise='prng' takes seeds= and step=, "
                              "noise='eps' takes eps=")
-        observed = torch.cat([q, dq], dim=-1)
         B, device = q.shape[0], q.device
         if noise == "prng":
             col = lambda v: torch.as_tensor(
                 v, dtype=torch.int64, device=device).reshape(-1).expand(B)
             seeds, step = col(seeds), col(step)
         if backend == "cuda":
-            out = _solve_cuda(arm, cfg, ref_path, observed, u_prev, wp_idx,
-                              k_offset, reduce, eps=eps, seeds=seeds,
-                              step=step, k_local=k_local)
-        else:
-            if eps is None:
-                eps = philox_epsilon_batch(
-                    seeds, step, torch.full((B,), k_offset, device=device),
-                    k_local, cfg)
-            out = _solve_eager(arm, cfg, ref_path, observed, u_prev, wp_idx,
-                               eps, k_offset, reduce)
+            ops = _plain_versions() if plain else _kernels()
+            u_seq, _, _, s_local, wp_new, path_end = _solve_cuda(
+                arm, cfg, ref_path, q, dq, u_prev, wp_idx, k_offset, reduce,
+                ops, eps=eps, seeds=seeds, step=step, k_local=k_local)
+            _, zero, not_done = _offsets(B, k_offset, device)
+            # the tail without a record row and with done all false: the
+            # shift, the plant and the freeze where the path ends
+            _, q_n, dq_n, u_n, wp_n, _, _ = ops[3](
+                arm, tail_cfg, sim, ref_path, zero, q, dq, u_prev, wp_idx,
+                not_done, wp_new, path_end, u_seq, s_local)
+            # u0 is the shifted sequence's first element, as the tail's
+            u0 = u_seq[:, min(1, cfg.horizon - 1)]
+            return q_n, dq_n, u_n, wp_n, path_end, u0.to(q.dtype)
+        observed = torch.cat([q, dq], dim=-1)
+        if eps is None:
+            eps = philox_epsilon_batch(
+                seeds, step, torch.full((B,), k_offset, device=device),
+                k_local, cfg)
+        out = _solve_eager(arm, cfg, ref_path, observed, u_prev, wp_idx,
+                           eps, k_offset, reduce)
         u0, _, u_next, wp_new, path_end, _, _ = out
         u0 = u0.to(q.dtype)
         q_new, dq_new = plant_step(arm, sim, q, dq, u0)

@@ -167,7 +167,8 @@ def test_c_functions_match_their_ctypes_declarations():
     ret_map = {"int": ctypes.c_int, "const char*": ctypes.c_char_p}
     for name, (ret, params) in decls.items():
         argtypes, restype = _build.C_FUNCTIONS[name]
-        want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_float
+                if p.startswith("float ") else ctypes.c_int for p in params]
         assert argtypes == want, name
         assert restype is ret_map[ret], name
 

@@ -577,10 +577,11 @@ def test_dryrun_ranks_equal_one_process(dryruns, shape):
         dryrun.problem("tiny", *shape)
     ref = torch.as_tensor(path)
     full = P.init_sim_batch(cfg, sim, np.arange(B), device="cpu")
-    for prog in ("step-eager", "step-cuda"):
+    for prog in ("step-eager", "step-cuda", "step-plain"):
         res = run_mesh(shape, lambda m, red: dryrun.step_program(
-            arm, cfg, sim, m, prog.split("-")[1], ref,
-            psh.scenario_shard(m, full), steps, reduce=red))
+            arm, cfg, sim, m, "eager" if prog == "step-eager" else "cuda",
+            ref, psh.scenario_shard(m, full), steps, reduce=red,
+            plain=prog == "step-plain"))
         for k, z in enumerate(ranks):
             d, s = int(z["data_rank"]), int(z["samples_rank"])
             assert (d, s) == (k // shape[1], k % shape[1])
@@ -591,8 +592,9 @@ def test_dryrun_ranks_equal_one_process(dryruns, shape):
                                               err_msg=f"{prog} {f} rank {k}")
             assert z[f"{prog}_collectives_per_solve"] == (
                 3 if prog == "step-eager" else 2)
-            # the plain twin on CPU tensors launches no kernel
-            assert int(z[f"{prog}_solve_launches"]) == 0
+            # the plain versions on CPU tensors launch no kernel
+            for name in dryrun.LAUNCH_COUNTS:
+                assert int(z[f"{prog}_{name}_launches"]) == 0
     states = P.init_sim_batch(fcfg, sim, np.arange(fB),
                               q0=dryrun.fleet_q0("tiny", fB, sim),
                               device="cpu")
@@ -621,6 +623,8 @@ def test_new_modules_never_import_jax():
     code = ("import sys\n"
             "import mppi_robotarm_tpu_torch.parallel.dryrun\n"
             "import mppi_robotarm_tpu_torch.parallel.sharded\n"
+            "import mppi_robotarm_tpu_torch.ops.cuda_shard\n"
+            "import mppi_robotarm_tpu_torch.tools.collective_cost\n"
             "import mppi_robotarm_tpu_torch.utils.debug\n"
             "import mppi_robotarm_tpu_torch.sim.pathgen\n"
             "import mppi_robotarm_tpu_torch.compat\n"
@@ -832,10 +836,17 @@ def test_dryrun_on_the_card(dev, tmp_path):
             z = np.load(os.path.join(out, f"rank{k}.npz"))
             assert not bool(z["jax_imported"])
             assert bool(z["fleet_checkpoint_bitwise"])
-            # one solve kernel launch a step on the cuda backend, none eager
+            # one launch of each kernel a step on the cuda backend, none
+            # eager; the plain versions' step launches the solve alone
             steps = dryrun.problem("tiny", data, samples)[2][3]
-            assert int(z["step-cuda_solve_launches"]) == steps
-            assert int(z["step-eager_solve_launches"]) == 0
+            for name in dryrun.LAUNCH_COUNTS:
+                assert int(z[f"step-cuda_{name}_launches"]) == steps
+                assert int(z[f"step-eager_{name}_launches"]) == 0
+                assert int(z[f"step-plain_{name}_launches"]) == (
+                    steps if name == "solve" else 0)
+            for f in ("q", "u0", "wp_idx", "done", "final_u_prev"):
+                assert np.array_equal(z[f"step-cuda_{f}"],
+                                      z[f"step-plain_{f}"]), f
             for f in z.files:
                 if z[f].dtype.kind == "f":
                     assert np.isfinite(z[f]).all(), f
