@@ -45,7 +45,7 @@ Phases (any failure raises and exits non-zero):
      phase 2;
   9. the batch, ``simulate_batch(backend="cuda")`` at 4096 scenarios x
      K=128, T=30 for 50 steps: finite records, scenario 0 == its run alone
-     bit for bit;
+     bit for bit; its peak device memory;
  10. timing: the solve kernel's one launch, its device time
      (torch.profiler) and CUDA-event time per solve against the plain twin
      at K=1024 and K=65536 (B=1) and at phase 9's per-step solve (4096 x
@@ -73,7 +73,7 @@ Phases (any failure raises and exits non-zero):
      fused kernel's run of the fleet (group 1), 1000 + 1000 chained steps
      == one run, the first 8 steps of scenario 0 within phase 2's bands of
      phase 9's ``simulate_batch(backend="cuda")``; the on-path mean over
-     scenarios (median and p95, not gated);
+     scenarios (median and p95, not gated); its peak device memory;
  13. the CLI in-process: ``--batch 4096 --backend cuda-fused`` (fleet
      kernel), single ``--backend cuda-fused`` (fused kernel), and
      ``--backend cuda --checkpoint-every`` against a checkpoint and resume,
@@ -119,8 +119,15 @@ Phases (any failure raises and exits non-zero):
  18. the debug path: ``checked_solve(backend="cuda")`` clean mid-path,
      raising at the path end and on a NaN ``u_prev``; the graph loop under
      ``debug_mode`` (checks between chunks) == phase 8's records;
- 19. ``generate_circle_path(2000)`` on cuda against the CPU (x, y within
-     1e-6, dq 1e-5, u 1e-3) with its seconds, and 20 steps of the compat
+ 19. ``generate_circle_path(2000)`` on cuda: one launch of
+     ``pathgen_kernel`` (``csrc/pathgen_kernel.cu``) and no per-step torch
+     loop (the call's device events, by the profiler, do not grow from
+     2000 steps to 4000), against the CPU (x,
+     y within 1e-6, dq 1e-5, u 1e-3) with its seconds; the kernel against
+     its plain version (``ops/cuda_pathgen.py::pathgen_reference``) on the
+     same card tensors in float32 and float64 (the same bands, max |d| by
+     column, bitwise or not), the kernel's device time, the plain loop's on
+     the card and on the CPU; and 20 steps of the compat
      layer's ``MPPIControllerForPathTracking`` on the solve kernel under
      ``np.random.seed(0)``: finite, on-path mean < 42 mm;
  20. the step kernels (``csrc/step_kernel.cu``: the head before a chunk's
@@ -152,7 +159,40 @@ Phases (any failure raises and exits non-zero):
      first 200 rows (every 8th scenario at the last row, four near it),
      eps and PRNG modes, filter windows 1, 10 and 2T + 3: every output of
      every step bit for bit, one launch of each kernel a step; the two
-     kernels' device time at B=1 beside their plain versions'.
+     kernels' device time at B=1 beside their plain versions';
+ 22. BASELINE config 5 on one card: phase 9's fleet grown to 32,768
+     scenarios (the same q0 stream, so its first 4096 scenarios are phase
+     9's): ``simulate_fused_batch`` for 2000 steps (the fleet kernel, 63
+     launches of at most 32 steps under the 2^20 scenario-step cap):
+     records of shape (2000, 32768, .), finite but for scenarios that
+     reach the path's closure rows (``synth_circle_path``'s θ≈2π
+     overrides, where the index stops at a row whose dq is the override's
+     jump) and diverge there, each of those == ``simulate_fused`` of it
+     alone bit for bit (NaNs included), scenarios 0-4095 == phase 12's run
+     bit for bit on every field and the final state, 8 scenarios spread
+     over 4096-32767 == ``simulate_fused`` of each alone, 1000 + 1000
+     chained == one run, the on-path mean over the finite scenarios
+     (median, p95); the fleet kernel's µs per launch-step (CUDA events,
+     min of 3 over 512 steps) beside phase 14's at 4096, the path's wall
+     time and the 63 launches' time outside the kernel (profiler); the
+     per-step path, ``simulate_batch(backend="cuda")`` for 50 steps:
+     finite, one solve and one tail a step, a head a chunk, scenarios
+     0-4095 == phase 9's run bit for bit, µs/step; the (2 x 1) data-sharded fleet
+     (``parallel/dryrun.py --fleet-scenarios 32768``, 16,384 scenarios a
+     rank, two ranks sharing the card over gloo, so no scaling number):
+     each rank's records and final state == its rows of the fused run bit
+     for bit, µs per launch-step by rank; each path's peak device memory;
+ 23. the soak (``tools/longrun.py``'s functions): 40,000 steps at
+     benchmark_preset, seed 0, PRNG, on a 10-revolution
+     ``synth_circle_path(36000, revolutions=10)``: the fused kernel in one
+     launch, chained 4 x 10,000 (== the one launch bit for bit, records
+     and final state), and the per-step graph loop (2500 chunks replayed):
+     each finite, the path's end reached and then the state frozen with
+     u and the cost lanes zeroed, the step counter == the live steps, the
+     on-path mean over the first 1500 live steps < 42 mm (bench.py's
+     gate); the whole run's on-path mean, the schedule agreement and the
+     |q|, |u| envelope between the fused kernel and the graph loop, and
+     each run's seconds, reported.
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -199,6 +239,19 @@ FLEET_CMP_STEPS = 50  # phase 11: fleet kernel == fused kernel, bitwise
 FLEET_STEPS = 2000    # phase 12: the fleet path
 CLI_STEPS, CKPT_EVERY = 200, 100   # phase 13
 FLEET_TIME_STEPS, PLAIN_FLEET_STEPS = 1000, 3   # phase 14
+CONFIG5 = 32768       # phase 22: BASELINE config 5's scenarios
+CONFIG5_TIME_STEPS = 512   # phase 22: steps of a timed fleet-kernel launch
+CONFIG5_SPREAD = (4096, 8191, 12288, 16383, 20480, 24575, 28672, 32767)
+SOAK_STEPS, SOAK_CHUNKS = 40000, 4   # phase 23
+# phase 23's path: 10 revolutions of 3600 points each, whose end both
+# loops reach near step 33,000 (32,644 and 33,072 on an H100, PERF.md)
+SOAK_WAYPOINTS, SOAK_REVOLUTIONS = 36000, 10
+PATHGEN_STEPS = 2000  # phase 19
+# pathgen_kernel's operations a step, by hand from csrc/pathgen_kernel.cu:
+# the PD law 12, M 8, G 8, h and C·dq 11, the torque 10, the plant 17
+# (with the reciprocal), the Euler step 8, the EE 7, and 8 cos/sin at one
+# each
+PATHGEN_OPS = 89
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_OPS = 67e12      # float32 FLOP/s outside the tensor cores, H100 SXM
 UNFUSED_OPS = 33.5e12   # unfused float32 op/s: 132 SMs x 128 lanes x 1.98 GHz
@@ -362,10 +415,12 @@ def onpath_by_scenario_mm(rec, path_xy):
     p = torch.as_tensor(path_xy, device=rec.ee.device)
     total = torch.zeros(rec.ee.shape[1], dtype=torch.float64,
                         device=p.device)
-    for i in range(0, rec.ee.shape[0], 25):
-        ee = rec.ee[i:i + 25]
+    rows = max(1, 102400 // rec.ee.shape[1])   # 25 steps at 4096 scenarios
+    for i in range(0, rec.ee.shape[0], rows):
+        ee = rec.ee[i:i + rows]
         d = torch.cdist(ee.reshape(-1, 2), p).amin(dim=1).view(ee.shape[:2])
-        total += torch.where(rec.done[i:i + 25], 0.0, d).double().sum(dim=0)
+        total += torch.where(rec.done[i:i + rows], 0.0,
+                             d).double().sum(dim=0)
     live = (~rec.done).sum(dim=0).clamp_min(1)
     return (total / live * 1e3).cpu().numpy()
 
@@ -582,6 +637,37 @@ def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bits(x):
+    """A tensor's or array's bits, floats viewed as integers of their width,
+    so that equality of two is bit for bit, a NaN's included."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        if not x.is_floating_point():
+            return x
+        return x.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[x.element_size()])
+    x = np.asarray(x)
+    return x.view(f"i{x.itemsize}") if x.dtype.kind == "f" else x
+
+
+def same_bits(a, b):
+    """Two tensors (or arrays) equal bit for bit, NaNs included."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(bits(np.asarray(a)), bits(np.asarray(b)))
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        (bits(a) == bits(b)).all())
+
+
+def peak_memory(torch, device):
+    """Reset the device's peak-memory count; returns a function that gives
+    the peak since then above what was allocated at the reset, bytes."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return lambda: torch.cuda.max_memory_allocated(device) - base
 
 
 def rollout_ops(samples, T, W, stats):
@@ -977,7 +1063,9 @@ def main() -> int:
                                 q0=q0_b.astype(np.float32), device=device)
     run_batch = lambda: m.simulate_batch(arm, cfg_b, sim, ref_b, states_b,
                                          BATCH_STEPS, backend="cuda")
+    peak_of = peak_memory(torch, device)
     final_b, rec_b = run_batch()
+    peak_b = peak_of()
     for field, v in zip(rec_b._fields, rec_b):
         if v.dtype.is_floating_point:
             check(bool(torch.isfinite(v).all()), f"batch {field} not finite")
@@ -990,7 +1078,9 @@ def main() -> int:
               f"batch scenario 0 {field} differs from its run alone")
     print(f"batch: {BATCH} scenarios x {BATCH_STEPS} steps (K=128, T=30) "
           f"finite; scenario 0 == its run alone, bitwise; "
-          f"{int((~rec_b.done[-1]).sum())} scenarios live at the end")
+          f"{int((~rec_b.done[-1]).sum())} scenarios live at the end; peak "
+          f"device memory {peak_b / 1e9:.3f} GB above what was allocated "
+          f"before (graph captures included)")
 
     # ---- 10. timing ----------------------------------------------------
     x1 = torch.cat([state0.q, state0.dq])[None]
@@ -1160,9 +1250,11 @@ def main() -> int:
 
     # ---- 12. the fleet path --------------------------------------------
     cuda_sim.FLEET_LAUNCHES = 0
+    peak_of = peak_memory(torch, device)
     final_f, rec_f = m.simulate_fused_batch(arm, cfg_b, sim, ref_b, states_b,
                                             FLEET_STEPS)
     torch.cuda.synchronize()
+    peak_f = peak_of()
     fleet_launches = cuda_sim.FLEET_LAUNCHES
     check(fleet_launches >= 1, "the fleet path launched no fleet kernel")
     print(f"fleet path: simulate_fused_batch {BATCH} scenarios x "
@@ -1217,7 +1309,9 @@ def main() -> int:
           f"bitwise; "
           f"on-path mean over live steps, by scenario: median "
           f"{np.median(onp):.3f} mm, p95 {np.percentile(onp, 95):.3f} mm "
-          f"(not gated); {n_frozen} of {BATCH} scenarios at the path end")
+          f"(not gated); {n_frozen} of {BATCH} scenarios at the path end; "
+          f"peak device memory {peak_f / 1e9:.3f} GB above what was "
+          f"allocated before")
 
     # ---- 13. the CLI ---------------------------------------------------
     from mppi_robotarm_tpu_torch import cli
@@ -1429,12 +1523,12 @@ def main() -> int:
     dr_root = os.path.join(ROOT, "build", "chip_smoke_dryrun")  # gitignored
     shutil.rmtree(dr_root, ignore_errors=True)
 
-    def run_dryrun(name, data, samples, *programs):
+    def run_dryrun(name, data, samples, *programs, extra=()):
         out_dir = os.path.join(dr_root, name)
         t0 = time.perf_counter()
         rc = dryrun.main(["--world", "2", "--data", str(data), "--samples",
                           str(samples), "--device", "cuda", "--out", out_dir,
-                          "--size", "full", "--programs", *programs])
+                          "--size", "full", "--programs", *programs, *extra])
         check(rc == 0, f"dryrun {name} exited {rc}")
         ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
                  for r in range(2)]
@@ -1529,14 +1623,17 @@ def main() -> int:
         check(bool(z["fleet_checkpoint_bitwise"]),
               f"sharded fleet rank {d}: checkpoint round trip not bitwise")
     fleet_us = [float(z["fleet_us_per_launch_step"]) for z in ranks]
+    fleet_peak = [int(z["fleet_peak_bytes"]) for z in ranks]
     print(f"sharded fleet [{card}]: mesh 2x1 on cuda:0 over gloo, {BATCH} x "
           f"K=128, T=30, {FLEET_STEPS} steps, {b_loc} scenarios a rank: each "
           f"rank's records, u_final and step == its rows of phase 12's "
           f"unsharded simulate_fused_batch, bitwise; dist checkpoint round "
           f"trip bitwise; {fleet_us[0]:.2f} / {fleet_us[1]:.2f} us per "
           f"launch-step by rank with both ranks on the card (phase 14: "
-          f"{fleet_ms * 1e3:.2f} for all {BATCH} alone); {wall:.1f} s with "
-          f"the ranks' start")
+          f"{fleet_ms * 1e3:.2f} for all {BATCH} alone); peak device memory "
+          f"by rank {fleet_peak[0] / 1e9:.3f} / {fleet_peak[1] / 1e9:.3f} "
+          f"GB; {wall:.1f} s with the ranks' start")
+    del ranks
 
     # ---- 18. the debug path on the card --------------------------------
     from mppi_robotarm_tpu_torch.utils.debug import checked_solve, debug_mode
@@ -1587,23 +1684,90 @@ def main() -> int:
     # ---- 19. pathgen and compat on the card ----------------------------
     from mppi_robotarm_tpu_torch.compat import (Arm_Dynamic,
                                                 MPPIControllerForPathTracking)
-    from mppi_robotarm_tpu_torch.sim.pathgen import generate_circle_path
+    from mppi_robotarm_tpu_torch.ops import cuda_pathgen
+    from mppi_robotarm_tpu_torch.sim.pathgen import (circle_targets,
+                                                     generate_circle_path)
+
+    def in_bands(d):
+        return d[0:2].max() <= 1e-6 and d[2:4].max() <= 1e-5 \
+            and d[4:6].max() <= 1e-3
 
     t0 = time.perf_counter()
-    gen = generate_circle_path(arm, 2000)
+    generate_circle_path(arm, PATHGEN_STEPS)     # the first call
+    torch.cuda.synchronize()
+    gen_first_s = time.perf_counter() - t0
+    cuda_pathgen.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gen = generate_circle_path(arm, PATHGEN_STEPS)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    g1_launches = cuda_pathgen.LAUNCHES
+    check(g1_launches == 1, f"generate_circle_path on cuda made "
+          f"{g1_launches} pathgen_kernel launches, not one")
+    # no per-step loop: the call's device events do not grow with the steps
+    gen_events = {}
+    for n in (PATHGEN_STEPS, 2 * PATHGEN_STEPS):
+        for _ in range(fused_timing.PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                generate_circle_path(arm, n)
+                torch.cuda.synchronize()
+            gen_events[n] = sum(e.count for e in prof.key_averages()
+                                if fused_timing.device_total(e) > 0)
+            if gen_events[n]:
+                break
+    check(0 < gen_events[PATHGEN_STEPS]
+          and abs(gen_events[2 * PATHGEN_STEPS] - gen_events[PATHGEN_STEPS])
+          < PATHGEN_STEPS, f"generate_circle_path on cuda: {gen_events} "
+          f"device events by steps, a count that grows with the steps")
     t0 = time.perf_counter()
-    gen_cpu = generate_circle_path(arm, 2000, device="cpu")
+    gen_cpu = generate_circle_path(arm, PATHGEN_STEPS, device="cpu")
     gen_cpu_s = time.perf_counter() - t0
     dg = (gen.cpu() - gen_cpu).abs().amax(0).numpy()
-    check(np.isfinite(gen.cpu().numpy()).all() and dg[0:2].max() <= 1e-6
-          and dg[2:4].max() <= 1e-5 and dg[4:6].max() <= 1e-3,
+    check(np.isfinite(gen.cpu().numpy()).all() and in_bands(dg),
           f"generate_circle_path on cuda vs the CPU: max |d| by column {dg}")
-    print(f"pathgen: generate_circle_path(2000) on cuda {gen_s:.2f} s, on the "
-          f"CPU {gen_cpu_s:.2f} s; max |cuda - cpu| by column "
-          f"{np.array2string(dg, precision=2)} (bands x, y 1e-6, dq 1e-5, "
-          f"u 1e-3)")
+    print(f"pathgen: generate_circle_path({PATHGEN_STEPS}) on cuda "
+          f"{gen_s * 1e3:.2f} ms (its first call {gen_first_s * 1e3:.2f} "
+          f"ms), pathgen_kernel launches {g1_launches}, device events "
+          f"{gen_events[PATHGEN_STEPS]} at {PATHGEN_STEPS} steps and "
+          f"{gen_events[2 * PATHGEN_STEPS]} at {2 * PATHGEN_STEPS} (the "
+          f"targets' batched calls and the kernel); on the CPU "
+          f"{gen_cpu_s:.2f} s; max |cuda - cpu| "
+          f"by column {np.array2string(dg, precision=2)} (bands x, y 1e-6, "
+          f"dq 1e-5, u 1e-3)")
+    # the kernel against its plain version on the same card tensors
+    g1_err, g1_ms, g1_plain_ms = 0.0, None, None
+    for dtype in (torch.float32, torch.float64):
+        tgt = circle_targets(PATHGEN_STEPS, 0.003, 2.0 * math.pi / 6.0,
+                             dtype, device)
+        g1_args = (arm, *tgt, 0.003, 100.0, 20.0)
+        k_rows = cuda_pathgen.pathgen(*g1_args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_rows = cuda_pathgen.pathgen_reference(*g1_args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        cpu_args = (arm, *(t.cpu() for t in tgt), 0.003, 100.0, 20.0)
+        t0 = time.perf_counter()
+        cuda_pathgen.pathgen_reference(*cpu_args)
+        plain_cpu_s = time.perf_counter() - t0
+        d = (k_rows - p_rows).abs().amax(0).cpu().numpy()
+        check(np.isfinite(k_rows.cpu().numpy()).all() and in_bands(d),
+              f"pathgen_kernel {dtype} vs its plain version: max |d| by "
+              f"column {d}")
+        g1_err = max(g1_err, float(d.max()))
+        us = fused_timing.profiled_us(lambda: cuda_pathgen.pathgen(*g1_args),
+                                      5, lambda k: "pathgen" in k)
+        check(bool(us), f"the profiler saw no pathgen_kernel ({dtype})")
+        k_ms = sum(us.values()) / 1e3
+        if dtype == torch.float32:
+            g1_ms, g1_plain_ms = k_ms, plain_s * 1e3
+        print(f"timing [{card}]: pathgen_kernel {dtype} at "
+              f"{PATHGEN_STEPS} steps: {k_ms:.4f} ms device time a launch "
+              f"({k_ms / PATHGEN_STEPS * 1e6:.1f} ns a step); its plain "
+              f"version (the torch loop) {plain_s:.3f} s on the card, "
+              f"{plain_cpu_s:.3f} s on the CPU; kernel vs plain on the card: "
+              + ("bitwise" if torch.equal(k_rows, p_rows) else
+                 f"max |d| by column {np.array2string(d, precision=2)}"))
     ref_c = m.synth_circle_path(2000, dtype=np.float64)
     np.random.seed(0)
     ctrl = MPPIControllerForPathTracking(
@@ -1726,8 +1890,293 @@ def main() -> int:
           f"{plain_scale_ms * 1e3:.2f} us and {plain_finish_ms * 1e3:.2f} "
           f"us")
 
+    # ---- 22. BASELINE config 5: 32,768 scenarios on one card ------------
+    q0_5 = (np.array([[1.1522, -1.2661]])
+            + 0.01 * np.random.default_rng(9).normal(size=(CONFIG5, 2)))
+    check(np.array_equal(q0_5[:BATCH], q0_b),
+          "config 5's first q0 rows are not phase 9's fleet")
+    states_5 = m.init_sim_batch(cfg_b, sim, np.arange(CONFIG5),
+                                q0=q0_5.astype(np.float32), device=device)
+    cap_5 = loop._FUSED_MAX_STEPS // CONFIG5
+    want_5 = -(-FLEET_STEPS // cap_5)
+    cuda_sim.FLEET_LAUNCHES = 0
+    peak_of = peak_memory(torch, device)
+    t0 = time.perf_counter()
+    final_5, rec_5 = m.simulate_fused_batch(arm, cfg_b, sim, ref_b, states_5,
+                                            FLEET_STEPS)
+    torch.cuda.synchronize()
+    wall_5 = time.perf_counter() - t0
+    peak_5 = peak_of()
+    launches_5 = cuda_sim.FLEET_LAUNCHES
+    check(launches_5 == want_5, f"config 5 fused: {launches_5} fleet_kernel "
+          f"launches, not {want_5} of at most {cap_5} steps")
+    finite_5 = torch.ones(CONFIG5, dtype=torch.bool, device=device)
+    for field, v in zip(rec_5._fields, rec_5):
+        check(tuple(v.shape[:2]) == (FLEET_STEPS, CONFIG5),
+              f"config 5 fused record {field} shape {tuple(v.shape)}")
+        if v.dtype.is_floating_point:
+            finite_5 &= torch.isfinite(v).reshape(FLEET_STEPS, CONFIG5,
+                                                  -1).all(-1).all(0)
+    finite_5 &= torch.isfinite(final_5.q).all(-1)
+    for field, a, b in zip(rec_5._fields, rec_5, rec_f):
+        check(same_bits(a[:, :BATCH], b), f"config 5 fused {field}: "
+              f"scenarios 0-{BATCH - 1} differ from phase 12's run")
+    check(all(same_bits(a[:BATCH], b) for a, b in zip(
+        loop._state_tensors(final_5), loop._state_tensors(final_f))),
+        f"config 5 fused: the final state of scenarios 0-{BATCH - 1} "
+        f"differs from phase 12's")
+
+    def alone_5(b):
+        """Scenario b of the fleet run alone on the fused kernel, held to
+        its rows and final state bit for bit."""
+        alone = m.init_sim(cfg_b, sim, seed=b, device=device)._replace(
+            q=states_5.q[b])
+        fin_1, rec_1 = m.simulate_fused(arm, cfg_b, sim, ref_b, alone,
+                                        FLEET_STEPS)
+        for field, a, c in zip(rec_5._fields, rec_5, rec_1):
+            check(same_bits(a[:, b], c), f"config 5 fused scenario {b} "
+                  f"{field} differs from its simulate_fused run alone")
+        check(same_bits(fin_1.mppi.u_prev, final_5.mppi.u_prev[b])
+              and same_bits(fin_1.q, final_5.q[b])
+              and int(fin_1.step) == int(final_5.step[b]),
+              f"config 5 fused scenario {b}: final state differs from its "
+              f"run alone")
+
+    for b in CONFIG5_SPREAD:
+        alone_5(b)
+    # a scenario that leaves the finite numbers is one that reached the
+    # path's closure rows (synth_circle_path's θ≈2π overrides: the rows
+    # there repeat (1.4, 0.8), the index stops at the first of them, whose
+    # dq row is the override's jump, 18 rad/s) and diverged there, as it
+    # does alone on the fused kernel
+    xy_moves = np.any(np.diff(m.synth_circle_path(2000)[:, :2], axis=0) != 0,
+                      axis=1)
+    closure = int(np.flatnonzero(~xy_moves)[0])
+    diverged = []
+    for b in (~finite_5).nonzero().flatten().tolist():
+        ok_rows = torch.stack([torch.isfinite(v[:, b]).reshape(
+            FLEET_STEPS, -1).all(-1) for v in rec_5
+            if v.dtype.is_floating_point]).all(0)
+        first = int((~ok_rows).nonzero()[0]) if not bool(ok_rows.all()) \
+            else FLEET_STEPS
+        wp_first = int(rec_5.wp_idx[min(first, FLEET_STEPS - 1), b])
+        check(wp_first >= closure, f"config 5 fused scenario {b}: not finite "
+              f"from step {first} at waypoint {wp_first}, before the path's "
+              f"closure rows ({closure})")
+        alone_5(b)
+        diverged.append((b, first, wp_first))
+    s_h, r_h1 = m.simulate_fused_batch(arm, cfg_b, sim, ref_b, states_5, half)
+    s_h2, r_h2 = m.simulate_fused_batch(arm, cfg_b, sim, ref_b, s_h,
+                                        FLEET_STEPS - half)
+    for field, a, b1, b2 in zip(rec_5._fields, rec_5, r_h1, r_h2):
+        b = torch.cat([b1, b2])
+        if field == "ref_xy":     # indexed from where a frozen one froze
+            a, b = a[~rec_5.done], b[~rec_5.done]
+        check(same_bits(a, b),
+              f"config 5 fused chained record {field} differs from one run")
+    check(all(same_bits(a, b) for a, b in zip(
+        loop._state_tensors(s_h2), loop._state_tensors(final_5))),
+        "config 5 fused chained final state differs from one run")
+    del s_h, r_h1, r_h2, s_h2
+    onp_5 = onpath_by_scenario_mm(rec_5, m.synth_circle_path(2000)[:, 0:2])
+    # the fleet kernel alone, one launch of CONFIG5_TIME_STEPS steps
+    fleet_args_5 = (arm, cfg_b, sim, ref_b, states_5.q, states_5.dq,
+                    states_5.mppi.u_prev.contiguous(), states_5.mppi.wp_idx,
+                    states_5.seed)
+    t_5 = cuda_time(lambda: cuda_sim.fused_sim_run_batched(
+        *fleet_args_5, CONFIG5_TIME_STEPS, step0=states_5.step, group=8), 3)
+    k3_5_ms = min(t_5) / CONFIG5_TIME_STEPS
+    # the path under the profiler: the fleet kernel's device time against
+    # the run's, the rest being the launches' time outside the kernel
+    for _ in range(fused_timing.PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m.simulate_fused_batch(arm, cfg_b, sim, ref_b, states_5,
+                                   FLEET_STEPS)
+            torch.cuda.synchronize()
+            prof_wall_5 = time.perf_counter() - t0
+        k3_dev_5 = [(e.count, fused_timing.device_total(e))
+                    for e in prof.key_averages() if "fleet_kernel" in e.key]
+        if k3_dev_5:
+            break
+    check(bool(k3_dev_5), "the profiler saw no fleet_kernel in the config 5 "
+          "path")
+    k3_dev_s = sum(t for _, t in k3_dev_5) / 1e6
+    outside_5 = prof_wall_5 - k3_dev_s
+    print(f"config 5 fused [{card}]: simulate_fused_batch {CONFIG5} x "
+          f"{FLEET_STEPS} steps (K=128, T=30): {launches_5} fleet_kernel "
+          f"launches of at most {cap_5} steps; records "
+          f"({FLEET_STEPS}, {CONFIG5}, .); scenarios 0-{BATCH - 1} == phase "
+          f"12's run and final state, bitwise; scenarios "
+          f"{list(CONFIG5_SPREAD)} == simulate_fused alone, bitwise; {half} + "
+          f"{FLEET_STEPS - half} chained == one run, bitwise; records finite "
+          f"but for {len(diverged)} scenario(s) (scenario, first non-finite "
+          f"step, its waypoint: {diverged}) that reached the closure rows "
+          f"from {closure} on and diverged there, each == its run alone, "
+          f"bitwise; on-path mean over live steps, by finite scenario: "
+          f"median {np.nanmedian(onp_5):.3f} mm, p95 "
+          f"{np.nanpercentile(onp_5, 95):.3f} mm (not gated; {BATCH}: "
+          f"{np.median(onp):.3f}, {np.percentile(onp, 95):.3f}); "
+          f"{int(final_5.done.sum())} at the path end")
+    print(f"timing [{card}]: config 5 fleet_kernel, one launch of "
+          f"{CONFIG5_TIME_STEPS} steps: {k3_5_ms * 1e3:.2f} us/launch-step "
+          f"({CONFIG5 / (k3_5_ms / 1e3):,.0f} scenario-steps/s), runs "
+          f"{[round(t, 2) for t in t_5]} ms (phase 14 at {BATCH}: "
+          f"{fleet_ms * 1e3:.2f} us/launch-step, {rate_f:,.0f} "
+          f"scenario-steps/s); the path: {wall_5:.3f} s wall "
+          f"({wall_5 / FLEET_STEPS * 1e6:.2f} us/step) unprofiled, "
+          f"{prof_wall_5:.3f} s profiled, of which fleet_kernel device time "
+          f"{k3_dev_s:.3f} s in {sum(c for c, _ in k3_dev_5)} launches, "
+          f"outside the kernel {outside_5:.3f} s "
+          f"({outside_5 / prof_wall_5 * 100:.2f} % of the run, "
+          f"{outside_5 / launches_5 * 1e3:.2f} ms a launch); peak device "
+          f"memory {peak_5 / 1e9:.3f} GB above what was allocated before "
+          f"({BATCH}: {peak_f / 1e9:.3f})")
+    # the per-step path
+    cuda_solve.LAUNCHES = cuda_solve.COMBINE_LAUNCHES = 0
+    cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
+    cuda_step.CARRIED_HEADS = 0
+    run_batch5 = lambda: m.simulate_batch(arm, cfg_b, sim, ref_b, states_5,
+                                          BATCH_STEPS, backend="cuda")
+    peak_of = peak_memory(torch, device)
+    final_b5, rec_b5 = run_batch5()
+    torch.cuda.synchronize()
+    peak_b5 = peak_of()
+    counts_5 = (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES,
+                cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
+                cuda_step.CARRIED_HEADS)
+    chunks_b = -(-BATCH_STEPS // graph_steps)
+    check(counts_5 == (BATCH_STEPS, 0, chunks_b, BATCH_STEPS,
+                       BATCH_STEPS - chunks_b),
+          f"config 5 per-step: (solve, combine, head, tail, carried) "
+          f"launches {counts_5}, not a solve and a tail a step and a head a "
+          f"chunk")
+    for field, v in zip(rec_b5._fields, rec_b5):
+        if v.dtype.is_floating_point:
+            check(bool(torch.isfinite(v).all()),
+                  f"config 5 per-step {field} not finite")
+    for field, a, b in zip(rec_b5._fields, rec_b5, rec_b):
+        check(same_bits(a[:, :BATCH], b), f"config 5 per-step {field}: "
+              f"scenarios 0-{BATCH - 1} differ from phase 9's run")
+    check(all(same_bits(a[:BATCH], b) for a, b in zip(
+        loop._state_tensors(final_b5), loop._state_tensors(final_b))),
+        f"config 5 per-step: the final state of scenarios 0-{BATCH - 1} "
+        f"differs from phase 9's")
+    bt_5 = cuda_time(run_batch5, 3)
+    print(f"config 5 per-step [{card}]: simulate_batch(backend='cuda') "
+          f"{CONFIG5} x {BATCH_STEPS} steps: solve, head, tail launches "
+          f"{counts_5[0]}, {counts_5[2]}, {counts_5[3]} ({counts_5[4]} "
+          f"carrying the head); finite; scenarios 0-{BATCH - 1} == phase "
+          f"9's run and final state, bitwise; {min(bt_5) / BATCH_STEPS * 1e3:.2f}"
+          f" us/step ({CONFIG5 * BATCH_STEPS / (min(bt_5) / 1e3):,.0f} "
+          f"scenario-steps/s), runs {[round(t, 2) for t in bt_5]} ms "
+          f"({BATCH}: {min(bt) / BATCH_STEPS * 1e3:.2f} us/step, phase 10); "
+          f"peak device memory {peak_b5 / 1e9:.3f} GB above what was "
+          f"allocated before, captures included ({BATCH}: "
+          f"{peak_b / 1e9:.3f})")
+    del final_b5, rec_b5
+    # the (2 x 1) data-sharded fleet, 16,384 scenarios a rank
+    ranks, wall = run_dryrun("2x1_config5", 2, 1, "fleet", extra=(
+        "--fleet-scenarios", str(CONFIG5)))
+    b_5 = CONFIG5 // 2
+    for z in ranks:
+        d = int(z["data_rank"])
+        rows = slice(d * b_5, (d + 1) * b_5)
+        for f in dryrun.FLEET_FIELDS:
+            check(same_bits(torch.as_tensor(z[f"fleet_{f}"], device=device),
+                            getattr(rec_5, f)[:, rows]),
+                  f"config 5 sharded fleet rank {d}: {f} != the unsharded "
+                  f"fleet's")
+        check(same_bits(z["fleet_u_final"],
+                        final_5.mppi.u_prev[rows].cpu().numpy())
+              and same_bits(z["fleet_step"], final_5.step[rows].cpu().numpy()),
+              f"config 5 sharded fleet rank {d}: final state != the "
+              f"unsharded fleet's")
+        check(bool(z["fleet_checkpoint_bitwise"]),
+              f"config 5 sharded fleet rank {d}: checkpoint round trip not "
+              f"bitwise")
+    us_5 = [float(z["fleet_us_per_launch_step"]) for z in ranks]
+    peak_r5 = [int(z["fleet_peak_bytes"]) for z in ranks]
+    del ranks
+    print(f"config 5 sharded fleet [{card}]: mesh 2x1 on cuda:0 over gloo, "
+          f"{CONFIG5} x K=128, T=30, {FLEET_STEPS} steps, {b_5} scenarios a "
+          f"rank: each rank's records, u_final and step == its rows of the "
+          f"unsharded run, bitwise; checkpoint round trip bitwise; "
+          f"{us_5[0]:.2f} / {us_5[1]:.2f} us per launch-step by rank, both "
+          f"ranks sharing the one card (not a scaling number; {BATCH}: "
+          f"{fleet_us[0]:.2f} / {fleet_us[1]:.2f}); peak device memory by "
+          f"rank {peak_r5[0] / 1e9:.3f} / {peak_r5[1] / 1e9:.3f} GB; "
+          f"{wall:.1f} s with the ranks' start")
+    del rec_5, final_5, states_5
+
+    # ---- 23. the soak: 40,000 steps to a 10-revolution path's end -------
+    from mppi_robotarm_tpu_torch.tools import longrun
+
+    path_k = m.synth_circle_path(SOAK_WAYPOINTS, revolutions=SOAK_REVOLUTIONS)
+    ref_k = torch.as_tensor(path_k, device=device)
+    xy_k = path_k[:, 0:2]
+    cuda_sim.LAUNCHES = 0
+    soak_fin, soak_rec, soak_s = longrun.run_fused(arm, cfg, sim, ref_k,
+                                                   SOAK_STEPS)
+    soak_k1 = cuda_sim.LAUNCHES
+    check(soak_k1 == 1, f"the soak's fused run made {soak_k1} launches")
+    cuda_sim.LAUNCHES = 0
+    chain_fin, chain_rec, chain_s = longrun.run_fused(
+        arm, cfg, sim, ref_k, SOAK_STEPS, chunks=SOAK_CHUNKS)
+    check(cuda_sim.LAUNCHES == SOAK_CHUNKS, f"the soak's chained run made "
+          f"{cuda_sim.LAUNCHES} launches, not {SOAK_CHUNKS}")
+    for field, a, b in zip(soak_rec._fields, soak_rec, chain_rec):
+        if field == "ref_xy":     # indexed from where the run froze
+            a, b = a[~soak_rec.done], b[~soak_rec.done]
+        check(torch.equal(a, b), f"the soak's {SOAK_CHUNKS} chained runs: "
+              f"{field} differs from one launch")
+    check(all(torch.equal(a, b) for a, b in zip(
+        (soak_fin.step, soak_fin.q, soak_fin.dq, *soak_fin.mppi,
+         soak_fin.done),
+        (chain_fin.step, chain_fin.q, chain_fin.dq, *chain_fin.mppi,
+         chain_fin.done))),
+        "the soak's chained final state differs from one launch")
+    cuda_solve.LAUNCHES = 0
+    cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
+    graph_fin, graph_rec, graph_s = longrun.run_per_step(arm, cfg, sim, ref_k,
+                                                         SOAK_STEPS)
+    soak_counts = (cuda_solve.LAUNCHES, cuda_step.HEAD_LAUNCHES,
+                   cuda_step.TAIL_LAUNCHES)
+    check(soak_counts == (SOAK_STEPS, -(-SOAK_STEPS // graph_steps),
+                          SOAK_STEPS),
+          f"the soak's graph loop made (solve, head, tail) launches "
+          f"{soak_counts}")
+    for label, fin, rec_k in (("fused", soak_fin, soak_rec),
+                              ("graph loop", graph_fin, graph_rec)):
+        c = longrun.soak_checks(fin, rec_k, xy_k)
+        first = c["onpath_first_mm"]
+        n_first = min(c["live_steps"], longrun.ONPATH_FIRST)
+        check(c["finite"], f"soak {label}: a record is not finite")
+        check(c["reached_end"] and c["frozen"], f"soak {label}: the path's "
+              f"end not reached, or the state not frozen after it: {c}")
+        check(c["counter"], f"soak {label}: the step counter "
+              f"{int(fin.step)} != the live steps {c['live_steps']}")
+        check(first < ONPATH_GATE_MM, f"soak {label}: on-path mean "
+              f"{first:.3f} mm over the first {n_first} live steps")
+        print(f"soak [{card}]: {label}, benchmark_preset, {SOAK_STEPS} steps "
+              f"on a {SOAK_REVOLUTIONS}-revolution {SOAK_WAYPOINTS}-point "
+              f"circle: finite; the path's end at step {c['end_step']}, then "
+              f"frozen with u and the cost lanes zeroed; step counter "
+              f"{int(fin.step)} == the live steps; on-path mean {first:.3f} "
+              f"mm over the first {n_first} live steps (gate "
+              f"{ONPATH_GATE_MM} mm), {c['onpath_mean_mm']:.3f} mm over all "
+              f"{c['live_steps']} (reported)")
+    print(f"soak [{card}]: the fused kernel {soak_s:.3f} s in one launch, "
+          f"{chain_s:.3f} s in {SOAK_CHUNKS} chained launches (== the one "
+          f"launch, bitwise, records and final state); the graph loop "
+          f"{graph_s:.3f} s in {soak_counts[1]} chunks")
+    for line in longrun.report_lines(longrun.compare(soak_rec, graph_rec,
+                                                     xy_k)):
+        print(f"soak, fused vs graph loop: {line}")
+    del soak_rec, chain_rec, graph_rec
+
     check("jax" not in sys.modules,
-          "the port imported JAX during phases 2-21")
+          "the port imported JAX during phases 2-23")
 
     # ---- bounds, from this run's shapes (see ``bound``) ----------------
     f4 = 4
@@ -1794,6 +2243,10 @@ def main() -> int:
     scale_bound = bound(3 + 1 + 2 * T, (3 + 2 * T + 1 + 2 * T) * f4)
     finish_bound = bound(2 * T * (2 + 2 * cfg.filter_window ** 2),
                          (1 + 2 * T + 2 * T + 2 * T) * f4)
+    # pathgen_kernel at phase 19's main shape (float32, PATHGEN_STEPS): it
+    # reads q0 and the three (N, 2) targets and writes the (N, 6) rows
+    g1_bound = bound(PATHGEN_STEPS * PATHGEN_OPS,
+                     (2 + 3 * 2 * PATHGEN_STEPS + 6 * PATHGEN_STEPS) * f4)
     p1_bound = bound(xp.numel(), 2 * xp.numel() * f4)
     p2_bound = bound(xp.numel(), (2 * xp.numel() + b2.numel()) * f4)
     print(f"bounds [{card}]: sim_kernel {k1_bound[0] * 1e3:.4f} us/step "
@@ -1808,7 +2261,8 @@ def main() -> int:
           f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
           f"({p2_bound[1]}), shard_scale_kernel {scale_bound[0] * 1e3:.5f} "
           f"us ({scale_bound[1]}), shard_finish_kernel "
-          f"{finish_bound[0] * 1e3:.5f} us ({finish_bound[1]})")
+          f"{finish_bound[0] * 1e3:.5f} us ({finish_bound[1]}), "
+          f"pathgen_kernel {g1_bound[0] * 1e3:.5f} us ({g1_bound[1]})")
     issue_us = lambda ops: ops / UNFUSED_OPS * 1e6
     print(f"operations at the unfused FP32 issue rate, "
           f"{UNFUSED_OPS / 1e12:g} T/s (not bound_ms) [{card}]: sim_kernel "
@@ -1862,7 +2316,11 @@ def main() -> int:
               "mppi_robotarm_tpu/parallel/sharded.py:143-149 (Σwε = A/η, the "
               "median filter and the u update after the psum, fused by XLA; "
               "no Pallas kernel)", by_rank["finish"][0], s34_err, finish_ms,
-              plain_finish_ms, finish_bound)]}))
+              plain_finish_ms, finish_bound),
+        entry("pathgen_kernel", "pathgen_kernel.cu",
+              "mppi_robotarm_tpu/sim/pathgen.py:55-71 (generate_circle_path's "
+              "lax.scan, compiled by XLA; no Pallas kernel)", g1_launches,
+              g1_err, g1_ms, g1_plain_ms, g1_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -128,12 +128,14 @@ C_FUNCTIONS = {
     "mppi_step_tail_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "mppi_shard_scale_launch": ([_P] * 5 + [_I, _I, _F, _P], _I),
     "mppi_shard_finish_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "mppi_pathgen_launch": ([_P] * 5 + [_I, _I, _P, _P], _I),
     "mppi_error_string": ([_I], ctypes.c_char_p),
     "mppi_sim_params_size": ([], _I),
     "mppi_solve_params_size": ([], _I),
     "mppi_step_params_size": ([], _I),
     "mppi_step_head_args_size": ([], _I),
     "mppi_step_tail_args_size": ([], _I),
+    "mppi_pathgen_params_size": ([], _I),
 }
 
 
@@ -142,6 +144,7 @@ def load_library() -> ctypes.CDLL:
     """Build if needed (printing nvcc's report to standard error), load the
     library, declare its C functions and check that each parameter struct
     has the size of its ctypes mirror."""
+    from .cuda_pathgen import _PathgenParams
     from .cuda_sim import _SimParams
     from .cuda_solve import _SolveParams
     from .cuda_step import _HeadArgs, _StepParams, _TailArgs
@@ -156,4 +159,5 @@ def load_library() -> ctypes.CDLL:
     _check_abi(lib, "mppi_step_params_size", _StepParams)
     _check_abi(lib, "mppi_step_head_args_size", _HeadArgs)
     _check_abi(lib, "mppi_step_tail_args_size", _TailArgs)
+    _check_abi(lib, "mppi_pathgen_params_size", _PathgenParams)
     return lib

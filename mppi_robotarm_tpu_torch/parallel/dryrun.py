@@ -7,7 +7,8 @@ writing its blocks to ``OUT/rank{r}.npz``:
 
     python -m mppi_robotarm_tpu_torch.parallel.dryrun --world N --data D \\
         --samples S --device cuda|cpu --out DIR [--size tiny|full] \\
-        [--programs step-eager step-cuda step-plain fleet]
+        [--programs step-eager step-cuda step-plain fleet] \\
+        [--fleet-scenarios N]
 
 Programs (PRNG mode; every scenario's seed is its index):
   * ``step-eager`` / ``step-cuda`` — the sample-sharded closed-loop step
@@ -26,12 +27,17 @@ H = 5, 2·D scenarios, a 200-point circle, 3 steps; the fleet the same);
 ``full`` the published one: the step at ``benchmark_preset`` (K = 1024,
 H = 50), one scenario a data rank, on ``synth_circle_path(2000)`` for
 1500 steps, and the fleet of 4096 scenarios × K = 128, T = 30 (q0 as
-:func:`fleet_q0` gives it) for 2000 steps.  Each rank also
-stores µs a step (host clock, device synchronised), its 'samples'
-all-reduces' µs a solve, the launches of the solve kernel and of the four
-step kernels (``ops/cuda_step.py``'s head and tail,
-``ops/cuda_shard.py``'s scale and finish) in the step's loop, and
-whether it imported JAX.
+:func:`fleet_q0` gives it) for 2000 steps.  ``--fleet-scenarios N`` sets
+the fleet's scenarios at either size (a multiple of D; the first 4096 of
+a larger full fleet are the 4096-scenario fleet's, as NumPy draws q0 row
+by row): 32768 is BASELINE config 5, 16384 a rank on a (2 x 1) mesh.
+Each rank also stores µs a step (host clock, device synchronised), its
+'samples' all-reduces' µs a solve, the launches of the solve kernel and of
+the four step kernels (``ops/cuda_step.py``'s head and tail,
+``ops/cuda_shard.py``'s scale and finish) in the step's loop, the fleet's
+µs per launch-step and, on the card, its peak device memory
+(``torch.cuda.max_memory_allocated`` after a reset), and whether it
+imported JAX.
 
 On ``cuda`` the ranks share the machine's cards round robin; NCCL refuses
 two ranks on one card, so they then talk over gloo (``parallel/mesh.py``).
@@ -70,17 +76,25 @@ def parse_args(argv=None):
     ap.add_argument("--size", choices=("tiny", "full"), default="tiny")
     ap.add_argument("--programs", nargs="+", choices=PROGRAMS,
                     default=list(PROGRAMS))
+    ap.add_argument("--fleet-scenarios", type=int, default=None,
+                    help="the fleet's scenarios (default: the size's, 2·D "
+                         "tiny, 4096 full)")
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.data * a.samples != a.world:
         ap.error(f"--data {a.data} x --samples {a.samples} != --world "
                  f"{a.world}")
+    if a.fleet_scenarios is not None and (
+            a.fleet_scenarios < a.data or a.fleet_scenarios % a.data):
+        ap.error(f"--fleet-scenarios {a.fleet_scenarios} is not a positive "
+                 f"multiple of --data {a.data}")
     return a
 
 
-def problem(size: str, data: int, samples: int):
+def problem(size: str, data: int, samples: int, fleet_scenarios=None):
     """The set-ups of a size: (arm, sim, (cfg, path, B, steps) of the step,
-    (cfg, path, B, steps) of the fleet), the paths as NumPy."""
+    (cfg, path, B, steps) of the fleet), the paths as NumPy; the fleet holds
+    ``fleet_scenarios`` scenarios (None: the size's own)."""
     from ..config import benchmark_preset
     from ..sim.paths import synth_circle_path
 
@@ -89,10 +103,11 @@ def problem(size: str, data: int, samples: int):
         cfg = dataclasses.replace(cfg, num_samples=8 * samples, horizon=5)
         path = synth_circle_path(200)
         step = (cfg, path, 2 * data, 3)
-        return arm, sim, step, step
+        return arm, sim, step, (cfg, path, fleet_scenarios or 2 * data, 3)
     path = synth_circle_path(2000)
     fleet_cfg = dataclasses.replace(cfg, num_samples=128, horizon=30)
-    return arm, sim, (cfg, path, data, 1500), (fleet_cfg, path, 4096, 2000)
+    return arm, sim, (cfg, path, data, 1500), (
+        fleet_cfg, path, fleet_scenarios or 4096, 2000)
 
 
 def fleet_q0(size: str, B: int, sim) -> np.ndarray:
@@ -111,6 +126,19 @@ def _sync(device):
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _bits(t):
+    """A tensor's bits (floats viewed as integers of their width), so that
+    equal bits compare equal, a NaN's too: in a large fleet on the full
+    size's 2000-point circle a scenario that reaches the circle's closure
+    rows can diverge to NaN, and its checkpoint must still round-trip."""
+    import torch
+
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 def _launches() -> dict:
@@ -182,7 +210,7 @@ def run_rank(a) -> dict:
     device = (torch.device("cuda", torch.cuda.current_device())
               if a.device == "cuda" else torch.device("cpu"))
     arm, sim, (cfg, path, B, steps), (fcfg, fpath, fB, fsteps) = problem(
-        a.size, a.data, a.samples)
+        a.size, a.data, a.samples, a.fleet_scenarios)
     out = {"data_rank": axis_rank(mesh, DATA_AXIS),
            "samples_rank": axis_rank(mesh, SAMPLES_AXIS)}
     for prog in a.programs:
@@ -193,11 +221,16 @@ def run_rank(a) -> dict:
                 device=device))
             run = make_sharded_fleet(arm, fcfg, sim, mesh, fsteps)
             dist.barrier()
+            cuda = device.type == "cuda"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             final, rec = run(ref, states)
             _sync(device)
             out["fleet_us_per_launch_step"] = (
                 (time.perf_counter() - t0) / fsteps * 1e6)
+            out["fleet_peak_bytes"] = (
+                torch.cuda.max_memory_allocated(device) if cuda else 0)
             for f in FLEET_FIELDS:
                 out[f"fleet_{f}"] = getattr(rec, f)
             out["fleet_u_final"] = final.mppi.u_prev
@@ -206,8 +239,8 @@ def run_rank(a) -> dict:
             save_checkpoint_dist(ckpt, final, mesh)
             back = load_checkpoint_dist(ckpt, mesh, device=device)
             out["fleet_checkpoint_bitwise"] = all(
-                torch.equal(x, y) for x, y in zip(_state_tensors(back),
-                                                  _state_tensors(final)))
+                torch.equal(_bits(x), _bits(y)) for x, y in zip(
+                    _state_tensors(back), _state_tensors(final)))
             continue
         ref = torch.as_tensor(path, device=device)
         states = scenario_shard(mesh, init_sim_batch(
@@ -251,6 +284,8 @@ def launch(a) -> int:
             "--world", str(a.world), "--data", str(a.data), "--samples",
             str(a.samples), "--device", a.device, "--out", a.out, "--size",
             a.size, "--programs", *a.programs]
+    if a.fleet_scenarios is not None:
+        base += ["--fleet-scenarios", str(a.fleet_scenarios)]
     procs = [subprocess.Popen(base + ["--rank", str(r)],
                               env=dict(env, MPPI_PROCESS_ID=str(r)))
              for r in range(a.world)]

@@ -6,7 +6,9 @@ its legacy computed-torque pipeline: IK circle targets (utils.py:41-62) →
 outer-loop PD (utils.py:87-93) → feedback-linearization torque
 (utils.py:65-84) → plant integration.  :func:`generate_circle_path`
 re-creates that closed loop, so the port can synthesise its own reference
-paths in the on-disk format, and :func:`save_path_file` writes them.
+paths in the on-disk format, and :func:`save_path_file` writes them.  The
+loop itself is ``ops/cuda_pathgen.py``'s: one kernel launch on the card,
+its plain version ``pathgen_reference`` on the CPU.
 """
 
 from __future__ import annotations
@@ -19,13 +21,8 @@ from torch.func import jacfwd, vmap
 
 from ..config import ArmParams
 from ..device import resolve_device
-from ..models.arm import (
-    arm_ddq,
-    feedback_linearization,
-    fk_ee,
-    ik_circle,
-    pd_outer_loop,
-)
+from ..models.arm import ik_circle
+from ..ops.cuda_pathgen import pathgen
 
 
 def _ik_r(theta):
@@ -52,9 +49,20 @@ def generate_circle_path(
     dr, ddr are ``torch.func.jacfwd`` of the IK scaled by the constant θ
     rate.  They depend on the step alone, so all of them come from one
     batched call (``vmap`` over θ) before the sequential loop, which then
-    runs the PD law, the torque and the plant step.
+    runs the PD law, the torque and the plant step: on the card one launch
+    of ``csrc/pathgen_kernel.cu``, on the CPU its plain version
+    (``ops/cuda_pathgen.py``).
     """
-    device = resolve_device(device)
+    q0, r, dr, ddr = circle_targets(num_steps, dt, theta_rate, dtype,
+                                    resolve_device(device))
+    return pathgen(arm, q0, r, dr, ddr, dt, kp, kd)
+
+
+def circle_targets(num_steps: int, dt: float, theta_rate: float, dtype,
+                   device):
+    """The closed loop's start and targets: (q0 (2,), r, dr, ddr (N, 2))
+    in ``dtype`` on ``device``, the IK of θ = 0 and of θ = theta_rate·dt·k
+    for each step k, with its rates."""
     k = torch.arange(num_steps, device=device).to(dtype)
     theta = theta_rate * dt * k
     r = vmap(_ik_r)(theta)
@@ -62,20 +70,8 @@ def generate_circle_path(
     # the rates come back cast to the path's dtype
     dr = vmap(jacfwd(_ik_r))(theta).to(dtype) * theta_rate
     ddr = vmap(jacfwd(jacfwd(_ik_r)))(theta).to(dtype) * theta_rate ** 2
-
-    q = _ik_r(torch.zeros((), dtype=dtype, device=device))
-    dq = torch.zeros(2, dtype=dtype, device=device)
-    rows = []
-    for i in range(num_steps):
-        v = pd_outer_loop(q, dq, r[i], dr[i], ddr[i], kp=kp, kd=kd)
-        u1, u2 = feedback_linearization(q[0], q[1], dq[0], dq[1], v[0], v[1],
-                                        arm)
-        ddq1, ddq2 = arm_ddq(q[0], q[1], dq[0], dq[1], u1, u2, arm)
-        dq = dq + dt * torch.stack([ddq1, ddq2])
-        q = q + dt * dq
-        x, y = fk_ee(q[0], q[1], arm.l1, arm.l2)
-        rows.append(torch.stack([x, y, dq[0], dq[1], u1, u2]))
-    return torch.stack(rows)
+    q0 = _ik_r(torch.zeros((), dtype=dtype, device=device))
+    return q0, r.contiguous(), dr, ddr
 
 
 def save_path_file(path: str, rows) -> None:
