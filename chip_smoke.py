@@ -192,7 +192,24 @@ Phases (any failure raises and exits non-zero):
      on-path mean over the first 1500 live steps < 42 mm (bench.py's
      gate); the whole run's on-path mean, the schedule agreement and the
      |q|, |u| envelope between the fused kernel and the graph loop, and
-     each run's seconds, reported.
+     each run's seconds, reported;
+ 24. the benchmark, ``python -m mppi_robotarm_tpu_torch.bench
+     --first-only`` (the port of ``bench.py``, its fused backend alone:
+     the eager backend makes the whole bench some 19 minutes, so the
+     whole bench runs on its own) in a subprocess: exit 0, its last line
+     JSON with exactly bench.py's keys less the fit's and the
+     high-accuracy run's, solves/s finite and > 0, the on-path mean
+     < 42 mm; its line and its seconds printed;
+ 25. the solve kernel at ``tools/extreme_shapes.py``'s five stress shapes
+     (K, T) = (65536, 50), (65536, 200), (8192, 500), (131072, 100) and
+     (1024, 30): the layout and its shared memory, one
+     ``solve(backend="cuda")`` finite in one launch, and the kernel
+     against its plain version on the same inputs at lam = 3e5, injected
+     ε and Philox: S and m bit for bit, u_new within 2e-5, η within 2e-5
+     relative, the noise bit for bit; its device time beside its bound;
+ 26. the gate sweeps as a smoke: ``tools/bench_gate_sweep.py 2 bench``
+     and ``tools/seed_sweep.py 2 200 cuda`` (their ``main``, in this
+     process) exit 0 and print their spread and suggested gate.
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -217,6 +234,7 @@ import json
 import math
 import os
 import shutil
+import subprocess
 import sys
 import time
 import types
@@ -257,6 +275,7 @@ PEAK_OPS = 67e12      # float32 FLOP/s outside the tensor cores, H100 SXM
 UNFUSED_OPS = 33.5e12   # unfused float32 op/s: 132 SMs x 128 lanes x 1.98 GHz
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
 PROBE_TIME_CALLS = 100  # phase 15: launches per device-time window
+BENCH_TIMEOUT_S = 300    # phase 24
 
 
 def check(ok, msg):
@@ -670,18 +689,6 @@ def peak_memory(torch, device):
     return lambda: torch.cuda.max_memory_allocated(device) - base
 
 
-def rollout_ops(samples, T, W, stats):
-    """Operations of ``samples`` Philox-noise rollouts over T steps against
-    a W-row window, counted by hand from the plain per-sample code
-    (``ops/cuda_rollout.py``; each float add, mul, div, compare, select,
-    sin, cos, log, sqrt, exp and each of Philox's 20 integer multiplies as
-    one; PERF.md section 6): per sample-step 101 + 8W for the rollout and
-    cost, 36 for the noise and 4 for Σe·ε; per sample 8W + 35 for the
-    initial trig, the terminal cost and the softmax, and with ``stats``
-    the fused loops' 7 for cost_mean, ESS and entropy."""
-    return samples * (T * (141 + 8 * W) + 8 * W + 35 + (7 if stats else 0))
-
-
 def solve_compare(label, cuda_solve, philox_epsilon, arm, cfg, ref, B,
                   device, rng, noise, **kw):
     """Solve kernels vs their plain twin on one call; returns
@@ -818,6 +825,8 @@ def main() -> int:
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
     from mppi_robotarm_tpu_torch.sim import loop
     from mppi_robotarm_tpu_torch.tools import fused_timing, overhead, sass_loops
+    from mppi_robotarm_tpu_torch.tools.extreme_shapes import (rollout_ops,
+                                                              solve_ops)
 
     check("jax" not in sys.modules, "the port imported JAX")
     device = torch.device("cuda", 0)
@@ -2175,8 +2184,75 @@ def main() -> int:
         print(f"soak, fused vs graph loop: {line}")
     del soak_rec, chain_rec, graph_rec
 
+    # ---- 24. the benchmark: python -m mppi_robotarm_tpu_torch.bench -------
+    from mppi_robotarm_tpu_torch import bench as port_bench
+
+    # the fused backend alone: the eager backend makes the whole bench some
+    # 19 minutes on an H100 (PERF.md), so the whole bench runs on its own;
+    # phase 4 gates the high-accuracy run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mppi_robotarm_tpu_torch.bench",
+         "--first-only"], cwd=ROOT, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    bench_out = proc.stdout.strip().splitlines()
+    line = json.loads(bench_out[-1])
+    notes = [ln[2:] for ln in proc.stderr.splitlines() if ln.startswith("# ")]
+    best = next(ln.split(": ", 1)[1] for ln in notes
+                if ln.startswith("best backend: "))
+    want_keys = {"metric", "value", "unit", "vs_baseline", "on_path_mean_mm"}
+    check(best == "cuda-fused", f"--first-only ran {best}")
+    check(set(line) == want_keys, f"the bench line's keys {sorted(line)}, "
+          f"not {sorted(want_keys)}")
+    check(line["metric"] == port_bench.METRIC and line["unit"] == "solves/s",
+          f"the bench line names {line['metric']} in {line['unit']}")
+    check(math.isfinite(line["value"]) and line["value"] > 0,
+          f"the bench's solves/s {line['value']}")
+    check(line["on_path_mean_mm"] < ONPATH_GATE_MM,
+          f"the bench's on-path mean {line['on_path_mean_mm']} mm")
+    for note in notes:
+        print(f"bench [{card}]: {note}")
+    print(f"bench [{card}]: python -m mppi_robotarm_tpu_torch.bench "
+          f"--first-only: exit 0 in {bench_s:.1f} s, line {bench_out[-1]}")
+
+    # ---- 25. the solve kernel at the stress shapes ---------------------
+    from mppi_robotarm_tpu_torch.tools import extreme_shapes
+
+    rng_x = np.random.default_rng(25)
+    for K_x, T_x in extreme_shapes.SHAPES:
+        t0 = time.perf_counter()
+        row = extreme_shapes.check_shape(K_x, T_x, device, rng_x)
+        print(f"stress shapes [{card}]: "
+              f"{extreme_shapes.row_line(row, time.perf_counter() - t0)}")
+
+    # ---- 26. the gate sweeps, as a smoke -------------------------------
+    from mppi_robotarm_tpu_torch.tools import bench_gate_sweep, seed_sweep
+
+    for tool, args, closing in (
+            (bench_gate_sweep, ["2", "bench"],
+             ("spread over 2 seeds", "suggested gate")),
+            (seed_sweep, ["2", "200", "cuda"],
+             ("[cuda] spread over 2 seeds", "[cuda] suggested gate"))):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(args)
+        tool_name = tool.__name__.rsplit(".", 1)[1]
+        swept = buf.getvalue().splitlines()
+        check(rc == 0, f"{tool_name} {' '.join(args)} exited {rc}")
+        check(all(any(ln.startswith(c) for ln in swept) for c in closing),
+              f"{tool_name} printed no spread: {swept[-6:]}")
+        for ln in swept:
+            print(f"sweep [{card}]: {ln}")
+        print(f"sweep [{card}]: {tool_name} {' '.join(args)}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s")
+
     check("jax" not in sys.modules,
-          "the port imported JAX during phases 2-23")
+          "the port imported JAX during phases 2-26")
 
     # ---- bounds, from this run's shapes (see ``bound``) ----------------
     f4 = 4
@@ -2195,10 +2271,7 @@ def main() -> int:
     # the chip
     n_tiles_1k = cuda_solve._plan(cfg, cfg.num_samples, None, True, True,
                                   1, sm_count)[1]
-    T2 = 2 * cfg.horizon
-    k2_ops = (rollout_ops(cfg.num_samples, cfg.horizon, W, False)
-              + n_tiles_1k * (6 + 2 * T2)
-              + T2 * (3 + 2 * cfg.filter_window ** 2))
+    k2_ops = solve_ops(cfg, n_tiles_1k)
     k2_bound = bound(
         k2_ops,
         (x1.numel() + u1.numel() + win1.numel() + cfg.num_samples

@@ -207,6 +207,23 @@ def _plan(cfg: MPPIConfig, K: int, tile: Optional[int], normalize: bool,
     return tile, -(-K // tile), lanes, group
 
 
+def solve_smem_bytes(cfg: MPPIConfig, tile: int, n_tiles: int,
+                     group: int) -> int:
+    """The dynamic shared memory a launch of the tile pass takes, bytes:
+    ``mppi_solve_launch``'s sum in csrc/solve_kernel.cu.  The window,
+    controls, warp partials and the combine's 2T + 2 floats, then the
+    larger of the ``group`` tiles' noise and costs and, where a block can
+    hold them all, the scenario's ``n_tiles`` partials (else the combine
+    stages them in chunks of what the noise region holds)."""
+    T = cfg.horizon
+    fixed = 4 * cfg.search_idx_len + 2 * T + 16 + 2 * T + 2
+    eps_region = group * tile * (2 * T + 1)
+    staged = n_tiles * (2 * T + 2)
+    region = (staged if n_tiles > 1 and staged > eps_region
+              and 4 * (fixed + staged) <= SMEM_BYTES else eps_region)
+    return 4 * (fixed + region)
+
+
 def _sm_count(device) -> Optional[int]:
     """The SM count of a CUDA device, None for the CPU."""
     if device.type != "cuda":

@@ -6,9 +6,14 @@ returns the (N, 4) [x, y, dq1, dq2] slice the controller consumes.
 ``trajectory.txt``) and ``ref_path_from_joint_log`` turns it into that
 path format.  ``synth_circle_path`` re-synthesises the reference circle
 from the port's IK, so the port runs without the data files.
+``reference_circle_path`` reads the reference's own circle,
+``xydq_circle.txt``, from the copy the checkout keeps in
+``tests/data/reference_golden_run.npz``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -25,6 +30,24 @@ def load_ref_path(path: str, dtype=np.float32) -> np.ndarray:
             f"expected a (N,4) or (N,6) path file, got shape {raw.shape}"
         )
     return np.ascontiguousarray(raw[:, 0:4], dtype=dtype)
+
+
+REFERENCE_RUN = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "tests", "data", "reference_golden_run.npz")
+
+
+def reference_circle_path() -> np.ndarray:
+    """The reference's ``xydq_circle.txt`` as ``np.loadtxt(...)[:, 0:4]``
+    reads it, (2000, 4) float64: ``ref_path`` of the golden run's npz at
+    :data:`REFERENCE_RUN` (``tools/make_reference_golden.py`` stored the
+    file's columns there).  Raises ``FileNotFoundError`` when the npz is
+    missing; nothing stands in for it."""
+    if not os.path.isfile(REFERENCE_RUN):
+        raise FileNotFoundError(f"{REFERENCE_RUN} is missing: it holds the "
+                                f"reference's circle path")
+    with np.load(REFERENCE_RUN) as run:
+        return np.ascontiguousarray(run["ref_path"])
 
 
 def load_joint_log(path: str, dtype=np.float32) -> np.ndarray:

@@ -108,10 +108,13 @@ import torch
 
 import mppi_robotarm_tpu_torch as m
 from mppi_robotarm_tpu_torch.ops import cuda_sim
+from mppi_robotarm_tpu_torch.utils.metrics import (
+    ONPATH_FIRST as ONPATH_STEPS,
+    onpath_mean_mm,
+)
 
 STEPS = 4000
 ROUNDS = 3
-ONPATH_STEPS = 1500   # bench.py:143-150: the first 1500 live steps
 FLEET, FLEET_STEPS = 4096, 1000     # BASELINE config 4, chip_smoke phase 14
 SOLVE_CALLS = 20      # solve calls per profiled window
 SOLVE_LAM = 3e5       # --solve's fingerprints: tens of samples carry weight
@@ -170,12 +173,10 @@ def digest(*tensors) -> str:
 def live_onpath_mm(rec, path_xy):
     """(mean EE distance to the nearest path point over the first
     ONPATH_STEPS live steps in mm, the number of those steps) of a
-    SimRecord (bench.py:143-150)."""
-    ee = rec.ee.cpu().numpy()[~rec.done.cpu().numpy()][:ONPATH_STEPS]
-    d = [np.linalg.norm(ee[i:i + 256, None] - path_xy[None], axis=-1)
-         .min(axis=1) for i in range(0, len(ee), 256)]
-    mean = float(np.concatenate(d).mean() * 1e3) if d else float("nan")
-    return mean, len(ee)
+    SimRecord (``utils/metrics.py::onpath_mean_mm``, bench.py:143-150)."""
+    done = rec.done.cpu().numpy()
+    mean = onpath_mean_mm(rec.ee.cpu().numpy(), done, path_xy, ONPATH_STEPS)
+    return mean, min(int((~done).sum()), ONPATH_STEPS)
 
 
 def measure(device, steps=STEPS, clusters=None, horizon=None, samples=None,

@@ -15,10 +15,12 @@ that chaos cannot fake:
   (``utils/metrics.py::tracking_errors``).
 
 Its set-up is the JAX tool's: ``circle_tracking_preset()`` (K = 100,
-T = 30) and ε = ``default_rng(0).normal(size=(steps, K, T, 2)) *
-sqrt(20)`` in float32, 150 steps by default.  The path differs: the JAX
-tool reads the reference's ``xydq_circle.txt``, which this package does
-not ship, so this tool runs on ``synth_circle_path(2000)``, the stand-in
+T = 30), ε = ``default_rng(0).normal(size=(steps, K, T, 2)) * sqrt(20)``
+in float32, 150 steps by default, on the reference's own path,
+``xydq_circle.txt`` in float32, which the checkout keeps in
+``tests/data/reference_golden_run.npz`` (``sim/paths.py::
+reference_circle_path``; the tool raises when that file is missing).
+``--waypoints N`` runs on ``synth_circle_path(N)`` instead, the stand-in
 ``parallel/dryrun.py`` uses.  ``--prng`` drops the injected ε: both loops
 draw the port's Philox stream, keyed by (seed, absolute step), so they see
 the same noise.  ``--preset benchmark --waypoints N --revolutions R``
@@ -47,21 +49,23 @@ import torch
 
 from .. import config
 from ..sim.loop import init_sim, simulate, simulate_fused
-from ..sim.paths import synth_circle_path
-from ..utils.metrics import tracking_errors
+from ..sim.paths import reference_circle_path, synth_circle_path
+from ..utils.metrics import ONPATH_FIRST, tracking_errors
 
 MARKS = (0, 9, 24, 49, 99)        # steps whose envelope is printed, and last
 ONPATH_CHUNK = 1024               # steps a nearest-point search takes at once
-ONPATH_FIRST = 1500               # bench.py's on-path window, live steps
 
 
 def problem(steps: int, prng: bool = False, preset: str = "circle",
-            waypoints: int = 2000, revolutions: float = 1.0):
-    """(arm, cfg, sim, path (N, 4) NumPy, ε (steps, K, T, 2) float32 or
-    None in PRNG mode) of a run."""
+            waypoints=None, revolutions: float = 1.0):
+    """(arm, cfg, sim, path (N, 4) float32 NumPy, ε (steps, K, T, 2)
+    float32 or None in PRNG mode) of a run; the path is the reference's
+    circle, or with ``waypoints`` an R-revolution synthetic circle of that
+    many points."""
     arm, cfg, sim = (config.circle_tracking_preset() if preset == "circle"
                      else config.benchmark_preset())
-    path = synth_circle_path(waypoints, revolutions=revolutions)
+    path = (reference_circle_path().astype(np.float32) if waypoints is None
+            else synth_circle_path(waypoints, revolutions=revolutions))
     eps = None if prng else eps_stream(steps, cfg)
     return arm, cfg, sim, path, eps
 
@@ -248,8 +252,9 @@ def main(argv=None) -> int:
                     help="the port's Philox stream instead of injected ε")
     ap.add_argument("--preset", choices=("circle", "benchmark"),
                     default="circle")
-    ap.add_argument("--waypoints", type=int, nargs="+", default=[2000],
-                    help="the path's points; several run one after another")
+    ap.add_argument("--waypoints", type=int, nargs="+", default=[None],
+                    help="a synthetic circle of N points instead of the "
+                         "reference's path; several run one after another")
     ap.add_argument("--revolutions", type=float, default=1.0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     a = ap.parse_args(argv)
@@ -268,9 +273,11 @@ def main(argv=None) -> int:
                                            waypoints, a.revolutions)
         ref = torch.as_tensor(path, device=device)
         eps_t = None if eps is None else torch.as_tensor(eps, device=device)
+        shape = ("the reference's xydq_circle.txt" if waypoints is None
+                 else f"synth_circle_path({waypoints}), {a.revolutions:g} "
+                      f"revolutions")
         print(f"device: {where}  steps={a.steps}  K={cfg.num_samples} "
-              f"T={cfg.horizon}  path {waypoints} points, "
-              f"{a.revolutions:g} revolutions  noise "
+              f"T={cfg.horizon}  path {shape}, {len(path)} points  noise "
               f"{'Philox' if eps is None else 'injected'}")
         final_f, rec_f, sec_f = run_fused(arm, cfg, sim, ref, a.steps, eps_t)
         print(f"fused: {sec_f:.2f} s")

@@ -94,21 +94,22 @@ def _min_event_ms(fn: Callable, reps: int) -> float:
 
 def device_launches(fn: Callable) -> int:
     """Kernels, copies and memsets that ``fn`` puts on the device, as
-    ``torch.profiler`` sees them.  A window has been seen to come back with
-    no device event at all, so one that saw none is tried again, three
-    windows in all."""
+    ``torch.profiler`` sees them: the most that any of three windows saw.
+    A window can miss events, and has been seen to come back with none or
+    with too few for a chain's launches an iteration to round to one, but
+    it never sees more than ``fn`` launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    seen = []
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
-        if n:
-            break
-    return n
+        seen.append(sum(e.device_type == DeviceType.CUDA
+                        for e in prof.events()))
+    return max(seen)
 
 
 def time_chain(fn: Callable, carry, n: int = N_ITERS,

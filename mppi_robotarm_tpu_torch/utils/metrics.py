@@ -1,7 +1,8 @@
 """Closed-loop metrics and observability.
 
 Solver-health metrics of one solve (:func:`solve_metrics`), closed-loop
-tracking errors (:func:`tracking_errors`, NumPy), a finiteness check
+tracking errors (:func:`tracking_errors`, NumPy), bench.py's gate statistic
+(:func:`onpath_mean_mm`, NumPy), a finiteness check
 (:func:`nan_guard`) and a JSON-lines logger with a step cadence
 (:class:`MetricsLogger`): the counterparts of
 ``mppi_robotarm_tpu/utils/metrics.py``.
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from ..ops.weights import effective_sample_size, weight_entropy
+
+ONPATH_FIRST = 1500          # bench.py's gate window, live steps
 
 
 def solve_metrics(costs: torch.Tensor, weights: torch.Tensor) -> dict:
@@ -56,6 +59,21 @@ def tracking_errors(ee: np.ndarray, ref_xy: np.ndarray,
         out["onpath_mean_m"] = float(d.mean())
         out["onpath_max_m"] = float(d.max())
     return out
+
+
+def onpath_mean_mm(ee, done, path_xy, first: int = ONPATH_FIRST) -> float:
+    """bench.py's gate statistic (bench.py:143-150): the mean distance, in
+    mm, of the EE to the nearest point of ``path_xy`` (N, 2) over the first
+    ``first`` live steps of ``ee`` (steps, 2), those whose ``done`` is
+    false; NaN when no step is live.  NumPy in the arrays' own dtype, the
+    search in chunks of 256 steps, as bench.py does it."""
+    ee = np.asarray(ee)[~np.asarray(done, dtype=bool)][:first]
+    path_xy = np.asarray(path_xy)
+    if not len(ee):
+        return float("nan")
+    d = [np.linalg.norm(ee[i:i + 256, None, :] - path_xy[None], axis=-1)
+         .min(axis=1) for i in range(0, len(ee), 256)]
+    return float(np.concatenate(d).mean() * 1e3)
 
 
 def nan_guard(*arrays) -> bool:

@@ -57,28 +57,28 @@ def test_validate_rejects_bad_sigma():
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, mppi_robotarm_tpu_torch, "
-            "mppi_robotarm_tpu_torch.convert, "
-            "mppi_robotarm_tpu_torch.ops.cuda_sim, "
-            "mppi_robotarm_tpu_torch.ops.cuda_solve, "
-            "mppi_robotarm_tpu_torch.ops.cuda_probe, "
-            "mppi_robotarm_tpu_torch.ops.cuda_step, "
-            "mppi_robotarm_tpu_torch.ops._build, "
-            "mppi_robotarm_tpu_torch.tools.overhead, "
-            "mppi_robotarm_tpu_torch.tools.fused_timing, "
-            "mppi_robotarm_tpu_torch.tools.sass_loops, "
-            "mppi_robotarm_tpu_torch.device, "
-            "mppi_robotarm_tpu_torch.sim.loop, "
-            "mppi_robotarm_tpu_torch.cli, "
-            "mppi_robotarm_tpu_torch.utils.checkpoint, "
-            "mppi_robotarm_tpu_torch.utils.metrics, "
-            "mppi_robotarm_tpu_torch.utils.plotting, "
-            "mppi_robotarm_tpu_torch.utils.timing; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+    """Every module of the port, found by walking the package, imports in
+    one process with neither JAX nor the JAX package loaded."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import mppi_robotarm_tpu_torch as port\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    port.__path__, port.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'mppi_robotarm_tpu'))\n"
+            "assert not bad, bad\n"
+            "print(len(names), ' '.join(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    count, names = proc.stdout.split(None, 1)
+    for name in ("bench", "tools.bench_gate_sweep", "tools.seed_sweep",
+                 "tools.extreme_shapes", "tools.longrun", "parallel.sharded",
+                 "ops.cuda_shard", "ops.cuda_pathgen", "sim.pathgen",
+                 "compat", "tools.collective_cost"):
+        assert f"mppi_robotarm_tpu_torch.{name}" in names.split(), name
+    assert int(count) >= 40, names
 
 
 def test_root_exports_everything_the_jax_root_does():

@@ -16,7 +16,11 @@ On the CPU (the kernels' plain versions):
   ulps for some 25 steps, then part at the loop's Lyapunov rate, as
   tests/test_torch_step_tail.py describes for 40 steps);
 * a run chained in three parts equals one run, bit for bit, and the tool's
-  command line prints the JAX tool's report.
+  command line prints the JAX tool's report, on the reference's path (the
+  default, as the JAX tool's) and with ``--waypoints 2000`` on the
+  synthetic circle;
+* the default path is the reference's ``xydq_circle.txt`` in float32, read
+  from ``tests/data/reference_golden_run.npz``.
 """
 
 import contextlib
@@ -160,16 +164,32 @@ def test_a_chained_run_equals_one_run():
     assert torch.equal(fin.q, one_fin.q) and int(fin.step) == 12
 
 
-def test_the_command_line_prints_the_report():
+@pytest.mark.parametrize("path_args, path_text", [
+    ([], "path the reference's xydq_circle.txt, 2000 points"),
+    (["--waypoints", "2000"],
+     "path synth_circle_path(2000), 1 revolutions, 2000 points"),
+])
+def test_the_command_line_prints_the_report(path_args, path_text):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        assert longrun.main(["12", "--device", "cpu"]) == 0
+        assert longrun.main(["12", "--device", "cpu", *path_args]) == 0
     out = buf.getvalue()
-    for text in ("steps=12  K=100 T=30", "noise injected", "wp schedule: "
+    for text in (path_text, "steps=12  K=100 T=30", "noise injected",
+                 "wp schedule: "
                  "exact prefix", "|dq|: <1e-6 for", "on-path EE mean: fused",
                  "step-aligned RMS: fused", "step     9:", "step    11:",
                  "fused: {'finite': True"):
         assert text in out, out
+
+
+def test_the_default_path_is_the_references():
+    with np.load(P.sim.paths.REFERENCE_RUN) as run:
+        want = run["ref_path"].astype(np.float32)
+    path = longrun.problem(3)[3]
+    assert path.dtype == np.float32
+    np.testing.assert_array_equal(path, want)
+    np.testing.assert_array_equal(longrun.problem(3, waypoints=2000)[3],
+                                  P.synth_circle_path(2000))
 
 
 def test_the_first_on_path_window_is_bench_pys():

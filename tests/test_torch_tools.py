@@ -361,9 +361,10 @@ def test_overhead_device_launches_tries_again_after_an_empty_window(
 
     cpu, cuda = _Event("op", 0.0, 1), _Event("k", 1.0, 1)
     cpu.device_type, cuda.device_type = DeviceType.CPU, DeviceType.CUDA
-    opened = _fake_profiler(monkeypatch, [[cpu], [cpu, cuda, cuda]])
+    opened = _fake_profiler(monkeypatch, [[cpu], [cpu, cuda, cuda],
+                                          [cuda, cpu]])
     assert overhead.device_launches(lambda: None) == 2
-    assert len(opened) == 2
+    assert len(opened) == 3          # the most any of three windows saw
 
 
 def test_sanitize_arguments_and_commands():
