@@ -271,9 +271,6 @@ PATHGEN_STEPS = 2000  # phase 19
 # each
 PATHGEN_OPS = 89
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_OPS = 67e12      # float32 FLOP/s outside the tensor cores, H100 SXM
-UNFUSED_OPS = 33.5e12   # unfused float32 op/s: 132 SMs x 128 lanes x 1.98 GHz
-PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
 PROBE_TIME_CALLS = 100  # phase 15: launches per device-time window
 BENCH_TIMEOUT_S = 300    # phase 24
 
@@ -648,16 +645,6 @@ def shard_step_compare(label, sharded, cuda_solve, arm, cfg, sim, ref,
     return err
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of ops / PEAK_OPS and nbytes /
-    PEAK_BYTES, in ms, and which of the two it is.  ``ops`` counts each
-    add, mul, compare or special function as one (``rollout_ops``), as
-    PEAK_OPS counts an FMA as two."""
-    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def bits(x):
     """A tensor's or array's bits, floats viewed as integers of their width,
     so that equality of two is bit for bit, a NaN's included."""
@@ -825,8 +812,9 @@ def main() -> int:
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
     from mppi_robotarm_tpu_torch.sim import loop
     from mppi_robotarm_tpu_torch.tools import fused_timing, overhead, sass_loops
-    from mppi_robotarm_tpu_torch.tools.extreme_shapes import (rollout_ops,
-                                                              solve_ops)
+    from mppi_robotarm_tpu_torch.utils.roofline import (UNFUSED_OPS, bound,
+                                                        rollout_ops,
+                                                        solve_ops)
 
     check("jax" not in sys.modules, "the port imported JAX")
     device = torch.device("cuda", 0)
@@ -2254,7 +2242,7 @@ def main() -> int:
     check("jax" not in sys.modules,
           "the port imported JAX during phases 2-26")
 
-    # ---- bounds, from this run's shapes (see ``bound``) ----------------
+    # ---- bounds, from this run's shapes (``utils/roofline.py``) ---------
     f4 = 4
     W = cfg.search_idx_len
     live_k1 = int((~rec.done).sum())       # phase 6 times phase 4's run

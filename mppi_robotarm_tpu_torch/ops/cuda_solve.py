@@ -209,8 +209,9 @@ def _plan(cfg: MPPIConfig, K: int, tile: Optional[int], normalize: bool,
 
 def solve_smem_bytes(cfg: MPPIConfig, tile: int, n_tiles: int,
                      group: int) -> int:
-    """The dynamic shared memory a launch of the tile pass takes, bytes:
-    ``mppi_solve_launch``'s sum in csrc/solve_kernel.cu.  The window,
+    """The dynamic shared memory a launch of the tile pass takes, bytes,
+    for ``tools/extreme_shapes.py`` to print: ``mppi_solve_launch``'s sum
+    in csrc/solve_kernel.cu, which sizes the launch.  The window,
     controls, warp partials and the combine's 2T + 2 floats, then the
     larger of the ``group`` tiles' noise and costs and, where a block can
     hold them all, the scenario's ``n_tiles`` partials (else the combine

@@ -12,10 +12,9 @@ over the benchmark's gate.  With ``high_accuracy`` the same sweep runs
 against its 18 mm gate.  A seed over a gate is reported, not raised.
 
     python -m mppi_robotarm_tpu_torch.tools.bench_gate_sweep [n_seeds]
-        [bench|high_accuracy] [--device cuda|cpu]
+        [bench|high_accuracy]
 
-On ``cuda`` (the default) it needs an NVIDIA GPU and exits non-zero
-without one; ``--device cpu`` runs the fused kernel's plain version.
+It needs an NVIDIA GPU and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -50,13 +49,6 @@ def spread_lines(values, gate_mm: float, label: str = "") -> list:
             f"it{'' if not over else ' (seeds ' + str(over) + ')'}"]
 
 
-def describe(device: torch.device) -> str:
-    """The device a sweep ran on, with the card's power limit."""
-    if device.type != "cuda":
-        return "cpu (the kernels' plain versions)"
-    return f"{torch.cuda.get_device_name(device)}; {card()}"
-
-
 def sweep(arm, cfg, sim, path, steps: int, seeds, device,
           out=None) -> list:
     """Per seed: ``simulate_fused`` of ``steps`` steps from
@@ -84,18 +76,17 @@ def main(argv=None) -> int:
     ap.add_argument("n_seeds", type=int, nargs="?", default=8)
     ap.add_argument("preset", nargs="?", default="bench",
                     choices=sorted(GATES))
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     a = ap.parse_args(argv)
-    if a.device == "cuda" and not torch.cuda.is_available():
-        print("bench_gate_sweep: no CUDA device; pass --device cpu for the "
-              "plain versions", file=sys.stderr)
+    if not torch.cuda.is_available():
+        print("bench_gate_sweep: no CUDA device; the fused kernel needs one",
+              file=sys.stderr)
         return 1
-    device = torch.device(a.device, 0) if a.device == "cuda" else \
-        torch.device("cpu")
+    device = torch.device("cuda", 0)
     arm, cfg, sim = (config.high_accuracy_preset()
                      if a.preset == "high_accuracy"
                      else config.benchmark_preset())
-    print(f"devices: {describe(device)}  K={cfg.num_samples} "
+    print(f"devices: {torch.cuda.get_device_name(device)}; {card()}  "
+          f"K={cfg.num_samples} "
           f"H={cfg.horizon} path={bench.PATH_POINTS}pt steps={bench.STEPS} "
           f"gate-window=first {ONPATH_FIRST} live")
     errs = sweep(arm, cfg, sim, synth_circle_path(bench.PATH_POINTS),

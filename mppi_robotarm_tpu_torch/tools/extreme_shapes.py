@@ -13,7 +13,7 @@ solve_batched_reference``) on the card on the same inputs at lam = 3e5
 (tens of samples carry weight), injected ε and the Philox stream: S and
 m bit for bit, u_new within 2e-5, η within 2e-5 relative, the Philox noise
 bit for bit; then it times the solve kernel by the profiler beside its
-bound (:func:`solve_bound`).
+bound (``utils/roofline.py::solve_bound``).
 
     python -m mppi_robotarm_tpu_torch.tools.extreme_shapes
 
@@ -33,6 +33,7 @@ from ..config import ArmParams, MPPIConfig
 from ..mppi.solver import MPPIState, solve, step_solve_plan
 from ..ops import cuda_solve, cuda_step
 from ..sim.paths import synth_circle_path
+from ..utils.roofline import solve_bound
 from .fused_timing import kernel_device_us
 from .overhead import card
 
@@ -49,44 +50,6 @@ PATH_POINTS = 2000
 SOLVE_LAM = 3e5       # the plain-version check: tens of samples carry weight
 W_TOL = 2e-5          # u_new absolute, η relative (chip_smoke phase 7)
 PROFILE_CALLS = 5     # solves a profiled window
-PEAK_OPS = 67e12      # float32 FLOP/s outside the tensor cores, H100 SXM
-PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
-
-
-def rollout_ops(samples, T, W, stats):
-    """Operations of ``samples`` Philox-noise rollouts over T steps against
-    a W-row window, counted by hand from the plain per-sample code
-    (``ops/cuda_rollout.py``; each float add, mul, div, compare, select,
-    sin, cos, log, sqrt, exp and each of Philox's 20 integer multiplies as
-    one; PERF.md section 6): per sample-step 101 + 8W for the rollout and
-    cost, 36 for the noise and 4 for Σe·ε; per sample 8W + 35 for the
-    initial trig, the terminal cost and the softmax, and with ``stats``
-    the fused loops' 7 for cost_mean, ESS and entropy."""
-    return samples * (T * (141 + 8 * W) + 8 * W + 35 + (7 if stats else 0))
-
-
-def solve_ops(cfg: MPPIConfig, n_tiles: int) -> int:
-    """Operations of one scenario's solve: the rollouts, the tile
-    softmaxes' combine of ``n_tiles`` partials, and the median (at most
-    fw² compare pairs an output: the count stops at the median's rank)."""
-    T2 = 2 * cfg.horizon
-    return (rollout_ops(cfg.num_samples, cfg.horizon, cfg.search_idx_len,
-                        False)
-            + n_tiles * (6 + 2 * T2) + T2 * (3 + 2 * cfg.filter_window ** 2))
-
-
-def solve_bound(cfg: MPPIConfig, n_tiles: int):
-    """(ms, "operations" or "bytes"): the least time an H100 could take for
-    one scenario's solve, the larger of :func:`solve_ops` over PEAK_OPS and
-    its inputs and outputs (x0, u, the window, S, u_new, m and η in
-    float32, seed and step in int64) over PEAK_BYTES; the tile partials
-    never need to leave the chip."""
-    T2 = 2 * cfg.horizon
-    nbytes = (4 + T2 + 4 * cfg.search_idx_len + cfg.num_samples + T2
-              + 2) * 4 + 2 * 8
-    t_ops, t_bytes = solve_ops(cfg, n_tiles) / PEAK_OPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def shape_config(K: int, T: int) -> MPPIConfig:

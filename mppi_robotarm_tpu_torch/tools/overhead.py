@@ -92,24 +92,28 @@ def _min_event_ms(fn: Callable, reps: int) -> float:
     return best
 
 
-def device_launches(fn: Callable) -> int:
+def device_launches(fn: Callable, per: int = 1) -> int:
     """Kernels, copies and memsets that ``fn`` puts on the device, as
-    ``torch.profiler`` sees them: the most that any of three windows saw.
-    A window can miss events, and has been seen to come back with none or
-    with too few for a chain's launches an iteration to round to one, but
-    it never sees more than ``fn`` launched."""
+    ``torch.profiler`` sees them.  A window can miss events: one has been
+    seen to come back with none, and one with too few for ``fn``'s ``per``
+    iterations to round to a launch each.  So a window whose count rounds
+    to 0 an iteration is tried again, three windows in all, and the most
+    any of them saw is returned (a window never sees more than ``fn``
+    launched)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    seen = []
+    seen = 0
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        seen.append(sum(e.device_type == DeviceType.CUDA
-                        for e in prof.events()))
-    return max(seen)
+        seen = max(seen, sum(e.device_type == DeviceType.CUDA
+                             for e in prof.events()))
+        if round(seen / per):
+            break
+    return seen
 
 
 def time_chain(fn: Callable, carry, n: int = N_ITERS,
@@ -135,7 +139,8 @@ def time_chain(fn: Callable, carry, n: int = N_ITERS,
     eager_ms = _min_event_ms(
         lambda: out.__setitem__("eager", run_chain(fn, carry, n)), reps)
     # rounded: the profiler can miss a launch at the edge of its window
-    launches = round(device_launches(lambda: run_chain(fn, carry, n)) / n)
+    launches = round(device_launches(lambda: run_chain(fn, carry, n), n)
+                     / n)
     static_in = _tree(torch.clone, carry)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):

@@ -2,8 +2,9 @@
 saved listings in ``cuobjdump -sass``'s and ``nvdisasm -gi``'s formats, the
 parts of ``tools/fused_timing.py`` that need no card (the launch settings
 of its three modes, the fingerprint and the on-path mean), the argument
-handling of ``tools/sanitize.py``, and ``tools/combine_clocks.py``'s
-stamps against the solve kernel's source."""
+handling of ``tools/sanitize.py``, ``tools/combine_clocks.py``'s
+stamps against the solve kernel's source, and ``tools/smoke_ab.py`` on
+stand-in trees."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,7 @@ import torch
 import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.ops import cuda_sim
 from mppi_robotarm_tpu_torch.tools import (combine_clocks, fused_timing,
-                                           sanitize, sass_loops)
+                                           sanitize, sass_loops, smoke_ab)
 
 # A rollout loop 0x30-0xf0 holding two of the three Philox multiplies (one
 # hoisted before it), with a window scan 0x60-0xa0 (two rows a pass) and a
@@ -364,7 +365,16 @@ def test_overhead_device_launches_tries_again_after_an_empty_window(
     opened = _fake_profiler(monkeypatch, [[cpu], [cpu, cuda, cuda],
                                           [cuda, cpu]])
     assert overhead.device_launches(lambda: None) == 2
-    assert len(opened) == 3          # the most any of three windows saw
+    assert len(opened) == 2          # the second window saw a launch
+    # 4 iterations: 1 event rounds to 0 an iteration, so a second window
+    # opens; the third is not needed
+    opened = _fake_profiler(monkeypatch, [[cuda], [cuda] * 4, [cuda] * 8])
+    assert overhead.device_launches(lambda: None, per=4) == 4
+    assert len(opened) == 2
+    # three windows at most; the most any of them saw
+    opened = _fake_profiler(monkeypatch, [[cuda], [cuda] * 2, [cpu]])
+    assert overhead.device_launches(lambda: None, per=8) == 2
+    assert len(opened) == 3
 
 
 def test_sanitize_arguments_and_commands():
@@ -519,3 +529,34 @@ def test_fused_timing_compare_records_field_by_field(tmp_path):
     assert not rows["ess"]["equal"]
     assert rows["ess"]["max_abs"] == 20.0
     assert abs(rows["ess"]["max_rel"] - 1 / 3) < 1e-12
+
+
+def test_smoke_ab_stamps_each_line_and_reports_the_marks(tmp_path, capsys):
+    trees = {}
+    for tag, rc in (("a", 0), ("b", 3)):
+        tree = tmp_path / tag
+        (tree / "build").mkdir(parents=True)
+        (tree / "chip_smoke.py").write_text(
+            "import os, sys\n"
+            "print('build there:', os.path.isdir('build'))\n"
+            f"print('phase 23 done {tag}')\n"
+            "print('x', file=sys.stderr)\n"
+            f"sys.exit({rc})\n")
+        trees[tag] = tree
+    out = tmp_path / "out"
+    assert smoke_ab.main(["--out", str(out), "--mark", "phase 23",
+                          "--mark", "never", f"a={trees['a']}",
+                          f"b={trees['b']}"]) == 1
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(" in ")[0] for ln in lines] == ["1 a: exit 0",
+                                                     "2 b: exit 3"]
+    assert all("'never' None" in ln for ln in lines)
+    log = (out / "1_a.log").read_text().splitlines()
+    stamp, text = log[1].split("\t")
+    assert float(stamp) >= 0 and text == "phase 23 done a"
+    assert log[0].endswith("\tbuild there: False")   # each run builds anew
+    assert (out / "2_b.err").read_text() == "x\n"
+    b23 = smoke_ab.mark_stamps(str(out / "2_b.log"), ["phase 23"])[0]
+    assert b23 == float((out / "2_b.log").read_text().splitlines()[1]
+                        .split("\t")[0])
+    assert f"'phase 23' {b23}" in lines[1]
