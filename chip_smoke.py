@@ -193,13 +193,13 @@ Phases (any failure raises and exits non-zero):
      gate); the whole run's on-path mean, the schedule agreement and the
      |q|, |u| envelope between the fused kernel and the graph loop, and
      each run's seconds, reported;
- 24. the benchmark, ``python -m mppi_robotarm_tpu_torch.bench
-     --first-only`` (the port of ``bench.py``, its fused backend alone:
-     the eager backend makes the whole bench some 19 minutes, so the
-     whole bench runs on its own) in a subprocess: exit 0, its last line
-     JSON with exactly bench.py's keys less the fit's and the
-     high-accuracy run's, solves/s finite and > 0, the on-path mean
-     < 42 mm; its line and its seconds printed;
+ 24. the benchmark, ``python -m mppi_robotarm_tpu_torch.bench`` (the
+     port of ``bench.py``: its three backends, the fit and the
+     high-accuracy run) in a subprocess: exit 0, each backend's solves/s
+     finite and > 0, its last line JSON with exactly bench.py's keys
+     (``device_us_per_step`` when the fused backend wins), the value the
+     winner's solves/s, the on-path mean < 42 mm and the high-accuracy
+     one < 18 mm; its lines and its seconds printed;
  25. the solve kernel at ``tools/extreme_shapes.py``'s five stress shapes
      (K, T) = (65536, 50), (65536, 200), (8192, 500), (131072, 100) and
      (1024, 30): the layout and its shared memory, one
@@ -209,7 +209,24 @@ Phases (any failure raises and exits non-zero):
      relative, the noise bit for bit; its device time beside its bound;
  26. the gate sweeps as a smoke: ``tools/bench_gate_sweep.py 2 bench``
      and ``tools/seed_sweep.py 2 200 cuda`` (their ``main``, in this
-     process) exit 0 and print their spread and suggested gate.
+     process) exit 0 and print their spread and suggested gate;
+ 27. the eager backend on the card (``tools/eager_loop.py``):
+     ``simulate_batch(backend="eager")`` replays each chunk of
+     ``sim/loop.py::_EAGER_GRAPH_STEPS`` steps as one CUDA graph; its
+     records and final state == the uncaptured eager loop's
+     (``_step_loop(graphs=False, backend="eager")``) bit for bit at
+     benchmark_preset in float32 over 200 steps and at K=128, T=30 in
+     float64 over 50, and a 64-scenario batch at K=128, T=30 == each of
+     its scenarios run alone over 50 steps, bit for bit (the sums over K
+     run in an order fixed by K, ``ops/weights.py::ordered_sum``), the
+     largest |d| by field printed; the eager path launches none of the
+     port's kernels (every count 0 after it, from 0 before); the eager
+     µs/step as graphs and uncaptured (CUDA events, min of 3 in turns)
+     beside the host loop's 65.4 ms a step it replaced (PERF.md), the
+     host's time to enqueue a step, the device events a step, the idle
+     share, the chunk length and the capture seconds; 20 steps of the
+     4096 x K=128, T=30 fleet on the eager backend, scenario-steps/s and
+     device events a step.
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -2175,15 +2192,14 @@ def main() -> int:
     # ---- 24. the benchmark: python -m mppi_robotarm_tpu_torch.bench -------
     from mppi_robotarm_tpu_torch import bench as port_bench
 
-    # the fused backend alone: the eager backend makes the whole bench some
-    # 19 minutes on an H100 (PERF.md), so the whole bench runs on its own;
-    # phase 4 gates the high-accuracy run
+    # the whole bench: its three backends, the fit when the fused backend
+    # wins and the high-accuracy run (some two minutes on an H100 since the
+    # eager backend replays CUDA graphs, PERF.md)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "mppi_robotarm_tpu_torch.bench",
-         "--first-only"], cwd=ROOT, capture_output=True, text=True,
-        timeout=BENCH_TIMEOUT_S)
+        [sys.executable, "-m", "mppi_robotarm_tpu_torch.bench"], cwd=ROOT,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
     bench_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"the bench exited {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
@@ -2192,20 +2208,30 @@ def main() -> int:
     notes = [ln[2:] for ln in proc.stderr.splitlines() if ln.startswith("# ")]
     best = next(ln.split(": ", 1)[1] for ln in notes
                 if ln.startswith("best backend: "))
-    want_keys = {"metric", "value", "unit", "vs_baseline", "on_path_mean_mm"}
-    check(best == "cuda-fused", f"--first-only ran {best}")
+    rates = {ln.split()[1][:-1]: float(ln.split()[2]) for ln in notes
+             if ln.startswith("backend ")}
+    want_keys = {"metric", "value", "unit", "vs_baseline", "on_path_mean_mm",
+                 "high_accuracy_on_path_mean_mm"} | (
+        {"device_us_per_step"} if best == "cuda-fused" else set())
+    check(set(rates) == set(port_bench.BACKENDS),
+          f"the bench timed {sorted(rates)}, not {port_bench.BACKENDS}")
+    check(all(math.isfinite(r) and r > 0 for r in rates.values()),
+          f"the bench's solves/s by backend {rates}")
     check(set(line) == want_keys, f"the bench line's keys {sorted(line)}, "
           f"not {sorted(want_keys)}")
     check(line["metric"] == port_bench.METRIC and line["unit"] == "solves/s",
           f"the bench line names {line['metric']} in {line['unit']}")
-    check(math.isfinite(line["value"]) and line["value"] > 0,
-          f"the bench's solves/s {line['value']}")
+    check(abs(line["value"] - rates[best]) <= 0.05,    # printed to 0.1
+          f"the bench's value {line['value']} is not {best}'s solves/s")
     check(line["on_path_mean_mm"] < ONPATH_GATE_MM,
           f"the bench's on-path mean {line['on_path_mean_mm']} mm")
+    check(line["high_accuracy_on_path_mean_mm"] < HA_GATE_MM,
+          f"the bench's high-accuracy on-path mean "
+          f"{line['high_accuracy_on_path_mean_mm']} mm")
     for note in notes:
         print(f"bench [{card}]: {note}")
-    print(f"bench [{card}]: python -m mppi_robotarm_tpu_torch.bench "
-          f"--first-only: exit 0 in {bench_s:.1f} s, line {bench_out[-1]}")
+    print(f"bench [{card}]: python -m mppi_robotarm_tpu_torch.bench: exit 0 "
+          f"in {bench_s:.1f} s, line {bench_out[-1]}")
 
     # ---- 25. the solve kernel at the stress shapes ---------------------
     from mppi_robotarm_tpu_torch.tools import extreme_shapes
@@ -2239,8 +2265,53 @@ def main() -> int:
         print(f"sweep [{card}]: {tool_name} {' '.join(args)}: exit 0 in "
               f"{time.perf_counter() - t0:.1f} s")
 
+    # ---- 27. the eager backend as replayed CUDA graphs ------------------
+    from mppi_robotarm_tpu_torch.tools import eager_loop
+
+    t0 = time.perf_counter()
+    counts = loop._launch_counts()
+    for mod, attr in loop._COUNTERS:
+        setattr(mod, attr, 0)
+    for label, diffs in eager_loop.check_bits(device):
+        bad = {k: v for k, v in diffs.items() if v != 0.0}
+        print(f"eager [{card}]: {label}: "
+              + ("bitwise on every field" if not bad else f"max |d| {bad}"))
+        check(not bad, f"eager: {label}: not bitwise: {bad}")
+    et = eager_loop.time_loop(device)
+    eager_counts = loop._launch_counts()
+    check(not any(eager_counts), "the eager path launched the port's "
+          "kernels: " + ", ".join(
+              f"{mod.__name__}.{attr} {v}"
+              for (mod, attr), v in zip(loop._COUNTERS, eager_counts) if v))
+    for (mod, attr), v in zip(loop._COUNTERS, counts):
+        setattr(mod, attr, v)
+    check(et["events"] > 0 and et["busy_us"] > 0,
+          "the profiler saw no device event in the eager graphs")
+    print(f"eager [{card}]: simulate(backend='eager') at benchmark_preset "
+          f"as CUDA graphs of {et['chunk']} steps "
+          f"{et['us']['graphs']:.2f} us/step (the host enqueues a step "
+          f"in {et['enqueue_us']:.2f}), uncaptured "
+          f"{et['us']['uncaptured']:.2f} us/step (CUDA events over "
+          f"{et['steps']} steps, min of 3 in turns; runs "
+          f"{ {k: [round(v, 1) for v in r] for k, r in et['runs_ms'].items()} } "
+          f"ms; the host loop it replaced 65.4 ms/step, PERF.md); "
+          f"{et['events']:.1f} device "
+          f"events a step, device busy {et['busy_us']:.2f} us/step, idle "
+          f"share {et['idle']:.3f}; capture and instantiation "
+          + ", ".join(f"{n} steps {t:.3f} s"
+                      for n, t in sorted(et["captures"].items()))
+          + "; no launch of the port's kernels")
+    ef = eager_loop.fleet_rate(device)
+    check(ef["finite"], "the eager fleet's records are not finite")
+    print(f"eager [{card}]: simulate_batch(backend='eager') on the fleet, "
+          f"{BATCH} x K=128 T=30, {ef['steps']} steps: "
+          f"{ef['rate']:,.0f} scenario-steps/s (runs "
+          f"{[round(v, 1) for v in ef['runs_ms']]} ms), "
+          f"{ef['events']:.1f} device events a step; phase 27 in "
+          f"{time.perf_counter() - t0:.1f} s")
+
     check("jax" not in sys.modules,
-          "the port imported JAX during phases 2-26")
+          "the port imported JAX during phases 2-27")
 
     # ---- bounds, from this run's shapes (``utils/roofline.py``) ---------
     f4 = 4

@@ -11,8 +11,9 @@ ending in ``torch.cuda.synchronize()``:
    ``csrc/sim_kernel.cu`` (bench.py's ``pallas-fused``);
 2. ``cuda``: ``simulate(backend="cuda")``, replayed CUDA graphs of the step
    head, the solve kernel and the step tail (bench.py's ``pallas``);
-3. ``eager``: ``simulate(backend="eager")`` on the card, the vectorised
-   PyTorch solve (bench.py's portable ``xla`` scan).
+3. ``eager``: ``simulate(backend="eager")`` on the card, the batched
+   PyTorch step replayed as CUDA graphs (bench.py's portable ``xla``
+   scan).
 
 The fastest backend's solves/s is the headline.  When ``cuda-fused`` wins,
 a 1000-step chain of it against the 4000-step one gives the device rate

@@ -9,14 +9,18 @@ backends named for this package:
         --out-dir results/ --figures
     python -m mppi_robotarm_tpu_torch.cli --batch 4096 --samples 128 \
         --horizon 30 --steps 2000 --backend cuda-fused
-    python -m mppi_robotarm_tpu_torch.cli --steps 5 --backend eager
+    python -m mppi_robotarm_tpu_torch.cli --steps 5 --backend eager \
+        --device cpu
 
 ``cuda`` (the default: the per-step solve kernels, the counterpart of the
-JAX CLI's per-step ``xla`` default) and ``cuda-fused`` (the whole loop in
-one kernel; with ``--batch`` the scenario-fleet kernel) run on ``cuda:0``
-and exit with a message when there is no CUDA device; ``eager`` runs in
-PyTorch on the CPU.  Configs load from JSON (``--config``) on top of the
-circle-tracking preset; individual flags override.
+JAX CLI's per-step ``xla`` default), ``cuda-fused`` (the whole loop in
+one kernel; with ``--batch`` the scenario-fleet kernel) and ``eager``
+(batched PyTorch, replayed as CUDA graphs on the card) run on ``cuda:0``
+and exit with a message when there is no CUDA device; ``--device cpu``
+runs any of them on the CPU (the kernels' plain versions), where the JAX
+CLI takes its platform from ``JAX_PLATFORMS``.  Configs load from JSON
+(``--config``) on top of the circle-tracking preset; individual flags
+override.
 """
 
 from __future__ import annotations
@@ -47,11 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--horizon", type=int, default=None, help="T")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", choices=BACKENDS, default="cuda",
-                   help="eager PyTorch on the CPU, the per-step CUDA solve "
+                   help="batched eager PyTorch, the per-step CUDA solve "
                         "kernels (default), or the whole-loop fused CUDA "
                         "kernel (fastest; with --batch it runs the "
-                        "scenario-fleet kernel; no --checkpoint-every); the "
-                        "cuda backends need a CUDA device")
+                        "scenario-fleet kernel; no --checkpoint-every)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda:0 (default; exits without a CUDA device) or "
+                        "the CPU, where the kernels' plain versions run")
     p.add_argument("--out-dir", default=None,
                    help="save records (.npz), metrics (.json), figures")
     p.add_argument("--figures", action="store_true",
@@ -78,14 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _device(backend: str):
+def _device(backend: str, device: str):
     import torch
 
-    if backend == "eager":
+    if device == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise SystemExit(f"--backend {backend} needs a CUDA device and "
-                         f"none is available (use --backend eager)")
+                         f"none is available (pass --device cpu to run on "
+                         f"the CPU)")
     return torch.device("cuda", 0)
 
 
@@ -110,7 +117,7 @@ def main(argv=None) -> int:
     from .utils.metrics import MetricsLogger, tracking_errors
     from .utils.timing import trace
 
-    device = _device(args.backend)
+    device = _device(args.backend, args.device)
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
     if args.config:

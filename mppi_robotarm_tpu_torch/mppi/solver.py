@@ -35,10 +35,10 @@ from ..device import resolve_device
 from ..models.arm import fk_ee
 from ..ops import cuda_solve, cuda_step
 from ..ops.filters import median_filter_reflect
-from ..ops.noise import sample_epsilon, sigma_cholesky, sigma_inverse
+from ..ops.noise import sample_epsilon, sigma_cholesky
 from ..ops.rollout import rollout_costs, rollout_trajectory
 from ..ops.waypoint import update_waypoint_index
-from ..ops.weights import mppi_weights
+from ..ops.weights import mppi_weights, ordered_sum
 from ..utils import debug
 
 
@@ -180,41 +180,50 @@ def solve(
                           weights=mppi_weights(s, cfg.lam),
                           eps=None if eps is None else eps[0])
     else:
-        x_obs, y_obs = fk_ee(observed_x[0], observed_x[1], cfg.l1, cfg.l2)
-        wp_idx, window, valid = update_waypoint_index(
-            ref_path, state.wp_idx, x_obs, y_obs, cfg.search_idx_len,
-            cfg.dist_scale)
-        res = _solve_eager(arm, cfg, observed_x, state, eps, generator,
-                           window, valid, wp_idx,
-                           wp_idx >= ref_path.shape[0] - 1)
+        if eps is None:
+            eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
+                                 sigma_cholesky(cfg.sigma),
+                                 state.u_prev.dtype)
+        # a batch of one through the eager loop's batched solve
+        one = _solve_eager(arm, cfg, ref_path, observed_x[None],
+                           MPPIState(state.u_prev[None], torch.as_tensor(
+                               state.wp_idx, device=device).reshape(1)),
+                           eps[None])
+        res = SolveResult(*(v[0] for v in one[:2]),
+                          MPPIState(*(v[0] for v in one.state)),
+                          *(v[0] for v in one[3:]))
     if debug.active():
         debug.check_solve("solve", res, ref_path.shape[0])
     return res
 
 
-def _solve_eager(arm, cfg, observed_x, state, eps, generator, window, valid,
-                 wp_idx, path_end) -> SolveResult:
-    """The eager backend of :func:`solve` after the waypoint update."""
+def _solve_eager(arm, cfg, ref_path, observed_x, state: MPPIState,
+                 eps) -> SolveResult:
+    """The eager backend's solve of B scenarios: observed_x (B, 4), u_prev
+    (B, T, 2), wp_idx (B,), eps (B, K, T, 2).  Every field of the result
+    leads with B; each scenario gets the bits of its solve alone (the
+    same elementwise arithmetic, and sums over K in an order fixed by K,
+    ``ops/weights.py::ordered_sum``).  Copies nothing from the host, so a
+    CUDA graph can capture it."""
     dtype = state.u_prev.dtype
-    device = state.u_prev.device
-
-    if eps is None:
-        eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
-                             sigma_cholesky(cfg.sigma), dtype)
+    x_obs, y_obs = fk_ee(observed_x[:, 0], observed_x[:, 1], cfg.l1, cfg.l2)
+    wp_idx, window, valid = update_waypoint_index(
+        ref_path, state.wp_idx, x_obs, y_obs, cfg.search_idx_len,
+        cfg.dist_scale)
     eps = eps.to(dtype)
-    sigma_inv = torch.as_tensor(sigma_inverse(cfg.sigma), dtype=dtype,
-                                device=device)
     s, _ = rollout_costs(arm, cfg, observed_x, state.u_prev, eps,
-                         window.to(dtype), valid, sigma_inv)
+                         window.to(dtype), valid)
     w = mppi_weights(s, cfg.lam)
-    # Σₖ wₖεₖ accumulated in sample order, as the reference's NumPy does
-    w_eps = torch.sum(w[:, None, None] * eps, dim=0)  # control.py:115-118
-    w_eps = median_filter_reflect(w_eps, cfg.filter_window)   # Q10
-    u_seq = state.u_prev + w_eps                     # control.py:126 (Q3)
+    # Σₖ wₖεₖ (control.py:115-118) in an order fixed by K alone: on the CPU
+    # sample by sample, as the reference's NumPy does; on the card a
+    # pairwise tree, where a CUDA reduction would pick its order by shape
+    w_eps = ordered_sum(w[..., None, None] * eps, dim=-3)
+    u_seq = _median_update(state.u_prev, w_eps, cfg)    # Q10, Q3
 
     next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
-    return SolveResult(u0=next_state.u_prev[0], u_seq=u_seq,
-                       state=next_state, path_end=path_end, costs=s,
+    return SolveResult(u0=next_state.u_prev[:, 0], u_seq=u_seq,
+                       state=next_state,
+                       path_end=wp_idx >= ref_path.shape[0] - 1, costs=s,
                        weights=w, eps=eps)
 
 

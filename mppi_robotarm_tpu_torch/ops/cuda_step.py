@@ -49,7 +49,8 @@ from ..config import ArmParams, MPPIConfig, SimConfig
 from ..models.arm import arm_ddq, fk_ee, fk_full
 from .cuda_sim import _ArmConsts, _arm_consts, _check_tensor
 from .waypoint import update_waypoint_index
-from .weights import effective_sample_size, mppi_weights, weight_entropy
+from .weights import (effective_sample_size, mppi_weights, ordered_sum,
+                      weight_entropy)
 
 # Launches of step_head_kernel and step_tail_kernel, and the tail launches
 # that carried the next step's head; a run that must show it went through
@@ -360,7 +361,8 @@ def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     given.  Returns the state after the step (step, q, dq, u_prev,
     wp_idx, done) and clock + 1 (None without a clock), and with
     ``carry_head`` also the next step's head, :func:`step_head_plain` on
-    that state."""
+    that state.  It is also the eager backend's step tail on any device
+    (``sim/loop.py::_eager_step``)."""
     done = done | path_end
     # solver.shift_warm_start: drop u[0], repeat the last row
     u_next = torch.cat([u_seq[..., 1:, :], u_seq[..., -1:, :]], dim=-2)
@@ -381,7 +383,8 @@ def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         for dst, v in zip(row, (
                 nq, out[2], zero(u0), torch.stack([x2, y2], dim=-1),
                 torch.stack([x1, y1], dim=-1), ref[idx, 0:2], out[4],
-                zero(torch.amin(s, dim=-1)), zero(torch.mean(s, dim=-1)),
+                zero(torch.amin(s, dim=-1)),
+                zero(ordered_sum(s) / cfg.num_samples),
                 zero(effective_sample_size(w)), zero(weight_entropy(w)),
                 done)):
             dst.copy_(v)

@@ -1,25 +1,68 @@
 """Batched K×T MPPI rollout and cost, eager PyTorch.
 
-A Python loop over the horizon whose body is batched over K, the
-counterpart of ``mppi_robotarm_tpu/ops/rollout.py``.  Semantics kept:
+A Python loop over the horizon whose body is batched over K, and over B
+scenarios when given them, the counterpart of
+``mppi_robotarm_tpu/ops/rollout.py`` (which the JAX package vmaps over
+scenarios).  Semantics kept:
   * the exploration split (Q9): samples k < (1-exploration)·K get u+ε, the
     rest pure ε;
   * stage cost on the post-step state plus γ·uᵀΣ⁻¹v per step;
   * the frozen-window waypoint lookup (Q5);
   * terminal cost on the final state; ×10000 and ×100 scales (Q7).
 
-:func:`rollout_trajectory` re-rolls given controls for visualisation.
+The cost weights, Σ⁻¹ and the exploration mask are made once per
+configuration, dtype and device (:func:`cost_constants`,
+:func:`exploit_mask`), so a rollout copies nothing from the host and a
+CUDA graph can capture it.  :func:`rollout_trajectory` re-rolls given
+controls for visualisation.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..config import ArmParams, MPPIConfig
 from ..models.arm import arm_step, fk_ee
+from .noise import sigma_inverse
 from .waypoint import nearest_in_window
+
+
+class CostConstants(NamedTuple):
+    """A configuration's cost constants as tensors of one dtype and device."""
+
+    stage_w: torch.Tensor      # (4,)
+    term_w: torch.Tensor       # (4,)
+    sigma_inv: torch.Tensor    # (2, 2)
+
+
+@functools.lru_cache(maxsize=32)
+def cost_constants(cfg: MPPIConfig, dtype: torch.dtype,
+                   device: torch.device) -> CostConstants:
+    """The stage and terminal weights and Σ⁻¹ of ``cfg``, made once per
+    (cfg, dtype, device).  Callers never modify them.  On the card the
+    copies finish before the first use, which may be on another stream."""
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    out = CostConstants(as_t(cfg.stage_cost_weight),
+                        as_t(cfg.terminal_cost_weight),
+                        as_t(sigma_inverse(cfg.sigma)))
+    if out.stage_w.is_cuda:
+        torch.cuda.synchronize(device)
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def exploit_mask(cfg: MPPIConfig, k_local: int, k_offset: int,
+                 device: torch.device) -> torch.Tensor:
+    """(k_local, 1) bool: global sample ``k_offset + k`` follows u + ε
+    (k < (1-exploration)·K, Q9), made once per its arguments."""
+    k_global = k_offset + torch.arange(k_local, device=device)
+    out = (k_global < (1.0 - cfg.exploration) * cfg.num_samples)[:, None]
+    if out.is_cuda:
+        torch.cuda.synchronize(device)
+    return out
 
 
 def _stage_cost(q1, q2, dq1, dq2, window, valid, weights, cfg: MPPIConfig):
@@ -40,47 +83,51 @@ def _stage_cost(q1, q2, dq1, dq2, window, valid, weights, cfg: MPPIConfig):
 def rollout_costs(
     arm: ArmParams,
     cfg: MPPIConfig,
-    x0: torch.Tensor,          # (4,) observed state [q1, q2, dq1, dq2]
-    u: torch.Tensor,           # (T, 2) nominal control sequence
-    eps: torch.Tensor,         # (K_local, T, 2) exploration noise
-    window: torch.Tensor,      # (W, 4) frozen waypoint window
-    valid: torch.Tensor,       # (W,) window validity mask
-    sigma_inv: torch.Tensor,   # (2, 2)
+    x0: torch.Tensor,          # (..., 4) observed state [q1, q2, dq1, dq2]
+    u: torch.Tensor,           # (..., T, 2) nominal control sequence
+    eps: torch.Tensor,         # (..., K_local, T, 2) exploration noise
+    window: torch.Tensor,      # (..., W, 4) frozen waypoint window
+    valid: torch.Tensor,       # (..., W) window validity mask
+    sigma_inv=None,            # (2, 2); None: cost_constants' copy
     k_offset: int = 0,         # global index of this shard's first sample
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Total cost S of K noisy rollouts.
+    """Total cost S of K noisy rollouts, of one scenario or of B.
 
-    Returns (S (K,), x_final (K, 4)).  ``k_offset`` keeps the exploration
-    split, which depends on the global sample index, right when the K axis
-    is split across shards.
+    One scenario has no leading axis; B scenarios lead every argument
+    with B, and each scenario's samples are held against its own window,
+    with the same elementwise arithmetic, so each gets the bits of its
+    rollout alone.  Returns (S (..., K), x_final (..., K, 4)).
+    ``k_offset`` keeps the exploration split, which depends on the global
+    sample index, right when the K axis is split across shards.
     """
-    kloc = eps.shape[0]
+    kloc = eps.shape[-3]
     dtype, device = eps.dtype, eps.device
-    stage_w = torch.as_tensor(cfg.stage_cost_weight, dtype=dtype,
-                              device=device)
-    term_w = torch.as_tensor(cfg.terminal_cost_weight, dtype=dtype,
-                             device=device)
+    consts = cost_constants(cfg, dtype, device)
+    if sigma_inv is None:
+        sigma_inv = consts.sigma_inv
     sigma_inv = torch.as_tensor(sigma_inv, dtype=dtype, device=device)
     u = u.to(dtype)
-
-    k_global = k_offset + torch.arange(kloc, device=device)
-    exploit = (k_global < (1.0 - cfg.exploration) * cfg.num_samples)[:, None]
+    exploit = exploit_mask(cfg, kloc, k_offset, device)
 
     x0 = x0.to(dtype)
-    q1, q2, dq1, dq2 = (x0[i].expand(kloc) for i in range(4))
-    s = torch.zeros(kloc, dtype=dtype, device=device)
-    for t in range(u.shape[0]):
-        u_t, eps_t = u[t], eps[:, t]
-        v_t = torch.where(exploit, u_t + eps_t, eps_t)
-        v1, v2 = v_t[:, 0], v_t[:, 1]
+    lanes = eps.shape[:-2]                      # (..., K)
+    q1, q2, dq1, dq2 = (x0[..., i, None].expand(lanes) for i in range(4))
+    # Σ⁻¹u of every step, elementwise (the γ term, control.py:106)
+    su1 = sigma_inv[0, 0] * u[..., 0] + sigma_inv[0, 1] * u[..., 1]
+    su2 = sigma_inv[1, 0] * u[..., 0] + sigma_inv[1, 1] * u[..., 1]
+    s = torch.zeros(lanes, dtype=dtype, device=device)
+    for t in range(u.shape[-2]):
+        eps_t = eps[..., t, :]
+        v_t = torch.where(exploit, u[..., t, None, :] + eps_t, eps_t)
+        v1, v2 = v_t[..., 0], v_t[..., 1]
         if cfg.u_clamp is not None:            # reference `_g` clamp (Q11)
             v1 = torch.clamp(v1, -cfg.u_clamp, cfg.u_clamp)
             v2 = torch.clamp(v2, -cfg.u_clamp, cfg.u_clamp)
         q1, q2, dq1, dq2 = arm_step(q1, q2, dq1, dq2, v1, v2, cfg.delta_t, arm)
-        c = _stage_cost(q1, q2, dq1, dq2, window, valid, stage_w, cfg)
-        su = sigma_inv @ u_t
-        s = s + c + cfg.gamma * (v1 * su[0] + v2 * su[1])
-    s = s + _stage_cost(q1, q2, dq1, dq2, window, valid, term_w, cfg)
+        c = _stage_cost(q1, q2, dq1, dq2, window, valid, consts.stage_w, cfg)
+        s = s + c + cfg.gamma * (v1 * su1[..., t, None]
+                                 + v2 * su2[..., t, None])
+    s = s + _stage_cost(q1, q2, dq1, dq2, window, valid, consts.term_w, cfg)
     return s, torch.stack([q1, q2, dq1, dq2], dim=-1)
 
 

@@ -36,12 +36,17 @@ def nearest_in_window(x: torch.Tensor, y: torch.Tensor, window: torch.Tensor,
     """Masked nearest-waypoint lookup against a pre-sliced window.
 
     ``window`` (W, C) with ``valid`` (W,) against positions of any shape,
-    or (B, W, C) with (B, W) against (B,) positions, one window each.
-    Returns (offset within the window, ref_x, ref_y, ref_dq1, ref_dq2).  The
-    metric is ``(dx² + dy²)·dist_scale`` (control.py:212); ties resolve to
-    the lowest offset, as ``list.index(min(d))`` does (control.py:215) and
-    as ``torch.argmin`` does.
+    or (B, W, C) with (B, W) against positions (B, ...), scenario b's
+    against its own window.  Returns (offset within the window, ref_x,
+    ref_y, ref_dq1, ref_dq2).  The metric is ``(dx² + dy²)·dist_scale``
+    (control.py:212); ties resolve to the lowest offset, as
+    ``list.index(min(d))`` does (control.py:215) and as ``torch.argmin``
+    does.
     """
+    if window.dim() == 3 and x.dim() > 1:   # (B, ...) positions
+        lead = (window.shape[0],) + (1,) * (x.dim() - 1)
+        window = window.reshape(*lead, *window.shape[1:])
+        valid = valid.reshape(*lead, valid.shape[-1])
     dx = x[..., None] - window[..., 0]
     dy = y[..., None] - window[..., 1]
     d = (dx * dx + dy * dy) * dist_scale
@@ -49,7 +54,7 @@ def nearest_in_window(x: torch.Tensor, y: torch.Tensor, window: torch.Tensor,
     off = torch.argmin(d, dim=-1)
     if window.dim() == 2:
         ref = window[off]
-    else:                       # (B, W, C): one window per scenario
+    else:                       # one window per scenario
         ref = torch.take_along_dim(window, off[..., None, None],
                                    dim=-2)[..., 0, :]
     return off, ref[..., 0], ref[..., 1], ref[..., 2], ref[..., 3]

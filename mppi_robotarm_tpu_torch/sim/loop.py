@@ -6,20 +6,22 @@ controller model runs at 2·dt, quirk Q2), records the state, and raises
 ``IndexError`` at the path end (control.py:76-78, quirk Q6).
 
 The loops:
-  * :func:`simulate` — a Python loop over :func:`sim_step`; the path end
-    becomes a ``done`` flag that freezes the state.  ``backend="eager"``
-    solves in PyTorch in any dtype; ``backend="cuda"`` runs each step as
-    the solve kernel of ``ops/cuda_solve.py`` and ``ops/cuda_step.py``'s
-    tail (plant, freeze, record row, the next step's head), after one
-    ``cuda_step`` head a chunk, all in float32 (a float64 state goes
-    through them cast and comes back float64),
-    keeping step, seed and waypoint index on the device so the host
-    never waits, and on the card runs the steps as replayed CUDA graphs of
-    ``_GRAPH_STEPS`` steps (the JAX package's one ``lax.scan``);
-  * :func:`simulate_python` — the eager loop with the reference-exact
-    ``IndexError``;
-  * :func:`simulate_batch` — B independent scenarios (BASELINE config 4);
-    on the cuda backend one kernel launch solves all B each step;
+  * :func:`simulate` — the per-step loop of :func:`simulate_batch` on a
+    batch of one; the path end becomes a ``done`` flag that freezes the
+    state;
+  * :func:`simulate_python` — a loop of :func:`sim_step` with the
+    reference-exact ``IndexError``;
+  * :func:`simulate_batch` — B independent scenarios (BASELINE config 4),
+    one set of launches a step for all B.  ``backend="eager"`` steps all
+    B in batched PyTorch in any dtype (the JAX package's ``xla`` backend,
+    which vmaps its step inside one ``lax.scan``); ``backend="cuda"`` runs
+    each step as the solve kernel of ``ops/cuda_solve.py`` and
+    ``ops/cuda_step.py``'s tail (plant, freeze, record row, the next
+    step's head), after one ``cuda_step`` head a chunk, all in float32 (a
+    float64 state goes through them cast and comes back float64).  Both
+    keep step, seed and waypoint index on the device so the host never
+    waits, and on the card run the steps as replayed CUDA graphs of a
+    chunk of steps each (the JAX package's one ``lax.scan``);
   * :func:`simulate_fused` — the whole loop in one launch of the fused
     CUDA kernel (``ops/cuda_sim.py``), float32;
   * :func:`simulate_fused_batch` — B scenarios' whole loops in one launch:
@@ -33,6 +35,7 @@ noise and a chained run continues one long run's stream.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional
@@ -45,17 +48,17 @@ from ..models.arm import fk_full
 from ..mppi.solver import (
     MPPIState,
     SolveResult,
+    _solve_eager,
     _solve_kernels,
     init_state,
-    solve,
     solve_batched,
     step_solve_plan,
 )
-from ..ops import cuda_solve, cuda_step
-from ..ops.cuda_rollout import philox_epsilon
+from ..ops import (cuda_pathgen, cuda_probe, cuda_shard, cuda_sim,
+                   cuda_solve, cuda_step)
+from ..ops.cuda_rollout import philox_epsilon_batch
 from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
 from ..ops.cuda_step import plant_step
-from ..ops.weights import effective_sample_size, weight_entropy
 from ..utils import debug
 
 
@@ -168,91 +171,71 @@ def _scenario(states: SimState, b: int, seed) -> SimState:
         seed=seed, done=states.done[b])
 
 
+def _eager_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                ref_path: torch.Tensor, states: SimState,
+                eps: Optional[torch.Tensor], clock=None, row=None):
+    """One eager-backend step of B scenarios, the JAX package's
+    ``sim_step`` vmapped: the batched solve, then the torch code of the
+    cuda backend's step tail (``cuda_step.step_tail_plain``: freeze,
+    warm-start shift, plant, and with ``clock`` the step's record row
+    written into ``row``).  Without ``eps`` the noise is the Philox stream
+    at each scenario's (seed, step), keyed from the device tensors.  No
+    host read and no copy from the host, so a CUDA graph can capture it.
+    Returns (next state, SolveResult, clock + 1 or None)."""
+    if eps is None:
+        eps = philox_epsilon_batch(states.seed, states.step,
+                                   torch.zeros_like(states.step),
+                                   cfg.num_samples, cfg)
+    res = _solve_eager(arm, cfg, ref_path,
+                       torch.cat([states.q, states.dq], dim=-1),
+                       states.mppi, eps)
+    *nxt, clock = cuda_step.step_tail_plain(
+        arm, cfg, sim, ref_path, *_state_tensors(states)[:5], states.done,
+        res.state.wp_idx, res.path_end, res.u_seq, res.costs, clock, row)
+    return _as_state((*nxt[:5], states.seed, nxt[5])), res, clock
+
+
 def sim_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
              ref_path: torch.Tensor, state: SimState,
              eps: Optional[torch.Tensor] = None, backend: str = "eager"):
     """One closed-loop step: solve → plant → freeze when done.
 
     Without ``eps`` the noise is the Philox stream at (seed, state.step):
-    drawn on the host by the eager backend, in the kernel by the cuda one.
-    Returns (next SimState, SolveResult).
+    drawn in batched PyTorch by the eager backend, in the kernel by the
+    cuda one.  Both run their loop's step on a batch of one.  Returns
+    (next SimState, SolveResult).
     """
-    if backend == "cuda":
-        nxt, res = _step_batch(arm, cfg, sim, ref_path, _as_batch(state),
-                               None if eps is None else eps[None])
-        one = lambda v: None if v is None else v[0]
-        return _scenario(nxt, 0, state.seed), SolveResult(
-            *(one(v) for v in res[:2]),
-            MPPIState(*(v[0] for v in res.state)),
-            *(one(v) for v in res[3:]))
-    if backend != "eager":
+    if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
-    observed = torch.cat([state.q, state.dq])
-    if eps is None:
-        eps = philox_epsilon(state.seed, int(state.step), cfg,
-                             state.q.device)
-    res = solve(arm, cfg, ref_path, observed, state.mppi, eps=eps)
-
-    done = state.done | res.path_end
-    q_new, dq_new = plant_step(arm, sim, state.q, state.dq, res.u0)
-    keep = lambda new, old: torch.where(done, old, new)
-    next_state = SimState(
-        step=state.step + torch.where(done, 0, 1),
-        q=keep(q_new, state.q),
-        dq=keep(dq_new, state.dq),
-        mppi=MPPIState(u_prev=keep(res.state.u_prev, state.mppi.u_prev),
-                       wp_idx=keep(res.state.wp_idx, state.mppi.wp_idx)),
-        seed=state.seed,
-        done=done,
-    )
-    return next_state, res
-
-
-def _record(arm: ArmParams, ref_path, next_state: SimState,
-            res: SolveResult, abs_step) -> tuple:
-    x1, y1, x2, y2 = fk_full(next_state.q[0], next_state.q[1], arm)
-    ref_row = ref_path[min(abs_step, ref_path.shape[0] - 1)]
-    dn = next_state.done
-    zero = lambda v: torch.where(dn, torch.zeros_like(v), v)
-    return (next_state.q, next_state.dq, zero(res.u0),
-            torch.stack([x2, y2]), torch.stack([x1, y1]), ref_row[0:2],
-            next_state.mppi.wp_idx, zero(torch.amin(res.costs)),
-            zero(torch.mean(res.costs)),
-            zero(effective_sample_size(res.weights)),
-            zero(weight_entropy(res.weights)), dn)
+    batch, eps = _as_batch(state), None if eps is None else eps[None]
+    if backend == "cuda":
+        nxt, res = _step_batch(arm, cfg, sim, ref_path, batch, eps)
+    else:
+        nxt, res, _ = _eager_step(arm, cfg, sim, ref_path, batch, eps)
+    one = lambda v: None if v is None else v[0]
+    return _scenario(nxt, 0, state.seed), SolveResult(
+        *(one(v) for v in res[:2]), MPPIState(*(v[0] for v in res.state)),
+        *(one(v) for v in res[3:]))
 
 
 def simulate(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
              ref_path: torch.Tensor, state0: SimState, num_steps: int,
              eps_per_step=None, backend: str = "eager"):
-    """Closed loop: ``num_steps`` calls of :func:`sim_step`.
+    """Closed loop of ``num_steps`` steps: the loop of
+    :func:`simulate_batch` on a batch of one, either backend.
 
     ``eps_per_step``: optional (num_steps, K, T, 2) injected noise.  Records
     after the path end carry the frozen state with zeroed u and cost lanes.
-    ``backend="cuda"`` runs the loop of :func:`simulate_batch` on a batch
-    of one.  Returns (final SimState, SimRecord).
+    Returns (final SimState, SimRecord).
     """
-    if backend == "cuda":
-        final, rec = simulate_batch(
-            arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
-            eps_per_step=(None if eps_per_step is None
-                          else eps_per_step[:, None]), backend="cuda")
-        return (_scenario(final, 0, state0.seed),
-                SimRecord(*(f[:, 0] for f in rec)))
-    if backend != "eager":
+    if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
-    state = state0
-    step0 = int(state0.step)
-    rows = []
-    for i in range(num_steps):
-        eps = None if eps_per_step is None else eps_per_step[i]
-        prev = state
-        state, res = sim_step(arm, cfg, sim, ref_path, state, eps=eps)
-        if debug.active():
-            debug.check_step("simulate", prev, state, ref_path.shape[0],
-                             u=res.u0)
-        rows.append(_record(arm, ref_path, state, res, step0 + i + 1))
-    return state, SimRecord(*(torch.stack(f) for f in zip(*rows)))
+    final, rec = simulate_batch(
+        arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
+        eps_per_step=(None if eps_per_step is None
+                      else eps_per_step[:, None]), backend=backend)
+    return (_scenario(final, 0, state0.seed),
+            SimRecord(*(f[:, 0] for f in rec)))
 
 
 def simulate_python(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
@@ -282,54 +265,59 @@ def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     """B independent closed-loop scenarios; ``states0`` from
     :func:`init_sim_batch`.
 
-    Same semantics per scenario as :func:`simulate`.  ``backend="eager"``
-    runs :func:`simulate` scenario by scenario; ``backend="cuda"`` solves
-    all B through one launch of the solve kernel per step, keyed by each
-    scenario's constant seed and absolute step, so scenario b's run equals
-    its run alone.  On CUDA tensors without ``eps_per_step`` the steps run
-    as CUDA graphs of ``_GRAPH_STEPS`` steps, captured at a shape's first
-    call, cached, and replayed one after the other (a failed capture
-    raises); on CPU tensors, or with ``eps_per_step``, the same steps run
-    eagerly, with the same bits (:func:`_step_loop`).  ``eps_per_step``:
-    optional (num_steps, B, K, T, 2), step-major
-    (:func:`simulate_fused_batch` takes it scenario-major, as the JAX
-    package does).  Returns (final batched SimState, SimRecord of
-    (num_steps, B, ...)).
+    Same semantics per scenario as the JAX package's ``sim_step``, and one
+    set of launches a step for all B, keyed by each scenario's constant
+    seed and absolute step, so scenario b's run equals its run alone (bit
+    for bit on the CPU).  ``backend="eager"`` steps in batched PyTorch in
+    the state's dtype (:func:`_eager_step`); ``backend="cuda"`` solves all
+    B through one launch of the solve kernel per step.  On CUDA tensors
+    without ``eps_per_step`` the steps run as CUDA graphs of a chunk of
+    steps each (:func:`_chunk_steps`), captured at a shape's first call,
+    cached, and replayed one after the other (a failed capture raises); on
+    CPU tensors, with ``eps_per_step``, or for the eager backend under
+    ``utils/debug.py::debug_mode``, the same chunks run uncaptured, with
+    the same bits (:func:`_step_loop`).  ``eps_per_step``: optional
+    (num_steps, B, K, T, 2), step-major (:func:`simulate_fused_batch`
+    takes it scenario-major, as the JAX package does).  Returns (final
+    batched SimState, SimRecord of (num_steps, B, ...)).
     """
-    if backend == "eager":
-        runs = [simulate(arm, cfg, sim, ref_path,
-                         _scenario(states0, b, int(states0.seed[b])),
-                         num_steps, None if eps_per_step is None
-                         else eps_per_step[:, b])
-                for b in range(states0.q.shape[0])]
-        finals = [f for f, _ in runs]
-        stack = lambda vs: torch.stack(list(vs))
-        final = SimState(
-            step=stack(f.step for f in finals), q=stack(f.q for f in finals),
-            dq=stack(f.dq for f in finals),
-            mppi=MPPIState(*(stack(v) for v in zip(*(f.mppi
-                                                     for f in finals)))),
-            seed=states0.seed, done=stack(f.done for f in finals))
-        return final, SimRecord(*(torch.stack(f, dim=1)
-                                  for f in zip(*(r for _, r in runs))))
-    if backend != "cuda":
+    if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
-    graphs = states0.q.device.type == "cuda" and eps_per_step is None
+    graphs = (states0.q.device.type == "cuda" and eps_per_step is None
+              and (backend == "cuda" or not debug.active()))
     return _step_loop(arm, cfg, sim, ref_path, states0, num_steps,
-                      eps_per_step, graphs)
+                      eps_per_step, graphs, backend)
 
 
-# The per-step loop on the card runs as CUDA graphs of _GRAPH_STEPS steps
+# The per-step loop on the card runs as CUDA graphs of a chunk of steps
 # each (the last, shorter chunk as a graph of its own), replayed one after
 # the other; each keeps its input state in its own buffers and leaves the
-# chunk's final state there, so the next replay continues it.  16 steps gave
-# the shortest 4000-step run at benchmark_preset, captures included, on an
-# H100 (of 1, 8, 16, 32, 64 and 256: a replay every step costs host time,
-# a longer graph more capture; PERF.md).
+# chunk's final state there, so the next replay continues it.  The cuda
+# backend's chunks are _GRAPH_STEPS steps: 16 gave the shortest 4000-step
+# run at benchmark_preset, captures included, on an H100 (of 1, 8, 16, 32,
+# 64 and 256: a replay every step costs host time, a longer graph more
+# capture; PERF.md).  The eager backend's chunk, _EAGER_GRAPH_STEPS, is one
+# step: its ~5,900 launches a step keep the card busy whatever the chunk,
+# and of 1, 4 and 16 steps one captured fastest (0.24-0.27 s against
+# 0.61-0.69 and 2.7-3.7) for the same replay rate, 6.88-6.95 ms a step at
+# benchmark_preset on an H100 (tools/eager_loop.py --chunks; PERF.md).
 _GRAPH_STEPS = 16
+_EAGER_GRAPH_STEPS = 1
 _GRAPH_CACHE_SIZE = 8        # captured chunks kept, least recently used out
 _GRAPHS: "OrderedDict" = OrderedDict()
 _CAPTURE_STREAMS: dict = {}  # device index -> the stream captures run on
+# every launch count of the port's kernels, as (module, name)
+_COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
+             (cuda_step, "TAIL_LAUNCHES"), (cuda_step, "CARRIED_HEADS"),
+             (cuda_sim, "LAUNCHES"), (cuda_sim, "FLEET_LAUNCHES"),
+             (cuda_shard, "SCALE_LAUNCHES"), (cuda_shard, "FINISH_LAUNCHES"),
+             (cuda_probe, "SCALE_LAUNCHES"), (cuda_probe, "BIG_LAUNCHES"),
+             (cuda_pathgen, "LAUNCHES"))
+
+
+def _chunk_steps(backend: str) -> int:
+    """Steps a chunk of the per-step loop holds on ``backend``."""
+    return _GRAPH_STEPS if backend == "cuda" else _EAGER_GRAPH_STEPS
 
 
 class _StepGraph(NamedTuple):
@@ -339,7 +327,7 @@ class _StepGraph(NamedTuple):
     seconds its capture and instantiation took, and the launches the
     capture recorded: the solve kernel's (``launches``, one a step) and
     the step kernels' (``step_launches``: one head, a tail a step, and the
-    n - 1 tails that carried the next head)."""
+    n - 1 tails that carried the next head); an eager chunk's are all 0."""
 
     graph: "torch.cuda.CUDAGraph"
     state: SimState
@@ -355,7 +343,7 @@ class _StepGraph(NamedTuple):
 def _row_buffers(n: int, states: SimState, ref_path: torch.Tensor) -> tuple:
     """Empty (n, B, ...) record rows of a batched state, one a field of
     :class:`SimRecord` and in its order, in the dtypes of the state's
-    fields and the path (the step tail writes each step's row)."""
+    fields and the path (each step writes its row)."""
     B, device = states.q.shape[0], states.q.device
     x, u = states.q.dtype, states.mppi.u_prev.dtype
     e = lambda dtype, *s: torch.empty((n, B, *s), dtype=dtype, device=device)
@@ -367,12 +355,13 @@ def _row_buffers(n: int, states: SimState, ref_path: torch.Tensor) -> tuple:
 def _steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                 ref_path: torch.Tensor, states: SimState,
                 clock: torch.Tensor, eps_chunk, rows: tuple):
-    """``rows[0].shape[0]`` steps: the step head of the first, then each
-    step the solve kernel and the step tail, which carries the next step's
-    head but on the last step; step i writes its record row into slot i
-    of each of ``rows`` in place; ``clock`` is the run's step counter (the
-    reference rows' index).  Returns the last state and clock.  No host
-    synchronisation, so a CUDA graph can capture it."""
+    """The cuda backend's ``rows[0].shape[0]`` steps: the step head of the
+    first, then each step the solve kernel and the step tail, which
+    carries the next step's head but on the last step; step i writes its
+    record row into slot i of each of ``rows`` in place; ``clock`` is the
+    run's step counter (the reference rows' index).  Returns the last
+    state and clock.  No host synchronisation, so a CUDA graph can
+    capture it."""
     n = rows[0].shape[0]
     head = cuda_step.step_head(cfg, ref_path, states.q, states.dq,
                                states.mppi.wp_idx)
@@ -393,6 +382,27 @@ def _steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     return states, clock
 
 
+def _eager_steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
+                      ref_path: torch.Tensor, states: SimState,
+                      clock: torch.Tensor, eps_chunk, rows: tuple):
+    """The eager backend's twin of :func:`_steps_into`, with the same
+    arguments: ``rows[0].shape[0]`` steps of :func:`_eager_step`, step i
+    writing its record row into slot i of each of ``rows`` in place.
+    Returns the last state and clock.  No host read and no copy from the
+    host, so a CUDA graph can capture it."""
+    for i in range(rows[0].shape[0]):
+        states, _, clock = _eager_step(
+            arm, cfg, sim, ref_path, states,
+            None if eps_chunk is None else eps_chunk[i], clock,
+            tuple(r[i] for r in rows))
+    return states, clock
+
+
+def _body(backend: str):
+    """The chunk body of ``backend``'s per-step loop."""
+    return _steps_into if backend == "cuda" else _eager_steps_into
+
+
 def _state_tensors(states: SimState) -> tuple:
     return (states.step, states.q, states.dq, states.mppi.u_prev,
             states.mppi.wp_idx, states.seed, states.done)
@@ -405,47 +415,63 @@ def _as_state(t: tuple) -> SimState:
                     done=done)
 
 
-def _step_launch_counts() -> tuple:
-    return (cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
-            cuda_step.CARRIED_HEADS)
+def _launch_counts() -> tuple:
+    """The port's kernels' launch counts, in :data:`_COUNTERS`' order."""
+    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
 
 
-def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream):
-    """Everything a captured chunk bakes in: the device and the caller's
-    stream, the configs, the shapes and dtypes of the state and the path,
-    the chunk's steps, and the solve's and the step tail's layouts as the
-    solver and ``cuda_step`` plan them now (so a graph captured under one
-    plan is never replayed under another)."""
+def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
+               backend: str = "cuda"):
+    """Everything a captured chunk bakes in: the backend, the device and
+    the caller's stream, the configs, the shapes and dtypes of the state
+    and the path, the chunk's steps, and for the cuda backend the solve's
+    and the step tail's layouts as the solver and ``cuda_step`` plan them
+    now (so a graph captured under one plan is never replayed under
+    another)."""
     device = states.q.device
     B = states.q.shape[0]
-    plan = (step_solve_plan(cfg, B, device),
-            cuda_step._tail_layout_on(cfg.num_samples, B, device))
-    return (device.index, stream.cuda_stream, arm, cfg, sim, n, plan,
-            tuple(ref_path.shape), ref_path.dtype,
+    plan = ((step_solve_plan(cfg, B, device),
+             cuda_step._tail_layout_on(cfg.num_samples, B, device))
+            if backend == "cuda" else None)
+    return (backend, device.index, stream.cuda_stream, arm, cfg, sim, n,
+            plan, tuple(ref_path.shape), ref_path.dtype,
             tuple((tuple(v.shape), v.dtype) for v in _state_tensors(states)))
 
 
+def _chunk(body, arm, cfg, sim, ref, states: SimState, clock, rows):
+    """A captured chunk's program: ``body``'s steps on the graph's
+    buffers, then its final state and clock copied back into them, so the
+    next replay continues the run."""
+    final, final_clock = body(arm, cfg, sim, ref, states, clock, None, rows)
+    for dst, src in zip((*_state_tensors(states), clock),
+                        (*_state_tensors(final), final_clock)):
+        if dst is not src:
+            dst.copy_(src)
+
+
 def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
-             clock=None) -> _StepGraph:
-    """Capture :func:`_steps_into` over ``n`` steps, then the copy of its
-    final state and clock back into the input buffers, on the stream the
-    loop owns on the device, for replay on the caller's ``stream``; the
-    solves take ``stream``'s arrival counters (``cuda_solve.counters_of``),
-    so a replay shares them only with work that runs in order with it.
+             clock=None, backend: str = "cuda") -> _StepGraph:
+    """Capture ``backend``'s chunk of ``n`` steps (:func:`_chunk` of
+    :func:`_body`) on the stream the loop owns on the device, for replay
+    on the caller's ``stream``; the cuda backend's solves take
+    ``stream``'s arrival counters (``cuda_solve.counters_of``), so a
+    replay shares them only with work that runs in order with it.
 
     First one step runs uncaptured on the loop's stream, on scratch copies
     of the state: it loads the kernels, raises the solve kernel's
-    shared-memory limit and gives ``stream`` its arrival counters, none of
-    which a capture may do.  The launches the capture records are counted
-    into the graph (it raises unless they are a solve and a tail a step,
-    one head, and n - 1 tails that carried the head) and the replays add
-    them to ``cuda_solve.LAUNCHES`` and ``cuda_step``'s counts; the
-    warm-up's launches, and the capture's, which execute nothing, are not
-    counted there.  ``clock`` is the run's step counter at
-    the chunk's start (default: the state's step)."""
+    shared-memory limit, gives ``stream`` its arrival counters and makes
+    the eager rollout's cached constants, none of which a capture may do.
+    The launches the capture records are counted into the graph: a cuda
+    chunk raises unless they are a solve and a tail a step, one head, and
+    n - 1 tails that carried the head; an eager chunk raises on any launch
+    of the port's kernels.  The replays add them to ``cuda_solve.LAUNCHES``
+    and ``cuda_step``'s counts; the warm-up's launches, and the capture's,
+    which execute nothing, are not counted there.  ``clock`` is the run's
+    step counter at the chunk's start (default: the state's step)."""
     device = states.q.device
     clock = states.step if clock is None else clock
-    launches, step_launches = cuda_solve.LAUNCHES, _step_launch_counts()
+    body = _body(backend)
+    counts = _launch_counts()
     own = _CAPTURE_STREAMS.get(device.index)
     if own is None:
         own = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
@@ -454,34 +480,36 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
     ref = ref_path.clone()
     rows = _row_buffers(n, states, ref_path)
     own.wait_stream(stream)
-    with cuda_solve.counters_of(device, stream.cuda_stream, own.cuda_stream):
+    arrivals = (cuda_solve.counters_of(device, stream.cuda_stream,
+                                       own.cuda_stream)
+                if backend == "cuda" else contextlib.nullcontext())
+    with arrivals:
         with torch.cuda.stream(own):
             scratch = _as_state(tuple(v.clone()
                                       for v in _state_tensors(states)))
-            _steps_into(arm, cfg, sim, ref, scratch, clock.clone(), None,
-                        tuple(r[:1].clone() for r in rows))
+            body(arm, cfg, sim, ref, scratch, clock.clone(), None,
+                 tuple(r[:1].clone() for r in rows))
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        captured = cuda_solve.LAUNCHES
-        step_captured = _step_launch_counts()
+        before = _launch_counts()
         with torch.cuda.graph(graph, stream=own):
-            final, final_clock = _steps_into(arm, cfg, sim, ref, static,
-                                             static_clock, None, rows)
-            for dst, src in zip((*_state_tensors(static), static_clock),
-                                (*_state_tensors(final), final_clock)):
-                if dst is not src:
-                    dst.copy_(src)
-        captured = cuda_solve.LAUNCHES - captured
-        step_captured = tuple(
-            a - b for a, b in zip(_step_launch_counts(), step_captured))
+            _chunk(body, arm, cfg, sim, ref, static, static_clock, rows)
+        recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
         capture_s = time.perf_counter() - t0
-    cuda_solve.LAUNCHES = launches
-    (cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
-     cuda_step.CARRIED_HEADS) = step_launches
-    if captured != n:
+    for (mod, name), v in zip(_COUNTERS, counts):
+        setattr(mod, name, v)
+    captured, step_captured = recorded[0], recorded[1:4]
+    if backend != "cuda":
+        if any(recorded):
+            raise RuntimeError(
+                f"a captured eager chunk of {n} steps launched the port's "
+                f"kernels: " + ", ".join(
+                    f"{mod.__name__.rsplit('.', 1)[1]}.{name} {v}"
+                    for (mod, name), v in zip(_COUNTERS, recorded) if v))
+    elif captured != n:
         raise RuntimeError(f"a captured chunk of {n} steps holds {captured} "
                            f"solve kernel launches, not one a step")
-    if step_captured != (1, n, n - 1):
+    elif step_captured != (1, n, n - 1):
         raise RuntimeError(f"a captured chunk of {n} steps holds "
                            f"{step_captured} step head, tail and carried "
                            f"head launches, not (1, {n}, {n - 1})")
@@ -489,15 +517,16 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
                       captured, step_captured)
 
 
-def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int
-                ) -> _StepGraph:
-    """The cached chunk of ``n`` steps for these inputs on the current
-    stream, captured at its first use."""
+def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int,
+                backend: str = "cuda") -> _StepGraph:
+    """The cached chunk of ``n`` steps of ``backend`` for these inputs on
+    the current stream, captured at its first use."""
     stream = torch.cuda.current_stream(states.q.device)
-    key = _graph_key(arm, cfg, sim, ref_path, states, n, stream)
+    key = _graph_key(arm, cfg, sim, ref_path, states, n, stream, backend)
     g = _GRAPHS.pop(key, None)
     if g is None:
-        g = _capture(arm, cfg, sim, ref_path, states, n, stream, clock)
+        g = _capture(arm, cfg, sim, ref_path, states, n, stream, clock,
+                     backend)
     _GRAPHS[key] = g
     while len(_GRAPHS) > _GRAPH_CACHE_SIZE:
         _GRAPHS.popitem(last=False)
@@ -505,7 +534,8 @@ def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int
 
 
 def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
-                   num_steps, rows: tuple) -> SimState:
+                   num_steps, rows: tuple, backend: str = "cuda"
+                   ) -> SimState:
     """The run as replays of captured chunks: each chunk's input state,
     clock and path are copied into its graph's buffers (skipped when the
     last replay was of the same graph, which left its state there), then
@@ -515,10 +545,11 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
     checked after its replay, outside the graph."""
     cur = (*_state_tensors(states), clock)
     last = None
-    for start in range(0, num_steps, _GRAPH_STEPS):
-        n = min(_GRAPH_STEPS, num_steps - start)
+    S = _chunk_steps(backend)
+    for start in range(0, num_steps, S):
+        n = min(S, num_steps - start)
         g = _step_graph(arm, cfg, sim, ref_path, _as_state(cur[:7]), cur[7],
-                        n)
+                        n, backend)
         if g is not last:
             for dst, src in zip((*_state_tensors(g.state), g.clock), cur):
                 dst.copy_(src)
@@ -542,16 +573,18 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
 
 def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                ref_path: torch.Tensor, states0: SimState, num_steps: int,
-               eps_per_step=None, graphs: bool = True):
-    """:func:`simulate_batch`'s cuda backend.  With ``graphs`` (a CUDA
-    state, no injected noise) the steps run as replayed CUDA graphs of
-    ``_GRAPH_STEPS`` steps (:func:`_replay_chunks`); a capture or replay
-    that fails raises.  Otherwise the same chunks of steps run eagerly, as
-    on CPU tensors (through the solve kernel's plain twin) and with
+               eps_per_step=None, graphs: bool = True,
+               backend: str = "cuda"):
+    """:func:`simulate_batch`'s loop on ``backend``, in chunks of
+    :func:`_chunk_steps` steps.  With ``graphs`` (a CUDA state, no
+    injected noise) the chunks run as replayed CUDA graphs
+    (:func:`_replay_chunks`); a capture or replay that fails raises.
+    Otherwise the same chunks run uncaptured, as on CPU tensors and with
     ``eps_per_step``, whose noise is a new input every step (up to 126 MB
     a step at 4096 × K=128, T=30), not something a graph could keep.  The
-    two give the same bits.  Tests and the timing tool call this with
-    ``graphs=False`` on the card to hold the graphs to the eager loop."""
+    two give the same bits.  Tests and the timing tools call this with
+    ``graphs=False`` on the card to hold the graphs to the uncaptured
+    loop."""
     device = states0.q.device
     states = states0._replace(seed=torch.as_tensor(
         states0.seed, dtype=torch.int64, device=device))
@@ -560,12 +593,13 @@ def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     rows = _row_buffers(num_steps, states, ref_path)
     if graphs:
         states = _replay_chunks(arm, cfg, sim, ref_path, states, clock,
-                                num_steps, rows)
+                                num_steps, rows, backend)
     else:
-        for start in range(0, num_steps, _GRAPH_STEPS):
-            n = min(_GRAPH_STEPS, num_steps - start)
+        S, body = _chunk_steps(backend), _body(backend)
+        for start in range(0, num_steps, S):
+            n = min(S, num_steps - start)
             before = states
-            states, clock = _steps_into(
+            states, clock = body(
                 arm, cfg, sim, ref_path, states, clock,
                 None if eps_per_step is None
                 else eps_per_step[start:start + n],

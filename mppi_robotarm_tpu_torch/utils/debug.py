@@ -6,10 +6,10 @@ The counterpart of ``mppi_robotarm_tpu/utils/debug.py``:
     check the state and the control for non-finite values (``nans``) and
     their invariants (``checks``): a waypoint index within the path and
     never moving back, the absolute step never moving back nor past the
-    steps run, a path-end freeze never undone.  The eager loops check
-    after each step, the cuda per-step loop after each chunk of
-    ``sim/loop.py::_GRAPH_STEPS`` steps (between graph replays: a check
-    reads the device, which a captured graph may not do), the fused loops
+    steps run, a path-end freeze never undone.  The per-step loops check
+    after each chunk (``sim/loop.py::_chunk_steps``): the cuda backend's
+    between graph replays (a check reads the device, which a captured
+    graph may not do), the eager backend's uncaptured; the fused loops
     after each launch, ``solve`` after each solve;
   * :func:`checked_solve` — a solve that returns ``(error, result)``,
     ``error.throw()`` raising at the reference's path end (Q6) or on a

@@ -1,6 +1,7 @@
 """The port's CLI against the JAX package's: the same flags give the same
 summary keys, files and record fields; checkpoint/resume; the guards,
-including the cuda backends' exit without a CUDA device."""
+including every backend's exit without a CUDA device unless the CPU is
+asked for."""
 
 import contextlib
 import io
@@ -19,7 +20,7 @@ import _torch_port_helpers  # noqa: F401  (pins torch to one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--samples", "16", "--horizon", "6"]
-EAGER = ["--backend", "eager"]        # the port's CPU path
+EAGER = ["--backend", "eager", "--device", "cpu"]
 
 
 def _run(main, argv):
@@ -136,16 +137,18 @@ def test_guards(monkeypatch):
     with pytest.raises(SystemExit, match="render-step"):
         pcli.main(["--steps", "4", *SMALL, *EAGER, "--batch", "2",
                    "--render-step", "1"])
-    monkeypatch.setattr(pcli, "_device", lambda backend: torch.device("cpu"))
+    monkeypatch.setattr(pcli, "_device",
+                        lambda backend, device: torch.device("cpu"))
     with pytest.raises(SystemExit, match="checkpoint-every"):
         pcli.main(["--steps", "4", *SMALL, "--backend", "cuda-fused",
                    "--checkpoint-every", "2"])
 
 
-@pytest.mark.parametrize("backend", ["cuda", "cuda-fused"])
+@pytest.mark.parametrize("backend", ["cuda", "cuda-fused", "eager"])
 @pytest.mark.parametrize("batch", ["0", "3"])
 def test_cuda_backends_exit_without_a_cuda_device(backend, batch):
-    """The cuda backends never fall back to the CPU twins."""
+    """No backend falls back to the CPU: without a CUDA device each exits
+    with a message unless ``--device cpu`` asks for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="CUDA device"):

@@ -101,14 +101,16 @@ def test_cli_defaults_to_cuda_and_exits_without_it():
 
 
 def test_cli_eager_runs_on_the_cpu(monkeypatch):
+    """Asked for with ``--device cpu``; without it the eager backend runs
+    on the card like the others (``tests/test_torch_cli.py``)."""
     seen = []
     real = pcli._device
-    monkeypatch.setattr(pcli, "_device",
-                        lambda backend: seen.append(real(backend)) or seen[-1])
+    monkeypatch.setattr(pcli, "_device", lambda backend, device: seen.append(
+        real(backend, device)) or seen[-1])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = pcli.main(["--steps", "2", "--samples", "16", "--horizon", "6",
-                        "--backend", "eager"])
+                        "--backend", "eager", "--device", "cpu"])
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])
     assert rc == 0 and summary["backend"] == "eager"
     assert seen == [torch.device("cpu")]
