@@ -226,7 +226,22 @@ Phases (any failure raises and exits non-zero):
      host's time to enqueue a step, the device events a step, the idle
      share, the chunk length and the capture seconds; 20 steps of the
      4096 x K=128, T=30 fleet on the eager backend, scenario-steps/s and
-     device events a step.
+     device events a step;
+ 28. the per-call entry points as cached CUDA graphs
+     (``tools/call_graphs.py``; ``mppi/solver.py::_call``): the compat
+     drop-in at ``examples/reference_drop_in.py``'s configuration (K=100,
+     T=30, float64, ``visualize_optimal_traj``, ``np.random.seed(0)``) on
+     both backends, SMOKE_CALLS calls as graphs == the same calls
+     uncaptured (``solver._uncaptured()``) bit for bit on every output,
+     the graph run's launches (a solve kernel and a step head a call on
+     the cuda backend, none on the eager one), calls/s of both, device
+     events and device-busy µs a call, each graph's capture seconds; a
+     chain of 20 calls of ``solve(backend="eager")`` and of
+     ``viz_rollouts`` at benchmark_preset, of ``viz_rollouts`` at the
+     drop-in's configuration and of ``solve_batched`` on the 4096 x
+     K=128, T=30 fleet, graphs == uncaptured bit for bit on every field,
+     µs a call of both, capture seconds and what the capturing call left
+     reserved on the card.
 
 The line before the last is the per-kernel JSON summary: each kernel's
 launches on its main path, its error against its plain version, its time,
@@ -2267,10 +2282,11 @@ def main() -> int:
 
     # ---- 27. the eager backend as replayed CUDA graphs ------------------
     from mppi_robotarm_tpu_torch.tools import eager_loop
+    from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
     t0 = time.perf_counter()
-    counts = loop._launch_counts()
-    for mod, attr in loop._COUNTERS:
+    counts = cuda_graphs.launch_counts()
+    for mod, attr in cuda_graphs.COUNTERS:
         setattr(mod, attr, 0)
     for label, diffs in eager_loop.check_bits(device):
         bad = {k: v for k, v in diffs.items() if v != 0.0}
@@ -2278,12 +2294,13 @@ def main() -> int:
               + ("bitwise on every field" if not bad else f"max |d| {bad}"))
         check(not bad, f"eager: {label}: not bitwise: {bad}")
     et = eager_loop.time_loop(device)
-    eager_counts = loop._launch_counts()
+    eager_counts = cuda_graphs.launch_counts()
     check(not any(eager_counts), "the eager path launched the port's "
           "kernels: " + ", ".join(
               f"{mod.__name__}.{attr} {v}"
-              for (mod, attr), v in zip(loop._COUNTERS, eager_counts) if v))
-    for (mod, attr), v in zip(loop._COUNTERS, counts):
+              for (mod, attr), v in zip(cuda_graphs.COUNTERS, eager_counts)
+              if v))
+    for (mod, attr), v in zip(cuda_graphs.COUNTERS, counts):
         setattr(mod, attr, v)
     check(et["events"] > 0 and et["busy_us"] > 0,
           "the profiler saw no device event in the eager graphs")
@@ -2310,8 +2327,77 @@ def main() -> int:
           f"{ef['events']:.1f} device events a step; phase 27 in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # ---- 28. the per-call entry points as cached CUDA graphs ------------
+    from mppi_robotarm_tpu_torch.mppi import solver as psolver
+    from mppi_robotarm_tpu_torch.tools import call_graphs
+
+    t0 = time.perf_counter()
+    calls = call_graphs.SMOKE_CALLS
+    for backend in ("cuda", "eager"):
+        psolver._CALL_GRAPHS.clear()
+        counts = cuda_graphs.launch_counts()
+        t1 = time.perf_counter()
+        got = call_graphs.compat_run(backend, device, calls, True)
+        first_s = time.perf_counter() - t1
+        launched = [a - b for a, b in zip(cuda_graphs.launch_counts(),
+                                          counts)]
+        caps = call_graphs.captures()
+        t1 = time.perf_counter()
+        want = call_graphs.compat_run(backend, device, calls, False)
+        plain_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        call_graphs.compat_run(backend, device, calls, True)
+        graph_s = time.perf_counter() - t1
+        bad = {k: v for k, v in call_graphs.compat_bits(got, want).items()
+               if v != 0.0}
+        print(f"calls [{card}]: compat drop-in (K=100 T=30, float64, "
+              f"visualize_optimal_traj) on {backend}, {len(got)} calls: "
+              f"graphs == uncaptured "
+              + ("bitwise on every output" if not bad else f"max |d| {bad}"))
+        check(not bad and len(got) == calls,
+              f"calls: the {backend} drop-in's graphs differ from its "
+              f"uncaptured calls over {len(got)} calls: {bad}")
+        want_launched = [0] * len(launched)
+        if backend == "cuda":
+            want_launched[:2] = [calls, calls]   # a solve kernel, a head
+        check(launched == want_launched,
+              f"calls: the {backend} drop-in launched "
+              f"{cuda_graphs.named(launched) or 'no kernel'} over {calls} "
+              f"calls, not {cuda_graphs.named(want_launched) or 'none'}")
+        ev = {mode: call_graphs.compat_events(backend, device,
+                                              mode == "graphs")
+              for mode in ("graphs", "uncaptured")}
+        check(ev["graphs"][0] > 0, f"calls: the profiler saw no device "
+              f"event in the {backend} drop-in's graphs")
+        print(f"calls [{card}]: compat drop-in on {backend}: graphs "
+              f"{calls / graph_s:.1f} calls/s ({graph_s / calls * 1e3:.3f} "
+              f"ms a call; the first run, which captures, "
+              f"{first_s / calls * 1e3:.3f}), uncaptured "
+              f"{calls / plain_s:.1f} calls/s ({plain_s / calls * 1e3:.3f} "
+              f"ms); device events a call {ev['graphs'][0]:.1f} against "
+              f"{ev['uncaptured'][0]:.1f}, device busy "
+              f"{ev['graphs'][1]:.1f} against {ev['uncaptured'][1]:.1f} us "
+              f"a call; capture and instantiation "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(caps.items()))
+              + f"; launches {cuda_graphs.named(launched) or 'none'}")
+    for row in call_graphs.bench_chains(device):
+        bad = {k: v for k, v in row["diffs"].items() if v != 0.0}
+        print(f"calls [{card}]: {row['label']}, a chain of {row['calls']} "
+              f"calls: graphs == uncaptured "
+              + ("bitwise on every field" if not bad else f"max |d| {bad}")
+              + f"; graphs {row['us']['graphs']:.1f} us a call, uncaptured "
+              f"{row['us']['uncaptured']:.1f} (CUDA events, min of 3 in "
+              f"turns); capture and instantiation "
+              + ", ".join(f"{k} {v:.4f} s"
+                          for k, v in sorted(row["captures"].items()))
+              + f"; the capturing call left "
+              f"{row['reserved'] / 2 ** 20:.2f} MiB reserved")
+        check(not bad, f"calls: {row['label']}: not bitwise: {bad}")
+    psolver._CALL_GRAPHS.clear()
+    print(f"calls [{card}]: phase 28 in {time.perf_counter() - t0:.1f} s")
+
     check("jax" not in sys.modules,
-          "the port imported JAX during phases 2-27")
+          "the port imported JAX during phases 2-28")
 
     # ---- bounds, from this run's shapes (``utils/roofline.py``) ---------
     f4 = 4

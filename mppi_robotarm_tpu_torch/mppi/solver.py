@@ -22,11 +22,20 @@ injected or drawn in the kernel from (seed, step).  ``solve_batched`` is
 the B-scenario solve through one kernel launch (``solve_batched_pallas``).
 :func:`viz_rollouts` re-rolls a solve's samples and its optimal sequence
 for rendering.
+
+On the card each of the three entry points runs as one device program,
+as the JAX package jits each: a CUDA graph a key (:func:`_call`), the
+key's first call uncaptured, its second captured, every later one a
+replay with its inputs copied in and its outputs handed back as fresh
+tensors, bit for bit the uncaptured call.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+import functools
+from collections import OrderedDict
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -39,7 +48,7 @@ from ..ops.noise import sample_epsilon, sigma_cholesky
 from ..ops.rollout import rollout_costs, rollout_trajectory
 from ..ops.waypoint import update_waypoint_index
 from ..ops.weights import mppi_weights, ordered_sum
-from ..utils import debug
+from ..utils import cuda_graphs, debug
 
 
 class MPPIState(NamedTuple):
@@ -130,6 +139,131 @@ def _solve_kernels(arm, cfg, observed_x, u_prev, window, seed, eps, step,
     return u_seq, s.to(dtype), eps_used
 
 
+# ---- the per-call graphs ----------------------------------------------------
+
+# Each per-call entry point on the card runs as a CUDA graph a key, the
+# counterpart of the JAX package's jit of solve, solve_batched_pallas and
+# viz_rollouts: a key's first call runs uncaptured (the warm-up: it loads
+# the kernels, raises the solve kernel's shared-memory limit, gives the
+# caller's stream its arrival counters and makes the eager rollout's
+# cached constants), its second captures and replays, every later one
+# copies its inputs into the graph's buffers and replays.  Outputs come
+# back as clones: a replay overwrites the graph's own.
+_CALL_GRAPH_CACHE_SIZE = 8   # keys kept, least recently used out
+_CALL_GRAPHS: "OrderedDict" = OrderedDict()
+_GRAPH_DEVICES = ("cuda",)   # where calls run as graphs
+_CALL_GRAPHS_ON = True       # off inside _uncaptured()
+# the launches a capture may record, in utils/cuda_graphs.py's COUNTERS
+# order: the cuda backend's one step head and one solve kernel, and none
+# of the port's kernels for the eager backend and the re-rollouts
+_NO_LAUNCH = (0,) * len(cuda_graphs.COUNTERS)
+_SOLVE_LAUNCHES = tuple(
+    int((mod, name) in ((cuda_solve, "LAUNCHES"),
+                        (cuda_step, "HEAD_LAUNCHES")))
+    for mod, name in cuda_graphs.COUNTERS)
+
+
+class _CallGraph:
+    """A key's entry: whether its first call has run, and once captured,
+    the graph's input buffers and its capture (``cuda_graphs.Captured``:
+    the graph, its outputs, the launches it recorded, its seconds)."""
+
+    def __init__(self):
+        self.warm = False
+        self.inputs: Optional[tuple] = None
+        self.captured: Optional[cuda_graphs.Captured] = None
+
+
+@contextlib.contextmanager
+def _uncaptured():
+    """Within the block every call runs uncaptured on the card too, the
+    yardstick of the tests and the timing tools (no public keyword)."""
+    global _CALL_GRAPHS_ON
+    old, _CALL_GRAPHS_ON = _CALL_GRAPHS_ON, False
+    try:
+        yield
+    finally:
+        _CALL_GRAPHS_ON = old
+
+
+def _fresh(v):
+    """A result with every tensor cloned (NamedTuples kept, None kept)."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple):
+        return type(v)(*map(_fresh, v)) if hasattr(v, "_fields") else tuple(
+            map(_fresh, v))
+    return v
+
+
+def _call(name: str, program: Callable, inputs: tuple, device,
+          key: tuple, launches: tuple = _NO_LAUNCH):
+    """``program(*inputs)``, on the card as a CUDA graph keyed by ``name``,
+    the device, the caller's stream, ``key`` (what the program bakes in:
+    the configs, the backend, the options, the launch plan) and the shape
+    and dtype of every input; ``inputs`` are tensors (or None) that the
+    call's host part made, nothing in ``program`` reads the host.  A
+    capture raises unless it recorded ``launches`` (in
+    ``cuda_graphs.COUNTERS``' order); each replay adds them to the counts.
+    Uncaptured on the CPU, under ``utils/debug.py::debug_mode``, within
+    :func:`_uncaptured` and at a key's first call; a capture or replay
+    that fails raises."""
+    if (device.type not in _GRAPH_DEVICES or not _CALL_GRAPHS_ON
+            or debug.active()):
+        return program(*inputs)
+    stream = torch.cuda.current_stream(device)
+    full = (name, device.index, stream.cuda_stream, *key,
+            tuple(None if v is None else (tuple(v.shape), v.dtype)
+                  for v in inputs))
+    g = cuda_graphs.lru(_CALL_GRAPHS, full, _CallGraph,
+                        _CALL_GRAPH_CACHE_SIZE)
+    if not g.warm:
+        g.warm = True
+        return program(*inputs)
+    if g.captured is None:
+        static = tuple(None if v is None else v.clone() for v in inputs)
+        c = cuda_graphs.capture(lambda: program(*static), device, stream,
+                                arrivals=launches != _NO_LAUNCH)
+        if c.recorded != launches:
+            raise RuntimeError(
+                f"a captured {name} recorded "
+                f"{cuda_graphs.named(c.recorded) or 'no kernel launch'}, not "
+                f"{cuda_graphs.named(launches) or 'no kernel launch'}")
+        g.inputs, g.captured = static, c
+    else:
+        for dst, src in zip(g.inputs, inputs):
+            if dst is not None:
+                dst.copy_(src)
+    cuda_graphs.replay(g.captured.graph, g.captured.recorded)
+    return _fresh(g.captured.out)
+
+
+def _unbatch(res: SolveResult) -> SolveResult:
+    """Scenario 0 of a batched result."""
+    one = lambda v: None if v is None else v[0]
+    return SolveResult(*(one(v) for v in res[:2]),
+                       MPPIState(*(v[0] for v in res.state)),
+                       *(one(v) for v in res[3:]))
+
+
+def _solve_one_cuda(arm, cfg, want_eps, ref_path, observed_x, u_prev,
+                    wp_idx, seed, eps, step) -> SolveResult:
+    """The cuda backend's solve of one scenario: :func:`_solve_batched_
+    program` on a batch of one (``wp_idx``, ``seed`` and ``step`` (1,)
+    tensors or None)."""
+    return _unbatch(_solve_batched_program(
+        arm, cfg, want_eps, ref_path, observed_x[None], u_prev[None], wp_idx,
+        seed, None if eps is None else eps[None], step))
+
+
+def _solve_one_eager(arm, cfg, ref_path, observed_x, u_prev, wp_idx,
+                     eps) -> SolveResult:
+    """The eager backend's solve of one scenario, a batch of one through
+    :func:`_solve_eager`: ``wp_idx`` a (1,) tensor."""
+    return _unbatch(_solve_eager(arm, cfg, ref_path, observed_x[None],
+                                 MPPIState(u_prev[None], wp_idx), eps[None]))
+
+
 def solve(
     arm: ArmParams,
     cfg: MPPIConfig,
@@ -150,6 +284,8 @@ def solve(
     stream at (``seed``, ``step``) on the cuda backend; exactly one source
     must be given.  A seeded cuda solve returns ``eps=None`` unless
     ``want_eps`` is set: the kernel then also writes its (K, T, 2) noise out.
+    On the card the solve runs as a CUDA graph a key (:func:`_call`); the
+    generator's draw happens before it, as in the uncaptured call.
     """
     if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -160,38 +296,26 @@ def solve(
                          + ("generator=" if backend == "eager" else "seed="))
     cfg.validate()
     device = state.u_prev.device
+    one = lambda v: None if v is None else torch.as_tensor(
+        v, device=device).reshape(1)
 
     if backend == "cuda":
-        # a batch of one through the step head and the solve kernel
-        one = lambda v: None if v is None else torch.as_tensor(
-            v, device=device).reshape(1)
-        _, wp_idx, path_end, window = cuda_step.step_head(
-            cfg, ref_path, observed_x[None, 0:2], observed_x[None, 2:4],
-            one(state.wp_idx))
-        u_seq, s, eps = _solve_kernels(
-            arm, cfg, observed_x[None], state.u_prev[None], window,
-            one(seed), None if eps is None else eps[None], one(step),
-            want_eps)
-        u_seq, s = u_seq[0], s[0]
-        next_state = MPPIState(u_prev=shift_warm_start(u_seq),
-                               wp_idx=wp_idx[0])
-        res = SolveResult(u0=next_state.u_prev[0], u_seq=u_seq,
-                          state=next_state, path_end=path_end[0], costs=s,
-                          weights=mppi_weights(s, cfg.lam),
-                          eps=None if eps is None else eps[0])
+        # the head's launch is one warp a scenario, from B alone
+        res = _call("solve", functools.partial(_solve_one_cuda, arm, cfg,
+                                               want_eps),
+                    (ref_path, observed_x, state.u_prev, one(state.wp_idx),
+                     one(seed), eps, one(step)), device,
+                    ("cuda", arm, cfg, want_eps, drawn is not None,
+                     step_solve_plan(cfg, 1, device)), _SOLVE_LAUNCHES)
     else:
         if eps is None:
             eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
                                  sigma_cholesky(cfg.sigma),
                                  state.u_prev.dtype)
-        # a batch of one through the eager loop's batched solve
-        one = _solve_eager(arm, cfg, ref_path, observed_x[None],
-                           MPPIState(state.u_prev[None], torch.as_tensor(
-                               state.wp_idx, device=device).reshape(1)),
-                           eps[None])
-        res = SolveResult(*(v[0] for v in one[:2]),
-                          MPPIState(*(v[0] for v in one.state)),
-                          *(v[0] for v in one[3:]))
+        res = _call("solve", functools.partial(_solve_one_eager, arm, cfg),
+                    (ref_path, observed_x, state.u_prev, one(state.wp_idx),
+                     eps), device,
+                    ("eager", arm, cfg, want_eps, drawn is not None))
     if debug.active():
         debug.check_solve("solve", res, ref_path.shape[0])
     return res
@@ -227,6 +351,21 @@ def _solve_eager(arm, cfg, ref_path, observed_x, state: MPPIState,
                        weights=w, eps=eps)
 
 
+def _solve_batched_program(arm, cfg, want_eps, ref_path, observed_x, u_prev,
+                           wp_idx, seeds, eps, step) -> SolveResult:
+    """The cuda backend's solve of B scenarios on tensors alone: the step
+    head and the solve kernel, then the weights and the warm-start
+    shift."""
+    _, wp_idx, path_end, window = cuda_step.step_head(
+        cfg, ref_path, observed_x[:, 0:2], observed_x[:, 2:4], wp_idx)
+    u_seq, s, eps = _solve_kernels(arm, cfg, observed_x, u_prev, window,
+                                   seeds, eps, step, want_eps)
+    next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
+    return SolveResult(u0=next_state.u_prev[:, 0], u_seq=u_seq,
+                       state=next_state, path_end=path_end, costs=s,
+                       weights=mppi_weights(s, cfg.lam), eps=eps)
+
+
 def solve_batched(
     arm: ArmParams,
     cfg: MPPIConfig,
@@ -246,19 +385,35 @@ def solve_batched(
     scenario-constant ``seeds`` and the absolute ``step``: the kernel keys
     its stream by both, so no two (scenario, step) pairs share noise and a
     resumed run continues its stream.  Every field of the result has a
-    leading B axis; ``eps`` is the injected noise, or None.
+    leading B axis; ``eps`` is the injected noise, or None.  On the card
+    the call runs as a CUDA graph a key (:func:`_call`).
     """
     if (seeds is None) == (eps is None):
         raise ValueError("provide exactly one of seeds= or eps=")
     cfg.validate()
-    _, wp_idx, path_end, window = cuda_step.step_head(
-        cfg, ref_path, observed_x[:, 0:2], observed_x[:, 2:4], state.wp_idx)
-    u_seq, s, eps = _solve_kernels(arm, cfg, observed_x, state.u_prev,
-                                   window, seeds, eps, step, False)
-    next_state = MPPIState(u_prev=shift_warm_start(u_seq), wp_idx=wp_idx)
-    return SolveResult(u0=next_state.u_prev[:, 0], u_seq=u_seq,
-                       state=next_state, path_end=path_end, costs=s,
-                       weights=mppi_weights(s, cfg.lam), eps=eps)
+    device = observed_x.device
+    as_dev = lambda v: None if v is None else torch.as_tensor(v,
+                                                              device=device)
+    return _call("solve_batched",
+                 functools.partial(_solve_batched_program, arm, cfg, False),
+                 (ref_path, observed_x, state.u_prev, state.wp_idx,
+                  as_dev(seeds), eps, as_dev(step)), device,
+                 ("cuda", arm, cfg, seeds is not None,
+                  step_solve_plan(cfg, observed_x.shape[0], device)),
+                 _SOLVE_LAUNCHES)
+
+
+def _viz_program(arm, cfg, observed_x, u_seq, u_prev, eps,
+                 costs) -> VizResult:
+    """:func:`viz_rollouts`' device part, on tensors alone."""
+    k_idx = torch.arange(cfg.num_samples, device=eps.device)
+    exploit = (k_idx < (1.0 - cfg.exploration) * cfg.num_samples)[:, None,
+                                                                   None]
+    v = torch.where(exploit, u_prev[None] + eps, eps)
+    return VizResult(
+        optimal_traj=rollout_trajectory(arm, cfg, observed_x, u_seq),
+        sampled_trajs=rollout_trajectory(arm, cfg, observed_x, v),
+        sorted_idx=torch.argsort(costs, stable=True))
 
 
 def viz_rollouts(
@@ -274,17 +429,13 @@ def viz_rollouts(
     (control.py:129-145, with quirk Q4).  ``v`` is rebuilt from u_prev and
     eps as in the cost rollout (control.py:98-101).  ``eps`` must be the
     solve's noise: a seeded cuda solve returns None unless asked with
-    ``want_eps=True``, and this raises ``ValueError`` then."""
+    ``want_eps=True``, and this raises ``ValueError`` then.  On the card
+    the call runs as a CUDA graph a key (:func:`_call`)."""
     if eps is None:
         raise ValueError(
             "viz_rollouts needs the solve's noise tensor, but SolveResult"
             ".eps is None: re-run solve(..., want_eps=True) (a seeded cuda "
             "solve does not write its noise out by default)")
-    k_idx = torch.arange(cfg.num_samples, device=eps.device)
-    exploit = (k_idx < (1.0 - cfg.exploration) * cfg.num_samples)[:, None,
-                                                                   None]
-    v = torch.where(exploit, u_prev[None] + eps, eps)
-    return VizResult(
-        optimal_traj=rollout_trajectory(arm, cfg, observed_x, u_seq),
-        sampled_trajs=rollout_trajectory(arm, cfg, observed_x, v),
-        sorted_idx=torch.argsort(costs, stable=True))
+    return _call("viz_rollouts", functools.partial(_viz_program, arm, cfg),
+                 (observed_x, u_seq, u_prev, eps, costs), eps.device,
+                 (arm, cfg))

@@ -33,7 +33,6 @@ import numpy as np
 import torch
 
 from ..config import MPPIConfig
-from ..mppi.solver import _median_update
 from .cuda_sim import _check_tensor
 from .cuda_step import _f32, _kinds
 
@@ -112,6 +111,9 @@ def shard_finish_plain(cfg: MPPIConfig, packed, u_prev):
     """Plain version of the finish: the summed message ``packed`` (B, 1 +
     2T), u_prev (B, T, 2).  Returns u_seq = u_prev + the median filter of
     A/η, in u_prev's dtype."""
+    # imported here: the solver imports the ops (utils/cuda_graphs.py)
+    from ..mppi.solver import _median_update
+
     eta, a = unpack(packed)
     return _median_update(u_prev, (a / eta[:, None, None]).to(u_prev.dtype),
                           cfg)

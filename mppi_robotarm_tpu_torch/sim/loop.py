@@ -35,8 +35,6 @@ noise and a chained run continues one long run's stream.
 
 from __future__ import annotations
 
-import contextlib
-import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional
 
@@ -47,19 +45,18 @@ from ..device import resolve_device
 from ..models.arm import fk_full
 from ..mppi.solver import (
     MPPIState,
-    SolveResult,
     _solve_eager,
     _solve_kernels,
+    _unbatch,
     init_state,
     solve_batched,
     step_solve_plan,
 )
-from ..ops import (cuda_pathgen, cuda_probe, cuda_shard, cuda_sim,
-                   cuda_solve, cuda_step)
+from ..ops import cuda_step
 from ..ops.cuda_rollout import philox_epsilon_batch
 from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
 from ..ops.cuda_step import plant_step
-from ..utils import debug
+from ..utils import cuda_graphs, debug
 
 
 class SimState(NamedTuple):
@@ -212,10 +209,7 @@ def sim_step(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
         nxt, res = _step_batch(arm, cfg, sim, ref_path, batch, eps)
     else:
         nxt, res, _ = _eager_step(arm, cfg, sim, ref_path, batch, eps)
-    one = lambda v: None if v is None else v[0]
-    return _scenario(nxt, 0, state.seed), SolveResult(
-        *(one(v) for v in res[:2]), MPPIState(*(v[0] for v in res.state)),
-        *(one(v) for v in res[3:]))
+    return _scenario(nxt, 0, state.seed), _unbatch(res)
 
 
 def simulate(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
@@ -305,14 +299,6 @@ _GRAPH_STEPS = 16
 _EAGER_GRAPH_STEPS = 1
 _GRAPH_CACHE_SIZE = 8        # captured chunks kept, least recently used out
 _GRAPHS: "OrderedDict" = OrderedDict()
-_CAPTURE_STREAMS: dict = {}  # device index -> the stream captures run on
-# every launch count of the port's kernels, as (module, name)
-_COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
-             (cuda_step, "TAIL_LAUNCHES"), (cuda_step, "CARRIED_HEADS"),
-             (cuda_sim, "LAUNCHES"), (cuda_sim, "FLEET_LAUNCHES"),
-             (cuda_shard, "SCALE_LAUNCHES"), (cuda_shard, "FINISH_LAUNCHES"),
-             (cuda_probe, "SCALE_LAUNCHES"), (cuda_probe, "BIG_LAUNCHES"),
-             (cuda_pathgen, "LAUNCHES"))
 
 
 def _chunk_steps(backend: str) -> int:
@@ -415,11 +401,6 @@ def _as_state(t: tuple) -> SimState:
                     done=done)
 
 
-def _launch_counts() -> tuple:
-    """The port's kernels' launch counts, in :data:`_COUNTERS`' order."""
-    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
-
-
 def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
                backend: str = "cuda"):
     """Everything a captured chunk bakes in: the backend, the device and
@@ -452,12 +433,13 @@ def _chunk(body, arm, cfg, sim, ref, states: SimState, clock, rows):
 def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
              clock=None, backend: str = "cuda") -> _StepGraph:
     """Capture ``backend``'s chunk of ``n`` steps (:func:`_chunk` of
-    :func:`_body`) on the stream the loop owns on the device, for replay
-    on the caller's ``stream``; the cuda backend's solves take
-    ``stream``'s arrival counters (``cuda_solve.counters_of``), so a
-    replay shares them only with work that runs in order with it.
+    :func:`_body`) with ``utils/cuda_graphs.py::capture``, on the side
+    stream it keeps a device, for replay on the caller's ``stream``; the
+    cuda backend's solves take ``stream``'s arrival counters
+    (``cuda_solve.counters_of``), so a replay shares them only with work
+    that runs in order with it.
 
-    First one step runs uncaptured on the loop's stream, on scratch copies
+    First one step runs uncaptured on the side stream, on scratch copies
     of the state: it loads the kernels, raises the solve kernel's
     shared-memory limit, gives ``stream`` its arrival counters and makes
     the eager rollout's cached constants, none of which a capture may do.
@@ -468,44 +450,27 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
     and ``cuda_step``'s counts; the warm-up's launches, and the capture's,
     which execute nothing, are not counted there.  ``clock`` is the run's
     step counter at the chunk's start (default: the state's step)."""
-    device = states.q.device
     clock = states.step if clock is None else clock
     body = _body(backend)
-    counts = _launch_counts()
-    own = _CAPTURE_STREAMS.get(device.index)
-    if own is None:
-        own = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
     static = _as_state(tuple(v.clone() for v in _state_tensors(states)))
     static_clock = clock.clone()
     ref = ref_path.clone()
     rows = _row_buffers(n, states, ref_path)
-    own.wait_stream(stream)
-    arrivals = (cuda_solve.counters_of(device, stream.cuda_stream,
-                                       own.cuda_stream)
-                if backend == "cuda" else contextlib.nullcontext())
-    with arrivals:
-        with torch.cuda.stream(own):
-            scratch = _as_state(tuple(v.clone()
-                                      for v in _state_tensors(states)))
-            body(arm, cfg, sim, ref, scratch, clock.clone(), None,
-                 tuple(r[:1].clone() for r in rows))
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(graph, stream=own):
-            _chunk(body, arm, cfg, sim, ref, static, static_clock, rows)
-        recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
-        capture_s = time.perf_counter() - t0
-    for (mod, name), v in zip(_COUNTERS, counts):
-        setattr(mod, name, v)
-    captured, step_captured = recorded[0], recorded[1:4]
+
+    def warmup():
+        scratch = _as_state(tuple(v.clone() for v in _state_tensors(states)))
+        body(arm, cfg, sim, ref, scratch, clock.clone(), None,
+             tuple(r[:1].clone() for r in rows))
+
+    c = cuda_graphs.capture(
+        lambda: _chunk(body, arm, cfg, sim, ref, static, static_clock, rows),
+        states.q.device, stream, warmup=warmup, arrivals=backend == "cuda")
+    captured, step_captured = c.recorded[0], c.recorded[1:4]
     if backend != "cuda":
-        if any(recorded):
+        if any(c.recorded):
             raise RuntimeError(
                 f"a captured eager chunk of {n} steps launched the port's "
-                f"kernels: " + ", ".join(
-                    f"{mod.__name__.rsplit('.', 1)[1]}.{name} {v}"
-                    for (mod, name), v in zip(_COUNTERS, recorded) if v))
+                f"kernels: " + cuda_graphs.named(c.recorded))
     elif captured != n:
         raise RuntimeError(f"a captured chunk of {n} steps holds {captured} "
                            f"solve kernel launches, not one a step")
@@ -513,8 +478,8 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
         raise RuntimeError(f"a captured chunk of {n} steps holds "
                            f"{step_captured} step head, tail and carried "
                            f"head launches, not (1, {n}, {n - 1})")
-    return _StepGraph(graph, static, static_clock, ref, rows, n, capture_s,
-                      captured, step_captured)
+    return _StepGraph(c.graph, static, static_clock, ref, rows, n,
+                      c.capture_s, captured, step_captured)
 
 
 def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int,
@@ -523,14 +488,10 @@ def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int,
     the current stream, captured at its first use."""
     stream = torch.cuda.current_stream(states.q.device)
     key = _graph_key(arm, cfg, sim, ref_path, states, n, stream, backend)
-    g = _GRAPHS.pop(key, None)
-    if g is None:
-        g = _capture(arm, cfg, sim, ref_path, states, n, stream, clock,
-                     backend)
-    _GRAPHS[key] = g
-    while len(_GRAPHS) > _GRAPH_CACHE_SIZE:
-        _GRAPHS.popitem(last=False)
-    return g
+    return cuda_graphs.lru(
+        _GRAPHS, key, lambda: _capture(arm, cfg, sim, ref_path, states, n,
+                                       stream, clock, backend),
+        _GRAPH_CACHE_SIZE)
 
 
 def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
@@ -556,11 +517,7 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
             g.ref.copy_(ref_path)
         before = (_as_state(tuple(v.clone() for v in cur[:7]))
                   if debug.active() else None)
-        g.graph.replay()
-        cuda_solve.LAUNCHES += g.launches
-        cuda_step.HEAD_LAUNCHES += g.step_launches[0]
-        cuda_step.TAIL_LAUNCHES += g.step_launches[1]
-        cuda_step.CARRIED_HEADS += g.step_launches[2]
+        cuda_graphs.replay(g.graph, (g.launches, *g.step_launches))
         for dst, src in zip(rows, g.rows):
             dst[start:start + n].copy_(src)
         cur, last = (*_state_tensors(g.state), g.clock), g

@@ -3,16 +3,26 @@
 The JAX package is the reference.  Data crosses between the two packages as
 NumPy arrays only, and noise is made with NumPy from fixed seeds, so both
 sides see identical inputs.  ``tests/conftest.py`` pins JAX to the CPU with
-x64 enabled before this module is imported.
+x64 enabled before :func:`configs` imports it; nothing else here needs JAX,
+so the card-only tests import this module on a machine without it.
+
+:func:`replaying_capture` is the CUDA-graph stand-in of the tests of the
+port's graphs (the per-step loops' and the per-call entry points').
 """
 
+import contextlib
 import dataclasses
+from collections import OrderedDict
 
 import numpy as np
+import pytest
 import torch
 
-import mppi_robotarm_tpu.config as jcfg
 import mppi_robotarm_tpu_torch.config as pcfg
+from mppi_robotarm_tpu_torch.mppi import solver as psolver
+from mppi_robotarm_tpu_torch.ops import cuda_solve, cuda_step
+from mppi_robotarm_tpu_torch.sim import loop as ploop
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
 torch.set_num_threads(1)
 
@@ -27,6 +37,8 @@ def eps_noise(seed: int, shape, dtype=np.float32) -> np.ndarray:
 
 def configs(num_samples: int, horizon: int, **kw):
     """(JAX MPPIConfig, port MPPIConfig) with the same fields."""
+    import mppi_robotarm_tpu.config as jcfg
+
     j = dataclasses.replace(jcfg.MPPIConfig(), num_samples=num_samples,
                             horizon=horizon, **kw)
     p = dataclasses.replace(pcfg.MPPIConfig(), num_samples=num_samples,
@@ -44,3 +56,98 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# ---- CUDA graphs, replayed on the CPU ---------------------------------------
+
+class StandInStream:
+    """torch.cuda.Stream stand-in (the class is also the current stream)."""
+
+    cuda_stream = 7
+
+    def __init__(self, device=None):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+class StandInGraph:
+    """torch.cuda.CUDAGraph stand-in: replays the program recorded while it
+    was captured."""
+
+    program = None
+
+    def replay(self):
+        self.program()
+
+
+def _leaves(v):
+    """The tensors of a nested result, in order."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, tuple):
+        return [t for x in v for t in _leaves(x)]
+    return []
+
+
+@pytest.fixture
+def replaying_capture(monkeypatch):
+    """torch.cuda's graph and stream calls answered on CPU tensors: a
+    capture (``utils/cuda_graphs.py::capture``) runs its program once, as
+    the real one records it, and keeps it; each replay runs the program
+    again on the graph's buffers and writes what it returns into the
+    tensors the capture returned, as a replay rewrites a graph's outputs
+    in place, and leaves the launch counts as it found them, as a replay
+    runs no wrapper (``cuda_graphs.replay`` adds what the capture
+    recorded).  Each cache of graphs starts empty."""
+    capture = cuda_graphs.capture
+
+    def recording(program, *a, **k):
+        c = capture(program, *a, **k)
+
+        def again():
+            counts = cuda_graphs.launch_counts()
+            for dst, src in zip(_leaves(c.out), _leaves(program())):
+                if dst is not src:
+                    dst.copy_(src)
+            for (mod, name), v in zip(cuda_graphs.COUNTERS, counts):
+                setattr(mod, name, v)
+
+        c.graph.program = again
+        return c
+
+    monkeypatch.setattr(cuda_graphs, "capture", recording)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, stream=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Stream", StandInStream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: StandInStream)
+    monkeypatch.setattr(cuda_graphs, "CAPTURE_STREAMS", {})
+    monkeypatch.setattr(ploop, "_GRAPHS", OrderedDict())
+    monkeypatch.setattr(psolver, "_CALL_GRAPHS", OrderedDict())
+
+
+@pytest.fixture
+def counted_kernels(monkeypatch):
+    """The cuda backend's two kernels counted as their wrappers count a
+    launch on the card (the plain versions count none): ``per_solve``
+    solve launches a call of the solve kernel's wrapper."""
+    solve, head = cuda_solve.solve_batched, cuda_step.step_head
+
+    def counted_head(*a, **k):
+        cuda_step.HEAD_LAUNCHES += 1
+        return head(*a, **k)
+
+    monkeypatch.setattr(cuda_step, "step_head", counted_head)
+
+    def per_solve(n):
+        def counted(*a, **k):
+            cuda_solve.LAUNCHES += n
+            return solve(*a, **k)
+        monkeypatch.setattr(cuda_solve, "solve_batched", counted)
+    per_solve(1)
+    return per_solve

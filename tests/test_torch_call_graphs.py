@@ -1,0 +1,511 @@
+"""The per-call entry points as CUDA graphs (``mppi/solver.py::_call``):
+``solve`` on both backends, ``solve_batched`` and ``viz_rollouts``, on the
+CPU under the replaying stand-in (``_torch_port_helpers.py::
+replaying_capture``) with the CPU let through as a graph device:
+
+* a replay equals the uncaptured call bit for bit, every field of the
+  result, in float32 and float64, over a chain of 10 calls each fed the
+  last one's result: ``solve`` eager (injected and generator-drawn noise)
+  and cuda (injected and seeded, the plain versions on the CPU),
+  ``solve_batched`` (seeded and injected) and ``viz_rollouts``;
+* a key's first call runs uncaptured and its second captures;
+  ``debug_mode`` and ``_uncaptured()`` never capture;
+* an earlier result is not overwritten by a later call, a generator
+  leaves a graph call in the state the uncaptured call leaves it, a path
+  changed in place between calls is seen, and the keys separate backend,
+  dtype, shape, ``want_eps`` and the noise's source;
+* the launches a capture records and a replay adds, and the raise when a
+  capture records other launches than its entry point's;
+* a captured call with every host read of a tensor and every tensor made
+  from host data raising;
+* 20 calls of the compat drop-in through the graphs in float64 against
+  the JAX package's ``MPPIControllerForPathTracking(backend="xla")`` on
+  the same NumPy noise, to 1e-7 relative and 1e-9 absolute (the
+  tolerance ``tests/test_torch_compat.py`` holds the oracle to).
+
+Marked ``cuda`` and skipped without a card: the graphs against the
+uncaptured calls, bit for bit, on the card.  They need no JAX:
+
+    python -m pytest --noconftest tests/test_torch_call_graphs.py -m cuda
+"""
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import mppi_robotarm_tpu_torch as P
+from mppi_robotarm_tpu_torch.mppi import solver as psolver
+from mppi_robotarm_tpu_torch.ops import cuda_sim
+from mppi_robotarm_tpu_torch.utils import cuda_graphs, debug
+from _torch_port_helpers import (counted_kernels,  # noqa: F401 (fixtures)
+                                 replaying_capture)
+
+try:        # the GPU machine has no JAX: there only the cuda tests run
+    import mppi_robotarm_tpu.compat as jcompat
+except ImportError:
+    jcompat = None
+
+torch.set_num_threads(1)
+ARM = P.ArmParams()
+CALLS = 10
+
+
+def _cfg(K=16, T=5, **kw):
+    return dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
+                               **kw)
+
+
+def _ref(dtype=torch.float32, device="cpu"):
+    return torch.as_tensor(P.synth_circle_path(2000), dtype=dtype,
+                           device=device)
+
+
+def _eps(seed, shape, dtype=torch.float32, device="cpu"):
+    e = np.random.default_rng(seed).normal(size=(*shape, 2)) * np.sqrt(20.0)
+    return torch.as_tensor(e, dtype=dtype, device=device)
+
+
+def _x0(dtype=torch.float32, device="cpu", B=None):
+    x = torch.tensor([1.1522, -1.2661, 0.0, 0.0], dtype=dtype, device=device)
+    if B is None:
+        return x
+    return x + 0.01 * torch.arange(B, dtype=dtype, device=device)[:, None]
+
+
+def _next_x(x, u0):
+    """The next observation, fed from the result (a step of the plant's
+    Euler on a made-up acceleration)."""
+    return torch.cat([x[..., :2] + 0.003 * x[..., 2:],
+                      x[..., 2:] + 0.003 * u0.to(x.dtype)], dim=-1)
+
+
+def assert_same(a, b, where=""):
+    """Two results equal bit for bit, field by field, dtypes included."""
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor), where
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+    elif isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for k, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+            assert_same(x, y, f"{where}.{k}")
+    else:
+        assert a == b, where
+
+
+@pytest.fixture
+def graphs_on_cpu(replaying_capture, counted_kernels,  # noqa: F811
+                  monkeypatch):
+    """The per-call graphs on CPU tensors, under the replaying stand-in,
+    the cuda backend's kernels counted as on the card; returns the list
+    of the captures made."""
+    monkeypatch.setattr(psolver, "_GRAPH_DEVICES", ("cuda", "cpu"))
+    made = []
+    capture = cuda_graphs.capture
+
+    def counted(*a, **k):
+        made.append(capture(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(cuda_graphs, "capture", counted)
+    return made
+
+
+# ---- the chains ------------------------------------------------------------
+
+def solve_chain(backend, noise, dtype, calls=CALLS, device="cpu", cfg=None,
+                generator=None):
+    """``calls`` solves, each fed the last one's state and observation."""
+    cfg = cfg or _cfg(exploration=0.25)
+    ref, x = _ref(dtype, device), _x0(dtype, device)
+    state = P.init_state(cfg, dtype=dtype, device=device)
+    out = []
+    for i in range(calls):
+        kw = {"eager": {"eps": dict(eps=_eps(i, (16, 5), dtype, device)),
+                        "generator": dict(generator=generator)},
+              "cuda": {"eps": dict(eps=_eps(i, (16, 5), dtype, device)),
+                       "seed": dict(seed=5, step=i, want_eps=True)}}
+        res = psolver.solve(ARM, cfg, ref, x, state, backend=backend,
+                            **kw[backend][noise])
+        out.append(res)
+        state, x = res.state, _next_x(x, res.u0)
+    return out
+
+
+def batched_chain(noise, dtype, calls=CALLS, device="cpu", B=3):
+    """``calls`` calls of ``solve_batched`` of B scenarios, each fed the
+    last one's state and observations."""
+    cfg = _cfg()
+    ref, x = _ref(dtype, device), _x0(dtype, device, B)
+    state = psolver.MPPIState(
+        u_prev=P.init_state(cfg, dtype=dtype, device=device).u_prev.repeat(
+            B, 1, 1),
+        wp_idx=torch.tensor([0, 3, 7], device=device))
+    seeds = torch.tensor([1, 2, 3], device=device)
+    out = []
+    for i in range(calls):
+        kw = (dict(seeds=seeds, step=torch.tensor([i, i + 4, 2 * i],
+                                                  device=device))
+              if noise == "seed" else
+              dict(eps=_eps(i, (B, 16, 5), dtype, device)))
+        res = psolver.solve_batched(ARM, cfg, ref, x, state, **kw)
+        out.append(res)
+        state, x = res.state, _next_x(x, res.u0)
+    return out
+
+
+def viz_chain(solved, dtype, device="cpu"):
+    """``viz_rollouts`` of each solve of a chain on its pre-update
+    sequence."""
+    cfg = _cfg(exploration=0.25)
+    x = _x0(dtype, device)
+    u_prev = P.init_state(cfg, dtype=dtype, device=device).u_prev
+    out = []
+    for res in solved:
+        out.append(psolver.viz_rollouts(ARM, cfg, x, res.u_seq, u_prev,
+                                        res.eps, res.costs))
+        u_prev, x = res.state.u_prev, _next_x(x, res.u0)
+    return out
+
+
+CHAINS = {
+    "solve eager eps": lambda d, **k: solve_chain("eager", "eps", d, **k),
+    "solve cuda eps": lambda d, **k: solve_chain("cuda", "eps", d, **k),
+    "solve cuda seed": lambda d, **k: solve_chain("cuda", "seed", d, **k),
+    "solve_batched seed": lambda d, **k: batched_chain("seed", d, **k),
+    "solve_batched eps": lambda d, **k: batched_chain("eps", d, **k),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+def test_a_replay_equals_the_uncaptured_call(graphs_on_cpu, chain, dtype):
+    with psolver._uncaptured():
+        want = CHAINS[chain](dtype)
+    assert not graphs_on_cpu and not psolver._CALL_GRAPHS
+    got = CHAINS[chain](dtype)
+    assert_same(got, want, chain)
+    assert len(graphs_on_cpu) == 1 and len(psolver._CALL_GRAPHS) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("source", ["eager", "cuda"])
+def test_a_viz_replay_equals_the_uncaptured_call(graphs_on_cpu, source,
+                                                 dtype):
+    with psolver._uncaptured():
+        solved = solve_chain(source, "eps" if source == "eager" else "seed",
+                             dtype)
+        want = viz_chain(solved, dtype)
+    got = viz_chain(solved, dtype)
+    assert_same(got, want)
+    assert [k[0] for k in psolver._CALL_GRAPHS] == ["viz_rollouts"]
+    assert len(graphs_on_cpu) == 1
+
+
+def test_a_generator_leaves_the_same_state(graphs_on_cpu):
+    """The eager backend draws its noise from the generator before the
+    replay, as the uncaptured call draws it."""
+    gens = [torch.Generator().manual_seed(11) for _ in range(2)]
+    with psolver._uncaptured():
+        want = solve_chain("eager", "generator", torch.float64,
+                           generator=gens[0])
+    got = solve_chain("eager", "generator", torch.float64,
+                      generator=gens[1])
+    assert_same(got, want)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert len(graphs_on_cpu) == 1
+
+
+# ---- when a call captures ------------------------------------------------------
+
+def test_the_second_call_of_a_key_captures(graphs_on_cpu):
+    cfg, ref, x = _cfg(), _ref(), _x0()
+    state = P.init_state(cfg, device="cpu")
+    call = lambda i: psolver.solve(ARM, cfg, ref, x, state,
+                                   eps=_eps(i, (16, 5)))
+    call(0)
+    (g,) = psolver._CALL_GRAPHS.values()
+    assert g.warm and g.captured is None and not graphs_on_cpu
+    call(1)
+    assert g.captured is not None and len(graphs_on_cpu) == 1
+    for i in range(2, 5):
+        call(i)
+    assert len(graphs_on_cpu) == 1 and len(psolver._CALL_GRAPHS) == 1
+
+
+def test_debug_mode_and_the_switch_never_capture(graphs_on_cpu):
+    with debug.debug_mode():
+        solve_chain("eager", "eps", torch.float32, calls=3)
+    with psolver._uncaptured():
+        solve_chain("cuda", "seed", torch.float32, calls=3)
+    assert not graphs_on_cpu and not psolver._CALL_GRAPHS
+
+
+def test_an_earlier_result_is_not_overwritten(graphs_on_cpu):
+    cfg, ref, x = _cfg(), _ref(), _x0()
+    state = P.init_state(cfg, device="cpu")
+    call = lambda i: psolver.solve(ARM, cfg, ref, x, state,
+                                   eps=_eps(i, (16, 5)))
+    call(0)
+    kept = call(1)                     # the capture's replay
+    snapshot = psolver._fresh(kept)
+    later = call(2)                    # a replay of the same graph
+    assert_same(kept, snapshot)
+    assert not torch.equal(later.costs, kept.costs)
+    out = graphs_on_cpu[0].out
+    assert kept.costs.data_ptr() != out.costs.data_ptr()
+    assert later.u_seq.data_ptr() != out.u_seq.data_ptr()
+
+
+def test_a_path_changed_in_place_is_seen(graphs_on_cpu):
+    cfg, x = _cfg(), _x0()
+    ref = _ref()
+    state = P.init_state(cfg, device="cpu")
+    eps = _eps(0, (16, 5))
+    call = lambda r: psolver.solve(ARM, cfg, r, x, state, eps=eps)
+    call(ref)
+    before = call(ref)
+    ref[:, 0:2] += 0.05
+    got = call(ref)
+    with psolver._uncaptured():
+        want = call(ref)
+    assert_same(got, want)
+    assert not torch.equal(got.costs, before.costs)
+    assert len(graphs_on_cpu) == 1
+
+
+def test_keys_separate_backend_dtype_shape_options_and_noise(graphs_on_cpu):
+    ref, x = _ref(), _x0()
+    keys = set()
+
+    def calls(**kw):
+        cfg = kw.pop("cfg", _cfg())
+        dtype = kw.pop("dtype", torch.float32)
+        state = P.init_state(cfg, dtype=dtype, device="cpu")
+        for _ in range(2):
+            psolver.solve(ARM, cfg, ref.to(dtype), x.to(dtype), state, **kw)
+        new = set(psolver._CALL_GRAPHS) - keys
+        assert len(new) == 1, kw
+        keys.update(new)
+        return new.pop()
+
+    eager = calls(eps=_eps(0, (16, 5)))
+    f64 = calls(eps=_eps(0, (16, 5), torch.float64), dtype=torch.float64)
+    wide = calls(eps=_eps(0, (32, 5)), cfg=_cfg(32))
+    drawn = calls(generator=torch.Generator().manual_seed(0))
+    cuda = calls(eps=_eps(0, (16, 5)), backend="cuda")
+    seeded = calls(seed=3, backend="cuda")
+    with_eps = calls(seed=3, backend="cuda", want_eps=True)
+    assert len(keys) == 7 == len(graphs_on_cpu)
+    assert eager[3] == "eager" and cuda[3] == "cuda"
+    assert eager[4:6] == (ARM, _cfg())
+    assert seeded[:-1] != with_eps[:-1] and eager[:-1] != drawn[:-1]
+    assert f64[-1] != eager[-1] and wide[-1] != eager[-1]
+    assert cuda[-2] == psolver.step_solve_plan(_cfg(), 1, torch.device("cpu"))
+
+
+# ---- launch counts ---------------------------------------------------------------
+
+@pytest.mark.parametrize("entry", ["solve", "solve_batched"])
+def test_a_replay_adds_the_launches_its_capture_recorded(
+        graphs_on_cpu, counted_kernels, entry):
+    counts = cuda_graphs.launch_counts()
+    if entry == "solve":
+        solve_chain("cuda", "seed", torch.float32, calls=5)
+    else:
+        batched_chain("seed", torch.float32, calls=5)
+    (c,) = graphs_on_cpu
+    assert c.recorded == psolver._SOLVE_LAUNCHES
+    after = cuda_graphs.launch_counts()
+    assert after[0] - counts[0] == 5 and after[1] - counts[1] == 5
+    assert after[2:] == counts[2:]
+
+
+@pytest.mark.parametrize("per_solve", [0, 2])
+def test_a_cuda_capture_without_one_launch_raises(
+        graphs_on_cpu, counted_kernels, per_solve):
+    counted_kernels(per_solve)
+    cfg, ref, x = _cfg(), _ref(), _x0()
+    state = P.init_state(cfg, device="cpu")
+    psolver.solve(ARM, cfg, ref, x, state, seed=1, backend="cuda")
+    counts = cuda_graphs.launch_counts()
+    with pytest.raises(RuntimeError, match="a captured solve recorded"):
+        psolver.solve(ARM, cfg, ref, x, state, seed=1, backend="cuda")
+    assert cuda_graphs.launch_counts() == counts
+
+
+@pytest.mark.parametrize("entry", ["solve", "viz_rollouts"])
+def test_an_eager_capture_with_a_port_kernel_launch_raises(
+        graphs_on_cpu, monkeypatch, entry):
+    name = "_solve_eager" if entry == "solve" else "rollout_trajectory"
+    inner = getattr(psolver, name)
+
+    def launching(*a, **k):
+        cuda_sim.FLEET_LAUNCHES += 1
+        return inner(*a, **k)
+
+    monkeypatch.setattr(psolver, name, launching)
+    cfg, ref, x = _cfg(), _ref(), _x0()
+    state = P.init_state(cfg, device="cpu")
+    eps = _eps(0, (16, 5))
+    if entry == "solve":
+        call = lambda: psolver.solve(ARM, cfg, ref, x, state, eps=eps)
+    else:
+        call = lambda: psolver.viz_rollouts(ARM, cfg, x, state.u_prev,
+                                            state.u_prev, eps,
+                                            eps[:, 0, 0])
+    call()
+    counts = cuda_graphs.launch_counts()
+    with pytest.raises(RuntimeError, match=f"a captured {entry} recorded "
+                       f"cuda_sim.FLEET_LAUNCHES"):
+        call()
+    assert cuda_graphs.launch_counts() == counts
+
+
+# ---- no host reads ---------------------------------------------------------------
+
+@contextlib.contextmanager
+def host_reads_raise():
+    """Every host read of a tensor, and every tensor made from host data,
+    raises within the block, as in a capture on the card."""
+    def host_read(self, *a, **k):
+        raise AssertionError("the captured call read a tensor on the host")
+
+    saved = [(torch.Tensor, a, getattr(torch.Tensor, a))
+             for a in ("__bool__", "__int__", "__float__", "__index__",
+                       "item", "tolist")]
+    saved += [(torch, a, getattr(torch, a)) for a in ("tensor", "as_tensor")]
+    try:
+        for owner, attr, _ in saved[:-2]:
+            setattr(owner, attr, host_read)
+        for owner, attr, made in saved[-2:]:
+            def from_tensors_only(data, *a, _made=made, **k):
+                if not isinstance(data, torch.Tensor):
+                    raise AssertionError("the captured call copied host "
+                                         "data")
+                return _made(data, *a, **k)
+            setattr(owner, attr, from_tensors_only)
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+@pytest.mark.parametrize("chain", ["solve eager eps", "viz"])
+def test_a_captured_call_reads_nothing_from_the_host(graphs_on_cpu,
+                                                     monkeypatch, chain):
+    """The program a capture records, and each replay of it, run with
+    every host read raising; the call's host part (the checks, the
+    tensors made from its scalars) runs outside."""
+    capture = cuda_graphs.capture
+
+    def guarded(program, *a, **k):
+        def strict():
+            with host_reads_raise():
+                return program()
+        return capture(strict, *a, **k)
+
+    dtype = torch.float64
+    with psolver._uncaptured():
+        solved = solve_chain("eager", "eps", dtype, calls=4)
+        want = solved if chain != "viz" else viz_chain(solved, dtype)
+    monkeypatch.setattr(cuda_graphs, "capture", guarded)
+    got = (solve_chain("eager", "eps", dtype, calls=4) if chain != "viz"
+           else viz_chain(solved, dtype))
+    assert_same(got, want)
+    assert len(graphs_on_cpu) == 1 and len(psolver._CALL_GRAPHS) == 1
+
+
+# ---- the compat drop-in against the JAX package ------------------------------------
+
+RUN_CFG = dict(  # the run.py:25-37 call-site values
+    delta_t=0.006, horizon_step_T=30, number_of_samples_K=100,
+    param_exploration=0.0, param_lambda=100.0, param_alpha=0.98,
+    sigma=np.array([[20.0, 0.0], [0.0, 20.0]]),
+    stage_cost_weight=np.array([0.5, 0.5, 5.0, 5.0]),
+    terminal_cost_weight=np.array([5.0, 5.0, 50.0, 50.0]))
+
+
+@pytest.mark.skipif(jcompat is None, reason="needs the JAX package")
+def test_compat_through_the_graphs_matches_jax(graphs_on_cpu):
+    """20 calls of the drop-in, visualisation on, through the graphs in
+    float64, against the JAX package's compat layer on its xla backend,
+    both drawing the same NumPy stream; the plant is stepped with JAX's
+    control so both see the same observations."""
+    from mppi_robotarm_tpu_torch.compat import (
+        Arm_Dynamic, MPPIControllerForPathTracking)
+
+    ref = P.synth_circle_path(2000, dtype=np.float64)
+    mine = MPPIControllerForPathTracking(
+        ref_path=ref, visualize_optimal_traj=True,
+        visualze_sampled_trajs=True, rng=np.random.default_rng(7),
+        backend="eager", device="cpu", **RUN_CFG)
+    theirs = jcompat.MPPIControllerForPathTracking(
+        ref_path=ref, visualize_optimal_traj=True,
+        visualze_sampled_trajs=True, rng=np.random.default_rng(7),
+        backend="xla", **RUN_CFG)
+    q, dq = np.array([1.1522, -1.2661]), np.zeros(2)
+    for step in range(20):
+        obs = np.concatenate([q, dq])
+        got = mine.calc_control_input(obs)
+        want = theirs.calc_control_input(obs)
+        for k, a, b in zip(("u0", "u_seq", "optimal_traj", "sampled"), got,
+                           want):
+            np.testing.assert_allclose(a, b, rtol=1e-7, atol=1e-9,
+                                       err_msg=f"step {step} {k}")
+        assert mine.prev_waypoints_idx == theirs.prev_waypoints_idx
+        dq = dq + 0.003 * Arm_Dynamic(q, dq, want[0])
+        q = q + 0.003 * dq
+    assert sorted(k[0] for k in psolver._CALL_GRAPHS) == ["solve",
+                                                          "viz_rollouts"]
+    assert len(graphs_on_cpu) == 2
+
+
+# ---- on the card ----------------------------------------------------------------------
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the graphs replay on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chain", sorted(CHAINS) + ["viz"])
+def test_graphs_equal_the_uncaptured_calls_on_the_card(dev, monkeypatch,
+                                                       chain, dtype):
+    monkeypatch.setattr(psolver, "_CALL_GRAPHS", type(
+        psolver._CALL_GRAPHS)())
+    if chain == "viz":
+        with psolver._uncaptured():
+            solved = solve_chain("eager", "eps", dtype, device=dev)
+        run = lambda: viz_chain(solved, dtype, device=dev)
+    else:
+        run = lambda: CHAINS[chain](dtype, device=dev)
+    counts = cuda_graphs.launch_counts()
+    with psolver._uncaptured():
+        want = run()
+    between = cuda_graphs.launch_counts()
+    got = run()
+    assert_same(got, want, chain)
+    (g,) = psolver._CALL_GRAPHS.values()
+    assert g.captured is not None
+    # the graph path launches what the uncaptured calls launch
+    after = cuda_graphs.launch_counts()
+    assert [a - b for a, b in zip(after, between)] == [
+        b - c for b, c in zip(between, counts)]
+
+
+@pytest.mark.cuda
+def test_compat_graphs_equal_uncaptured_on_the_card(dev):
+    from mppi_robotarm_tpu_torch.tools import call_graphs
+
+    for backend in ("cuda", "eager"):
+        psolver._CALL_GRAPHS.clear()
+        got = call_graphs.compat_run(backend, dev, 30, True)
+        want = call_graphs.compat_run(backend, dev, 30, False)
+        assert set(call_graphs.compat_bits(got, want).values()) == {0.0}
+    psolver._CALL_GRAPHS.clear()

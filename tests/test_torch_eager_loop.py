@@ -29,7 +29,6 @@ The ``cuda`` tests need no JAX, so on a GPU machine without it:
     python -m pytest --noconftest tests/test_torch_eager_loop.py -m cuda
 """
 
-import contextlib
 import dataclasses
 import hashlib
 from collections import OrderedDict
@@ -45,6 +44,9 @@ from mppi_robotarm_tpu_torch.ops.weights import (effective_sample_size,
                                                  ordered_sum, weight_entropy)
 from mppi_robotarm_tpu_torch.sim import loop as ploop
 from mppi_robotarm_tpu_torch.tools import eager_loop
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
+from _torch_port_helpers import StandInStream as _Stream
+from _torch_port_helpers import replaying_capture  # noqa: F401 (fixture)
 
 try:        # the GPU machine has no JAX: there only the cuda tests run
     import jax
@@ -201,60 +203,6 @@ def test_chunked_loop_with_injected_noise(monkeypatch):
 
 # ---- graphs, replayed on the CPU --------------------------------------------
 
-class _Stream:
-    cuda_stream = 7
-
-    def __init__(self, device=None):
-        pass
-
-    def wait_stream(self, other):
-        pass
-
-
-class _Graph:
-    """torch.cuda.CUDAGraph stand-in: replays the chunk program recorded
-    while it was captured."""
-
-    program = None
-
-    def replay(self):
-        self.program()
-
-
-@pytest.fixture
-def replaying_capture(monkeypatch):
-    """torch.cuda's graph and stream calls answered on CPU tensors: a
-    capture runs its chunk once, as the real one records it, and keeps
-    the chunk's program (``sim/loop.py::_chunk`` on the graph's buffers),
-    which each replay runs again."""
-    capturing = []
-
-    @contextlib.contextmanager
-    def graph(g, stream=None):
-        capturing.append(g)
-        try:
-            yield
-        finally:
-            capturing.pop()
-
-    chunk = ploop._chunk
-
-    def recorded(*a, **k):
-        if capturing:
-            capturing[-1].program = lambda: chunk(*a, **k)
-        return chunk(*a, **k)
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
-    monkeypatch.setattr(torch.cuda, "graph", graph)
-    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream)
-    monkeypatch.setattr(ploop, "_chunk", recorded)
-    monkeypatch.setattr(ploop, "_CAPTURE_STREAMS", {})
-    monkeypatch.setattr(ploop, "_GRAPHS", OrderedDict())
-
-
 @pytest.mark.parametrize("chunk", [1, 3, 16])
 def test_graphs_replay_the_uncaptured_bits(replaying_capture, monkeypatch,
                                            chunk):
@@ -264,7 +212,7 @@ def test_graphs_replay_the_uncaptured_bits(replaying_capture, monkeypatch,
     steps = 10
     want = ploop._step_loop(ARM, cfg, SIM, ref, states, steps, graphs=False,
                             backend="eager")
-    counts = ploop._launch_counts()
+    counts = cuda_graphs.launch_counts()
     got = ploop._step_loop(ARM, cfg, SIM, ref, states, steps, graphs=True,
                            backend="eager")
     assert_same_run(got, want)
@@ -278,7 +226,7 @@ def test_graphs_replay_the_uncaptured_bits(replaying_capture, monkeypatch,
     assert all(k[0] == "eager" for k in ploop._GRAPHS)
     assert all(g.launches == 0 and g.step_launches == (0, 0, 0)
                for g in ploop._GRAPHS.values())
-    assert ploop._launch_counts() == counts
+    assert cuda_graphs.launch_counts() == counts
 
 
 def test_graph_key_holds_the_backend():
@@ -308,12 +256,12 @@ def test_an_eager_chunk_with_a_port_kernel_launch_raises(
 
     monkeypatch.setattr(ploop, "_eager_step", launching)
     cfg, ref = _cfg(32, 6), _ref()
-    counts = ploop._launch_counts()
+    counts = cuda_graphs.launch_counts()
     with pytest.raises(RuntimeError, match=f"launched the port's kernels: "
                        f".*{name} 3"):
         ploop._capture(ARM, cfg, SIM, ref, _batch(cfg, 2), 3, _Stream,
                        backend="eager")
-    assert ploop._launch_counts() == counts
+    assert cuda_graphs.launch_counts() == counts
 
 
 # ---- no host reads -----------------------------------------------------------

@@ -33,6 +33,7 @@ from mppi_robotarm_tpu_torch.ops import cuda_solve, cuda_step
 from mppi_robotarm_tpu_torch.ops.weights import (effective_sample_size,
                                                  weight_entropy)
 from mppi_robotarm_tpu_torch.sim import loop as ploop
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
 torch.set_num_threads(1)
 ARM, SIM = P.ArmParams(), P.SimConfig()
@@ -253,7 +254,7 @@ def fake_capture(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream)
-    monkeypatch.setattr(ploop, "_CAPTURE_STREAMS", {})
+    monkeypatch.setattr(cuda_graphs, "CAPTURE_STREAMS", {})
     monkeypatch.setattr(ploop, "_GRAPHS", OrderedDict())
     solve = cuda_solve.solve_batched
     head, tail = cuda_step.step_head, cuda_step.step_tail
@@ -295,7 +296,7 @@ def test_replays_count_the_launches_their_capture_recorded(fake_capture):
     assert sorted(g.n for g in ploop._GRAPHS.values()) == [
         5, ploop._GRAPH_STEPS]
     assert cuda_solve.LAUNCHES == before + steps
-    assert list(ploop._CAPTURE_STREAMS) == [None]   # one a device
+    assert list(cuda_graphs.CAPTURE_STREAMS) == [None]   # one a device
 
 
 @pytest.mark.parametrize("per_solve", [0, 2])

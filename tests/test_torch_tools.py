@@ -3,17 +3,25 @@ saved listings in ``cuobjdump -sass``'s and ``nvdisasm -gi``'s formats, the
 parts of ``tools/fused_timing.py`` that need no card (the launch settings
 of its three modes, the fingerprint and the on-path mean), the argument
 handling of ``tools/sanitize.py``, ``tools/combine_clocks.py``'s
-stamps against the solve kernel's source, and ``tools/smoke_ab.py`` on
-stand-in trees."""
+stamps against the solve kernel's source, ``tools/smoke_ab.py`` on
+stand-in trees, and ``tools/call_graphs.py``'s comparisons under the
+replaying CUDA-graph stand-in."""
+
+import dataclasses
+import time
 
 import numpy as np
 import pytest
 import torch
 
 import mppi_robotarm_tpu_torch as P
+from mppi_robotarm_tpu_torch.mppi import solver as psolver
 from mppi_robotarm_tpu_torch.ops import cuda_sim
-from mppi_robotarm_tpu_torch.tools import (combine_clocks, fused_timing,
-                                           sanitize, sass_loops, smoke_ab)
+from mppi_robotarm_tpu_torch.tools import (call_graphs, combine_clocks,
+                                           fused_timing, sanitize,
+                                           sass_loops, smoke_ab)
+from _torch_port_helpers import (counted_kernels,  # noqa: F401 (fixtures)
+                                 replaying_capture)
 
 # A rollout loop 0x30-0xf0 holding two of the three Philox multiplies (one
 # hoisted before it), with a window scan 0x60-0xa0 (two rows a pass) and a
@@ -560,3 +568,52 @@ def test_smoke_ab_stamps_each_line_and_reports_the_marks(tmp_path, capsys):
     assert b23 == float((out / "2_b.log").read_text().splitlines()[1]
                         .split("\t")[0])
     assert f"'phase 23' {b23}" in lines[1]
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def test_call_graphs_tool_compares_on_the_cpu(
+        replaying_capture, counted_kernels, monkeypatch):  # noqa: F811
+    """``tools/call_graphs.py`` at small sizes, the per-call graphs on CPU
+    tensors under the stand-in: the drop-in's graph run against its
+    uncaptured run, every field 0.0 (bitwise), and a perturbed or shorter
+    run showing its difference; a solve chain and a ``solve_batched``
+    chain bitwise with one capture each."""
+    monkeypatch.setattr(psolver, "_GRAPH_DEVICES", ("cuda", "cpu"))
+    monkeypatch.setattr(call_graphs, "_events_ms", _host_ms)
+    monkeypatch.setattr(call_graphs, "_reserved_by", lambda fn: fn() and 0)
+    got = call_graphs.compat_run("eager", "cpu", 4, True)
+    assert sorted(call_graphs.captures()) == ["solve", "viz_rollouts"]
+    want = call_graphs.compat_run("eager", "cpu", 4, False)
+    assert len(got) == 4
+    assert set(call_graphs.compat_bits(got, want).values()) == {0.0}
+    bumped = [(r[0] + 1e-3, *r[1:]) for r in got]
+    d = call_graphs.compat_bits(bumped, want)
+    assert d["u0"] == pytest.approx(1e-3) and d["u_seq"] == 0.0
+    assert call_graphs.compat_bits(got[:3], want)["calls"] == 1.0
+
+    arm = P.ArmParams()
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=16, horizon=5)
+    ref = torch.as_tensor(P.synth_circle_path(2000))
+    x0 = torch.tensor([1.1522, -1.2661, 0.0, 0.0])
+    state = P.init_state(cfg, device="cpu")
+    eps = [torch.randn((16, 5, 2), generator=torch.Generator().manual_seed(i))
+           for i in range(4)]
+    row = call_graphs.chain_check(
+        "solve", lambda n: call_graphs.solve_chain(arm, cfg, ref, x0, state,
+                                                   eps[:n]), calls=4,
+        rounds=1)
+    assert set(row["diffs"].values()) == {0.0} and len(row["diffs"]) > 5
+    assert list(row["captures"]) == ["solve"] and row["reserved"] == 0
+    states = P.init_sim_batch(cfg, P.SimConfig(), [0, 1], device="cpu")
+    xb = torch.cat([states.q, states.dq], dim=-1)
+    row = call_graphs.chain_check(
+        "solve_batched", lambda n: call_graphs.batched_chain(
+            arm, cfg, ref, xb, states.mppi, states.seed, n), calls=3,
+        rounds=1)
+    assert set(row["diffs"].values()) == {0.0}
+    assert list(row["captures"]) == ["solve_batched"]
