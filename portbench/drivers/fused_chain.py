@@ -1,0 +1,29 @@
+"""Traffic: back-to-back chains of ``simulate_fused``, the whole closed
+loop of one scenario in one launch of K1 (``csrc/sim_kernel.cu``).
+
+Each chain starts from the configuration's initial state with a Philox
+seed of its own, drawn from ``--seed`` and the chain's index, and runs
+``chain_steps`` steps.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from portbench import chains, inputs, program
+
+KIND = chains.KIND
+window = chains.window
+cases = chains.cases
+
+
+def prepare(cell, seed: int, device: torch.device) -> chains.ChainProgram:
+    def make(arm, cfg, sim, ref):
+        def start(c: int):
+            return program.port.init_sim(cfg, sim, seed=int(
+                inputs.seeds(seed, c, 1)[0]), device=device)
+
+        def run(state, n: int):
+            return program.port.simulate_fused(arm, cfg, sim, ref, state, n)
+        return start, run
+    return chains.prepare(cell, seed, device, make, batched=False)
