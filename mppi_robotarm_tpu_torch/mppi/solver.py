@@ -48,7 +48,7 @@ from ..ops.noise import sample_epsilon, sigma_cholesky
 from ..ops.rollout import rollout_costs, rollout_trajectory
 from ..ops.waypoint import update_waypoint_index
 from ..ops.weights import mppi_weights, ordered_sum
-from ..utils import cuda_graphs, debug
+from ..utils import cuda_graphs, debug, spans
 
 
 class MPPIState(NamedTuple):
@@ -81,12 +81,14 @@ class VizResult(NamedTuple):
 def init_state(cfg: MPPIConfig, dtype=torch.float32,
                device=None) -> MPPIState:
     """Warm start ``u_prev = [(10, -2)] * T`` (control.py:59), index 0, on
-    ``device`` (default ``cuda``; see :mod:`..device`)."""
-    device = resolve_device(device)
-    u0 = torch.tensor(cfg.warm_start, dtype=dtype,
-                      device=device).repeat(cfg.horizon, 1)
-    return MPPIState(u_prev=u0,
-                     wp_idx=torch.tensor(0, dtype=torch.int64, device=device))
+    ``device`` (default ``cuda``; see :mod:`..device`).  The root span
+    ``init_state`` (``utils/spans.py``)."""
+    with spans.span("init_state"):
+        device = resolve_device(device)
+        u0 = torch.tensor(cfg.warm_start, dtype=dtype,
+                          device=device).repeat(cfg.horizon, 1)
+        return MPPIState(u_prev=u0, wp_idx=torch.tensor(
+            0, dtype=torch.int64, device=device))
 
 
 def shift_warm_start(u_seq: torch.Tensor) -> torch.Tensor:
@@ -207,19 +209,24 @@ def _call(name: str, program: Callable, inputs: tuple, device,
     ``cuda_graphs.COUNTERS``' order); each replay adds them to the counts.
     Uncaptured on the CPU, under ``utils/debug.py::debug_mode``, within
     :func:`_uncaptured` and at a key's first call; a capture or replay
-    that fails raises."""
+    that fails raises.  Spans (``utils/spans.py``): ``graph.key``,
+    ``graph.warm``, ``graph.copy_in`` (``n``: the bytes copied into the
+    graph's buffers), ``graph.clone_out``, and ``cuda_graphs``'
+    ``graph.capture`` and ``graph.replay``."""
     if (device.type not in _GRAPH_DEVICES or not _CALL_GRAPHS_ON
             or debug.active()):
         return program(*inputs)
-    stream = torch.cuda.current_stream(device)
-    full = (name, device.index, stream.cuda_stream, *key,
-            tuple(None if v is None else (tuple(v.shape), v.dtype)
-                  for v in inputs))
-    g = cuda_graphs.lru(_CALL_GRAPHS, full, _CallGraph,
-                        _CALL_GRAPH_CACHE_SIZE)
+    with spans.span("graph.key"):
+        stream = torch.cuda.current_stream(device)
+        full = (name, device.index, stream.cuda_stream, *key,
+                tuple(None if v is None else (tuple(v.shape), v.dtype)
+                      for v in inputs))
+        g = cuda_graphs.lru(_CALL_GRAPHS, full, _CallGraph,
+                            _CALL_GRAPH_CACHE_SIZE)
     if not g.warm:
         g.warm = True
-        return program(*inputs)
+        with spans.span("graph.warm"):
+            return program(*inputs)
     if g.captured is None:
         static = tuple(None if v is None else v.clone() for v in inputs)
         c = cuda_graphs.capture(lambda: program(*static), device, stream,
@@ -231,11 +238,15 @@ def _call(name: str, program: Callable, inputs: tuple, device,
                 f"{cuda_graphs.named(launches) or 'no kernel launch'}")
         g.inputs, g.captured = static, c
     else:
-        for dst, src in zip(g.inputs, inputs):
-            if dst is not None:
-                dst.copy_(src)
+        with spans.span("graph.copy_in") as s:
+            for dst, src in zip(g.inputs, inputs):
+                if dst is not None:
+                    dst.copy_(src)
+            if s:
+                s.n = sum(v.nbytes for v in g.inputs if v is not None)
     cuda_graphs.replay(g.captured.graph, g.captured.recorded)
-    return _fresh(g.captured.out)
+    with spans.span("graph.clone_out"):
+        return _fresh(g.captured.out)
 
 
 def _unbatch(res: SolveResult) -> SolveResult:
@@ -285,40 +296,49 @@ def solve(
     must be given.  A seeded cuda solve returns ``eps=None`` unless
     ``want_eps`` is set: the kernel then also writes its (K, T, 2) noise out.
     On the card the solve runs as a CUDA graph a key (:func:`_call`); the
-    generator's draw happens before it, as in the uncaptured call.
+    generator's draw happens before it, as in the uncaptured call.  The
+    call is the root span ``solve``, the checks and the host copies of its
+    arguments ``solve.args`` (``utils/spans.py``).
     """
-    if backend not in ("eager", "cuda"):
-        raise ValueError(f"unknown backend {backend!r}")
-    drawn = generator if backend == "eager" else seed
-    if (eps is None) == (drawn is None) or (
-            backend == "cuda" and generator is not None):
-        raise ValueError("provide exactly one of eps= or "
-                         + ("generator=" if backend == "eager" else "seed="))
-    cfg.validate()
-    device = state.u_prev.device
-    one = lambda v: None if v is None else torch.as_tensor(
-        v, device=device).reshape(1)
+    with spans.span("solve"):
+        with spans.span("solve.args"):
+            if backend not in ("eager", "cuda"):
+                raise ValueError(f"unknown backend {backend!r}")
+            drawn = generator if backend == "eager" else seed
+            if (eps is None) == (drawn is None) or (
+                    backend == "cuda" and generator is not None):
+                raise ValueError(
+                    "provide exactly one of eps= or "
+                    + ("generator=" if backend == "eager" else "seed="))
+            cfg.validate()
+            device = state.u_prev.device
+            one = lambda v: None if v is None else torch.as_tensor(
+                v, device=device).reshape(1)
+            wp_idx = one(state.wp_idx)
+            if backend == "cuda":
+                seed, step = one(seed), one(step)
 
-    if backend == "cuda":
-        # the head's launch is one warp a scenario, from B alone
-        res = _call("solve", functools.partial(_solve_one_cuda, arm, cfg,
-                                               want_eps),
-                    (ref_path, observed_x, state.u_prev, one(state.wp_idx),
-                     one(seed), eps, one(step)), device,
-                    ("cuda", arm, cfg, want_eps, drawn is not None,
-                     step_solve_plan(cfg, 1, device)), _SOLVE_LAUNCHES)
-    else:
-        if eps is None:
-            eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
-                                 sigma_cholesky(cfg.sigma),
-                                 state.u_prev.dtype)
-        res = _call("solve", functools.partial(_solve_one_eager, arm, cfg),
-                    (ref_path, observed_x, state.u_prev, one(state.wp_idx),
-                     eps), device,
-                    ("eager", arm, cfg, want_eps, drawn is not None))
-    if debug.active():
-        debug.check_solve("solve", res, ref_path.shape[0])
-    return res
+        if backend == "cuda":
+            # the head's launch is one warp a scenario, from B alone
+            res = _call("solve", functools.partial(_solve_one_cuda, arm, cfg,
+                                                   want_eps),
+                        (ref_path, observed_x, state.u_prev, wp_idx, seed,
+                         eps, step), device,
+                        ("cuda", arm, cfg, want_eps, drawn is not None,
+                         step_solve_plan(cfg, 1, device)), _SOLVE_LAUNCHES)
+        else:
+            if eps is None:
+                eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
+                                     sigma_cholesky(cfg.sigma),
+                                     state.u_prev.dtype)
+            res = _call("solve", functools.partial(_solve_one_eager, arm,
+                                                   cfg),
+                        (ref_path, observed_x, state.u_prev, wp_idx, eps),
+                        device, ("eager", arm, cfg, want_eps,
+                                 drawn is not None))
+        if debug.active():
+            debug.check_solve("solve", res, ref_path.shape[0])
+        return res
 
 
 def _solve_eager(arm, cfg, ref_path, observed_x, state: MPPIState,
@@ -386,21 +406,24 @@ def solve_batched(
     its stream by both, so no two (scenario, step) pairs share noise and a
     resumed run continues its stream.  Every field of the result has a
     leading B axis; ``eps`` is the injected noise, or None.  On the card
-    the call runs as a CUDA graph a key (:func:`_call`).
+    the call runs as a CUDA graph a key (:func:`_call`); the call is the
+    root span ``solve_batched`` (``utils/spans.py``).
     """
-    if (seeds is None) == (eps is None):
-        raise ValueError("provide exactly one of seeds= or eps=")
-    cfg.validate()
-    device = observed_x.device
-    as_dev = lambda v: None if v is None else torch.as_tensor(v,
-                                                              device=device)
-    return _call("solve_batched",
-                 functools.partial(_solve_batched_program, arm, cfg, False),
-                 (ref_path, observed_x, state.u_prev, state.wp_idx,
-                  as_dev(seeds), eps, as_dev(step)), device,
-                 ("cuda", arm, cfg, seeds is not None,
-                  step_solve_plan(cfg, observed_x.shape[0], device)),
-                 _SOLVE_LAUNCHES)
+    with spans.span("solve_batched"):
+        if (seeds is None) == (eps is None):
+            raise ValueError("provide exactly one of seeds= or eps=")
+        cfg.validate()
+        device = observed_x.device
+        as_dev = lambda v: None if v is None else torch.as_tensor(
+            v, device=device)
+        return _call("solve_batched",
+                     functools.partial(_solve_batched_program, arm, cfg,
+                                       False),
+                     (ref_path, observed_x, state.u_prev, state.wp_idx,
+                      as_dev(seeds), eps, as_dev(step)), device,
+                     ("cuda", arm, cfg, seeds is not None,
+                      step_solve_plan(cfg, observed_x.shape[0], device)),
+                     _SOLVE_LAUNCHES)
 
 
 def _viz_program(arm, cfg, observed_x, u_seq, u_prev, eps,
@@ -430,12 +453,15 @@ def viz_rollouts(
     eps as in the cost rollout (control.py:98-101).  ``eps`` must be the
     solve's noise: a seeded cuda solve returns None unless asked with
     ``want_eps=True``, and this raises ``ValueError`` then.  On the card
-    the call runs as a CUDA graph a key (:func:`_call`)."""
-    if eps is None:
-        raise ValueError(
-            "viz_rollouts needs the solve's noise tensor, but SolveResult"
-            ".eps is None: re-run solve(..., want_eps=True) (a seeded cuda "
-            "solve does not write its noise out by default)")
-    return _call("viz_rollouts", functools.partial(_viz_program, arm, cfg),
-                 (observed_x, u_seq, u_prev, eps, costs), eps.device,
-                 (arm, cfg))
+    the call runs as a CUDA graph a key (:func:`_call`); the call is the
+    root span ``viz_rollouts`` (``utils/spans.py``)."""
+    with spans.span("viz_rollouts"):
+        if eps is None:
+            raise ValueError(
+                "viz_rollouts needs the solve's noise tensor, but SolveResult"
+                ".eps is None: re-run solve(..., want_eps=True) (a seeded "
+                "cuda solve does not write its noise out by default)")
+        return _call("viz_rollouts",
+                     functools.partial(_viz_program, arm, cfg),
+                     (observed_x, u_seq, u_prev, eps, costs), eps.device,
+                     (arm, cfg))

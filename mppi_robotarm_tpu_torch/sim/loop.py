@@ -56,7 +56,7 @@ from ..ops import cuda_step
 from ..ops.cuda_rollout import philox_epsilon_batch
 from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
 from ..ops.cuda_step import plant_step
-from ..utils import cuda_graphs, debug
+from ..utils import cuda_graphs, debug, spans
 
 
 class SimState(NamedTuple):
@@ -91,16 +91,18 @@ class SimRecord(NamedTuple):
 def init_sim(cfg: MPPIConfig, sim: SimConfig, seed: int = 0,
              dtype=torch.float32, device=None) -> SimState:
     """Initial state: the preset's q0/dq0, the warm start, index 0, on
-    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU)."""
-    device = resolve_device(device)
-    return SimState(
-        step=torch.tensor(0, dtype=torch.int64, device=device),
-        q=torch.tensor(sim.q0, dtype=dtype, device=device),
-        dq=torch.tensor(sim.dq0, dtype=dtype, device=device),
-        mppi=init_state(cfg, dtype=dtype, device=device),
-        seed=int(seed) & 0x7FFFFFFF,
-        done=torch.tensor(False, device=device),
-    )
+    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU).  The
+    root span ``init_sim`` (``utils/spans.py``)."""
+    with spans.span("init_sim"):
+        device = resolve_device(device)
+        return SimState(
+            step=torch.tensor(0, dtype=torch.int64, device=device),
+            q=torch.tensor(sim.q0, dtype=dtype, device=device),
+            dq=torch.tensor(sim.dq0, dtype=dtype, device=device),
+            mppi=init_state(cfg, dtype=dtype, device=device),
+            seed=int(seed) & 0x7FFFFFFF,
+            done=torch.tensor(False, device=device),
+        )
 
 
 def init_sim_batch(cfg: MPPIConfig, sim: SimConfig, seeds, q0=None,
@@ -109,25 +111,28 @@ def init_sim_batch(cfg: MPPIConfig, sim: SimConfig, seeds, q0=None,
 
     ``seeds``: (B,) scenario-constant noise seeds (the JAX package's keys'
     place); ``q0``/``dq0``: optional (B, 2) initial states (default: the
-    preset's).  On ``device``, default ``cuda``.
+    preset's).  On ``device``, default ``cuda``.  The root span
+    ``init_sim`` (``utils/spans.py``).
     """
-    device = resolve_device(device)
-    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=device)
-    b = seeds.shape[0]
-    rows = lambda v: torch.tensor(v, dtype=dtype, device=device).repeat(b, 1)
-    return SimState(
-        step=torch.zeros(b, dtype=torch.int64, device=device),
-        q=rows(sim.q0) if q0 is None else torch.as_tensor(
-            q0, dtype=dtype, device=device),
-        dq=rows(sim.dq0) if dq0 is None else torch.as_tensor(
-            dq0, dtype=dtype, device=device),
-        mppi=MPPIState(
-            u_prev=torch.tensor(cfg.warm_start, dtype=dtype,
-                                device=device).repeat(b, cfg.horizon, 1),
-            wp_idx=torch.zeros(b, dtype=torch.int64, device=device)),
-        seed=seeds & 0x7FFFFFFF,
-        done=torch.zeros(b, dtype=torch.bool, device=device),
-    )
+    with spans.span("init_sim"):
+        device = resolve_device(device)
+        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=device)
+        b = seeds.shape[0]
+        rows = lambda v: torch.tensor(v, dtype=dtype,
+                                      device=device).repeat(b, 1)
+        return SimState(
+            step=torch.zeros(b, dtype=torch.int64, device=device),
+            q=rows(sim.q0) if q0 is None else torch.as_tensor(
+                q0, dtype=dtype, device=device),
+            dq=rows(sim.dq0) if dq0 is None else torch.as_tensor(
+                dq0, dtype=dtype, device=device),
+            mppi=MPPIState(
+                u_prev=torch.tensor(cfg.warm_start, dtype=dtype,
+                                    device=device).repeat(b, cfg.horizon, 1),
+                wp_idx=torch.zeros(b, dtype=torch.int64, device=device)),
+            seed=seeds & 0x7FFFFFFF,
+            done=torch.zeros(b, dtype=torch.bool, device=device),
+        )
 
 
 def _step_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
@@ -220,16 +225,18 @@ def simulate(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
 
     ``eps_per_step``: optional (num_steps, K, T, 2) injected noise.  Records
     after the path end carry the frozen state with zeroed u and cost lanes.
-    Returns (final SimState, SimRecord).
+    The call is the root span ``simulate`` (``utils/spans.py``).  Returns
+    (final SimState, SimRecord).
     """
     if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
-    final, rec = simulate_batch(
-        arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
-        eps_per_step=(None if eps_per_step is None
-                      else eps_per_step[:, None]), backend=backend)
-    return (_scenario(final, 0, state0.seed),
-            SimRecord(*(f[:, 0] for f in rec)))
+    with spans.span("simulate"):
+        final, rec = _simulate_batch(
+            arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
+            None if eps_per_step is None else eps_per_step[:, None],
+            backend)
+        return (_scenario(final, 0, state0.seed),
+                SimRecord(*(f[:, 0] for f in rec)))
 
 
 def simulate_python(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
@@ -272,11 +279,20 @@ def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     ``utils/debug.py::debug_mode``, the same chunks run uncaptured, with
     the same bits (:func:`_step_loop`).  ``eps_per_step``: optional
     (num_steps, B, K, T, 2), step-major (:func:`simulate_fused_batch`
-    takes it scenario-major, as the JAX package does).  Returns (final
-    batched SimState, SimRecord of (num_steps, B, ...)).
+    takes it scenario-major, as the JAX package does).  The call is the
+    root span ``simulate`` (``utils/spans.py``).  Returns (final batched
+    SimState, SimRecord of (num_steps, B, ...)).
     """
     if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
+    with spans.span("simulate"):
+        return _simulate_batch(arm, cfg, sim, ref_path, states0, num_steps,
+                               eps_per_step, backend)
+
+
+def _simulate_batch(arm, cfg, sim, ref_path, states0: SimState,
+                    num_steps: int, eps_per_step, backend: str):
+    """:func:`simulate_batch`'s loop, as graphs where it can."""
     graphs = (states0.q.device.type == "cuda" and eps_per_step is None
               and (backend == "cuda" or not debug.active()))
     return _step_loop(arm, cfg, sim, ref_path, states0, num_steps,
@@ -485,13 +501,15 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
 def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int,
                 backend: str = "cuda") -> _StepGraph:
     """The cached chunk of ``n`` steps of ``backend`` for these inputs on
-    the current stream, captured at its first use."""
-    stream = torch.cuda.current_stream(states.q.device)
-    key = _graph_key(arm, cfg, sim, ref_path, states, n, stream, backend)
-    return cuda_graphs.lru(
-        _GRAPHS, key, lambda: _capture(arm, cfg, sim, ref_path, states, n,
-                                       stream, clock, backend),
-        _GRAPH_CACHE_SIZE)
+    the current stream, captured at its first use: the span ``graph.key``,
+    which holds ``graph.capture`` when it captures."""
+    with spans.span("graph.key"):
+        stream = torch.cuda.current_stream(states.q.device)
+        key = _graph_key(arm, cfg, sim, ref_path, states, n, stream, backend)
+        return cuda_graphs.lru(
+            _GRAPHS, key, lambda: _capture(arm, cfg, sim, ref_path, states,
+                                           n, stream, clock, backend),
+            _GRAPH_CACHE_SIZE)
 
 
 def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
@@ -503,7 +521,10 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
     its record rows out into ``rows``.  Each replay adds the launches its
     capture recorded to ``cuda_solve.LAUNCHES`` and ``cuda_step``'s
     counts.  Under ``utils/debug.py::debug_mode`` each chunk's state is
-    checked after its replay, outside the graph."""
+    checked after its replay, outside the graph.  Spans a chunk
+    (``utils/spans.py``): ``graph.key``, ``graph.copy_in`` (``n``: bytes),
+    ``graph.replay``, ``loop.rows_out`` (``n``: bytes); then
+    ``loop.state_out``."""
     cur = (*_state_tensors(states), clock)
     last = None
     S = _chunk_steps(backend)
@@ -512,20 +533,27 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
         g = _step_graph(arm, cfg, sim, ref_path, _as_state(cur[:7]), cur[7],
                         n, backend)
         if g is not last:
-            for dst, src in zip((*_state_tensors(g.state), g.clock), cur):
-                dst.copy_(src)
-            g.ref.copy_(ref_path)
+            with spans.span("graph.copy_in") as s:
+                for dst, src in zip((*_state_tensors(g.state), g.clock), cur):
+                    dst.copy_(src)
+                g.ref.copy_(ref_path)
+                if s:
+                    s.n = sum(v.nbytes for v in cur) + ref_path.nbytes
         before = (_as_state(tuple(v.clone() for v in cur[:7]))
                   if debug.active() else None)
         cuda_graphs.replay(g.graph, (g.launches, *g.step_launches))
-        for dst, src in zip(rows, g.rows):
-            dst[start:start + n].copy_(src)
+        with spans.span("loop.rows_out") as s:
+            for dst, src in zip(rows, g.rows):
+                dst[start:start + n].copy_(src)
+            if s:
+                s.n = sum(v.nbytes for v in g.rows)
         cur, last = (*_state_tensors(g.state), g.clock), g
         if before is not None:
             debug.check_step("simulate_batch (graph chunk)", before,
                              g.state, ref_path.shape[0], n, u=g.rows[2])
     # the graphs' buffers are overwritten by their next replay
-    return _as_state(tuple(v.clone() for v in cur[:7]))
+    with spans.span("loop.state_out"):
+        return _as_state(tuple(v.clone() for v in cur[:7]))
 
 
 def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
@@ -593,14 +621,15 @@ def simulate_fused(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     ``step`` advances by the steps that were not done, so a run chained
     from the returned state continues the stream bit for bit.  Runs longer
     than ``_FUSED_MAX_STEPS`` (a bound on a launch's kernel rows) are
-    chained the same way.
+    chained the same way.  The call is the root span ``simulate_fused``
+    (``utils/spans.py``).
     """
-    final, rec = simulate_fused_batch(
-        arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
-        eps_per_step=None if eps_per_step is None else eps_per_step[None],
-        group=1)
-    return (_scenario(final, 0, state0.seed),
-            SimRecord(*(f[:, 0] for f in rec)))
+    with spans.span("simulate_fused"):
+        final, rec = _fused_batch(
+            arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
+            None if eps_per_step is None else eps_per_step[None], 1)
+        return (_scenario(final, 0, state0.seed),
+                SimRecord(*(f[:, 0] for f in rec)))
 
 
 def auto_group(cfg: MPPIConfig, batch: int) -> int:
@@ -632,41 +661,57 @@ def simulate_fused_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     unchanged, so a chained run continues the streams.  Runs of more than
     ``_FUSED_MAX_STEPS`` scenario-steps are launched in chunks chained that
     way, each written into one preallocated record: the result equals one
-    launch bit for bit.
+    launch bit for bit.  The call is the root span ``simulate_fused``
+    (``utils/spans.py``).
     """
+    with spans.span("simulate_fused"):
+        return _fused_batch(arm, cfg, sim, ref_path, states0, num_steps,
+                            eps_per_step, group)
+
+
+def _fused_batch(arm, cfg, sim, ref_path, states0: SimState, num_steps: int,
+                 eps_per_step, group):
+    """:func:`simulate_fused_batch`'s launches: the span ``fused.inputs``
+    once, then ``fused.launch`` and ``fused.records`` a launch."""
     B = states0.q.shape[0]
     if group is None:
         group = auto_group(cfg, B)
     device = ref_path.device
     f32 = torch.float32
-    ref = ref_path.to(f32).contiguous()
-    seeds = torch.as_tensor(states0.seed, dtype=torch.int64, device=device)
-    step0 = torch.as_tensor(states0.step, dtype=torch.int64, device=device)
-    q, dq = states0.q.to(f32).contiguous(), states0.dq.to(f32).contiguous()
-    u, wp = states0.mppi.u_prev.to(f32).contiguous(), states0.mppi.wp_idx
-    step = step0
-    done = torch.as_tensor(states0.done, dtype=torch.bool, device=device)
-    chunk = max(1, _FUSED_MAX_STEPS // max(B, 1))
-    rec = None if 0 < num_steps <= chunk else _empty_record(num_steps, B,
-                                                            device)
+    with spans.span("fused.inputs"):
+        ref = ref_path.to(f32).contiguous()
+        seeds = torch.as_tensor(states0.seed, dtype=torch.int64,
+                                device=device)
+        step0 = torch.as_tensor(states0.step, dtype=torch.int64,
+                                device=device)
+        q, dq = (states0.q.to(f32).contiguous(),
+                 states0.dq.to(f32).contiguous())
+        u, wp = states0.mppi.u_prev.to(f32).contiguous(), states0.mppi.wp_idx
+        step = step0
+        done = torch.as_tensor(states0.done, dtype=torch.bool, device=device)
+        chunk = max(1, _FUSED_MAX_STEPS // max(B, 1))
+        rec = None if 0 < num_steps <= chunk else _empty_record(
+            num_steps, B, device)
     for start in range(0, num_steps, chunk):
         n = min(chunk, num_steps - start)
         before = (step, q, dq, u, wp, seeds, done)
-        rows, u = fused_sim_run_batched(
-            arm, cfg, sim, ref, q, dq, u, wp, seeds, n,
-            eps=(None if eps_per_step is None else
-                 eps_per_step[:, start:start + n].to(f32).contiguous()),
-            step0=step, group=group)
-        r = rows.transpose(0, 1)            # (n, B, 12)
-        part = _record_from_rows(arm, ref, step0, start, r)
-        if rec is None:
-            rec = part
-        else:
-            for dst, src in zip(rec, part):
-                dst[start:start + n] = src
-        q, dq = r[-1, :, 0:2].contiguous(), r[-1, :, 2:4].contiguous()
-        wp, done = part.wp_idx[-1], part.done[-1]
-        step = step + torch.sum(~part.done, dim=0)
+        with spans.span("fused.launch"):
+            rows, u = fused_sim_run_batched(
+                arm, cfg, sim, ref, q, dq, u, wp, seeds, n,
+                eps=(None if eps_per_step is None else
+                     eps_per_step[:, start:start + n].to(f32).contiguous()),
+                step0=step, group=group)
+        with spans.span("fused.records"):
+            r = rows.transpose(0, 1)            # (n, B, 12)
+            part = _record_from_rows(arm, ref, step0, start, r)
+            if rec is None:
+                rec = part
+            else:
+                for dst, src in zip(rec, part):
+                    dst[start:start + n] = src
+            q, dq = r[-1, :, 0:2].contiguous(), r[-1, :, 2:4].contiguous()
+            wp, done = part.wp_idx[-1], part.done[-1]
+            step = step + torch.sum(~part.done, dim=0)
         if debug.active():
             debug.check_step("simulate_fused_batch (launch)",
                              _as_state(before),

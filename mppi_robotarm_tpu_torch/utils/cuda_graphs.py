@@ -17,13 +17,14 @@ itself, and the launches of the port's kernels the capture recorded
 (:data:`COUNTERS`), which leave every count as it was, since a captured
 launch executes nothing.  :func:`replay` replays a graph on the current
 stream and adds the launches it recorded to the counts, so a count reads
-the same whether its kernel ran captured or not.
+the same whether its kernel ran captured or not.  Both are spans of the
+calls they serve (``utils/spans.py``): ``graph.capture`` and
+``graph.replay``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from collections import OrderedDict
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -31,6 +32,7 @@ import torch
 
 from ..ops import (cuda_pathgen, cuda_probe, cuda_shard, cuda_sim,
                    cuda_solve, cuda_step)
+from . import spans
 
 # every launch count of the port's kernels, as (module, name)
 COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
@@ -67,7 +69,8 @@ class Captured(NamedTuple):
     """A capture: its graph, what the program returned while it was
     captured (the tensors each replay writes again), the launches of the
     port's kernels it recorded (in :data:`COUNTERS`' order) and the
-    seconds its capture and instantiation took."""
+    seconds its warm-up, capture and instantiation took (its
+    ``graph.capture`` span's)."""
 
     graph: "torch.cuda.CUDAGraph"
     out: Any
@@ -90,12 +93,13 @@ def capture(program: Callable[[], Any], device: torch.device, stream,
     counts = launch_counts()
     own = capture_stream(device)
     own.wait_stream(stream)
-    with (cuda_solve.counters_of(device, stream.cuda_stream, own.cuda_stream)
-          if arrivals else contextlib.nullcontext()):
+    with spans.timed("graph.capture") as span, (
+            cuda_solve.counters_of(device, stream.cuda_stream,
+                                   own.cuda_stream)
+            if arrivals else contextlib.nullcontext()):
         if warmup is not None:
             with torch.cuda.stream(own):
                 warmup()
-        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         try:
@@ -105,17 +109,17 @@ def capture(program: Callable[[], Any], device: torch.device, stream,
             recorded = tuple(a - b for a, b in zip(launch_counts(), before))
             for (mod, name), v in zip(COUNTERS, counts):
                 setattr(mod, name, v)
-        capture_s = time.perf_counter() - t0
-    return Captured(graph, out, recorded, capture_s)
+    return Captured(graph, out, recorded, span.seconds)
 
 
 def replay(graph, recorded: tuple) -> None:
     """Replay ``graph`` on the current stream and add the launches its
     capture recorded to the counts."""
-    graph.replay()
-    for (mod, name), v in zip(COUNTERS, recorded):
-        if v:
-            setattr(mod, name, getattr(mod, name) + v)
+    with spans.span("graph.replay"):
+        graph.replay()
+        for (mod, name), v in zip(COUNTERS, recorded):
+            if v:
+                setattr(mod, name, getattr(mod, name) + v)
 
 
 def lru(cache: OrderedDict, key, make: Callable[[], Any], size: int):

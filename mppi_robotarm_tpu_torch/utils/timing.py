@@ -2,19 +2,24 @@
 
 Warm up, fence every timed call on the device, keep the best of N wall
 clocks (:func:`simple_timeit`); capture a ``torch.profiler`` trace around a
-block (:func:`trace`); time a block into a list (:func:`step_timer`).  The
+block, with the port's spans beside the kernels (:func:`trace`).  The
 counterparts of ``mppi_robotarm_tpu/utils/timing.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+
+from . import spans
+
+SPANS_TID = 1       # the trace's row of the port's spans, in its process
 
 
 @dataclass
@@ -75,7 +80,9 @@ def simple_timeit(fn: Callable, *args, warmup: int = 2, reps: int = 5,
 def trace(log_dir: Optional[str] = None):
     """Capture a ``torch.profiler`` trace of the block (the CPU, and the
     GPU when there is one) and export it into ``log_dir`` as a Chrome
-    trace, ``trace.json``.  No-op when ``log_dir`` is None."""
+    trace, ``trace.json``, with the port's spans the block recorded
+    (``utils/spans.py``) as complete events on a row of their own.  No-op
+    when ``log_dir`` is None."""
     if log_dir is None:
         yield
         return
@@ -86,17 +93,33 @@ def trace(log_dir: Optional[str] = None):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        lo = time.time_ns()
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        hi = time.time_ns()
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, spans.between(lo, hi).spans)
 
 
-@contextlib.contextmanager
-def step_timer(sink: list):
-    """Append the wall-clock seconds of the block to ``sink``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        sink.append(time.perf_counter() - t0)
+def _add_spans(path: str, recorded: list) -> None:
+    """Write ``recorded`` spans into the Chrome trace at ``path`` as
+    complete events (``ph`` "X", category ``port_span``; ``n``, parent and
+    root in ``args``), on the file's time base: microseconds after its
+    ``baseTimeNanoseconds``, as the profiler writes its own events."""
+    with open(path) as f:
+        doc = json.load(f)
+    base, pid = doc.get("baseTimeNanoseconds", 0), os.getpid()
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                   "tid": SPANS_TID, "args": {"name": "port spans"}})
+    for s in recorded:
+        events.append({"ph": "X", "cat": "port_span", "name": s.name,
+                       "pid": pid, "tid": SPANS_TID,
+                       "ts": (s.start - base) / 1e3,
+                       "dur": (s.end - s.start) / 1e3,
+                       "args": {"index": s.index, "parent": s.parent,
+                                "root": s.root, "n": s.n}})
+    with open(path, "w") as f:
+        json.dump(doc, f)

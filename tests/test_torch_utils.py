@@ -198,12 +198,6 @@ def test_simple_timeit_step_timer_and_trace(tmp_path):
     assert len(calls) == 6 and r.reps == 4 and r.name == "dbl"
     assert 0 < r.best_s <= r.mean_s and r.per_second == 1.0 / r.best_s
     assert "dbl: best" in str(r)
-    sink = []
-    with ptime.step_timer(sink):
-        torch.ones(10).sum()
-    with ptime.step_timer(sink):
-        pass
-    assert len(sink) == 2 and all(s >= 0 for s in sink)
     with ptime.trace(None):
         pass
     log_dir = os.path.join(tmp_path, "prof")
