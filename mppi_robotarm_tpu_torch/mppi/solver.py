@@ -26,8 +26,8 @@ for rendering.
 On the card each of the three entry points runs as one device program,
 as the JAX package jits each: a CUDA graph a key (:func:`_call`), the
 key's first call uncaptured, its second captured, every later one a
-replay with its inputs copied in and its outputs handed back as fresh
-tensors, bit for bit the uncaptured call.
+replay that reads the path where it lies, stages its other inputs and
+hands its outputs back as fresh tensors, bit for bit the uncaptured call.
 """
 
 from __future__ import annotations
@@ -149,8 +149,7 @@ def _solve_kernels(arm, cfg, observed_x, u_prev, window, seed, eps, step,
 # the kernels, raises the solve kernel's shared-memory limit, gives the
 # caller's stream its arrival counters and makes the eager rollout's
 # cached constants), its second captures and replays, every later one
-# copies its inputs into the graph's buffers and replays.  Outputs come
-# back as clones: a replay overwrites the graph's own.
+# stages its inputs and replays (:func:`_call`).
 _CALL_GRAPH_CACHE_SIZE = 8   # keys kept, least recently used out
 _CALL_GRAPHS: "OrderedDict" = OrderedDict()
 _GRAPH_DEVICES = ("cuda",)   # where calls run as graphs
@@ -163,17 +162,124 @@ _SOLVE_LAUNCHES = tuple(
     int((mod, name) in ((cuda_solve, "LAUNCHES"),
                         (cuda_step, "HEAD_LAUNCHES")))
     for mod, name in cuda_graphs.COUNTERS)
+# the per-call graphs' calls on the card: those that replayed a captured
+# graph, and those that found none under their key, whose path (read
+# where it lies, its address in the key) was captured anew: a key's
+# uncaptured first call and its capture
+REPLAYS = 0
+MISSES = 0
+
+
+class _Keyed:
+    """A config (or arm) in a graph's key: equal to the value and hashing
+    as it does, the hash computed once, at its first use; whether the
+    value passed its check; and the launch plans of the cuda backend's
+    solves under it (``(batch, device)`` -> plan)."""
+
+    __slots__ = ("value", "hash", "checked", "plans")
+
+    def __init__(self, value):
+        self.value, self.hash, self.checked = value, None, False
+        self.plans: dict = {}
+
+    def __hash__(self):
+        if self.hash is None:
+            self.hash = hash(self.value)
+        return self.hash
+
+    def __eq__(self, other):
+        return self.value == (other.value if isinstance(other, _Keyed)
+                              else other)
+
+
+_KEYED: dict = {}            # id(value) -> its _Keyed, the value held
+_KEYED_SIZE = 64             # values kept before the table starts over
+
+
+def _keyed(value, check: bool = False) -> _Keyed:
+    """``value`` as a key entry, made at its first call; with ``check`` a
+    config is checked by ``validate()`` until it has passed once, so an
+    invalid one raises at every call."""
+    k = _KEYED.get(id(value))
+    if k is None or k.value is not value:
+        if len(_KEYED) >= _KEYED_SIZE:
+            _KEYED.clear()
+        k = _KEYED[id(value)] = _Keyed(value)
+    if check and not k.checked:
+        value.validate()
+        k.checked = True
+    return k
+
+
+def _plan_of(cfg: _Keyed, batch: int, device) -> tuple:
+    """:func:`step_solve_plan`, computed once a (config, batch, device)."""
+    plan = cfg.plans.get((batch, device))
+    if plan is None:
+        plan = cfg.plans[batch, device] = step_solve_plan(cfg.value, batch,
+                                                          device)
+    return plan
 
 
 class _CallGraph:
     """A key's entry: whether its first call has run, and once captured,
-    the graph's input buffers and its capture (``cuda_graphs.Captured``:
-    the graph, its outputs, the launches it recorded, its seconds)."""
+    what a replay stages (:meth:`stage`, :meth:`copy_in`), its capture
+    (``cuda_graphs.Captured``: the graph, its outputs as views of the
+    flat buffers, the launches it recorded, its seconds) and those
+    buffers with the layout of its result (``cuda_graphs.Packed``)."""
 
     def __init__(self):
         self.warm = False
-        self.inputs: Optional[tuple] = None
         self.captured: Optional[cuda_graphs.Captured] = None
+        self.packed: Optional[cuda_graphs.Packed] = None
+
+    def stage(self, inputs: tuple, path, device, stream) -> list:
+        """The inputs the capture records, from the call's: the path as
+        it lies, the Python ints as views of a :class:`cuda_graphs.
+        HostInts` buffer (sent now), every other tensor as a clone, into
+        which :meth:`copy_in` copies each later call's, one launch a
+        dtype."""
+        static = list(inputs)
+        self.packed = None
+        self.slots = [i for i, v in enumerate(inputs) if type(v) is int]
+        self.ints = None
+        if self.slots:
+            self.ints = cuda_graphs.HostInts(len(self.slots), device)
+            self.ints.send([inputs[i] for i in self.slots], stream)
+            for j, i in enumerate(self.slots):
+                static[i] = self.ints.device[j:j + 1]
+        groups: dict = {}
+        for i, v in enumerate(inputs):
+            if i != path and isinstance(v, torch.Tensor):
+                static[i] = v.clone()
+                dsts, idx = groups.setdefault(v.dtype, ([], []))
+                dsts.append(static[i])
+                idx.append(i)
+        self.groups = list(groups.values())
+        self.copy_bytes = 8 * len(self.slots) + sum(
+            static[i].nbytes for _, idx in self.groups for i in idx)
+        return static
+
+    def copy_in(self, inputs: tuple, stream) -> None:
+        """A replay's inputs into the graph's buffers: the ints in one
+        asynchronous copy, the other tensors but the path one launch a
+        dtype (a dtype's one tensor by ``copy_``, which costs the host
+        less than a ``_foreach_copy_`` of one)."""
+        if self.ints is not None:
+            self.ints.send([inputs[i] for i in self.slots], stream)
+        for dsts, idx in self.groups:
+            if len(idx) == 1:
+                dsts[0].copy_(inputs[idx[0]])
+            else:
+                torch._foreach_copy_(dsts, [inputs[i] for i in idx])
+
+    def pack(self, out):
+        """The captured program's result, packed (``cuda_graphs.
+        Packed``), as views of its flat buffers; the capture's packing is
+        the one kept."""
+        packed = cuda_graphs.Packed(out)
+        if self.packed is None:
+            self.packed = packed
+        return packed.result
 
 
 @contextlib.contextmanager
@@ -189,7 +295,9 @@ def _uncaptured():
 
 
 def _fresh(v):
-    """A result with every tensor cloned (NamedTuples kept, None kept)."""
+    """A result with every tensor cloned (NamedTuples kept, None kept): a
+    snapshot to keep apart (a replay's own results come from
+    ``cuda_graphs.Packed``)."""
     if isinstance(v, torch.Tensor):
         return v.clone()
     if isinstance(v, tuple):
@@ -198,55 +306,85 @@ def _fresh(v):
     return v
 
 
+def _as_tensors(inputs: tuple, device) -> list:
+    """The inputs an uncaptured call takes: each Python int as a (1,)
+    int64 tensor on ``device``."""
+    return [torch.tensor([v], device=device) if type(v) is int else v
+            for v in inputs]
+
+
 def _call(name: str, program: Callable, inputs: tuple, device,
-          key: tuple, launches: tuple = _NO_LAUNCH):
+          key: tuple, launches: tuple = _NO_LAUNCH,
+          path: Optional[int] = None):
     """``program(*inputs)``, on the card as a CUDA graph keyed by ``name``,
     the device, the caller's stream, ``key`` (what the program bakes in:
-    the configs, the backend, the options, the launch plan) and the shape
-    and dtype of every input; ``inputs`` are tensors (or None) that the
-    call's host part made, nothing in ``program`` reads the host.  A
-    capture raises unless it recorded ``launches`` (in
-    ``cuda_graphs.COUNTERS``' order); each replay adds them to the counts.
-    Uncaptured on the CPU, under ``utils/debug.py::debug_mode``, within
-    :func:`_uncaptured` and at a key's first call; a capture or replay
-    that fails raises.  Spans (``utils/spans.py``): ``graph.key``,
-    ``graph.warm``, ``graph.copy_in`` (``n``: the bytes copied into the
-    graph's buffers), ``graph.clone_out``, and ``cuda_graphs``'
-    ``graph.capture`` and ``graph.replay``."""
+    the configs, the backend, the options, the launch plan) and each
+    input's shape and dtype.  ``inputs`` are tensors, None or Python
+    ints, each int reaching ``program`` as a (1,) int64 tensor; nothing in
+    ``program`` reads the host.  A capture raises unless it recorded
+    ``launches`` (in ``cuda_graphs.COUNTERS``' order); each replay adds
+    them to the counts.  Uncaptured on the CPU, under ``utils/debug.py::
+    debug_mode``, within :func:`_uncaptured` and at a key's first call; a
+    capture or replay that fails raises.
+
+    The host boundary of a replay, by each input's role:
+
+    * ``inputs[path]``, the reference path, the same tensor across a run,
+      is read where it lies: the graph is captured on the caller's own
+      tensor, and its address, strides, shape and dtype are in the key,
+      so a replay runs only for a call that passes a tensor at that
+      address and reads what it holds now, however it was written; a
+      path at a new address is a new key;
+    * the Python ints (seed, step) go through the entry's pinned host
+      buffer in one asynchronous copy (``cuda_graphs.HostInts``);
+    * every other tensor (state, observation, injected noise, device
+      scalars) is copied into the graph's buffer, one launch a dtype
+      (``_foreach_copy_``); its address is not in the key;
+    * the graph writes its result into one flat buffer a dtype; the call
+      returns views of one clone of each (``cuda_graphs.Packed``), so no
+      later call changes a result handed out.
+
+    :data:`REPLAYS` and :data:`MISSES` count the calls that replayed and
+    those that found no captured graph.  Spans (``utils/spans.py``):
+    ``graph.key``, ``graph.warm``, ``graph.copy_in`` (``n``: the bytes
+    staged, ints included; on every replay), ``graph.clone_out``, and
+    ``cuda_graphs``' ``graph.capture`` and ``graph.replay``."""
+    global REPLAYS, MISSES
     if (device.type not in _GRAPH_DEVICES or not _CALL_GRAPHS_ON
             or debug.active()):
-        return program(*inputs)
+        return program(*_as_tensors(inputs, device))
     with spans.span("graph.key"):
-        stream = torch.cuda.current_stream(device)
-        full = (name, device.index, stream.cuda_stream, *key,
-                tuple(None if v is None else (tuple(v.shape), v.dtype)
-                      for v in inputs))
+        stream = cuda_graphs.current_stream(device)
+        full = (name, device.index, stream.cuda_stream, *key, tuple(
+            v if v is None else int if type(v) is int
+            else (v.shape, v.dtype, v.stride(), v.data_ptr()) if i == path
+            else (v.shape, v.dtype) for i, v in enumerate(inputs)))
         g = cuda_graphs.lru(_CALL_GRAPHS, full, _CallGraph,
                             _CALL_GRAPH_CACHE_SIZE)
-    if not g.warm:
-        g.warm = True
-        with spans.span("graph.warm"):
-            return program(*inputs)
-    if g.captured is None:
-        static = tuple(None if v is None else v.clone() for v in inputs)
-        c = cuda_graphs.capture(lambda: program(*static), device, stream,
-                                arrivals=launches != _NO_LAUNCH)
+    if g.captured is not None:
+        REPLAYS += 1
+        with spans.span("graph.copy_in") as s:
+            g.copy_in(inputs, stream)
+            if s:
+                s.n = g.copy_bytes
+    else:
+        MISSES += 1
+        if not g.warm:
+            g.warm = True
+            with spans.span("graph.warm"):
+                return program(*_as_tensors(inputs, device))
+        static = g.stage(inputs, path, device, stream)
+        c = cuda_graphs.capture(lambda: g.pack(program(*static)), device,
+                                stream, arrivals=launches != _NO_LAUNCH)
         if c.recorded != launches:
             raise RuntimeError(
                 f"a captured {name} recorded "
                 f"{cuda_graphs.named(c.recorded) or 'no kernel launch'}, not "
                 f"{cuda_graphs.named(launches) or 'no kernel launch'}")
-        g.inputs, g.captured = static, c
-    else:
-        with spans.span("graph.copy_in") as s:
-            for dst, src in zip(g.inputs, inputs):
-                if dst is not None:
-                    dst.copy_(src)
-            if s:
-                s.n = sum(v.nbytes for v in g.inputs if v is not None)
+        g.captured = c
     cuda_graphs.replay(g.captured.graph, g.captured.recorded)
     with spans.span("graph.clone_out"):
-        return _fresh(g.captured.out)
+        return g.packed.fresh()
 
 
 def _unbatch(res: SolveResult) -> SolveResult:
@@ -257,22 +395,29 @@ def _unbatch(res: SolveResult) -> SolveResult:
                        *(one(v) for v in res[3:]))
 
 
+def _col(v):
+    """A one-element tensor as a (1,) view (None kept)."""
+    return None if v is None else v.reshape(1)
+
+
 def _solve_one_cuda(arm, cfg, want_eps, ref_path, observed_x, u_prev,
                     wp_idx, seed, eps, step) -> SolveResult:
     """The cuda backend's solve of one scenario: :func:`_solve_batched_
-    program` on a batch of one (``wp_idx``, ``seed`` and ``step`` (1,)
-    tensors or None)."""
+    program` on a batch of one (``wp_idx``, ``seed`` and ``step``
+    one-element tensors or None)."""
     return _unbatch(_solve_batched_program(
-        arm, cfg, want_eps, ref_path, observed_x[None], u_prev[None], wp_idx,
-        seed, None if eps is None else eps[None], step))
+        arm, cfg, want_eps, ref_path, observed_x[None], u_prev[None],
+        _col(wp_idx), _col(seed), None if eps is None else eps[None],
+        _col(step)))
 
 
 def _solve_one_eager(arm, cfg, ref_path, observed_x, u_prev, wp_idx,
                      eps) -> SolveResult:
     """The eager backend's solve of one scenario, a batch of one through
-    :func:`_solve_eager`: ``wp_idx`` a (1,) tensor."""
+    :func:`_solve_eager`: ``wp_idx`` a one-element tensor."""
     return _unbatch(_solve_eager(arm, cfg, ref_path, observed_x[None],
-                                 MPPIState(u_prev[None], wp_idx), eps[None]))
+                                 MPPIState(u_prev[None], _col(wp_idx)),
+                                 eps[None]))
 
 
 def solve(
@@ -296,9 +441,15 @@ def solve(
     must be given.  A seeded cuda solve returns ``eps=None`` unless
     ``want_eps`` is set: the kernel then also writes its (K, T, 2) noise out.
     On the card the solve runs as a CUDA graph a key (:func:`_call`); the
-    generator's draw happens before it, as in the uncaptured call.  The
-    call is the root span ``solve``, the checks and the host copies of its
-    arguments ``solve.args`` (``utils/spans.py``).
+    generator's draw happens before it, as in the uncaptured call.  A
+    replay reads ``ref_path`` where it lies, sends ``seed`` and ``step``
+    given as Python ints in one pinned copy (tensors are copied with the
+    rest), copies the state, observation and injected noise into the
+    graph, and hands back views of one clone a dtype.  The config is
+    checked once (a config that fails raises at every call) and the
+    launch plan computed once a config.  The call is the root span
+    ``solve``, the checks and the scalars' tensors ``solve.args``
+    (``utils/spans.py``).
     """
     with spans.span("solve"):
         with spans.span("solve.args"):
@@ -310,10 +461,10 @@ def solve(
                 raise ValueError(
                     "provide exactly one of eps= or "
                     + ("generator=" if backend == "eager" else "seed="))
-            cfg.validate()
+            keyed = _keyed(cfg, check=True)
             device = state.u_prev.device
-            one = lambda v: None if v is None else torch.as_tensor(
-                v, device=device).reshape(1)
+            one = lambda v: v if v is None or type(v) is int else (
+                torch.as_tensor(v, device=device))
             wp_idx = one(state.wp_idx)
             if backend == "cuda":
                 seed, step = one(seed), one(step)
@@ -324,8 +475,9 @@ def solve(
                                                    want_eps),
                         (ref_path, observed_x, state.u_prev, wp_idx, seed,
                          eps, step), device,
-                        ("cuda", arm, cfg, want_eps, drawn is not None,
-                         step_solve_plan(cfg, 1, device)), _SOLVE_LAUNCHES)
+                        ("cuda", _keyed(arm), keyed, want_eps,
+                         drawn is not None, _plan_of(keyed, 1, device)),
+                        _SOLVE_LAUNCHES, path=0)
         else:
             if eps is None:
                 eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
@@ -334,8 +486,8 @@ def solve(
             res = _call("solve", functools.partial(_solve_one_eager, arm,
                                                    cfg),
                         (ref_path, observed_x, state.u_prev, wp_idx, eps),
-                        device, ("eager", arm, cfg, want_eps,
-                                 drawn is not None))
+                        device, ("eager", _keyed(arm), keyed, want_eps,
+                                 drawn is not None), path=0)
         if debug.active():
             debug.check_solve("solve", res, ref_path.shape[0])
         return res
@@ -412,18 +564,18 @@ def solve_batched(
     with spans.span("solve_batched"):
         if (seeds is None) == (eps is None):
             raise ValueError("provide exactly one of seeds= or eps=")
-        cfg.validate()
+        keyed = _keyed(cfg, check=True)
         device = observed_x.device
-        as_dev = lambda v: None if v is None else torch.as_tensor(
-            v, device=device)
+        as_dev = lambda v: v if v is None or type(v) is int else (
+            torch.as_tensor(v, device=device))
         return _call("solve_batched",
                      functools.partial(_solve_batched_program, arm, cfg,
                                        False),
                      (ref_path, observed_x, state.u_prev, state.wp_idx,
                       as_dev(seeds), eps, as_dev(step)), device,
-                     ("cuda", arm, cfg, seeds is not None,
-                      step_solve_plan(cfg, observed_x.shape[0], device)),
-                     _SOLVE_LAUNCHES)
+                     ("cuda", _keyed(arm), keyed, seeds is not None,
+                      _plan_of(keyed, observed_x.shape[0], device)),
+                     _SOLVE_LAUNCHES, path=0)
 
 
 def _viz_program(arm, cfg, observed_x, u_seq, u_prev, eps,
@@ -464,4 +616,4 @@ def viz_rollouts(
         return _call("viz_rollouts",
                      functools.partial(_viz_program, arm, cfg),
                      (observed_x, u_seq, u_prev, eps, costs), eps.device,
-                     (arm, cfg))
+                     (_keyed(arm), _keyed(cfg)))

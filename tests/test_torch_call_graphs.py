@@ -12,8 +12,13 @@ replaying_capture``) with the CPU let through as a graph device:
   ``debug_mode`` and ``_uncaptured()`` never capture;
 * an earlier result is not overwritten by a later call, a generator
   leaves a graph call in the state the uncaptured call leaves it, a path
-  changed in place between calls is seen, and the keys separate backend,
-  dtype, shape, ``want_eps`` and the noise's source;
+  changed in place between calls is seen (also when the write bumps no
+  ``_version``), a new path tensor is seen, seed and step as Python ints
+  (staged through the pinned buffer) and as tensors give the uncaptured
+  bits, a config that is invalid on a later call still raises, and the
+  keys separate backend, dtype, shape, ``want_eps`` and the noise's
+  source;
+* ``solver.REPLAYS`` and ``solver.MISSES`` over a chain of calls;
 * the launches a capture records and a replay adds, and the raise when a
   capture records other launches than its entry point's;
 * a captured call with every host read of a tensor and every tensor made
@@ -24,7 +29,10 @@ replaying_capture``) with the CPU let through as a graph device:
   tolerance ``tests/test_torch_compat.py`` holds the oracle to).
 
 Marked ``cuda`` and skipped without a card: the graphs against the
-uncaptured calls, bit for bit, on the card.  They need no JAX:
+uncaptured calls, bit for bit, on the card, among them 200 back-to-back
+seeded solves with no read between (the pinned buffer's guard) and a path
+rewritten between replays by a write that bumps no ``_version``.  They
+need no JAX:
 
     python -m pytest --noconftest tests/test_torch_call_graphs.py -m cuda
 """
@@ -40,6 +48,7 @@ import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.mppi import solver as psolver
 from mppi_robotarm_tpu_torch.ops import cuda_sim
 from mppi_robotarm_tpu_torch.utils import cuda_graphs, debug
+from _torch_port_helpers import _leaves
 from _torch_port_helpers import (counted_kernels,  # noqa: F401 (fixtures)
                                  replaying_capture)
 
@@ -276,6 +285,159 @@ def test_a_path_changed_in_place_is_seen(graphs_on_cpu):
     assert len(graphs_on_cpu) == 1
 
 
+@pytest.mark.parametrize("change", ["new tensor", "write bumping no version"])
+def test_a_path_rewritten_or_replaced_is_seen(graphs_on_cpu, change):
+    """The graph reads the caller's path where it lies: a write through
+    NumPy (no ``_version`` bump) is seen by the next replay, and a new
+    tensor of the same shape is a new key."""
+    cfg, x = _cfg(), _x0()
+    ref = _ref()
+    state = P.init_state(cfg, device="cpu")
+    eps = _eps(0, (16, 5))
+    call = lambda r: psolver.solve(ARM, cfg, r, x, state, eps=eps)
+    call(ref)
+    before = call(ref)
+    version = ref._version
+    if change == "new tensor":
+        ref = ref.clone()
+        ref[:, 0:2] += 0.05
+    else:
+        ref.numpy()[:, 0:2] += 0.05
+        assert ref._version == version
+    got = [call(ref) for _ in range(3)]
+    with psolver._uncaptured():
+        want = call(ref)
+    for res in got:
+        assert_same(res, want)
+    assert not torch.equal(got[0].costs, before.costs)
+    assert len(graphs_on_cpu) == (2 if change == "new tensor" else 1)
+
+
+@pytest.mark.parametrize("scalars", ["int", "tensor", "mixed"])
+def test_seed_and_step_as_ints_or_tensors_give_the_uncaptured_bits(
+        graphs_on_cpu, scalars):
+    """Python ints go through the entry's pinned buffer, tensors are
+    copied with the other inputs; both replay the uncaptured call's
+    bits."""
+    cfg = _cfg(exploration=0.25)
+    ref, x0 = _ref(), _x0()
+
+    def chain():
+        state, x, out = P.init_state(cfg, device="cpu"), x0, []
+        for i in range(CALLS):
+            seed, step = 1000 + 7 * i, 3 * i
+            if scalars in ("tensor", "mixed"):
+                step = torch.tensor(step)
+            if scalars == "tensor":
+                seed = torch.tensor(seed)
+            res = psolver.solve(ARM, cfg, ref, x, state, backend="cuda",
+                                seed=seed, step=step, want_eps=True)
+            out.append(res)
+            state, x = res.state, _next_x(x, res.u0)
+        return out
+
+    with psolver._uncaptured():
+        want = chain()
+    got = chain()
+    assert_same(got, want, scalars)
+    (g,) = psolver._CALL_GRAPHS.values()
+    assert len(graphs_on_cpu) == 1
+    assert g.copy_bytes == 4 * 4 + 5 * 2 * 4 + 8 + 2 * 8
+    assert len(g.slots) == {"int": 2, "tensor": 0, "mixed": 1}[scalars]
+
+
+@pytest.mark.parametrize("entry", ["solve", "solve_batched",
+                                   "solve after viz_rollouts"])
+def test_a_config_invalid_on_a_later_call_still_raises(graphs_on_cpu,
+                                                       entry):
+    """A config's check is kept only when it passed: one that fails
+    raises at every call, before and after a valid config's replays, and
+    after ``viz_rollouts`` (which checks nothing) has keyed it."""
+    ref, x = _ref(), _x0()
+    bad = dataclasses.replace(_cfg(), filter_window=0)
+    if entry == "solve after viz_rollouts":
+        u = P.init_state(_cfg(), device="cpu").u_prev
+        eps = _eps(0, (16, 5))
+        for _ in range(3):
+            psolver.viz_rollouts(ARM, bad, x, u, u, eps, eps[:, 0, 0])
+
+    def call(cfg):
+        if entry != "solve_batched":
+            state = P.init_state(_cfg(), device="cpu")
+            return psolver.solve(ARM, cfg, ref, x, state, backend="cuda",
+                                 seed=2, step=1)
+        state = psolver.MPPIState(
+            P.init_state(_cfg(), device="cpu").u_prev[None],
+            torch.zeros(1, dtype=torch.int64))
+        return psolver.solve_batched(ARM, cfg, ref, x[None], state,
+                                     seeds=torch.tensor([2]),
+                                     step=torch.tensor([1]))
+
+    for _ in range(3):
+        call(_cfg())
+    for _ in range(2):
+        with pytest.raises(ValueError, match="filter_window"):
+            call(bad)
+    call(_cfg())
+    assert len(graphs_on_cpu) == (2 if entry.endswith("viz_rollouts") else 1)
+
+
+PACKED = {
+    "flat": lambda: (torch.arange(6.0), torch.tensor(3)),
+    "nested and mixed": lambda: psolver.SolveResult(
+        torch.arange(2.0), torch.ones(5, 2), psolver.MPPIState(
+            torch.zeros(5, 2, dtype=torch.float64), torch.tensor(4)),
+        torch.tensor(True), torch.arange(16.0), torch.arange(16.0) / 7,
+        None),
+    "offset and strided": lambda: (torch.arange(10)[3:5],
+                                   torch.arange(12.0).reshape(3, 4).t(),
+                                   torch.arange(8)[5]),
+    "empty": lambda: (torch.zeros(0, 2), torch.arange(3.0), 7),
+    "one tensor at an offset": lambda: (torch.arange(6.0),
+                                        torch.arange(8)[5]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED))
+def test_a_packed_result_hands_back_fresh_equal_views(case):
+    """``cuda_graphs.Packed``: the capture's result over the flat buffers,
+    and each fresh result, equal the program's result field by field, in
+    its shapes and dtypes, one buffer a dtype; a fresh result shares no
+    memory with the buffers or with another fresh result."""
+    out = PACKED[case]()
+    packed = cuda_graphs.Packed(out)
+    assert_same(packed.result, out)
+    assert len(packed.flats) == len({t.dtype for t in _leaves(out)
+                                     if t.numel()})
+    a, b = packed.fresh(), packed.fresh()
+    assert_same(a, out)
+    assert_same(b, out)
+    mine = {f.untyped_storage().data_ptr() for f in packed.flats}
+    for x, y in zip(_leaves(a), _leaves(b)):
+        if x.numel():
+            assert x.untyped_storage().data_ptr() not in mine
+            assert x.untyped_storage().data_ptr() != \
+                y.untyped_storage().data_ptr()
+
+
+
+def test_the_counts_of_replays_and_misses(graphs_on_cpu):
+    """A chain of 10 calls on one path: its first call and its capture
+    miss, 8 replay; a new path tensor misses twice more."""
+    replays, misses = psolver.REPLAYS, psolver.MISSES
+    solve_chain("cuda", "seed", torch.float32)
+    assert (psolver.REPLAYS - replays, psolver.MISSES - misses) == (8, 2)
+    cfg, ref, x = _cfg(), _ref().clone(), _x0()
+    state = P.init_state(cfg, device="cpu")
+    for i in range(3):
+        psolver.solve(ARM, cfg, ref, x, state, backend="cuda", seed=4,
+                      step=i)
+    assert (psolver.REPLAYS - replays, psolver.MISSES - misses) == (9, 4)
+    with psolver._uncaptured():
+        solve_chain("cuda", "seed", torch.float32, calls=3)
+    assert (psolver.REPLAYS - replays, psolver.MISSES - misses) == (9, 4)
+
+
 def test_keys_separate_backend_dtype_shape_options_and_noise(graphs_on_cpu):
     ref, x = _ref(), _x0()
     keys = set()
@@ -508,4 +670,59 @@ def test_compat_graphs_equal_uncaptured_on_the_card(dev):
         got = call_graphs.compat_run(backend, dev, 30, True)
         want = call_graphs.compat_run(backend, dev, 30, False)
         assert set(call_graphs.compat_bits(got, want).values()) == {0.0}
+    psolver._CALL_GRAPHS.clear()
+
+
+@pytest.mark.cuda
+def test_back_to_back_seeded_solves_equal_the_uncaptured_on_the_card(dev):
+    """200 seeded solves with no read between, each with its own seed and
+    step, each fed the last one's state: the pinned buffer is not
+    rewritten while an earlier call's copy is queued."""
+    cfg = _cfg(K=1024, T=50)
+    ref, x0 = _ref(device=dev), _x0(device=dev)
+
+    def chain():
+        state, x, out = P.init_state(cfg, device=dev), x0, []
+        for i in range(200):
+            res = psolver.solve(ARM, cfg, ref, x, state, backend="cuda",
+                                seed=1_000_003 * i + 11, step=i)
+            out.append(res)
+            state, x = res.state, _next_x(x, res.u0)
+        return out
+
+    psolver._CALL_GRAPHS.clear()
+    with psolver._uncaptured():
+        want = chain()
+    replays = psolver.REPLAYS
+    got = chain()
+    torch.cuda.synchronize(dev)
+    assert_same(got, want)
+    assert psolver.REPLAYS - replays == 198
+    psolver._CALL_GRAPHS.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "eager"])
+def test_a_path_written_without_a_version_bump_is_seen_on_the_card(
+        dev, backend):
+    cfg = _cfg(exploration=0.25)
+    ref, x = _ref(device=dev), _x0(device=dev)
+    state = P.init_state(cfg, device=dev)
+    eps = _eps(0, (16, 5), device=dev)
+    kw = dict(seed=5, step=2) if backend == "cuda" else dict(eps=eps)
+    call = lambda: psolver.solve(ARM, cfg, ref, x, state, backend=backend,
+                                 **kw)
+    psolver._CALL_GRAPHS.clear()
+    for _ in range(3):
+        before = call()
+    version = ref._version
+    ref.data.add_(0.05)
+    assert ref._version == version
+    got = call()
+    with psolver._uncaptured():
+        want = call()
+    assert_same(got, want)
+    assert not torch.equal(got.costs, before.costs)
+    (g,) = psolver._CALL_GRAPHS.values()
+    assert g.captured is not None
     psolver._CALL_GRAPHS.clear()

@@ -258,7 +258,8 @@ def call_graphs_on_cpu(replaying_capture, counted_kernels,  # noqa: F811
 def test_the_per_call_graph_emits_its_spans(call_graphs_on_cpu):
     """First call warm, second captured and replayed, third copied in and
     replayed; ``graph.copy_in`` counts the bytes of every input it
-    copies: the path, x, u_prev, wp_idx, seed and step."""
+    stages: x, u_prev, wp_idx, and seed and step through the pinned
+    buffer; the path is read where it lies."""
     with spans.recording():
         _solves(3)
     calls = [[c.name for c in recorded() if c.root == s.index
@@ -271,7 +272,7 @@ def test_the_per_call_graph_emits_its_spans(call_graphs_on_cpu):
         ["solve.args", "graph.key", "graph.copy_in", "graph.replay",
          "graph.clone_out"]]
     (copy,) = [s for s in recorded() if s.name == "graph.copy_in"]
-    assert copy.n == 2000 * 4 * 4 + 4 * 4 + 5 * 2 * 4 + 3 * 8
+    assert copy.n == 4 * 4 + 5 * 2 * 4 + 3 * 8
 
 
 def test_capture_seconds_are_the_capture_spans(call_graphs_on_cpu):
