@@ -322,8 +322,9 @@ def _call(name: str, program: Callable, inputs: tuple, device,
     input's shape and dtype.  ``inputs`` are tensors, None or Python
     ints, each int reaching ``program`` as a (1,) int64 tensor; nothing in
     ``program`` reads the host.  A capture raises unless it recorded
-    ``launches`` (in ``cuda_graphs.COUNTERS``' order); each replay adds
-    them to the counts.  Uncaptured on the CPU, under ``utils/debug.py::
+    ``launches`` (in ``cuda_graphs.COUNTERS``' order; the solve kernel's
+    partials follow from the plan and are not held to them); each replay
+    adds what it recorded to the counts.  Uncaptured on the CPU, under ``utils/debug.py::
     debug_mode``, within :func:`_uncaptured` and at a key's first call; a
     capture or replay that fails raises.
 
@@ -376,7 +377,8 @@ def _call(name: str, program: Callable, inputs: tuple, device,
         static = g.stage(inputs, path, device, stream)
         c = cuda_graphs.capture(lambda: g.pack(program(*static)), device,
                                 stream, arrivals=launches != _NO_LAUNCH)
-        if c.recorded != launches:
+        n = cuda_graphs.LAUNCH_COUNTS
+        if c.recorded[:n] != launches[:n]:
             raise RuntimeError(
                 f"a captured {name} recorded "
                 f"{cuda_graphs.named(c.recorded) or 'no kernel launch'}, not "

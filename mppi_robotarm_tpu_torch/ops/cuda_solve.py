@@ -77,6 +77,8 @@ COUNTER_SLOTS = 8             # streams an allocation of counters serves
 LAUNCHES = 0                  # solve_tile_kernel, tiles and combine
 COMBINE_LAUNCHES = 0          # separate combine launches: none since the
                               # combine runs in solve_tile_kernel's last block
+PARTIALS = 0                  # tile partials the launches' combines fold,
+                              # n_tiles × B a launch, counted as LAUNCHES is
 
 # Arrival counters of the kernel's cross-tile combine, (MAX_SCENARIOS,)
 # int32 zeros each, by (device index, stream handle), and each device's
@@ -398,7 +400,7 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
             normalize, fuse_update, k_local, k_offset):
     """Check the operands and launch csrc/solve_kernel.cu on the current
     stream.  Raises on anything the kernel does not take."""
-    global LAUNCHES
+    global LAUNCHES, PARTIALS
     from ._build import load_library
 
     if (seed is None) == (eps is None):
@@ -460,6 +462,7 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
         raise RuntimeError("solve_kernel launch failed: "
                            + lib.mppi_error_string(err).decode())
     LAUNCHES += 1
+    PARTIALS += n_tiles * B
     eps_used = (eps_out if use_prng else eps) if emit_eps else None
     return out, s_out, eps_used, (m, eta)
 

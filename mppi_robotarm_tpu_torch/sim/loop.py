@@ -326,10 +326,12 @@ class _StepGraph(NamedTuple):
     """A captured chunk of ``n`` steps: its graph, the state it reads and
     leaves (seed included) and the run's step counter (the loop's
     ``clock``), its copy of the path, its (n, B, ...) record rows, the
-    seconds its capture and instantiation took, and the launches the
-    capture recorded: the solve kernel's (``launches``, one a step) and
-    the step kernels' (``step_launches``: one head, a tail a step, and the
-    n - 1 tails that carried the next head); an eager chunk's are all 0."""
+    seconds its capture and instantiation took, and every count the
+    capture recorded (``recorded``, in ``cuda_graphs.COUNTERS``' order),
+    which each replay adds: among them the solve kernel's launches
+    (``launches``, one a step) and the step kernels' (``step_launches``:
+    one head, a tail a step, and the n - 1 tails that carried the next
+    head); an eager chunk's are all 0."""
 
     graph: "torch.cuda.CUDAGraph"
     state: SimState
@@ -338,8 +340,15 @@ class _StepGraph(NamedTuple):
     rows: tuple
     n: int
     capture_s: float
-    launches: int
-    step_launches: tuple
+    recorded: tuple
+
+    @property
+    def launches(self) -> int:
+        return self.recorded[0]
+
+    @property
+    def step_launches(self) -> tuple:
+        return self.recorded[1:4]
 
 
 def _row_buffers(n: int, states: SimState, ref_path: torch.Tensor) -> tuple:
@@ -462,10 +471,11 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
     The launches the capture records are counted into the graph: a cuda
     chunk raises unless they are a solve and a tail a step, one head, and
     n - 1 tails that carried the head; an eager chunk raises on any launch
-    of the port's kernels.  The replays add them to ``cuda_solve.LAUNCHES``
-    and ``cuda_step``'s counts; the warm-up's launches, and the capture's,
-    which execute nothing, are not counted there.  ``clock`` is the run's
-    step counter at the chunk's start (default: the state's step)."""
+    of the port's kernels.  The replays add them, and the solve's partials
+    (``cuda_solve.PARTIALS``), to the counts; the warm-up's launches, and
+    the capture's, which execute nothing, are not counted there.
+    ``clock`` is the run's step counter at the chunk's start (default:
+    the state's step)."""
     clock = states.step if clock is None else clock
     body = _body(backend)
     static = _as_state(tuple(v.clone() for v in _state_tensors(states)))
@@ -495,7 +505,7 @@ def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
                            f"{step_captured} step head, tail and carried "
                            f"head launches, not (1, {n}, {n - 1})")
     return _StepGraph(c.graph, static, static_clock, ref, rows, n,
-                      c.capture_s, captured, step_captured)
+                      c.capture_s, c.recorded)
 
 
 def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int,
@@ -518,10 +528,10 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
     """The run as replays of captured chunks: each chunk's input state,
     clock and path are copied into its graph's buffers (skipped when the
     last replay was of the same graph, which left its state there), then
-    its record rows out into ``rows``.  Each replay adds the launches its
-    capture recorded to ``cuda_solve.LAUNCHES`` and ``cuda_step``'s
-    counts.  Under ``utils/debug.py::debug_mode`` each chunk's state is
-    checked after its replay, outside the graph.  Spans a chunk
+    its record rows out into ``rows``.  Each replay adds the counts its
+    capture recorded (``cuda_solve.LAUNCHES`` and ``PARTIALS``,
+    ``cuda_step``'s).  Under ``utils/debug.py::debug_mode`` each chunk's
+    state is checked after its replay, outside the graph.  Spans a chunk
     (``utils/spans.py``): ``graph.key``, ``graph.copy_in`` (``n``: bytes),
     ``graph.replay``, ``loop.rows_out`` (``n``: bytes); then
     ``loop.state_out``."""
@@ -541,7 +551,7 @@ def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
                     s.n = sum(v.nbytes for v in cur) + ref_path.nbytes
         before = (_as_state(tuple(v.clone() for v in cur[:7]))
                   if debug.active() else None)
-        cuda_graphs.replay(g.graph, (g.launches, *g.step_launches))
+        cuda_graphs.replay(g.graph, g.recorded)
         with spans.span("loop.rows_out") as s:
             for dst, src in zip(rows, g.rows):
                 dst[start:start + n].copy_(src)

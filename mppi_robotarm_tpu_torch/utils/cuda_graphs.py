@@ -43,13 +43,16 @@ from ..ops import (cuda_pathgen, cuda_probe, cuda_shard, cuda_sim,
                    cuda_solve, cuda_step)
 from . import spans
 
-# every launch count of the port's kernels, as (module, name)
+# every launch count of the port's kernels, as (module, name), then the
+# counts of work their wrappers add beside them (the solve kernel's tile
+# partials): a replay adds both as its capture recorded them
 COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
             (cuda_step, "TAIL_LAUNCHES"), (cuda_step, "CARRIED_HEADS"),
             (cuda_sim, "LAUNCHES"), (cuda_sim, "FLEET_LAUNCHES"),
             (cuda_shard, "SCALE_LAUNCHES"), (cuda_shard, "FINISH_LAUNCHES"),
             (cuda_probe, "SCALE_LAUNCHES"), (cuda_probe, "BIG_LAUNCHES"),
-            (cuda_pathgen, "LAUNCHES"))
+            (cuda_pathgen, "LAUNCHES"), (cuda_solve, "PARTIALS"))
+LAUNCH_COUNTS = len(COUNTERS) - 1   # the leading entries that count launches
 CAPTURE_STREAMS: dict = {}   # device index -> the stream captures run on
 STREAMS: dict = {}           # (stream id, device index) -> its Stream
 

@@ -46,7 +46,7 @@ import torch
 
 import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.mppi import solver as psolver
-from mppi_robotarm_tpu_torch.ops import cuda_sim
+from mppi_robotarm_tpu_torch.ops import cuda_sim, cuda_solve
 from mppi_robotarm_tpu_torch.utils import cuda_graphs, debug
 from _torch_port_helpers import _leaves
 from _torch_port_helpers import (counted_kernels,  # noqa: F401 (fixtures)
@@ -483,6 +483,33 @@ def test_a_replay_adds_the_launches_its_capture_recorded(
     after = cuda_graphs.launch_counts()
     assert after[0] - counts[0] == 5 and after[1] - counts[1] == 5
     assert after[2:] == counts[2:]
+
+
+@pytest.mark.parametrize("entry", ["solve", "solve_batched"])
+def test_a_replay_adds_the_partials_its_capture_recorded(
+        graphs_on_cpu, counted_kernels, monkeypatch, entry):
+    """A capture whose solve launch also counted its tile partials (as
+    the kernel's wrapper does on the card, ``cuda_solve.PARTIALS``) is
+    held to its launches alone; each replay adds the partials with them."""
+    solve = cuda_solve.solve_batched
+
+    def partials(*a, **k):
+        cuda_solve.PARTIALS += 4 * a[2].shape[0]     # 4 tiles a scenario
+        return solve(*a, **k)
+
+    monkeypatch.setattr(cuda_solve, "solve_batched", partials)
+    before = cuda_solve.PARTIALS
+    if entry == "solve":
+        solve_chain("cuda", "seed", torch.float32, calls=5)
+        per_call = 4
+    else:
+        batched_chain("seed", torch.float32, calls=5)
+        per_call = 4 * 3
+    (c,) = graphs_on_cpu
+    assert c.recorded[-1] == per_call
+    assert c.recorded[:-1] == psolver._SOLVE_LAUNCHES[:-1]
+    # the first call runs uncaptured and counts; the capture counts nothing
+    assert cuda_solve.PARTIALS - before == 5 * per_call
 
 
 @pytest.mark.parametrize("per_solve", [0, 2])

@@ -306,6 +306,23 @@ def test_solve_launch_is_one_call_with_the_streams_counters(
     assert lib.calls[1][1][12].value == count.value      # the same slot
 
 
+@pytest.mark.parametrize("K,B,n_tiles", [(1024, 1, 32), (1024, 64, 32),
+                                         (65536, 1, 128), (100, 8, 1),
+                                         (128, 4096, 1)])
+def test_solve_launch_counts_its_tile_partials(fake_card, fresh_counters, K,
+                                               B, n_tiles):
+    """A launch adds the partials its combine folds, n_tiles × B, to
+    PARTIALS, beside its one launch in LAUNCHES."""
+    fake_card(_FakeLib())
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=5)
+    before = (cuda_solve.LAUNCHES, cuda_solve.PARTIALS)
+    cuda_solve._launch(P.ArmParams(), cfg, *_solve_cpu_args(cfg, B),
+                       torch.arange(B), None, None, None, False, True, True,
+                       None, None)
+    assert (cuda_solve.LAUNCHES, cuda_solve.PARTIALS) == (
+        before[0] + 1, before[1] + n_tiles * B)
+
+
 def test_solves_inside_counters_of_take_that_streams_slot(fake_card,
                                                            fresh_counters):
     """Inside ``counters_of(device, 9, on=7)`` a launch on stream 7 takes

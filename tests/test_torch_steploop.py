@@ -299,6 +299,34 @@ def test_replays_count_the_launches_their_capture_recorded(fake_capture):
     assert list(cuda_graphs.CAPTURE_STREAMS) == [None]   # one a device
 
 
+def test_replays_count_the_partials_their_capture_recorded(fake_capture,
+                                                           monkeypatch):
+    """A chunk's capture records the tile partials its solves counted
+    (``cuda_solve.PARTIALS``, as the kernel's wrapper counts them on the
+    card) and leaves the count as it found it; each replay of the chunk
+    adds them, as it adds the launches."""
+    fake_capture(1)
+    solve = cuda_solve.solve_batched
+
+    def partials(*a, **k):
+        cuda_solve.PARTIALS += 128 * a[2].shape[0]
+        return solve(*a, **k)
+
+    monkeypatch.setattr(cuda_solve, "solve_batched", partials)
+    cfg, ref = _cfg(), _ref()
+    states = _batch(cfg, 2)
+    before = cuda_solve.PARTIALS
+    g = ploop._capture(ARM, cfg, SIM, ref, states, 3, _Stream)
+    assert g.recorded[0] == 3 and g.recorded[-1] == 3 * 128 * 2
+    assert cuda_solve.PARTIALS == before
+    replays = 3
+    ploop._step_loop(ARM, cfg, SIM, ref, states,
+                     replays * ploop._GRAPH_STEPS, graphs=True)
+    (chunk,) = ploop._GRAPHS.values()
+    assert chunk.recorded[-1] == ploop._GRAPH_STEPS * 128 * 2
+    assert cuda_solve.PARTIALS == before + replays * chunk.recorded[-1]
+
+
 @pytest.mark.parametrize("per_solve", [0, 2])
 def test_capture_without_one_launch_a_step_raises(fake_capture, per_solve):
     """A chunk whose capture recorded no solve kernel launch (the kernel
