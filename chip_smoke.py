@@ -138,7 +138,10 @@ Phases (any failure raises and exits non-zero):
      first 200 rows (spread indices, every 8th scenario frozen, four near
      the path end), and at phase 9's fleet shape (4096 x K=128, T=30, from
      phase 9's final state, every 8th scenario frozen, four near the path
-     end: several scenarios a block, one statistics warp each), with the
+     end: several scenarios a block, one statistics warp each), and at
+     BASELINE config 3's K=65536, H=50 for B=1 and B=2 on the 8000-point
+     circle (the tail on a thread-block cluster of 8 CTAs, its layout
+     checked), with the
      tail's layout (``cuda_step.step_tail_layout``) at each shape: the
      head kernel's outputs and, at
      every step, the head the tail carries equal to the plain head on the
@@ -148,7 +151,11 @@ Phases (any failure raises and exits non-zero):
      kernel's sums over K run in another order than torch's reductions,
      and a near-deterministic softmax has an entropy near 0), and equal
      to their order in torch (``cuda_step.tail_stats_ordered``) bit for
-     bit;
+     bit; then ``simulate(backend="cuda")`` at K=65536 for 300 steps, its
+     own launch counts (a head a chunk, a tail a step, every tail on a
+     cluster: ``cuda_step.CLUSTER_TAILS`` == ``TAIL_LAUNCHES``, where
+     phase 8's K=1024 run counts none) and the tail's device time a launch
+     in its replayed graphs against its plain version and its bound;
  21. the sample-sharded step's kernels (``csrc/shard_kernel.cu``, the
      rescale before the SUM and the finish after it) and the step kernels
      around them against their plain versions on the same card tensors:
@@ -278,6 +285,7 @@ CMP_STEPS = 8         # kernel-vs-twin comparison length
 Q_TOL, U_TOL = 2e-6, 2e-5          # step i: q within Q_TOL·4^i, u U_TOL·4^i
 STATS_RTOL = 1e-4                  # stats lanes at step 0, relative
 STEP_STATS_RTOL = 2e-6             # phase 20: the step tail's sums over K
+LARGE_K, LARGE_K_STEPS = 65536, 300   # phase 20: BASELINE config 3's loop
 ONPATH_GATE_MM = 42.0              # bench.py:160
 HA_GATE_MM = 18.0                  # bench.py:175
 SOLVE_LAM = 3e5       # phase 7: tens of samples carry weight (at the
@@ -578,10 +586,7 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
             check(torch.equal(a, b), f"{label}: record {name} differs from "
                   f"the plain versions'")
     B = states.q.shape[0]
-    from mppi_robotarm_tpu_torch.ops.cuda_solve import _sm_count
-
-    layout = cuda_step.step_tail_layout(cfg.num_samples, B,
-                                        _sm_count(states.q.device))
+    layout = cuda_step._tail_layout_on(cfg.num_samples, B, states.q.device)
     print(f"{label}: the step kernels == their plain versions over {steps} "
           f"steps of {B} scenario(s) (K={cfg.num_samples}; the tail's "
           f"layout {layout}): the head kernel's x0, index, path end and "
@@ -1022,7 +1027,7 @@ def main() -> int:
     loop._GRAPHS.clear()
     cuda_solve.LAUNCHES = cuda_solve.COMBINE_LAUNCHES = 0
     cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
-    cuda_step.CARRIED_HEADS = 0
+    cuda_step.CARRIED_HEADS = cuda_step.CLUSTER_TAILS = 0
     t0 = time.perf_counter()
     final_p, rec_p = m.simulate(arm, cfg, sim, ref, state0, STEPS,
                                 backend="cuda")
@@ -1033,6 +1038,7 @@ def main() -> int:
     head_launches = cuda_step.HEAD_LAUNCHES
     tail_launches = cuda_step.TAIL_LAUNCHES
     carried_heads = cuda_step.CARRIED_HEADS
+    cluster_tails = cuda_step.CLUSTER_TAILS
     chunks = -(-STEPS // graph_steps)
     captures = {g.n: g.capture_s for g in loop._GRAPHS.values()}
     live = int((~rec_p.done).sum())
@@ -1043,7 +1049,8 @@ def main() -> int:
           + f"), solve_tile_kernel launches {solve_launches}, "
           f"step_head_kernel {head_launches}, step_tail_kernel "
           f"{tail_launches} ({carried_heads} carrying the next step's "
-          f"head), separate combine launches {combine_launches}, "
+          f"head, {cluster_tails} on a cluster), separate combine launches "
+          f"{combine_launches}, "
           f"live steps {live}, "
           f"{loop_wall:.3f} s wall with the captures")
     check(captures and len(captures) <= 2 and max(captures) == graph_steps,
@@ -1066,13 +1073,14 @@ def main() -> int:
           f"{STEPS} steps, not one a step")
     check(combine_launches == 0,
           f"the per-step path made {combine_launches} combine launches")
-    check((head_launches, tail_launches, carried_heads)
-          == (chunks, STEPS, STEPS - chunks),
+    check((head_launches, tail_launches, carried_heads, cluster_tails)
+          == (chunks, STEPS, STEPS - chunks, 0),
           f"the per-step path made {head_launches} step head and "
           f"{tail_launches} step tail launches, {carried_heads} of them "
-          f"carrying the head, in {STEPS} steps, not a head a chunk of "
-          f"{graph_steps} ({chunks}) and a tail a step, all but each "
-          f"chunk's last carrying the head")
+          f"carrying the head and {cluster_tails} on a cluster, in {STEPS} "
+          f"steps, not a head a chunk of {graph_steps} ({chunks}) and a "
+          f"tail a step in one block, all but each chunk's last carrying "
+          f"the head")
     for field, v in zip(rec_p._fields, rec_p):
         if v.dtype.is_floating_point:
             check(bool(torch.isfinite(v).all()), f"per-step {field} not finite")
@@ -1852,13 +1860,77 @@ def main() -> int:
                         cuda_step, _solve_kernels, arm, cfg_b, sim, ref_b,
                         st_f)
     head_err, step_err = max(head_err, errs[0]), max(step_err, errs[1])
-    print("step kernels: the tail's layout (statistics warps, logical "
-          "lanes a lane, scenarios a block, samples a logical lane in "
-          "registers): " + "; ".join(
-              f"{shape} {cuda_step.step_tail_layout(k, b, sm_count)}"
+    # BASELINE config 3's shape (K=65536, H=50) on the 8000-row path: the
+    # tail on a cluster of 8 CTAs, at B=1 and B=2
+    cfg_big = dataclasses.replace(cfg, num_samples=LARGE_K)
+    big_err = 0.0
+    for b in (1, 2):
+        lay = cuda_step._tail_layout_on(LARGE_K, b, device)
+        check(tuple(lay) == (4, 1, 1, 64, cuda_step.TAIL_CLUSTER),
+              f"step kernels B={b} K={LARGE_K}: the tail's layout {lay}, "
+              f"not the clustered build")
+        st_big = m.init_sim_batch(cfg_big, sim, np.arange(b), device=device)
+        errs = step_compare(f"step kernels B={b} K={LARGE_K}", loop,
+                            cuda_step, _solve_kernels, arm, cfg_big, sim,
+                            ref, st_big)
+        head_err, big_err = max(head_err, errs[0]), max(big_err, errs[1])
+    # the large-K loop, simulate(backend="cuda"): every tail on a cluster;
+    # then a step tail's device time in its replayed graphs
+    loop._GRAPHS.clear()
+    cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
+    cuda_step.CARRIED_HEADS = cuda_step.CLUSTER_TAILS = 0
+    final_l, rec_l = m.simulate(arm, cfg_big, sim, ref,
+                                m.init_sim(cfg_big, sim, seed=0,
+                                           device=device), LARGE_K_STEPS,
+                                backend="cuda")
+    torch.cuda.synchronize()
+    big = (cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
+           cuda_step.CARRIED_HEADS, cuda_step.CLUSTER_TAILS)
+    chunks_l = -(-LARGE_K_STEPS // graph_steps)
+    check(big == (chunks_l, LARGE_K_STEPS, LARGE_K_STEPS - chunks_l,
+                  LARGE_K_STEPS),
+          f"the large-K loop made (heads, tails, carried, on a cluster) "
+          f"{big} in {LARGE_K_STEPS} steps, not a head a chunk and a tail "
+          f"a step, every tail on a cluster")
+    check(all(bool(torch.isfinite(v).all()) for v in rec_l),
+          "the large-K loop's records are not finite")
+    big_tail = fused_timing.profiled_us(
+        lambda: m.simulate(arm, cfg_big, sim, ref, final_l, graph_steps * 8,
+                           backend="cuda"),
+        1, keep=lambda key: "step_tail" in key)
+    check(len(big_tail) == 1, f"the large-K loop's profiled window showed "
+          f"the step tail as {sorted(big_tail)}, not one kernel")
+    big_tail_ms = sum(big_tail.values()) / 1e3
+    st_l = loop._as_batch(final_l)
+    ph_l = cuda_step.step_head_plain(cfg_big, ref, st_l.q, st_l.dq,
+                                     st_l.mppi.wp_idx)
+    u_seq_l, s_l, _ = _solve_kernels(arm, cfg_big, ph_l[0], st_l.mppi.u_prev,
+                                     ph_l[3], st_l.seed, None, st_l.step,
+                                     False)
+    big_args = (arm, cfg_big, sim, ref, *loop._state_tensors(st_l)[:5],
+                st_l.done, ph_l[1], ph_l[2], u_seq_l, s_l, st_l.step.clone(),
+                tuple(r[0] for r in loop._row_buffers(1, st_l, ref)))
+    big_plain_ms = min(cuda_time(lambda: [cuda_step.step_tail_plain(
+        *big_args, carry_head=True) for _ in range(20)], 3)) / 20
+    print(f"step kernels K={LARGE_K} H={cfg.horizon}: simulate(backend="
+          f"'cuda') {LARGE_K_STEPS} steps, step_head_kernel {big[0]}, "
+          f"step_tail_kernel {big[1]} ({big[2]} carrying the next head, "
+          f"{big[3]} on a cluster); the tail carrying the next head "
+          f"{big_tail_ms * 1e3:.3f} us device time a launch in the graph "
+          f"loop ({sorted(big_tail)[0]}), its plain version "
+          f"{big_plain_ms * 1e3:.2f} us (CUDA events over 20 calls, min "
+          f"of 3)")
+    print("step kernels: the tail's layout (statistics warps a block, "
+          "logical lanes a lane, scenarios a block, samples a logical lane "
+          "kept on chip, CTAs a scenario; the card holds "
+          f"{cuda_step._cluster_slots(device)} clusters at once): "
+          + "; ".join(
+              f"{shape} {cuda_step._tail_layout_on(k, b, device)}"
               for shape, k, b in (("B=1 K=1024", cfg.num_samples, 1),
                                   ("B=64 K=1024", cfg.num_samples, 64),
-                                  (f"fleet B={BATCH} K=128", 128, BATCH))))
+                                  (f"fleet B={BATCH} K=128", 128, BATCH),
+                                  (f"B=1 K={LARGE_K}", LARGE_K, 1),
+                                  (f"B=2 K={LARGE_K}", LARGE_K, 2))))
 
     # ---- 21. the sharded step's kernels against their plain versions --
     from mppi_robotarm_tpu_torch.ops import cuda_shard
@@ -2453,6 +2525,15 @@ def main() -> int:
     tail_bound = bound(20 * cfg.num_samples + 70 + carried * (9 + 7 * W),
                        (cfg.num_samples + 3 * 2 * cfg.horizon + 4 + 4 + 2
                         + 6 * 2 + 4) * f4 + 8 * 8 + 4 + carried * head_rows)
+    # the same at phase 20's large-K loop (K=65536, B=1; its own advance)
+    wp_l = rec_l.wp_idx.double()
+    adv_l = float((wp_l[1:] - wp_l[:-1]).mean())
+    head_rows_l = ((W + adv_l) * 4 + 4 + W * 4) * f4 + 8 + 1
+    carried_l = big[2] / big[1]
+    big_tail_bound = bound(
+        20 * LARGE_K + 70 + carried_l * (9 + 7 * W),
+        (LARGE_K + 3 * 2 * cfg.horizon + 4 + 4 + 2 + 6 * 2 + 4) * f4
+        + 8 * 8 + 4 + carried_l * head_rows_l)
     # the sharded step's kernels at the main path's shape (B=1, T=50), a
     # launch: the rescale reads m, m_s, η_s and A_s (2T) and writes the
     # message (1 + 2T); a difference, a multiply and an exp, then a
@@ -2475,7 +2556,8 @@ def main() -> int:
           f"{fleet_live} of {BATCH * FLEET_TIME_STEPS} scenario-steps "
           f"live), step_head_kernel {head_bound[0] * 1e3:.5f} us "
           f"({head_bound[1]}), step_tail_kernel carrying the next head "
-          f"{tail_bound[0] * 1e3:.5f} us ({tail_bound[1]}), "
+          f"{tail_bound[0] * 1e3:.5f} us ({tail_bound[1]}), at K={LARGE_K} "
+          f"{big_tail_bound[0] * 1e3:.5f} us ({big_tail_bound[1]}), "
           f"probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
           f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
           f"({p2_bound[1]}), shard_scale_kernel {scale_bound[0] * 1e3:.5f} "
@@ -2526,6 +2608,10 @@ def main() -> int:
               "step's waypoint advance, mppi/solver.py:215, fused by XLA; "
               "no Pallas kernel)", tail_launches, step_err, tail_ms,
               plain_tail_ms, tail_bound),
+        entry(f"step_tail_kernel K={LARGE_K}", "step_kernel.cu",
+              "the same at BASELINE config 3's K=65536, H=50, B=1, on a "
+              "thread-block cluster of 8 CTAs", big[1], big_err,
+              big_tail_ms, big_plain_ms, big_tail_bound),
         entry("shard_scale_kernel", "shard_kernel.cu",
               "mppi_robotarm_tpu/parallel/sharded.py:139-142 (the rescale "
               "of _solve_local_pallas between its pmin and psum, fused by "

@@ -22,14 +22,16 @@
 //   the new index, which the solve kernel reads.
 //
 //   step_tail_kernel, a control warp and `ns` statistics warps a scenario,
-//   `group` scenarios a block.  The control warp: the freeze flag done |
-//   path_end, the shifted warm start (kept where done), the plant
-//   (dynamics_step at sim.dt, with the disturbance), the kept q, dq, index
-//   and the step counter, the record row's scalar lanes in place at its
-//   row of the record buffers (q, dq, u0, the elbow and end effector by
-//   fk_full, the reference row ref[min(clock + 1, N - 1)], the index,
-//   done), and, given the next head's outputs, head_body on the new state,
-//   still in registers: the head of step i + 1 at the end of step i.  The
+//   `group` scenarios a block, or a scenario a cluster of CTAs of `ns`
+//   statistics warps each, the control warp on the first.  The control
+//   warp: the freeze flag done | path_end, the shifted warm start (kept
+//   where done), the plant (dynamics_step at sim.dt, with the
+//   disturbance), the kept q, dq, index and the step counter, the record
+//   row's scalar lanes in place at its row of the record buffers (q, dq,
+//   u0, the elbow and end effector by fk_full, the reference row
+//   ref[min(clock + 1, N - 1)], the index, done), and, given the next
+//   head's outputs, head_body on the new state, still in registers: the
+//   head of step i + 1 at the end of step i.  The
 //   statistics warps: min S, mean S, the ESS and the entropy of the softmax
 //   weights of S, zeroed where done, written by the statistics' first warp.
 //   The two parts share nothing but their inputs, so neither waits for the
@@ -51,34 +53,56 @@
 // (ops/cuda_step.py::tail_stats_ordered is the order in torch).  A physical
 // lane holds L logical lanes (logical warp w on statistics warp w / L,
 // register set w % L) and runs the butterfly on each set; the logical
-// warps' sums meet in shared memory (one named barrier a round) or, on one
-// statistics warp, in registers.  The weights follow torch on the card: e
-// = exp(-(S - min S) * fl(1/lam)) (torch divides by a scalar as a multiply
-// by its reciprocal), w = e / Sum e, ESS = 1 / Sum w^2, entropy = -Sum w
-// log w over w > 0, mean = Sum S * fl(1/K).
+// warps' sums meet in shared memory (one named barrier a round), in the
+// shared memory of a cluster's CTAs (one cluster barrier a round) or, on
+// one statistics warp, in registers.  The weights follow torch on the
+// card: e = exp(-(S - min S) * fl(1/lam)) (torch divides by a scalar as a
+// multiply by its reciprocal), w = e / Sum e, ESS = 1 / Sum w^2, entropy
+// = -Sum w log w over w > 0, mean = Sum S * fl(1/K).
 //
 // What bounds them.  Both are tiny: bytes, and at B=1 latency.  The head
 // reads 2W rows of 16 bytes a scenario and writes W; the tail reads S (4K
 // bytes) and the controls (16T) and writes a few dozen words a scenario.
-// So the tail reads S once, into registers (a sample a logical lane up to
-// K = 1024; above that each pass reads S again), computes each weight's
-// exp once, and needs three exchange rounds, which the
-// dependencies force (rho before e, eta before w); each round's fold of
-// the logical warps' sums loads all 32 slots at once (those past the
-// scenario's warps hold the sum's identity) and runs one chain.  The
-// plant, a chain of dependent scalar operations, runs on its own warp
-// beside them, its loads (the path rows of the head it carries among
-// them) all in flight before it.  The head, whose inputs are the tail's
-// outputs, costs no launch of its own but one a chunk.  No work sits
-// behind a per-sample branch but an exact division with a nonzero
-// dividend.  At B=1 the statistics' three rounds are the critical path;
-// on a fleet, issue and the SMs' occupancy (PERF.md).
+// So the tail reads S once, computes each weight's exp once, and needs
+// three exchange rounds, which the dependencies force (rho before e, eta
+// before w); each round's fold of the logical warps' sums loads all 32
+// slots at once (those past the scenario's warps hold the sum's identity)
+// and runs one chain.  Up to K = 1024 a logical lane holds one sample in
+// registers, four logical lanes a lane, in one block.  Above it (n = 1024
+// logical lanes) one block on one SM walks K / 1024 samples a logical
+// lane three times, so from 16 samples a logical lane, for as many waves
+// of clusters as a logical lane has 16 samples (a wave: the card's slots,
+// mppi_step_tail_cluster_slots, 15 on the H100), a scenario runs on a
+// thread-block cluster of 8 CTAs, CTA r holding logical warps 4r .. 4r +
+// 3, one logical lane a lane, and their up to 64 samples a logical lane
+// in its shared memory (K <= 65536): its 16 statistics warps load, exp,
+// divide and log them, 16 samples a thread, and the 4 owner warps sum
+// them in order (one warp a scheduler holding its 64 samples in registers
+// waited on each sample's latency, in code too long for the instruction
+// cache).  The control warp runs on CTA 0; each round every CTA writes
+// its logical warps' sums into its own shared memory and reads all 32
+// from the CTAs that hold them after a cluster barrier, and one more
+// barrier keeps every CTA until the last round's reads are done.
+// Otherwise (fewer samples, a large fleet, K > 65536) each pass reads S
+// again, two logical lanes a lane in one block.  On the H100 a wave of
+// clusters takes 10-14 us, one block a scenario 6.6 at K = 4096, 15-17 at
+// 16384 and 72-80 at 65536; PERF.md has the sweep, the clustered tail's
+// phases and the layouts tried.  The plant, a chain of dependent scalar
+// operations, runs on its own warp beside them, its loads (the path rows
+// of the head it carries among them) all in flight before it.  The head,
+// whose inputs are the tail's outputs, costs no launch of its own but one
+// a chunk.  No work sits behind a per-sample branch but an exact division
+// with a nonzero dividend.  At B=1 the statistics' three rounds are the
+// critical path; on a fleet, issue and the SMs' occupancy (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mppi_device.cuh"
+
+namespace cg = cooperative_groups;
 
 // Mirrored field for field by ops/cuda_step.py::_StepParams (all fields
 // are 4 bytes wide).
@@ -148,6 +172,10 @@ static const int kHeadThreads = 128;     // four scenarios a block
 static const int kMaxLanes = 1024;       // step_tail_threads' largest n
 static const int kRedFloats = 160;       // a scenario's exchange slots
 static const int kMaxBarrierGroup = 15;  // named barriers 1..15
+static const int kMaxCluster = 8;        // the portable cluster size limit
+static const int kClusterThreads = 544;  // a CTA of the clustered build:
+static const int kClusterStats = 512;    // its statistics threads
+static const int kMaxDevices = 64;       // cluster slots asked once each
 
 // (a, ia) before (b, ib) in torch.argmin's order: a NaN first, then the
 // smaller value, ties to the lower index (selects, no branch).
@@ -419,21 +447,82 @@ __device__ __forceinline__ void stats_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Statistics warp `sw` of the `ns` of scenario b, L logical lanes a lane,
-// CAP samples a logical lane in registers (0: each pass reads S again).
-// `n` logical lanes, `red` the scenario's kRedFloats exchange slots, `bar`
-// its named barrier.  A slot past K takes part as the identity of each sum
-// (0; +inf for the min), so no sample's work sits behind a branch: a
-// logical lane's sums start at +0 and never become -0, so adding +0
-// leaves them as they are, as skipping the slot would.
-template <int L, int CAP>
+// The cluster's barrier, split: arrive releases the thread's stores, wait
+// returns once every thread of the cluster has arrived and acquires
+// theirs, in every CTA's shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// An exchange round's barrier: the scenario's statistics warps' named
+// barrier, or on a cluster (CL) the cluster's.
+template <bool CL>
+__device__ __forceinline__ void stats_round(int bar, int threads) {
+  if constexpr (CL) {
+    cluster_sync();
+  } else {
+    stats_sync(bar, threads);
+  }
+}
+
+// Float4 q of an exchange round's slots `r`, `f` floats a logical warp, as
+// the CTA that wrote them holds it: this block, or on a cluster (CL) the
+// CTA of those logical warps, `per` of them a CTA (a multiple of 4 / f,
+// so a float4 lies in one CTA).
+template <bool CL>
+__device__ __forceinline__ float4 slots4(float* r, int q, int f, int per) {
+  if constexpr (CL) r = cg::this_cluster().map_shared_rank(r, 4 * q / f / per);
+  return reinterpret_cast<const float4*>(r)[q];
+}
+
+// A CTA's samples kept in shared memory (the clustered build): slot i of
+// its logical lane lo (lo < lanes, the CTA's logical lanes from `first`)
+// at at[i * lanes + lo], and a second value a sample at at2; the CTA's
+// `threads` statistics threads (this one `g`, a multiple of `lanes`)
+// share the per-sample work and meet at named barrier `bar` before the
+// logical lanes' own threads sum the kept values in order.
+struct Kept {
+  float* at;
+  float* at2;
+  int first, lanes, g, threads, bar;
+};
+
+// Statistics warp `sw` of scenario b, `ns` of them a block, L logical
+// lanes a lane, CAP samples a logical lane kept on chip (0: each pass
+// reads S again; 1: in registers; more, L = 1 only: in shared memory,
+// `kept`, where every statistics thread of the CTA loads, exps, divides
+// and logs 1 / (threads / lanes) of the samples, so four warps a
+// scheduler hide the latency one warp's unrolled 64 samples could not,
+// and the sums stay with their logical lanes).  `n` logical lanes, `red`
+// the block's kRedFloats exchange slots of the scenario, `bar` its named
+// barrier; on a cluster (CL) `sw` counts the statistics warps of the CTAs
+// before this one too (a warp that owns no logical warp has sw >= n /
+// 32), each CTA writes its logical warps' slots in its own `red` and the
+// rounds meet at the cluster's barrier.  A slot past K takes part as the
+// identity of each sum (0; +inf for the min), so no sample's work sits
+// behind a branch: a logical lane's sums start at +0 and never become -0,
+// so adding +0 leaves them as they are, as skipping the slot would (the
+// kept slots past K in every logical lane are skipped).
+template <int L, int CAP, bool CL>
 __device__ __forceinline__ void tail_stats(const StepParams& p,
                                            const TailArgs& a, int b, int sw,
                                            int ns, int n, int lane,
-                                           float* red, int bar) {
-  constexpr int R = CAP > 0 ? CAP : 1;
+                                           float* red, int bar,
+                                           const Kept& kept = Kept{}) {
+  static_assert(CAP <= 1 || L == 1, "samples kept in shared memory: L = 1");
+  constexpr bool KEPT = CAP > 1;
+  constexpr int R = 1;                   // CAP 1: a sample in registers
+  constexpr int M = 16;                  // kept samples a thread at most
   const int K = p.K;
   const int nw = n >> 5;                 // logical warps
+  const int per = ns * L;                // logical warps a CTA (CL)
   const float* s = a.s + (size_t)b * K;
   int t[L];                              // each set's logical lane
 #pragma unroll
@@ -446,9 +535,33 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int k = t[j] + i * n;
-      ok[j][i] = CAP > 0 && k < K;
+      ok[j][i] = CAP == 1 && k < K;
       v[j][i] = ok[j][i] ? s[k] : 0.0f;
     }
+  }
+  // kept: this thread's share, slots r0 + m * dr of the CTA's logical lane
+  // lo, sample k0 + i n; `mine` those of a logical lane this warp owns
+  const int used = KEPT ? (K + n - 1) / n : 0;   // kept slots below K
+  const int lo = KEPT ? kept.g % kept.lanes : 0;
+  const int r0 = KEPT ? kept.g / kept.lanes : 0;
+  const int dr = KEPT ? kept.threads / kept.lanes : 1;
+  const int k0 = kept.first + lo, ld = kept.lanes;
+  float* const col = kept.at + lo;       // slot i at col[i * ld]
+  float* const col2 = kept.at2 + lo;
+  const bool mine = t[0] < n;
+  if constexpr (KEPT) {                  // all loads in flight, then kept
+    float x[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int i = r0 + m * dr, k = k0 + i * n;
+      x[m] = i < used && k < K ? s[k] : 0.0f;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int i = r0 + m * dr;
+      if (i < used) col[i * ld] = x[m];
+    }
+    stats_sync(kept.bar, kept.threads);
   }
   // round 1: (min, sum), a logical lane's samples in order
   float mn[L], sm[L];
@@ -456,7 +569,16 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
   for (int j = 0; j < L; ++j) {
     mn[j] = INFINITY;
     sm[j] = 0.0f;
-    if constexpr (CAP > 0) {
+    if constexpr (KEPT) {
+      if (mine) {
+#pragma unroll 8
+        for (int i = 0; i < used; ++i) {
+          const float x = col[i * ld];
+          mn[j] = nan_min(mn[j], t[j] + i * n < K ? x : INFINITY);
+          sm[j] += x;
+        }
+      }
+    } else if constexpr (CAP > 0) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         mn[j] = nan_min(mn[j], ok[j][i] ? v[j][i] : INFINITY);
@@ -488,7 +610,7 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
     mn[j] = __shfl_sync(kFullMask, mn[j], 0);
   }
   float rho, total = 0.0f;
-  if (ns == 1) {
+  if (!CL && ns == 1) {
     rho = mn[0];
 #pragma unroll
     for (int j = 0; j < L; ++j) {
@@ -509,13 +631,13 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
       red[64 + lane] = 0.0f;
       reinterpret_cast<float2*>(red + 96)[lane] = make_float2(0.0f, 0.0f);
     }
-    stats_sync(bar, ns * 32);
+    stats_round<CL>(bar, ns * 32);
     // all 32 slots in flight at once; nan_min over the warps in order is
     // the first NaN among them, if any, else the fminf chain
     float g[64];
 #pragma unroll
     for (int w = 0; w < 16; ++w) {
-      const float4 f = reinterpret_cast<const float4*>(red)[w];
+      const float4 f = slots4<CL>(red, w, 2, per);
       g[4 * w] = f.x;
       g[4 * w + 1] = f.y;
       g[4 * w + 2] = f.z;
@@ -541,7 +663,25 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
 #pragma unroll
   for (int j = 0; j < L; ++j) {
     et[j] = 0.0f;
-    if constexpr (CAP > 0) {
+    if constexpr (KEPT) {
+      float x[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int i = r0 + m * dr;
+        x[m] = i < used ? col[i * ld] : 0.0f;
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int i = r0 + m * dr;
+        const float e = expf(-(x[m] - rho) * p.inv_lam);
+        if (i < used) col[i * ld] = k0 + i * n < K ? e : 0.0f;
+      }
+      stats_sync(kept.bar, kept.threads);
+      if (mine) {
+#pragma unroll 8
+        for (int i = 0; i < used; ++i) et[j] += col[i * ld];
+      }
+    } else if constexpr (CAP > 0) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const float e = expf(-(v[j][i] - rho) * p.inv_lam);
@@ -563,7 +703,7 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
     for (int j = 0; j < L; ++j) et[j] += oe[j];
   }
   float eta = 0.0f;
-  if (ns == 1) {
+  if (!CL && ns == 1) {
 #pragma unroll
     for (int j = 0; j < L; ++j) eta = j < nw ? eta + et[j] : eta;
   } else {
@@ -575,11 +715,11 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
         if (w < nw) r2[w] = et[j];
       }
     }
-    stats_sync(bar, ns * 32);
+    stats_round<CL>(bar, ns * 32);
     float g[32];
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
-      const float4 f = reinterpret_cast<const float4*>(r2)[w];
+      const float4 f = slots4<CL>(r2, w, 1, per);
       g[4 * w] = f.x;
       g[4 * w + 1] = f.y;
       g[4 * w + 2] = f.z;
@@ -594,7 +734,34 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
   for (int j = 0; j < L; ++j) {
     w2[j] = 0.0f;
     wl[j] = 0.0f;
-    if constexpr (CAP > 0) {
+    if constexpr (KEPT) {                // the terms as below, then summed
+      float x[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int i = r0 + m * dr;
+        x[m] = i < used ? col[i * ld] : 0.0f;
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int i = r0 + m * dr;
+        const bool ok1 = k0 + i * n < K;
+        float w = 0.0f;
+        if (x[m] != 0.0f) w = x[m] / eta;
+        const float lw = w * logf(fmaxf(w, 1e-38f));
+        if (i < used) {
+          col[i * ld] = ok1 ? w * w : 0.0f;
+          col2[i * ld] = ok1 && w > 0.0f ? lw : 0.0f;
+        }
+      }
+      stats_sync(kept.bar, kept.threads);
+      if (mine) {
+#pragma unroll 8
+        for (int i = 0; i < used; ++i) {
+          w2[j] += col[i * ld];
+          wl[j] += col2[i * ld];
+        }
+      }
+    } else if constexpr (CAP > 0) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         // 0 / eta is +0: no division (its zero dividend takes the slow
@@ -628,7 +795,7 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
     }
   }
   float sw2 = 0.0f, swl = 0.0f;
-  if (ns == 1) {
+  if (!CL && ns == 1) {
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       sw2 = j < nw ? sw2 + w2[j] : sw2;
@@ -643,15 +810,20 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
         if (w < nw) r3[w] = make_float2(w2[j], wl[j]);
       }
     }
-    if (sw != 0) {                       // the first warp writes the row
-      stats_arrive(bar, ns * 32);
-      return;
+    if constexpr (CL) {                  // the first warp writes the row
+      cluster_sync();
+      if (sw != 0) return;
+    } else {
+      if (sw != 0) {
+        stats_arrive(bar, ns * 32);
+        return;
+      }
+      stats_sync(bar, ns * 32);
     }
-    stats_sync(bar, ns * 32);
     float g[64];
 #pragma unroll
     for (int w = 0; w < 16; ++w) {
-      const float4 f = reinterpret_cast<const float4*>(r3)[w];
+      const float4 f = slots4<CL>(red + 96, w, 2, per);
       g[4 * w] = f.x;
       g[4 * w + 1] = f.y;
       g[4 * w + 2] = f.z;
@@ -677,30 +849,64 @@ __device__ __forceinline__ void tail_stats(const StepParams& p,
 // scenario (a short batch; its latency counts) or S read each pass (K >
 // 1024) 576, so 112 registers keep a warp's loads in flight and its sets
 // in registers; with one of a sample a logical lane (a fleet: throughput,
-// which wants many scenarios on an SM) 1024, so 64.  The library holds
-// two (L, CAP): (4, 1) up to K = 1024 and (2, 0) at any K.
+// which wants many scenarios on an SM) 1024, so 64; on a cluster
+// kClusterThreads.  The library holds three (L, CAP): (4, 1) up to K =
+// 1024, (2, 0) at any K, and (1, 64) on a cluster up to K = 65536, its
+// samples in shared memory.
 __host__ __device__ constexpr int tail_bound(bool wide) {
   return wide ? 576 : 1024;
 }
 
 // `group` scenarios a block, each a run of ns + 1 warps: ns statistics
 // warps, then the control warp.  `h` holds the carried head's outputs, or
-// its x0 is null.
-template <int L, int CAP, bool WIDE>
-__global__ void __launch_bounds__(tail_bound(WIDE))
+// its x0 is null.  On a cluster (CL) a scenario takes the cluster's CTAs,
+// one group each, kClusterStats statistics threads (ns warps owning
+// logical warps, the rest sharing their per-sample work) and the control
+// warp, CTA 0's running the control and the others' doing nothing but the
+// cluster's barriers, which every thread takes alike: the control warp
+// arrives at round 1's before its work.
+template <int L, int CAP, bool WIDE, bool CL>
+__global__ void __launch_bounds__(CL ? kClusterThreads : tail_bound(WIDE))
 step_tail_kernel(const StepParams p, const TailArgs a, const HeadArgs h,
                  int B, int n, int ns) {
   extern __shared__ float red[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int per = ns + 1;
-  const int g = warp / per, role = warp - g * per;
-  const int b = blockIdx.x * (blockDim.x / (32 * per)) + g;
-  if (b >= B) return;                    // the scenario's warps alike
-  float* mine = red + g * (kRedFloats + 4 * kStagedRows);
-  if (role == ns) {
-    tail_control(p, a, h, h.x0 != nullptr, b, lane, mine + kRedFloats);
-  } else if (a.r_q != nullptr) {
-    tail_stats<L, CAP>(p, a, b, role, ns, n, lane, mine, 1 + g);
+  if constexpr (CL) {
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int b = blockIdx.x / (int)cluster.num_blocks();
+    const bool stats = a.r_q != nullptr;
+    if (warp == kClusterStats / 32) {
+      if (stats) cluster_arrive();
+      if (rank == 0) {
+        tail_control(p, a, h, h.x0 != nullptr, b, lane, red + kRedFloats);
+      }
+      if (stats) {                       // rounds 1 to 3
+        cluster_wait();
+        cluster_sync();
+        cluster_sync();
+      }
+    } else if (stats) {                  // warps past ns share the work
+      float* at = red + kRedFloats + 4 * kStagedRows;
+      const int lanes = ns * L * 32;
+      tail_stats<L, CAP, true>(
+          p, a, b, warp < ns ? rank * ns + warp : n / 32, ns, n, lane, red,
+          0, Kept{at, at + CAP * lanes, rank * lanes, lanes, (int)threadIdx.x,
+                  kClusterStats, 1});
+    }
+    // no CTA leaves while another may read its shared memory
+    if (stats) cluster_sync();
+  } else {
+    const int per = ns + 1;
+    const int g = warp / per, role = warp - g * per;
+    const int b = blockIdx.x * (blockDim.x / (32 * per)) + g;
+    if (b >= B) return;                  // the scenario's warps alike
+    float* mine = red + g * (kRedFloats + 4 * kStagedRows);
+    if (role == ns) {
+      tail_control(p, a, h, h.x0 != nullptr, b, lane, mine + kRedFloats);
+    } else if (a.r_q != nullptr) {
+      tail_stats<L, CAP, false>(p, a, b, role, ns, n, lane, mine, 1 + g);
+    }
   }
 }
 
@@ -710,9 +916,9 @@ static int launch_tail(const StepParams& p, const TailArgs& a,
                        cudaStream_t stream) {
   const size_t smem =
       group * (kRedFloats + 4 * kStagedRows) * sizeof(float);
-  step_tail_kernel<L, CAP, WIDE><<<(B + group - 1) / group,
-                                   group * (ns + 1) * 32, smem, stream>>>(
-      p, a, h, B, n, ns);
+  step_tail_kernel<L, CAP, WIDE, false><<<(B + group - 1) / group,
+                                          group * (ns + 1) * 32, smem,
+                                          stream>>>(p, a, h, B, n, ns);
   return (int)cudaGetLastError();
 }
 
@@ -737,6 +943,89 @@ static int launch_tail(const StepParams& p, const TailArgs& a,
   return launch_tail<L, CAP, true>(p, a, h, B, n, ns, group, stream);
 }
 
+// The clustered build, (L, CAP) = (1, 64), on clusters of kMaxCluster
+// CTAs: all 32 logical warps (n = kMaxLanes) split evenly over the CTAs,
+// kClusterNs of them a CTA beside the warps that share its per-sample
+// work (kClusterStats threads in all, 16 samples each at most, so CAP <=
+// 16 kClusterStats / (32 kClusterNs)) and the control warp, two floats a
+// sample kept in the CTA's shared memory.
+static const int kClusterCap = 64;
+static const int kClusterNs = kMaxLanes / 32 / kMaxCluster;
+static_assert(kClusterCap * 32 * kClusterNs <= 16 * kClusterStats,
+              "a statistics thread keeps at most 16 samples");
+
+static void cluster_config(cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attrs, int B,
+                           cudaStream_t stream) {
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kMaxCluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  attrs[1].val.clusterSchedulingPolicyPreference =
+      cudaClusterSchedulingPolicySpread;
+  *cfg = {};
+  cfg->gridDim = dim3(B * kMaxCluster);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = (kRedFloats + 4 * kStagedRows +
+                           2 * kClusterCap * kClusterNs * 32) *
+                          sizeof(float);
+  cfg->stream = stream;
+  cfg->attrs = attrs;
+  cfg->numAttrs = 2;
+}
+
+// How many clusters of the clustered build the current device holds at
+// once (cudaOccupancyMaxActiveClusters; 0: it cannot place one), asked
+// once a device, with the shared memory limit the build needs raised.
+static int cluster_slots(int* slots) {
+  static int known[kMaxDevices];         // slots + 1; 0: not asked yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && known[dev] > 0) {
+    *slots = known[dev] - 1;
+    return 0;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  cluster_config(&cfg, attrs, 1, nullptr);
+  auto* kernel = step_tail_kernel<1, kClusterCap, true, true>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices) known[dev] = clusters + 1;
+  *slots = clusters;
+  return 0;
+}
+
+// B scenarios of K <= kClusterCap * kMaxLanes samples on the clustered
+// build; cudaErrorInvalidClusterSize where the device cannot place a
+// cluster.
+static int launch_tail_cluster(const StepParams& p, const TailArgs& a,
+                               const HeadArgs& h, int B, int n,
+                               cudaStream_t stream) {
+  if (n != kMaxLanes || (p.K + n - 1) / n > kClusterCap) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int slots = 0;
+  int e = cluster_slots(&slots);
+  if (e != 0) return e;
+  if (slots < 1) return (int)cudaErrorInvalidClusterSize;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  cluster_config(&cfg, attrs, B, stream);
+  e = (int)cudaLaunchKernelEx(&cfg, step_tail_kernel<1, kClusterCap, true,
+                                                     true>,
+                              p, a, h, B, n, kClusterNs);
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // The head of B scenarios on `stream`; returns the cudaError_t of the
@@ -755,12 +1044,14 @@ int mppi_step_head_launch(const StepParams* params, const HeadArgs* args,
 // `head` is not null, in the layout ops/cuda_step.py::step_tail_layout
 // gives: `n` logical lanes (step_tail_threads(K): a multiple of 32, at most
 // 1024), `lanes` of them a physical lane, `cap` samples a logical lane in
-// registers (0: S read again each pass), `group` scenarios a block.
+// registers (0: S read again each pass), `group` scenarios a block, and
+// `cluster` CTAs a scenario, which the build fixes: kMaxCluster for the
+// clustered one (lanes 1, cap kClusterCap, group 1), 1 for the others.
 // Returns the cudaError_t of the launch, cudaErrorInvalidValue for a
 // layout the kernel is not built for or arguments it does not take.
 int mppi_step_tail_launch(const StepParams* params, const TailArgs* args,
                           const HeadArgs* head, int B, int n, int lanes,
-                          int cap, int group, void* stream) {
+                          int cap, int group, int cluster, void* stream) {
   const StepParams p = *params;
   if (B < 1 || p.K < 1 || p.T < 1 || p.n_ref < 1 || n < 32 ||
       n > kMaxLanes || n % 32 != 0 || group < 1 ||
@@ -770,6 +1061,14 @@ int mppi_step_tail_launch(const StepParams* params, const TailArgs* args,
   HeadArgs h = {};
   if (head != nullptr) h = *head;
   const cudaStream_t st = (cudaStream_t)stream;
+  const bool clustered = lanes == 1 && cap == kClusterCap;
+  if (cluster != (clustered ? kMaxCluster : 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (clustered) {
+    if (group != 1) return (int)cudaErrorInvalidValue;
+    return launch_tail_cluster(p, *args, h, B, n, st);
+  }
   if (lanes == 4 && cap == 1) {
     return launch_tail<4, 1>(p, *args, h, B, n, group, st);
   }
@@ -778,6 +1077,12 @@ int mppi_step_tail_launch(const StepParams* params, const TailArgs* args,
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// How many clusters of the clustered tail (lanes 1, cap kClusterCap,
+// cluster kMaxCluster) the current device holds at once, into `slots` (0:
+// it cannot place one; ops/cuda_step.py::step_tail_layout then keeps a
+// scenario in one block).  Returns the cudaError_t of the query.
+int mppi_step_tail_cluster_slots(int* slots) { return cluster_slots(slots); }
 
 // sizeof of the structs, held against the ctypes mirrors when the library
 // loads.

@@ -32,8 +32,9 @@ fixed order (:func:`tail_stats_ordered`), which depends on K alone, not on
 the tail's layout (:func:`step_tail_layout`).  A launch copies nothing from
 the host, so both can be captured in a CUDA graph; each adds one to its
 count (:data:`HEAD_LAUNCHES`, :data:`TAIL_LAUNCHES`, and
-:data:`CARRIED_HEADS` for a tail that carries the head) where it launches,
-at capture for a captured one.
+:data:`CARRIED_HEADS` for a tail that carries the head,
+:data:`CLUSTER_TAILS` for one that ran on a thread-block cluster) where it
+launches, at capture for a captured one.
 """
 
 from __future__ import annotations
@@ -52,19 +53,30 @@ from .waypoint import update_waypoint_index
 from .weights import (effective_sample_size, mppi_weights, ordered_sum,
                       weight_entropy)
 
-# Launches of step_head_kernel and step_tail_kernel, and the tail launches
-# that carried the next step's head; a run that must show it went through
-# them reads these before and after.
+# Launches of step_head_kernel and step_tail_kernel, the tail launches
+# that carried the next step's head and those that ran on a cluster; a
+# run that must show it went through them reads these before and after.
 HEAD_LAUNCHES = 0
 TAIL_LAUNCHES = 0
 CARRIED_HEADS = 0
+CLUSTER_TAILS = 0
 
 MAX_THREADS = 1024            # the statistics' logical lanes at most
 # (lanes, cap) of each step_tail_kernel the library holds (the switch of
 # csrc/step_kernel.cu::mppi_step_tail_launch): four logical lanes a lane
-# with a sample each in registers (K <= MAX_THREADS), and two that read S
-# again each pass (any K)
-TAIL_BUILT = frozenset({(4, 1), (2, 0)})
+# with a sample each in registers (K <= MAX_THREADS), two that read S
+# again each pass (any K), and, only on a thread-block cluster of
+# TAIL_CLUSTER CTAs (CLUSTER_BUILD), one with up to 64 samples a logical
+# lane kept in shared memory (K <= 64 * MAX_THREADS), taken above
+# MAX_THREADS where its waves of clusters beat one block a scenario
+TAIL_BUILT = frozenset({(4, 1), (2, 0), (1, 64)})
+CLUSTER_BUILD = (1, 64)
+TAIL_CLUSTER = 8              # CTAs a scenario: the portable cluster limit
+# Samples a logical lane that pay for one wave of clusters: on the H100 a
+# wave takes 10-14 us, one block a scenario 6.6 us at 4 samples a logical
+# lane, 13.5 at 12, 24 at 24 and 75 at 64, so a wave for each 16 takes
+# the cluster only where it is the faster (PERF.md's sweep)
+CLUSTER_WAVE_SAMPLES = 16
 
 
 class _StepParams(ctypes.Structure):
@@ -117,21 +129,36 @@ class TailLayout(NamedTuple):
     """How ``step_tail_kernel`` runs a scenario's statistics on the card;
     no layout moves a bit."""
 
-    warps: int    # statistics warps a scenario, beside its control warp
+    warps: int    # statistics warps a block (a CTA), beside a control warp
     lanes: int    # logical lanes a physical lane (logical warps a warp)
     group: int    # scenarios a block
-    cap: int      # samples a logical lane in registers (0: S read each pass)
+    cap: int      # samples a logical lane kept on chip (0: S read each pass)
+    cluster: int = 1   # CTAs a scenario (1: one block, no cluster)
 
 
-def step_tail_layout(K: int, B: int, sm_count: Optional[int] = None
-                     ) -> TailLayout:
+def step_tail_layout(K: int, B: int, sm_count: Optional[int] = None,
+                     cluster_slots: int = 0) -> TailLayout:
     """The tail's layout for B scenarios of K samples on a card of
-    ``sm_count`` SMs.  Up to K = :data:`MAX_THREADS` a logical lane holds
-    one sample and a lane four logical lanes (8 statistics warps at K =
-    1024, one at K <= 128); above it a lane holds two logical lanes, which
-    read S again each pass.  While the batch leaves SMs free a block holds
-    one scenario, else as many as make 8 warps."""
-    nw = step_tail_threads(K) // 32
+    ``sm_count`` SMs that holds ``cluster_slots`` clusters of the
+    clustered build at once (:func:`_cluster_slots`).  Up to K =
+    :data:`MAX_THREADS` a logical lane holds one sample and a lane four
+    logical lanes (8 statistics warps at K = 1024, one at K <= 128).
+    Above it a scenario runs on a cluster of :data:`TAIL_CLUSTER` CTAs,
+    each CTA's 4 warps of one logical lane a lane owning its samples, kept
+    in shared memory, where a logical lane's samples fit the clustered
+    build's cap and the clusters take at most one wave of the card's
+    slots for each :data:`CLUSTER_WAVE_SAMPLES` samples a logical lane;
+    else a lane holds two logical lanes, which read S again each pass.
+    While the batch leaves SMs free a block holds one scenario, else as
+    many as make 8 warps."""
+    n = step_tail_threads(K)
+    nw = n // 32
+    per_lane = -(-K // n)
+    if (K > MAX_THREADS and per_lane <= CLUSTER_BUILD[1]
+            and B <= cluster_slots * (per_lane // CLUSTER_WAVE_SAMPLES)):
+        lanes, cap = CLUSTER_BUILD
+        return TailLayout(nw // (lanes * TAIL_CLUSTER), lanes, 1, cap,
+                          TAIL_CLUSTER)
     lanes, cap = (4, 1) if K <= MAX_THREADS else (2, 0)
     warps = -(-nw // lanes)
     group = 1
@@ -140,17 +167,31 @@ def step_tail_layout(K: int, B: int, sm_count: Optional[int] = None
     return TailLayout(warps, lanes, min(group, B), cap)
 
 
-def tail_layout_fits(layout: TailLayout) -> bool:
-    """Whether ``step_tail_kernel`` takes ``layout``: built for its lanes
-    and cap, a block within the threads its build's registers allow (576
-    with several statistics warps a scenario or cap 0, 1024 with one
-    statistics warp of cap 1), and at most 15 scenarios a block where they
-    need named barriers (several statistics warps);
-    csrc/step_kernel.cu::launch_tail checks the same, and that a cap of 1
-    holds a logical lane's samples (K <= :data:`MAX_THREADS`)."""
-    narrow = layout.warps == 1 and layout.cap == 1
-    return ((layout.lanes, layout.cap) in TAIL_BUILT and layout.group >= 1
-            and layout.group * (layout.warps + 1) * 32
+def tail_layout_fits(layout: TailLayout, K: Optional[int] = None) -> bool:
+    """Whether ``step_tail_kernel`` takes ``layout`` (at K samples, when
+    given): built for its lanes and cap, with a cap that holds a logical
+    lane's samples; without a cluster, a block within the threads its
+    build's registers allow (576 with several statistics warps a scenario
+    or cap 0, 1024 with one statistics warp of cap 1) and at most 15
+    scenarios a block where they need named barriers (several statistics
+    warps); the clustered build (:data:`CLUSTER_BUILD`, only on a cluster)
+    on :data:`TAIL_CLUSTER` CTAs, one scenario a cluster, its warps
+    splitting all :data:`MAX_THREADS` logical lanes evenly over the CTAs.
+    csrc/step_kernel.cu::launch_tail and launch_tail_cluster check the
+    same."""
+    lanes, cap, C = layout.lanes, layout.cap, layout.cluster
+    clustered = (lanes, cap) == CLUSTER_BUILD
+    if ((lanes, cap) not in TAIL_BUILT or layout.group < 1
+            or C != (TAIL_CLUSTER if clustered else 1)):
+        return False
+    if K is not None and cap and -(-K // step_tail_threads(K)) > cap:
+        return False
+    if clustered:
+        return (layout.group == 1
+                and layout.warps * lanes * C == MAX_THREADS // 32
+                and (K is None or step_tail_threads(K) == MAX_THREADS))
+    narrow = layout.warps == 1 and cap == 1
+    return (layout.group * (layout.warps + 1) * 32
             <= (1024 if narrow else 576)
             and (layout.warps == 1 or layout.group <= 15))
 
@@ -393,13 +434,33 @@ def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_slots(device: torch.device) -> int:
+    """How many clusters of the clustered tail ``device`` holds at once, as
+    the kernel's launch asks it
+    (csrc/step_kernel.cu::mppi_step_tail_cluster_slots); 0 where it places
+    none, and off the card."""
+    from ._build import load_library
+
+    if device.type != "cuda":
+        return 0
+    slots = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        lib = load_library()
+        err = lib.mppi_step_tail_cluster_slots(ctypes.byref(slots))
+    if err:
+        raise RuntimeError("step_tail_kernel's cluster query failed: "
+                           + lib.mppi_error_string(err).decode())
+    return slots.value
+
+
 @functools.lru_cache(maxsize=64)
 def _tail_layout_on(K: int, B: int, device: torch.device) -> TailLayout:
-    """:func:`step_tail_layout` on ``device``'s SM count, resolved once a
-    shape (the eager loop calls the tail every step)."""
+    """:func:`step_tail_layout` on ``device``'s SM count and cluster slots,
+    resolved once a shape (the eager loop calls the tail every step)."""
     from .cuda_solve import _sm_count
 
-    return step_tail_layout(K, B, _sm_count(device))
+    return step_tail_layout(K, B, _sm_count(device), _cluster_slots(device))
 
 
 def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
@@ -409,7 +470,7 @@ def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
     :func:`step_tail_layout` on this card) forces one, for the layout
     A/Bs of ``tools/fused_timing.py --split --tail-layouts`` and the card
     tests."""
-    global TAIL_LAUNCHES, CARRIED_HEADS
+    global TAIL_LAUNCHES, CARRIED_HEADS, CLUSTER_TAILS
     from ._build import load_library
 
     device, f32, i64 = ref.device, torch.float32, torch.int64
@@ -463,12 +524,14 @@ def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
             ctypes.byref(params), ctypes.byref(args),
             None if head_args is None else ctypes.byref(head_args), B,
             step_tail_threads(K), layout.lanes, layout.cap, layout.group,
+            layout.cluster,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if err:
         raise RuntimeError(f"step_tail_kernel launch failed ({layout}): "
                            + lib.mppi_error_string(err).decode())
     TAIL_LAUNCHES += 1
     CARRIED_HEADS += int(carry_head)
+    CLUSTER_TAILS += int(layout.cluster > 1)
     for dst, t in zip(row or (), written or ()):
         if dst is not t:
             dst.copy_(t)

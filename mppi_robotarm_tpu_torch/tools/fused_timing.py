@@ -57,9 +57,9 @@ they replaced, cut by source; the solve kernel; the step kernels, the tail
 also carrying the next head) profiled alone on the same state.
 ``--tail-layouts L:G ...`` also times the step tail carrying the head in
 each of these layouts on the same state (L logical lanes a lane, G
-scenarios a block; the warps and the cap follow from the shape and the
-build, :func:`tail_layout_of`; a layout the kernel does not take at a
-shape is left out there).
+scenarios a block; the warps, the cap and the cluster follow from the
+shape and the build, :func:`tail_layout_of`; a layout the kernel does not
+take at a shape is left out there).
 
 ``--onpath-seeds S ...``: the per-step loop (``simulate(backend="cuda")``)
 at ``benchmark_preset`` for 1500 steps from ``init_sim(seed=S)`` on the
@@ -595,18 +595,21 @@ def split_pieces(arm, cfg, sim, ref, st, tail_layouts=()):
 def tail_layout_of(spec: str, K: int, B: int):
     """The step tail's layout "L:G" at K samples and B scenarios: L
     logical lanes a lane on the build that has them (so ceil(n / 32 / L)
-    statistics warps), at most G scenarios a block; None where the kernel
-    does not take it."""
+    statistics warps, spread over a cluster of ``cuda_step.TAIL_CLUSTER``
+    CTAs on the clustered build), at most G scenarios a block; None where
+    the kernel does not take it."""
     from mppi_robotarm_tpu_torch.ops import cuda_step
 
     lanes, group = map(int, spec.split(":"))
     cap = dict(cuda_step.TAIL_BUILT).get(lanes)
-    n = cuda_step.step_tail_threads(K)
-    if cap is None or (cap and -(-K // n) > cap):
+    if cap is None:
         return None
-    lay = cuda_step.TailLayout(-(-(n // 32) // lanes), lanes, min(group, B),
-                               cap)
-    return lay if cuda_step.tail_layout_fits(lay) else None
+    C = (cuda_step.TAIL_CLUSTER if (lanes, cap) == cuda_step.CLUSTER_BUILD
+         else 1)
+    n = cuda_step.step_tail_threads(K)
+    lay = cuda_step.TailLayout(-(-(n // 32) // (lanes * C)), lanes,
+                               min(group, B), cap, C)
+    return lay if cuda_step.tail_layout_fits(lay, K) else None
 
 
 def measure_split(device, calls=SPLIT_CALLS, tail_layouts=()):
@@ -620,7 +623,6 @@ def measure_split(device, calls=SPLIT_CALLS, tail_layouts=()):
     from mppi_robotarm_tpu_torch.ops import cuda_step
     from mppi_robotarm_tpu_torch.sim import loop
 
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     out = []
     for case, (arm, cfg, sim, ref, st0), steps in split_cases(device):
         st, _ = loop._step_loop(arm, cfg, sim, ref, st0, 32)
@@ -637,8 +639,8 @@ def measure_split(device, calls=SPLIT_CALLS, tail_layouts=()):
                            "launches": sum(n for n, _ in got.values()),
                            "us": sum(us for _, us in got.values()),
                            "kernels": sorted(got)})
-        layout = list(cuda_step.step_tail_layout(
-            cfg.num_samples, st0.q.shape[0], sms))
+        layout = list(cuda_step._tail_layout_on(
+            cfg.num_samples, st0.q.shape[0], device))
         out.append({"case": case, "layout": layout, "steps": steps,
                     "graph_by_kernel":
                     by_kernel, "graph_launches": sum(

@@ -48,6 +48,7 @@ from . import spans
 # partials): a replay adds both as its capture recorded them
 COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
             (cuda_step, "TAIL_LAUNCHES"), (cuda_step, "CARRIED_HEADS"),
+            (cuda_step, "CLUSTER_TAILS"),
             (cuda_sim, "LAUNCHES"), (cuda_sim, "FLEET_LAUNCHES"),
             (cuda_shard, "SCALE_LAUNCHES"), (cuda_shard, "FINISH_LAUNCHES"),
             (cuda_probe, "SCALE_LAUNCHES"), (cuda_probe, "BIG_LAUNCHES"),

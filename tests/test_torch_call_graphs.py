@@ -446,8 +446,10 @@ def test_keys_separate_backend_dtype_shape_options_and_noise(graphs_on_cpu):
         cfg = kw.pop("cfg", _cfg())
         dtype = kw.pop("dtype", torch.float32)
         state = P.init_state(cfg, dtype=dtype, device="cpu")
+        # one path tensor for both calls: its address is in the key
+        path = ref.to(dtype)
         for _ in range(2):
-            psolver.solve(ARM, cfg, ref.to(dtype), x.to(dtype), state, **kw)
+            psolver.solve(ARM, cfg, path, x.to(dtype), state, **kw)
         new = set(psolver._CALL_GRAPHS) - keys
         assert len(new) == 1, kw
         keys.update(new)

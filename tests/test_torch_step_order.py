@@ -9,17 +9,25 @@ On the CPU:
   :func:`chain_rtol`), at K = 30, 100, 128, 1000, 1024, 4096 and 20000
   (one, four and twenty samples a logical lane);
 * a scenario's bits are the same alone and inside a batch of 64;
-* every layout covers the order's logical warps inside a block the kernel
-  takes, for K from 1 to 65536 and batches from 1 to 4096;
+* every layout covers the order's logical warps inside a block (or a
+  cluster of blocks) the kernel takes, for K from 1 to 65536 and batches
+  from 1 to 4096; above K = 1024 a scenario takes a cluster of 8 CTAs
+  while the batch's clusters fit the card's SMs, and the clustered build
+  is held to what its launch takes;
 * the per-step loop's chunk runs one head and n tails, n - 1 of them
   carrying the next head, through the plain versions (counted by
   monkeypatching).
 
 Marked ``cuda`` and skipped without a card: the kernel's min, mean, ESS
 and entropy equal the twin's on the card bit for bit at those K and B = 1
-and 64, and every layout the kernel is built for (both builds where K
-allows, blocks of 1, 2 and 4 scenarios) gives the default layout's bits
-in every output, the carried head included.  The file
+and 64, and on a cluster at K = 4096, 20000 and 65536, B = 1 and 2; every
+layout the kernel is built for (each build where K allows, blocks of 1,
+2 and 4 scenarios, the clustered build on its cluster) gives the default
+layout's bits in every output, the carried head included; a 4000-step
+chain of ``simulate(backend="cuda")`` at K = 65536 records the same bits
+with the tail on a cluster as in the one-block layout that reads S each
+pass; and ``CLUSTER_TAILS`` counts every tail of a large-K loop and none
+of a K = 1024 loop.  The file
 imports nothing of JAX, so on a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_step_order.py -m cuda
@@ -104,13 +112,17 @@ def test_tail_layout_covers_the_order(K, B, sms):
     """A layout the kernel takes (``tail_layout_fits``: built for its
     lanes and cap, a block within its threads, at most 15 scenarios where
     they need named barriers), whose warps hold every logical warp of the
-    order and whose registers hold a logical lane's samples (or cap 0)."""
-    lay = cuda_step.step_tail_layout(K, B, sms)
+    order and whose registers hold a logical lane's samples (or cap 0),
+    on a card that places a cluster of 8 CTAs on every 8 of its SMs."""
+    slots = (sms or 0) // cuda_step.TAIL_CLUSTER
+    lay = cuda_step.step_tail_layout(K, B, sms, slots)
     n = cuda_step.step_tail_threads(K)
-    assert cuda_step.tail_layout_fits(lay)
-    assert lay.warps == -(-(n // 32) // lay.lanes)
+    assert cuda_step.tail_layout_fits(lay, K)
+    assert lay.warps == -(-(n // 32) // (lay.lanes * lay.cluster))
     assert lay.cap == 0 or lay.cap >= -(-K // n)
     assert 1 <= lay.group <= B
+    assert lay.cluster == 1 or B <= slots * (
+        -(-K // n) // cuda_step.CLUSTER_WAVE_SAMPLES)
 
 
 @pytest.mark.parametrize("lanes,cap,warps,group,fits", [
@@ -124,9 +136,70 @@ def test_tail_layout_fits_what_the_kernel_takes(lanes, cap, warps, group,
         cuda_step.TailLayout(warps, lanes, group, cap)) is fits
 
 
+@pytest.mark.parametrize("warps,lanes,group,cap,cluster,K,fits", [
+    (4, 1, 1, 64, 8, 65536, True), (4, 1, 1, 64, 8, 4096, True),
+    (4, 1, 1, 64, 8, None, True),
+    (4, 1, 1, 64, 6, None, False),         # a cluster not a power of two
+    (2, 1, 1, 64, 16, None, False),        # more than 8 CTAs
+    (4, 1, 1, 64, 8, 70000, False),        # 69 samples a logical lane
+    (4, 1, 2, 64, 8, None, False),         # two scenarios on a cluster
+    (8, 1, 1, 64, 4, None, False),         # 4 CTAs
+    (5, 1, 1, 64, 8, None, False),         # 40 logical warps
+    (4, 1, 1, 64, 8, 992, False),          # fewer than 1024 logical lanes
+    (32, 1, 1, 64, 1, None, False),        # the clustered build alone
+    (16, 2, 1, 0, 8, None, False), (8, 4, 1, 1, 2, None, False),
+    (4, 1, 1, 32, 8, None, False)])        # a cap not built
+def test_clustered_tail_layout_fits_what_the_kernel_takes(
+        warps, lanes, group, cap, cluster, K, fits):
+    """The clustered build (``CLUSTER_BUILD``, only on a cluster): 8
+    CTAs, one scenario a cluster, its warps splitting all 1024 logical
+    lanes evenly over them, and a cap that holds K."""
+    lay = cuda_step.TailLayout(warps, lanes, group, cap, cluster)
+    assert cuda_step.tail_layout_fits(lay, K) is fits
+
+
 def test_tail_layout_at_the_main_path_shapes():
-    assert cuda_step.step_tail_layout(1024, 1, 132) == (8, 4, 1, 1)
-    assert cuda_step.step_tail_layout(128, 4096, 132) == (1, 4, 4, 1)
+    assert cuda_step.step_tail_layout(1024, 1, 132) == (8, 4, 1, 1, 1)
+    assert cuda_step.step_tail_layout(128, 4096, 132) == (1, 4, 4, 1, 1)
+
+
+@pytest.mark.parametrize("K", [16384, 20000, 65536])
+@pytest.mark.parametrize("B", [1, 2])
+def test_tail_layout_above_1024_takes_a_cluster(K, B):
+    """K > 1024, 16 samples a logical lane or more, at B clusters within
+    the 15 of the clustered build that the H100 (132 SMs) holds at once:
+    four statistics warps a CTA, one logical lane a lane holding its
+    samples, 8 CTAs."""
+    assert cuda_step.step_tail_layout(K, B, 132, 15) == (4, 1, 1, 64, 8)
+
+
+@pytest.mark.parametrize("K,B", [(65536, 60), (49152, 45), (32768, 30),
+                                 (16384, 15)])
+def test_tail_layout_takes_a_wave_of_clusters_for_each_16_samples(K, B):
+    """As many waves of 15 clusters as a logical lane has 16 samples:
+    four at K = 65536, one at 16384."""
+    assert cuda_step.step_tail_layout(K, B, 132, 15) == (4, 1, 1, 64, 8)
+
+
+@pytest.mark.parametrize("K,B,slots", [
+    (65536, 64, 15), (4096, 4096, 15), (65537, 1, 15), (65536, 1, 0),
+    (4096, 16, 15), (4096, 1, 15), (15360, 1, 15), (16384, 16, 15),
+    (32768, 31, 15), (65536, 61, 15)])
+def test_tail_layout_keeps_one_block_where_clusters_do_not_fit(K, B, slots):
+    """More waves of clusters than a logical lane's samples pay for (none
+    below 16 a logical lane), a logical lane's samples past the cap, or a
+    card that places no cluster: 16 statistics warps of two logical lanes
+    a lane in one block, reading S each pass."""
+    lay = cuda_step.step_tail_layout(K, B, 132, slots)
+    assert (lay.warps, lay.lanes, lay.cap, lay.cluster) == (16, 2, 0, 1)
+
+
+def test_off_the_card_the_tail_takes_no_cluster():
+    """Off the card there are no cluster slots, so the layout the wrapper
+    resolves keeps a large-K scenario in one block."""
+    cpu = torch.device("cpu")
+    assert cuda_step._cluster_slots(cpu) == 0
+    assert cuda_step._tail_layout_on(65536, 1, cpu).cluster == 1
 
 
 def test_a_chunk_runs_one_head_and_a_tail_a_step(monkeypatch):
@@ -228,24 +301,24 @@ def test_kernel_statistics_equal_the_twin_on_the_card(dev, K, B):
 
 def _layouts(K, B):
     """Every layout of ``step_tail_kernel`` for K and B: each build that
-    holds a logical lane's samples, in blocks of 1, 2 and 4 scenarios,
-    that the kernel takes."""
+    holds a logical lane's samples, in blocks of 1, 2 and 4 scenarios or
+    on a cluster, that the kernel takes."""
     n = cuda_step.step_tail_threads(K)
     out = []
     for lanes, cap in sorted(cuda_step.TAIL_BUILT):
-        if cap and -(-K // n) > cap:
-            continue
-        warps = -(-(n // 32) // lanes)
-        for group in (1, 2, 4):
-            lay = cuda_step.TailLayout(warps, lanes, group, cap)
-            if group <= B and cuda_step.tail_layout_fits(lay):
-                out.append(lay)
+        for cluster in (1, 2, 4, 8):
+            warps = -(-(n // 32) // (lanes * cluster))
+            for group in (1, 2, 4):
+                lay = cuda_step.TailLayout(warps, lanes, group, cap, cluster)
+                if group <= B and cuda_step.tail_layout_fits(lay, K):
+                    out.append(lay)
     return out
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,B", [(1024, 1), (1024, 64), (128, 300),
-                                 (100, 8), (30, 5), (4096, 3), (20000, 2)])
+                                 (100, 8), (30, 5), (4096, 3), (20000, 2),
+                                 (65536, 1), (65536, 2)])
 def test_every_tail_layout_gives_the_same_bits(dev, K, B):
     args = _tail_inputs(K, B, dev, seed=7)
     want = _run_tail(*args)
@@ -256,3 +329,69 @@ def test_every_tail_layout_gives_the_same_bits(dev, K, B):
         for a, b in zip((*state, *head, *row),
                         (*want[0][:7], *want[0][7], *want[1])):
             assert torch.equal(a, b), lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("K", [4096, 20000, 65536])
+def test_clustered_statistics_equal_the_twin_on_the_card(dev, K, B):
+    """The clustered build's min, mean, ESS and entropy are the twin's bit
+    for bit; the package takes it at 20000 and 65536 (at 4096 one block
+    is faster)."""
+    clustered = cuda_step.TailLayout(4, 1, 1, 64, 8)
+    assert (cuda_step._tail_layout_on(K, B, dev) == clustered) is (K > 4096)
+    args = _tail_inputs(K, B, dev, seed=K + 3 * B)
+    before = cuda_step.CLUSTER_TAILS
+    _, row = _run_tail(*args, layout=clustered)
+    assert cuda_step.CLUSTER_TAILS == before + 1
+    want = cuda_step.tail_stats_ordered(args[6], args[0].lam)
+    fields = dict(zip(P.SimRecord._fields, row))
+    for name, w in zip(("cost_min", "cost_mean", "ess", "weight_entropy"),
+                       want):
+        assert torch.equal(fields[name], w), name
+
+
+def _chain(dev, K, steps, seed=5, layout=None):
+    """``simulate(backend="cuda")`` from ``init_sim(seed)`` at K samples,
+    H = 50, on the 8000-point circle; the step tail in ``layout`` (None:
+    the package's), the chunks captured anew.  Returns the records and
+    the tail launches and clustered tails it counted."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=50)
+    ref = torch.as_tensor(P.synth_circle_path(8000), dtype=torch.float32,
+                          device=dev)
+    state = P.init_sim(cfg, SIM, seed=seed, device=dev)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ploop, "_GRAPHS", type(ploop._GRAPHS)())
+        if layout is not None:
+            mp.setattr(cuda_step, "_tail_layout_on", lambda *a: layout)
+        before = (cuda_step.TAIL_LAUNCHES, cuda_step.CLUSTER_TAILS)
+        _, rec = P.simulate(ARM, cfg, SIM, ref, state, steps,
+                            backend="cuda")
+        torch.cuda.synchronize()
+    return rec, (cuda_step.TAIL_LAUNCHES - before[0],
+                 cuda_step.CLUSTER_TAILS - before[1])
+
+
+@pytest.mark.cuda
+def test_a_large_k_chain_records_the_one_block_layouts_bits(dev):
+    """4000 steps at K = 65536: the tail on a cluster against the layout
+    that reads S each pass in one block, every record field bit for
+    bit."""
+    K = 65536
+    one_block = cuda_step.step_tail_layout(K, 1)
+    assert one_block.cluster == 1 and one_block.cap == 0
+    got, counts = _chain(dev, K, 4000)
+    want, _ = _chain(dev, K, 4000, layout=one_block)
+    assert counts == (4000, 4000)
+    for name, a, b in zip(P.SimRecord._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cluster_tails_count_every_large_k_tail_and_no_k1024_one(dev):
+    """Over a step-loop window ``CLUSTER_TAILS`` moves with
+    ``TAIL_LAUNCHES`` at K = 65536 (replays adding what their captures
+    recorded) and stays at K = 1024."""
+    steps = 3 * ploop._GRAPH_STEPS + 5
+    assert _chain(dev, 65536, steps)[1] == (steps, steps)
+    assert _chain(dev, 1024, steps)[1] == (steps, 0)

@@ -327,6 +327,38 @@ def test_replays_count_the_partials_their_capture_recorded(fake_capture,
     assert cuda_solve.PARTIALS == before + replays * chunk.recorded[-1]
 
 
+def test_replays_count_the_cluster_tails_their_capture_recorded(
+        fake_capture, monkeypatch):
+    """A large-K chunk's capture records its tails that ran on a cluster
+    (``cuda_step.CLUSTER_TAILS``, as the tail's wrapper counts them on a
+    card of 132 SMs and 15 cluster slots at K = 16384) and leaves the
+    count as it found it; each replay adds them, as it adds the tails."""
+    fake_capture(1)
+    tail = cuda_step.step_tail
+
+    def clustered(*a, **k):
+        lay = cuda_step.step_tail_layout(a[1].num_samples, a[5].shape[0], 132,
+                                         15)
+        cuda_step.CLUSTER_TAILS += int(lay.cluster > 1)
+        return tail(*a, **k)
+
+    monkeypatch.setattr(cuda_step, "step_tail", clustered)
+    cfg, ref = _cfg(16384, 6), _ref()
+    states = _batch(cfg, 2)
+    before = (cuda_step.TAIL_LAUNCHES, cuda_step.CLUSTER_TAILS)
+    g = ploop._capture(ARM, cfg, SIM, ref, states, 3, _Stream)
+    at = [name for _, name in cuda_graphs.COUNTERS].index("CLUSTER_TAILS")
+    assert g.recorded[at] == 3
+    assert (cuda_step.TAIL_LAUNCHES, cuda_step.CLUSTER_TAILS) == before
+    replays = 3
+    ploop._step_loop(ARM, cfg, SIM, ref, states,
+                     replays * ploop._GRAPH_STEPS, graphs=True)
+    (chunk,) = ploop._GRAPHS.values()
+    assert chunk.recorded[at] == ploop._GRAPH_STEPS
+    assert cuda_step.CLUSTER_TAILS - before[1] == \
+        cuda_step.TAIL_LAUNCHES - before[0] == replays * ploop._GRAPH_STEPS
+
+
 @pytest.mark.parametrize("per_solve", [0, 2])
 def test_capture_without_one_launch_a_step_raises(fake_capture, per_solve):
     """A chunk whose capture recorded no solve kernel launch (the kernel

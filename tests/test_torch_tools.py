@@ -508,10 +508,12 @@ def test_fused_timing_split_pieces_run_on_the_cpu():
 
 
 @pytest.mark.parametrize("spec,K,B,want", [
-    ("4:1", 1024, 1, (8, 4, 1, 1)), ("2:1", 1024, 1, (16, 2, 1, 0)),
-    ("4:8", 128, 4096, (1, 4, 8, 1)), ("2:4", 128, 4096, (2, 2, 4, 0)),
+    ("4:1", 1024, 1, (8, 4, 1, 1, 1)), ("2:1", 1024, 1, (16, 2, 1, 0, 1)),
+    ("4:8", 128, 4096, (1, 4, 8, 1, 1)), ("2:4", 128, 4096, (2, 2, 4, 0, 1)),
     ("4:1", 4096, 1, None), ("1:1", 128, 1, None), ("4:32", 128, 4096,
-                                                     None)])
+                                                     None),
+    ("1:1", 65536, 1, (4, 1, 1, 64, 8)), ("1:2", 4096, 3, None),
+    ("1:1", 70000, 1, None)])
 def test_fused_timing_tail_layout_specs(spec, K, B, want):
     """--tail-layouts L:G: the build with L lanes, its warps and cap from
     the shape, None where the kernel does not take the layout."""
