@@ -38,11 +38,10 @@ Phases (any failure raises and exits non-zero):
      ``sim/loop.py::_GRAPH_STEPS`` steps: one solve-kernel launch a step
      (so at least one a live step), one step tail (``ops/cuda_step.py``)
      a step, one step head a chunk and the other steps' heads carried by
-     the tails, and no separate combine launch, finite
-     records, on-path mean < 42 mm, records and final state == the eager
-     chunked loop's (``sim/loop.py::_step_loop(graphs=False)``) bit for
-     bit, its first 8 steps == phase 4's fused run within the bands of
-     phase 2;
+     the tails, finite records, on-path mean < 42 mm, records and final
+     state == the uncaptured chunked loop's (``sim/loop.py::_step_loop``
+     within ``utils/cuda_graphs.py::uncaptured()``) bit for bit, its
+     first 8 steps == phase 4's fused run within the bands of phase 2;
   9. the batch, ``simulate_batch(backend="cuda")`` at 4096 scenarios x
      K=128, T=30 for 50 steps: finite records, scenario 0 == its run alone
      bit for bit; its peak device memory;
@@ -221,7 +220,7 @@ Phases (any failure raises and exits non-zero):
      ``simulate_batch(backend="eager")`` replays each chunk of
      ``sim/loop.py::_EAGER_GRAPH_STEPS`` steps as one CUDA graph; its
      records and final state == the uncaptured eager loop's
-     (``_step_loop(graphs=False, backend="eager")``) bit for bit at
+     (``_step_loop(backend="eager")`` uncaptured) bit for bit at
      benchmark_preset in float32 over 200 steps and at K=128, T=30 in
      float64 over 50, and a 64-scenario batch at K=128, T=30 == each of
      its scenarios run alone over 50 steps, bit for bit (the sums over K
@@ -239,7 +238,7 @@ Phases (any failure raises and exits non-zero):
      drop-in at ``examples/reference_drop_in.py``'s configuration (K=100,
      T=30, float64, ``visualize_optimal_traj``, ``np.random.seed(0)``) on
      both backends, SMOKE_CALLS calls as graphs == the same calls
-     uncaptured (``solver._uncaptured()``) bit for bit on every output,
+     uncaptured (``cuda_graphs.uncaptured()``) bit for bit on every output,
      the graph run's launches (a solve kernel and a step head a call on
      the cuda backend, none on the eager one), calls/s of both, device
      events and device-busy µs a call, each graph's capture seconds; a
@@ -849,6 +848,7 @@ def main() -> int:
     from mppi_robotarm_tpu_torch.ops.cuda_rollout import philox_epsilon
     from mppi_robotarm_tpu_torch.sim import loop
     from mppi_robotarm_tpu_torch.tools import fused_timing, overhead, sass_loops
+    from mppi_robotarm_tpu_torch.utils import cuda_graphs
     from mppi_robotarm_tpu_torch.utils.roofline import (UNFUSED_OPS, bound,
                                                         rollout_ops,
                                                         solve_ops)
@@ -1025,7 +1025,7 @@ def main() -> int:
     # ---- 8. the per-step path ------------------------------------------
     graph_steps = loop._GRAPH_STEPS
     loop._GRAPHS.clear()
-    cuda_solve.LAUNCHES = cuda_solve.COMBINE_LAUNCHES = 0
+    cuda_solve.LAUNCHES = 0
     cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
     cuda_step.CARRIED_HEADS = cuda_step.CLUSTER_TAILS = 0
     t0 = time.perf_counter()
@@ -1034,13 +1034,12 @@ def main() -> int:
     torch.cuda.synchronize()
     loop_wall = time.perf_counter() - t0
     solve_launches = cuda_solve.LAUNCHES
-    combine_launches = cuda_solve.COMBINE_LAUNCHES
     head_launches = cuda_step.HEAD_LAUNCHES
     tail_launches = cuda_step.TAIL_LAUNCHES
     carried_heads = cuda_step.CARRIED_HEADS
     cluster_tails = cuda_step.CLUSTER_TAILS
     chunks = -(-STEPS // graph_steps)
-    captures = {g.n: g.capture_s for g in loop._GRAPHS.values()}
+    captures = loop._capture_seconds()
     live = int((~rec_p.done).sum())
     print(f"per-step path: simulate(backend='cuda') {STEPS} steps as "
           f"replayed CUDA graphs of {graph_steps} steps (captured: "
@@ -1049,16 +1048,15 @@ def main() -> int:
           + f"), solve_tile_kernel launches {solve_launches}, "
           f"step_head_kernel {head_launches}, step_tail_kernel "
           f"{tail_launches} ({carried_heads} carrying the next step's "
-          f"head, {cluster_tails} on a cluster), separate combine launches "
-          f"{combine_launches}, "
+          f"head, {cluster_tails} on a cluster), "
           f"live steps {live}, "
           f"{loop_wall:.3f} s wall with the captures")
     check(captures and len(captures) <= 2 and max(captures) == graph_steps,
           f"the per-step path captured {sorted(captures)}, not chunks of "
           f"{graph_steps} steps")
-    final_e, rec_e = loop._step_loop(arm, cfg, sim, ref,
-                                     loop._as_batch(state0), STEPS,
-                                     graphs=False)
+    with cuda_graphs.uncaptured():
+        final_e, rec_e = loop._step_loop(arm, cfg, sim, ref,
+                                         loop._as_batch(state0), STEPS)
     for field, a, b in zip(rec_p._fields, rec_p, rec_e):
         check(torch.equal(a, b[:, 0]),
               f"per-step record {field}: graphs != the eager chunked loop")
@@ -1071,8 +1069,6 @@ def main() -> int:
     check(solve_launches == STEPS >= live,
           f"the per-step path made {solve_launches} solve launches in "
           f"{STEPS} steps, not one a step")
-    check(combine_launches == 0,
-          f"the per-step path made {combine_launches} combine launches")
     check((head_launches, tail_launches, carried_heads, cluster_tails)
           == (chunks, STEPS, STEPS - chunks, 0),
           f"the per-step path made {head_launches} step head and "
@@ -1163,11 +1159,17 @@ def main() -> int:
     one0 = loop._as_batch(state0)
     # the graphs through the public entry; the eager loop is reached only
     # through the private loop, on the state made a batch of one beforehand
+
+    def uncaptured_loop(n):
+        with cuda_graphs.uncaptured():
+            return loop._step_loop(arm, cfg, sim, ref, one0, n)
+
     loops = {"graphs": lambda n: m.simulate(arm, cfg, sim, ref, state0, n,
                                             backend="cuda"),
-             "eager": lambda n: loop._step_loop(arm, cfg, sim, ref, one0, n,
-                                                graphs=False)}
-    for n in (loop_steps, steps_w):     # capture the graphs before timing
+             "eager": uncaptured_loop}
+    # a chunk length's first chunk runs uncaptured, its second captures:
+    # every graph captured before timing
+    for n in (loop_steps, steps_w) * 2:
         loops["graphs"](n)
     lt = {k: [] for k in loops}
     for _ in range(3):
@@ -1212,7 +1214,7 @@ def main() -> int:
           f"phase 8's {STEPS}, captures included: "
           + ", ".join(f"{n} steps {t:.3f} s" for n, t in
                       sorted(captures.items()))
-          + f"); eager chunked loop (_step_loop(graphs=False)) "
+          + f"); uncaptured chunked loop (_step_loop uncaptured) "
           f"{loop_us['eager']:.2f} us/step, runs "
           f"{[round(t, 1) for t in lt['eager']]} ms; sim_kernel "
           f"{kern_ms * 1e3:.2f} us/step")
@@ -2134,7 +2136,7 @@ def main() -> int:
           f"memory {peak_5 / 1e9:.3f} GB above what was allocated before "
           f"({BATCH}: {peak_f / 1e9:.3f})")
     # the per-step path
-    cuda_solve.LAUNCHES = cuda_solve.COMBINE_LAUNCHES = 0
+    cuda_solve.LAUNCHES = 0
     cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
     cuda_step.CARRIED_HEADS = 0
     run_batch5 = lambda: m.simulate_batch(arm, cfg_b, sim, ref_b, states_5,
@@ -2143,13 +2145,12 @@ def main() -> int:
     final_b5, rec_b5 = run_batch5()
     torch.cuda.synchronize()
     peak_b5 = peak_of()
-    counts_5 = (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES,
-                cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
-                cuda_step.CARRIED_HEADS)
+    counts_5 = (cuda_solve.LAUNCHES, cuda_step.HEAD_LAUNCHES,
+                cuda_step.TAIL_LAUNCHES, cuda_step.CARRIED_HEADS)
     chunks_b = -(-BATCH_STEPS // graph_steps)
-    check(counts_5 == (BATCH_STEPS, 0, chunks_b, BATCH_STEPS,
+    check(counts_5 == (BATCH_STEPS, chunks_b, BATCH_STEPS,
                        BATCH_STEPS - chunks_b),
-          f"config 5 per-step: (solve, combine, head, tail, carried) "
+          f"config 5 per-step: (solve, head, tail, carried) "
           f"launches {counts_5}, not a solve and a tail a step and a head a "
           f"chunk")
     for field, v in zip(rec_b5._fields, rec_b5):
@@ -2166,7 +2167,7 @@ def main() -> int:
     bt_5 = cuda_time(run_batch5, 3)
     print(f"config 5 per-step [{card}]: simulate_batch(backend='cuda') "
           f"{CONFIG5} x {BATCH_STEPS} steps: solve, head, tail launches "
-          f"{counts_5[0]}, {counts_5[2]}, {counts_5[3]} ({counts_5[4]} "
+          f"{counts_5[0]}, {counts_5[1]}, {counts_5[2]} ({counts_5[3]} "
           f"carrying the head); finite; scenarios 0-{BATCH - 1} == phase "
           f"9's run and final state, bitwise; {min(bt_5) / BATCH_STEPS * 1e3:.2f}"
           f" us/step ({CONFIG5 * BATCH_STEPS / (min(bt_5) / 1e3):,.0f} "
@@ -2354,7 +2355,6 @@ def main() -> int:
 
     # ---- 27. the eager backend as replayed CUDA graphs ------------------
     from mppi_robotarm_tpu_torch.tools import eager_loop
-    from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
     t0 = time.perf_counter()
     counts = cuda_graphs.launch_counts()

@@ -32,7 +32,6 @@ hands its outputs back as fresh tensors, bit for bit the uncaptured call.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
@@ -143,25 +142,15 @@ def _solve_kernels(arm, cfg, observed_x, u_prev, window, seed, eps, step,
 
 # ---- the per-call graphs ----------------------------------------------------
 
-# Each per-call entry point on the card runs as a CUDA graph a key, the
-# counterpart of the JAX package's jit of solve, solve_batched_pallas and
-# viz_rollouts: a key's first call runs uncaptured (the warm-up: it loads
-# the kernels, raises the solve kernel's shared-memory limit, gives the
-# caller's stream its arrival counters and makes the eager rollout's
-# cached constants), its second captures and replays, every later one
-# stages its inputs and replays (:func:`_call`).
-_CALL_GRAPH_CACHE_SIZE = 8   # keys kept, least recently used out
+# Each per-call entry point on the card runs as a CUDA graph a key through
+# utils/cuda_graphs.py::run, the counterpart of the JAX package's jit of
+# solve, solve_batched_pallas and viz_rollouts (:func:`_call`).
 _CALL_GRAPHS: "OrderedDict" = OrderedDict()
-_GRAPH_DEVICES = ("cuda",)   # where calls run as graphs
-_CALL_GRAPHS_ON = True       # off inside _uncaptured()
-# the launches a capture may record, in utils/cuda_graphs.py's COUNTERS
-# order: the cuda backend's one step head and one solve kernel, and none
-# of the port's kernels for the eager backend and the re-rollouts
-_NO_LAUNCH = (0,) * len(cuda_graphs.COUNTERS)
-_SOLVE_LAUNCHES = tuple(
-    int((mod, name) in ((cuda_solve, "LAUNCHES"),
-                        (cuda_step, "HEAD_LAUNCHES")))
-    for mod, name in cuda_graphs.COUNTERS)
+# the launches a capture of the cuda backend's solve records: its one step
+# head and one solve kernel (the eager backend and the re-rollouts record
+# none of the port's kernels)
+_SOLVE_LAUNCHES = cuda_graphs.expect({(cuda_solve, "LAUNCHES"): 1,
+                                      (cuda_step, "HEAD_LAUNCHES"): 1})
 # the per-call graphs' calls on the card: those that replayed a captured
 # graph, and those that found none under their key, whose path (read
 # where it lies, its address in the key) was captured anew: a key's
@@ -220,173 +209,39 @@ def _plan_of(cfg: _Keyed, batch: int, device) -> tuple:
     return plan
 
 
-class _CallGraph:
-    """A key's entry: whether its first call has run, and once captured,
-    what a replay stages (:meth:`stage`, :meth:`copy_in`), its capture
-    (``cuda_graphs.Captured``: the graph, its outputs as views of the
-    flat buffers, the launches it recorded, its seconds) and those
-    buffers with the layout of its result (``cuda_graphs.Packed``)."""
-
-    def __init__(self):
-        self.warm = False
-        self.captured: Optional[cuda_graphs.Captured] = None
-        self.packed: Optional[cuda_graphs.Packed] = None
-
-    def stage(self, inputs: tuple, path, device, stream) -> list:
-        """The inputs the capture records, from the call's: the path as
-        it lies, the Python ints as views of a :class:`cuda_graphs.
-        HostInts` buffer (sent now), every other tensor as a clone, into
-        which :meth:`copy_in` copies each later call's, one launch a
-        dtype."""
-        static = list(inputs)
-        self.packed = None
-        self.slots = [i for i, v in enumerate(inputs) if type(v) is int]
-        self.ints = None
-        if self.slots:
-            self.ints = cuda_graphs.HostInts(len(self.slots), device)
-            self.ints.send([inputs[i] for i in self.slots], stream)
-            for j, i in enumerate(self.slots):
-                static[i] = self.ints.device[j:j + 1]
-        groups: dict = {}
-        for i, v in enumerate(inputs):
-            if i != path and isinstance(v, torch.Tensor):
-                static[i] = v.clone()
-                dsts, idx = groups.setdefault(v.dtype, ([], []))
-                dsts.append(static[i])
-                idx.append(i)
-        self.groups = list(groups.values())
-        self.copy_bytes = 8 * len(self.slots) + sum(
-            static[i].nbytes for _, idx in self.groups for i in idx)
-        return static
-
-    def copy_in(self, inputs: tuple, stream) -> None:
-        """A replay's inputs into the graph's buffers: the ints in one
-        asynchronous copy, the other tensors but the path one launch a
-        dtype (a dtype's one tensor by ``copy_``, which costs the host
-        less than a ``_foreach_copy_`` of one)."""
-        if self.ints is not None:
-            self.ints.send([inputs[i] for i in self.slots], stream)
-        for dsts, idx in self.groups:
-            if len(idx) == 1:
-                dsts[0].copy_(inputs[idx[0]])
-            else:
-                torch._foreach_copy_(dsts, [inputs[i] for i in idx])
-
-    def pack(self, out):
-        """The captured program's result, packed (``cuda_graphs.
-        Packed``), as views of its flat buffers; the capture's packing is
-        the one kept."""
-        packed = cuda_graphs.Packed(out)
-        if self.packed is None:
-            self.packed = packed
-        return packed.result
-
-
-@contextlib.contextmanager
-def _uncaptured():
-    """Within the block every call runs uncaptured on the card too, the
-    yardstick of the tests and the timing tools (no public keyword)."""
-    global _CALL_GRAPHS_ON
-    old, _CALL_GRAPHS_ON = _CALL_GRAPHS_ON, False
-    try:
-        yield
-    finally:
-        _CALL_GRAPHS_ON = old
-
-
-def _fresh(v):
-    """A result with every tensor cloned (NamedTuples kept, None kept): a
-    snapshot to keep apart (a replay's own results come from
-    ``cuda_graphs.Packed``)."""
-    if isinstance(v, torch.Tensor):
-        return v.clone()
-    if isinstance(v, tuple):
-        return type(v)(*map(_fresh, v)) if hasattr(v, "_fields") else tuple(
-            map(_fresh, v))
-    return v
-
-
-def _as_tensors(inputs: tuple, device) -> list:
-    """The inputs an uncaptured call takes: each Python int as a (1,)
-    int64 tensor on ``device``."""
-    return [torch.tensor([v], device=device) if type(v) is int else v
-            for v in inputs]
-
-
 def _call(name: str, program: Callable, inputs: tuple, device,
-          key: tuple, launches: tuple = _NO_LAUNCH,
+          key: tuple, launches: tuple = cuda_graphs.NO_LAUNCH,
           path: Optional[int] = None):
-    """``program(*inputs)``, on the card as a CUDA graph keyed by ``name``,
-    the device, the caller's stream, ``key`` (what the program bakes in:
-    the configs, the backend, the options, the launch plan) and each
-    input's shape and dtype.  ``inputs`` are tensors, None or Python
-    ints, each int reaching ``program`` as a (1,) int64 tensor; nothing in
-    ``program`` reads the host.  A capture raises unless it recorded
-    ``launches`` (in ``cuda_graphs.COUNTERS``' order; the solve kernel's
-    partials follow from the plan and are not held to them); each replay
-    adds what it recorded to the counts.  Uncaptured on the CPU, under ``utils/debug.py::
-    debug_mode``, within :func:`_uncaptured` and at a key's first call; a
-    capture or replay that fails raises.
+    """``program(*inputs)``, on the card as a CUDA graph
+    (``utils/cuda_graphs.py::run``, cache :data:`_CALL_GRAPHS`) keyed by
+    ``name``, ``key`` (what the program bakes in: the configs, the
+    backend, the options, the launch plan) and the inputs' shapes and
+    dtypes.  ``inputs`` are tensors, None or Python ints (each reaching
+    ``program`` as a (1,) int64 tensor); ``inputs[path]``, the reference
+    path, the same tensor across a run, is read where it lies (a path at
+    a new address is a new key).  A capture raises unless it recorded
+    ``launches``.  Uncaptured on the CPU, under ``utils/debug.py::
+    debug_mode`` and within ``cuda_graphs.uncaptured()``.
 
-    The host boundary of a replay, by each input's role:
-
-    * ``inputs[path]``, the reference path, the same tensor across a run,
-      is read where it lies: the graph is captured on the caller's own
-      tensor, and its address, strides, shape and dtype are in the key,
-      so a replay runs only for a call that passes a tensor at that
-      address and reads what it holds now, however it was written; a
-      path at a new address is a new key;
-    * the Python ints (seed, step) go through the entry's pinned host
-      buffer in one asynchronous copy (``cuda_graphs.HostInts``);
-    * every other tensor (state, observation, injected noise, device
-      scalars) is copied into the graph's buffer, one launch a dtype
-      (``_foreach_copy_``); its address is not in the key;
-    * the graph writes its result into one flat buffer a dtype; the call
-      returns views of one clone of each (``cuda_graphs.Packed``), so no
-      later call changes a result handed out.
-
-    :data:`REPLAYS` and :data:`MISSES` count the calls that replayed and
-    those that found no captured graph.  Spans (``utils/spans.py``):
-    ``graph.key``, ``graph.warm``, ``graph.copy_in`` (``n``: the bytes
-    staged, ints included; on every replay), ``graph.clone_out``, and
-    ``cuda_graphs``' ``graph.capture`` and ``graph.replay``."""
+    The program's result is packed inside it into one flat buffer a
+    dtype, and the call returns views of one clone of each
+    (``cuda_graphs.Packed``, the span ``graph.clone_out``), so no later
+    call changes a result handed out.  :data:`REPLAYS` and :data:`MISSES`
+    count the calls that replayed and those that found no captured
+    graph."""
     global REPLAYS, MISSES
-    if (device.type not in _GRAPH_DEVICES or not _CALL_GRAPHS_ON
-            or debug.active()):
-        return program(*_as_tensors(inputs, device))
-    with spans.span("graph.key"):
-        stream = cuda_graphs.current_stream(device)
-        full = (name, device.index, stream.cuda_stream, *key, tuple(
-            v if v is None else int if type(v) is int
-            else (v.shape, v.dtype, v.stride(), v.data_ptr()) if i == path
-            else (v.shape, v.dtype) for i, v in enumerate(inputs)))
-        g = cuda_graphs.lru(_CALL_GRAPHS, full, _CallGraph,
-                            _CALL_GRAPH_CACHE_SIZE)
-    if g.captured is not None:
+    if debug.active() or not cuda_graphs.captures(device):
+        return program(*cuda_graphs.as_tensors(inputs, device))
+    packed, hit = cuda_graphs.run(
+        _CALL_GRAPHS, name, key,
+        lambda *a: cuda_graphs.Packed(program(*a)), inputs, device,
+        launches, path=path)
+    if hit:
         REPLAYS += 1
-        with spans.span("graph.copy_in") as s:
-            g.copy_in(inputs, stream)
-            if s:
-                s.n = g.copy_bytes
     else:
         MISSES += 1
-        if not g.warm:
-            g.warm = True
-            with spans.span("graph.warm"):
-                return program(*_as_tensors(inputs, device))
-        static = g.stage(inputs, path, device, stream)
-        c = cuda_graphs.capture(lambda: g.pack(program(*static)), device,
-                                stream, arrivals=launches != _NO_LAUNCH)
-        n = cuda_graphs.LAUNCH_COUNTS
-        if c.recorded[:n] != launches[:n]:
-            raise RuntimeError(
-                f"a captured {name} recorded "
-                f"{cuda_graphs.named(c.recorded) or 'no kernel launch'}, not "
-                f"{cuda_graphs.named(launches) or 'no kernel launch'}")
-        g.captured = c
-    cuda_graphs.replay(g.captured.graph, g.captured.recorded)
     with spans.span("graph.clone_out"):
-        return g.packed.fresh()
+        return packed.fresh()
 
 
 def _unbatch(res: SolveResult) -> SolveResult:

@@ -72,11 +72,9 @@ SMEM_BYTES = 232448           # shared memory a block may take on Hopper
 COUNTER_SLOTS = 8             # streams an allocation of counters serves
 
 # Launches made by solve_batched; a run that must show it went through the
-# kernel reads these before and after.  A launch captured in a CUDA graph
-# counts once, at capture: the replays are the graph owner's to count.
+# kernel reads these before and after.  A captured launch counts nothing:
+# each replay of its graph adds it (utils/cuda_graphs.py::replay).
 LAUNCHES = 0                  # solve_tile_kernel, tiles and combine
-COMBINE_LAUNCHES = 0          # separate combine launches: none since the
-                              # combine runs in solve_tile_kernel's last block
 PARTIALS = 0                  # tile partials the launches' combines fold,
                               # n_tiles × B a launch, counted as LAUNCHES is
 

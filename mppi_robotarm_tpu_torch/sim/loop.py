@@ -35,6 +35,7 @@ noise and a chained run continues one long run's stream.
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import NamedTuple, Optional
 
@@ -52,7 +53,7 @@ from ..mppi.solver import (
     solve_batched,
     step_solve_plan,
 )
-from ..ops import cuda_step
+from ..ops import cuda_solve, cuda_step
 from ..ops.cuda_rollout import philox_epsilon_batch
 from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
 from ..ops.cuda_step import plant_step
@@ -231,7 +232,7 @@ def simulate(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     with spans.span("simulate"):
-        final, rec = _simulate_batch(
+        final, rec = _step_loop(
             arm, cfg, sim, ref_path, _as_batch(state0), num_steps,
             None if eps_per_step is None else eps_per_step[:, None],
             backend)
@@ -273,82 +274,45 @@ def simulate_batch(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     the state's dtype (:func:`_eager_step`); ``backend="cuda"`` solves all
     B through one launch of the solve kernel per step.  On CUDA tensors
     without ``eps_per_step`` the steps run as CUDA graphs of a chunk of
-    steps each (:func:`_chunk_steps`), captured at a shape's first call,
-    cached, and replayed one after the other (a failed capture raises); on
-    CPU tensors, with ``eps_per_step``, or for the eager backend under
-    ``utils/debug.py::debug_mode``, the same chunks run uncaptured, with
-    the same bits (:func:`_step_loop`).  ``eps_per_step``: optional
-    (num_steps, B, K, T, 2), step-major (:func:`simulate_fused_batch`
-    takes it scenario-major, as the JAX package does).  The call is the
-    root span ``simulate`` (``utils/spans.py``).  Returns (final batched
-    SimState, SimRecord of (num_steps, B, ...)).
+    steps each (:func:`_chunk_steps`), a shape's first chunk uncaptured,
+    its second captured, and every later one a replay (a failed capture
+    raises); on CPU tensors, with ``eps_per_step``, or for the eager
+    backend under ``utils/debug.py::debug_mode``, the same chunks run
+    uncaptured, with the same bits (:func:`_step_loop`).
+    ``eps_per_step``: optional (num_steps, B, K, T, 2), step-major
+    (:func:`simulate_fused_batch` takes it scenario-major, as the JAX
+    package does).  The call is the root span ``simulate``
+    (``utils/spans.py``).  Returns (final batched SimState, SimRecord of
+    (num_steps, B, ...)).
     """
     if backend not in ("eager", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     with spans.span("simulate"):
-        return _simulate_batch(arm, cfg, sim, ref_path, states0, num_steps,
-                               eps_per_step, backend)
-
-
-def _simulate_batch(arm, cfg, sim, ref_path, states0: SimState,
-                    num_steps: int, eps_per_step, backend: str):
-    """:func:`simulate_batch`'s loop, as graphs where it can."""
-    graphs = (states0.q.device.type == "cuda" and eps_per_step is None
-              and (backend == "cuda" or not debug.active()))
-    return _step_loop(arm, cfg, sim, ref_path, states0, num_steps,
-                      eps_per_step, graphs, backend)
+        return _step_loop(arm, cfg, sim, ref_path, states0, num_steps,
+                          eps_per_step, backend)
 
 
 # The per-step loop on the card runs as CUDA graphs of a chunk of steps
-# each (the last, shorter chunk as a graph of its own), replayed one after
-# the other; each keeps its input state in its own buffers and leaves the
-# chunk's final state there, so the next replay continues it.  The cuda
-# backend's chunks are _GRAPH_STEPS steps: 16 gave the shortest 4000-step
-# run at benchmark_preset, captures included, on an H100 (of 1, 8, 16, 32,
-# 64 and 256: a replay every step costs host time, a longer graph more
-# capture; PERF.md).  The eager backend's chunk, _EAGER_GRAPH_STEPS, is one
-# step: its ~5,900 launches a step keep the card busy whatever the chunk,
-# and of 1, 4 and 16 steps one captured fastest (0.24-0.27 s against
-# 0.61-0.69 and 2.7-3.7) for the same replay rate, 6.88-6.95 ms a step at
-# benchmark_preset on an H100 (tools/eager_loop.py --chunks; PERF.md).
+# each (the last, shorter chunk as a graph of its own), through
+# utils/cuda_graphs.py::run with the chunk's state carried: a replay leaves
+# the chunk's final state in its input buffers, and the next chunk of the
+# same graph reads it there.  The cuda backend's chunks are _GRAPH_STEPS
+# steps: 16 gave the shortest 4000-step run at benchmark_preset, captures
+# included, on an H100 (of 1, 8, 16, 32, 64 and 256: a replay every step
+# costs host time, a longer graph more capture; PERF.md).  The eager
+# backend's chunk, _EAGER_GRAPH_STEPS, is one step: its ~5,900 launches a
+# step keep the card busy whatever the chunk, and of 1, 4 and 16 steps one
+# captured fastest (0.24-0.27 s against 0.61-0.69 and 2.7-3.7) for the
+# same replay rate, 6.88-6.95 ms a step at benchmark_preset on an H100
+# (tools/eager_loop.py --chunks; PERF.md).
 _GRAPH_STEPS = 16
 _EAGER_GRAPH_STEPS = 1
-_GRAPH_CACHE_SIZE = 8        # captured chunks kept, least recently used out
 _GRAPHS: "OrderedDict" = OrderedDict()
 
 
 def _chunk_steps(backend: str) -> int:
     """Steps a chunk of the per-step loop holds on ``backend``."""
     return _GRAPH_STEPS if backend == "cuda" else _EAGER_GRAPH_STEPS
-
-
-class _StepGraph(NamedTuple):
-    """A captured chunk of ``n`` steps: its graph, the state it reads and
-    leaves (seed included) and the run's step counter (the loop's
-    ``clock``), its copy of the path, its (n, B, ...) record rows, the
-    seconds its capture and instantiation took, and every count the
-    capture recorded (``recorded``, in ``cuda_graphs.COUNTERS``' order),
-    which each replay adds: among them the solve kernel's launches
-    (``launches``, one a step) and the step kernels' (``step_launches``:
-    one head, a tail a step, and the n - 1 tails that carried the next
-    head); an eager chunk's are all 0."""
-
-    graph: "torch.cuda.CUDAGraph"
-    state: SimState
-    clock: torch.Tensor
-    ref: torch.Tensor
-    rows: tuple
-    n: int
-    capture_s: float
-    recorded: tuple
-
-    @property
-    def launches(self) -> int:
-        return self.recorded[0]
-
-    @property
-    def step_launches(self) -> tuple:
-        return self.recorded[1:4]
 
 
 def _row_buffers(n: int, states: SimState, ref_path: torch.Tensor) -> tuple:
@@ -426,184 +390,109 @@ def _as_state(t: tuple) -> SimState:
                     done=done)
 
 
-def _graph_key(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
-               backend: str = "cuda"):
-    """Everything a captured chunk bakes in: the backend, the device and
-    the caller's stream, the configs, the shapes and dtypes of the state
-    and the path, the chunk's steps, and for the cuda backend the solve's
+def _chunk_key(arm, cfg, sim, B: int, n: int, device, backend: str):
+    """What a chunk of ``n`` steps bakes in beside its inputs' shapes (the
+    backend, the steps, the configs, and for the cuda backend the solve's
     and the step tail's layouts as the solver and ``cuda_step`` plan them
-    now (so a graph captured under one plan is never replayed under
-    another)."""
-    device = states.q.device
-    B = states.q.shape[0]
-    plan = ((step_solve_plan(cfg, B, device),
-             cuda_step._tail_layout_on(cfg.num_samples, B, device))
-            if backend == "cuda" else None)
-    return (backend, device.index, stream.cuda_stream, arm, cfg, sim, n,
-            plan, tuple(ref_path.shape), ref_path.dtype,
-            tuple((tuple(v.shape), v.dtype) for v in _state_tensors(states)))
-
-
-def _chunk(body, arm, cfg, sim, ref, states: SimState, clock, rows):
-    """A captured chunk's program: ``body``'s steps on the graph's
-    buffers, then its final state and clock copied back into them, so the
-    next replay continues the run."""
-    final, final_clock = body(arm, cfg, sim, ref, states, clock, None, rows)
-    for dst, src in zip((*_state_tensors(states), clock),
-                        (*_state_tensors(final), final_clock)):
-        if dst is not src:
-            dst.copy_(src)
-
-
-def _capture(arm, cfg, sim, ref_path, states: SimState, n: int, stream,
-             clock=None, backend: str = "cuda") -> _StepGraph:
-    """Capture ``backend``'s chunk of ``n`` steps (:func:`_chunk` of
-    :func:`_body`) with ``utils/cuda_graphs.py::capture``, on the side
-    stream it keeps a device, for replay on the caller's ``stream``; the
-    cuda backend's solves take ``stream``'s arrival counters
-    (``cuda_solve.counters_of``), so a replay shares them only with work
-    that runs in order with it.
-
-    First one step runs uncaptured on the side stream, on scratch copies
-    of the state: it loads the kernels, raises the solve kernel's
-    shared-memory limit, gives ``stream`` its arrival counters and makes
-    the eager rollout's cached constants, none of which a capture may do.
-    The launches the capture records are counted into the graph: a cuda
-    chunk raises unless they are a solve and a tail a step, one head, and
-    n - 1 tails that carried the head; an eager chunk raises on any launch
-    of the port's kernels.  The replays add them, and the solve's partials
-    (``cuda_solve.PARTIALS``), to the counts; the warm-up's launches, and
-    the capture's, which execute nothing, are not counted there.
-    ``clock`` is the run's step counter at the chunk's start (default:
-    the state's step)."""
-    clock = states.step if clock is None else clock
-    body = _body(backend)
-    static = _as_state(tuple(v.clone() for v in _state_tensors(states)))
-    static_clock = clock.clone()
-    ref = ref_path.clone()
-    rows = _row_buffers(n, states, ref_path)
-
-    def warmup():
-        scratch = _as_state(tuple(v.clone() for v in _state_tensors(states)))
-        body(arm, cfg, sim, ref, scratch, clock.clone(), None,
-             tuple(r[:1].clone() for r in rows))
-
-    c = cuda_graphs.capture(
-        lambda: _chunk(body, arm, cfg, sim, ref, static, static_clock, rows),
-        states.q.device, stream, warmup=warmup, arrivals=backend == "cuda")
-    captured, step_captured = c.recorded[0], c.recorded[1:4]
+    now, so a graph captured under one plan is never replayed under
+    another), and the launches its capture records: for the cuda backend
+    a solve and a tail a step, one head, the n - 1 tails that carried the
+    next head, and on a clustered tail layout a cluster tail a step; none
+    of the port's kernels for the eager backend."""
     if backend != "cuda":
-        if any(c.recorded):
-            raise RuntimeError(
-                f"a captured eager chunk of {n} steps launched the port's "
-                f"kernels: " + cuda_graphs.named(c.recorded))
-    elif captured != n:
-        raise RuntimeError(f"a captured chunk of {n} steps holds {captured} "
-                           f"solve kernel launches, not one a step")
-    elif step_captured != (1, n, n - 1):
-        raise RuntimeError(f"a captured chunk of {n} steps holds "
-                           f"{step_captured} step head, tail and carried "
-                           f"head launches, not (1, {n}, {n - 1})")
-    return _StepGraph(c.graph, static, static_clock, ref, rows, n,
-                      c.capture_s, c.recorded)
+        return (backend, n, arm, cfg, sim, None), cuda_graphs.NO_LAUNCH
+    layout = cuda_step._tail_layout_on(cfg.num_samples, B, device)
+    return (backend, n, arm, cfg, sim,
+            (step_solve_plan(cfg, B, device), layout)), cuda_graphs.expect({
+                (cuda_solve, "LAUNCHES"): n, (cuda_step, "HEAD_LAUNCHES"): 1,
+                (cuda_step, "TAIL_LAUNCHES"): n,
+                (cuda_step, "CARRIED_HEADS"): n - 1,
+                (cuda_step, "CLUSTER_TAILS"): n * (layout.cluster > 1)})
 
 
-def _step_graph(arm, cfg, sim, ref_path, states: SimState, clock, n: int,
-                backend: str = "cuda") -> _StepGraph:
-    """The cached chunk of ``n`` steps of ``backend`` for these inputs on
-    the current stream, captured at its first use: the span ``graph.key``,
-    which holds ``graph.capture`` when it captures."""
-    with spans.span("graph.key"):
-        stream = torch.cuda.current_stream(states.q.device)
-        key = _graph_key(arm, cfg, sim, ref_path, states, n, stream, backend)
-        return cuda_graphs.lru(
-            _GRAPHS, key, lambda: _capture(arm, cfg, sim, ref_path, states,
-                                           n, stream, clock, backend),
-            _GRAPH_CACHE_SIZE)
+def _chunk(body, arm, cfg, sim, n: int, *inputs):
+    """A chunk's program: ``body``'s ``n`` steps from the state, clock and
+    path of ``inputs`` (``_state_tensors``' seven, the clock, the path),
+    into record rows of its own.  Returns (the state, clock and path the
+    next chunk continues from, the rows)."""
+    *state, clock, ref = inputs
+    states = _as_state(tuple(state))
+    rows = _row_buffers(n, states, ref)
+    final, end = body(arm, cfg, sim, ref, states, clock, None, rows)
+    return (*_state_tensors(final), end, ref), rows
 
 
-def _replay_chunks(arm, cfg, sim, ref_path, states: SimState, clock,
-                   num_steps, rows: tuple, backend: str = "cuda"
-                   ) -> SimState:
-    """The run as replays of captured chunks: each chunk's input state,
-    clock and path are copied into its graph's buffers (skipped when the
-    last replay was of the same graph, which left its state there), then
-    its record rows out into ``rows``.  Each replay adds the counts its
-    capture recorded (``cuda_solve.LAUNCHES`` and ``PARTIALS``,
-    ``cuda_step``'s).  Under ``utils/debug.py::debug_mode`` each chunk's
-    state is checked after its replay, outside the graph.  Spans a chunk
-    (``utils/spans.py``): ``graph.key``, ``graph.copy_in`` (``n``: bytes),
-    ``graph.replay``, ``loop.rows_out`` (``n``: bytes); then
-    ``loop.state_out``."""
-    cur = (*_state_tensors(states), clock)
-    last = None
-    S = _chunk_steps(backend)
-    for start in range(0, num_steps, S):
-        n = min(S, num_steps - start)
-        g = _step_graph(arm, cfg, sim, ref_path, _as_state(cur[:7]), cur[7],
-                        n, backend)
-        if g is not last:
-            with spans.span("graph.copy_in") as s:
-                for dst, src in zip((*_state_tensors(g.state), g.clock), cur):
-                    dst.copy_(src)
-                g.ref.copy_(ref_path)
-                if s:
-                    s.n = sum(v.nbytes for v in cur) + ref_path.nbytes
-        before = (_as_state(tuple(v.clone() for v in cur[:7]))
-                  if debug.active() else None)
-        cuda_graphs.replay(g.graph, g.recorded)
-        with spans.span("loop.rows_out") as s:
-            for dst, src in zip(rows, g.rows):
-                dst[start:start + n].copy_(src)
-            if s:
-                s.n = sum(v.nbytes for v in g.rows)
-        cur, last = (*_state_tensors(g.state), g.clock), g
-        if before is not None:
-            debug.check_step("simulate_batch (graph chunk)", before,
-                             g.state, ref_path.shape[0], n, u=g.rows[2])
-    # the graphs' buffers are overwritten by their next replay
-    with spans.span("loop.state_out"):
-        return _as_state(tuple(v.clone() for v in cur[:7]))
+def _capture_seconds(before=()) -> dict:
+    """The captured chunks' capture seconds by their steps, but those of
+    the keys in ``before`` (the timing tools' read of :data:`_GRAPHS`; a
+    key's steps follow its name, the device, the stream and the
+    backend)."""
+    return {k[4]: e.captured.capture_s for k, e in _GRAPHS.items()
+            if e.captured is not None and k not in before}
 
 
 def _step_loop(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                ref_path: torch.Tensor, states0: SimState, num_steps: int,
-               eps_per_step=None, graphs: bool = True,
-               backend: str = "cuda"):
+               eps_per_step=None, backend: str = "cuda"):
     """:func:`simulate_batch`'s loop on ``backend``, in chunks of
-    :func:`_chunk_steps` steps.  With ``graphs`` (a CUDA state, no
-    injected noise) the chunks run as replayed CUDA graphs
-    (:func:`_replay_chunks`); a capture or replay that fails raises.
-    Otherwise the same chunks run uncaptured, as on CPU tensors and with
-    ``eps_per_step``, whose noise is a new input every step (up to 126 MB
-    a step at 4096 × K=128, T=30), not something a graph could keep.  The
-    two give the same bits.  Tests and the timing tools call this with
-    ``graphs=False`` on the card to hold the graphs to the uncaptured
-    loop."""
+    :func:`_chunk_steps` steps.  On the card (``utils/cuda_graphs.py::
+    captures``) without injected noise each chunk runs through
+    ``cuda_graphs.run`` (:func:`_chunk`, cache :data:`_GRAPHS`): a
+    shape's first chunk uncaptured, its second captured, every later one
+    a replay (a capture or replay that fails raises).  The first chunk of
+    a run, and each chunk of another graph than the last, copies the
+    state, clock and path in; a chunk of the same graph passes the
+    buffers the last replay left and copies nothing.  Each chunk's rows
+    are copied out into the record (the span ``loop.rows_out``, ``n``:
+    bytes), and at the end the state is cloned out (``loop.state_out``).
+    Otherwise (CPU tensors, ``cuda_graphs.uncaptured()``, or
+    ``eps_per_step``, whose noise is a new input every step, up to 126 MB
+    a step at 4096 × K=128, T=30, not something a graph could keep; and
+    the eager backend under ``utils/debug.py::debug_mode``) the chunks
+    run uncaptured, writing their rows in place; the two give the same
+    bits.  Under ``debug_mode`` each chunk's state is checked after it
+    ran, outside the graph."""
     device = states0.q.device
     states = states0._replace(seed=torch.as_tensor(
         states0.seed, dtype=torch.int64, device=device))
     # the run's step counter: step i's reference row is step0 + i + 1
     clock = states0.step.to(device).clone()
     rows = _row_buffers(num_steps, states, ref_path)
-    if graphs:
-        states = _replay_chunks(arm, cfg, sim, ref_path, states, clock,
-                                num_steps, rows, backend)
-    else:
-        S, body = _chunk_steps(backend), _body(backend)
-        for start in range(0, num_steps, S):
-            n = min(S, num_steps - start)
-            before = states
-            states, clock = body(
-                arm, cfg, sim, ref_path, states, clock,
+    graphs = (eps_per_step is None and cuda_graphs.captures(device)
+              and (backend == "cuda" or not debug.active()))
+    S, body, B = _chunk_steps(backend), _body(backend), states.q.shape[0]
+    cur = (*_state_tensors(states), clock, ref_path)
+    for start in range(0, num_steps, S):
+        n = min(S, num_steps - start)
+        out = tuple(r[start:start + n] for r in rows)
+        before = (_as_state(tuple(v.clone() for v in cur[:7]))
+                  if debug.active() else None)
+        if graphs:
+            key, launches = _chunk_key(arm, cfg, sim, B, n, device, backend)
+            (cur, part), _ = cuda_graphs.run(
+                _GRAPHS, "chunk", key,
+                functools.partial(_chunk, body, arm, cfg, sim, n), cur,
+                device, launches, carry=True)
+            with spans.span("loop.rows_out") as s:
+                for dst, src in zip(out, part):
+                    dst.copy_(src)
+                if s:
+                    s.n = sum(v.nbytes for v in part)
+        else:
+            final, end = body(
+                arm, cfg, sim, ref_path, _as_state(cur[:7]), cur[7],
                 None if eps_per_step is None
-                else eps_per_step[start:start + n],
-                tuple(r[start:start + n] for r in rows))
-            if debug.active():
-                debug.check_step("simulate_batch (chunk)", before, states,
-                                 ref_path.shape[0], n,
-                                 u=rows[2][start:start + n])
-    return states._replace(seed=states0.seed), SimRecord(*rows)
+                else eps_per_step[start:start + n], out)
+            cur = (*_state_tensors(final), end, ref_path)
+        if before is not None:
+            debug.check_step("simulate_batch (chunk)", before,
+                             _as_state(cur[:7]), ref_path.shape[0], n,
+                             u=out[2])
+    final = _as_state(cur[:7])
+    if graphs:      # a graph's buffers are overwritten by its next replay
+        with spans.span("loop.state_out"):
+            final = _as_state(tuple(v.clone() for v in cur[:7]))
+    return final._replace(seed=states0.seed), SimRecord(*rows)
 
 
 # A launch writes 48 B of kernel rows per scenario-step, which the

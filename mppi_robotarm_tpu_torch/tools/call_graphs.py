@@ -4,8 +4,8 @@ calls, their bits and their times.
 On the card ``solve`` (both backends), ``solve_batched`` and
 ``viz_rollouts`` run as one CUDA graph a key (``mppi/solver.py::_call``):
 a key's first call uncaptured, its second captured, every later one a
-replay.  ``mppi/solver.py::_uncaptured`` runs every call uncaptured, the
-yardstick here.  Default mode, each comparison graphs against uncaptured,
+replay.  ``utils/cuda_graphs.py::uncaptured`` runs every call uncaptured,
+the yardstick here.  Default mode, each comparison graphs against uncaptured,
 in turns, min of ROUNDS, CUDA events:
 
 * the compat drop-in (:func:`compat_bits`, :func:`compat_rate`) at
@@ -51,6 +51,7 @@ from mppi_robotarm_tpu_torch.tools.eager_loop import device_events
 from mppi_robotarm_tpu_torch.tools.fused_timing import (ROUNDS, _events_ms,
                                                         fleet_inputs)
 from mppi_robotarm_tpu_torch.tools.overhead import card
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
 DROP_IN_CALLS = 500   # compat calls a timed run
 SMOKE_CALLS = 200     # chip_smoke phase 28's compat calls
@@ -60,7 +61,7 @@ DT = 0.003            # run.py's plant step
 
 
 def _mode(graphs: bool):
-    return contextlib.nullcontext() if graphs else solver._uncaptured()
+    return contextlib.nullcontext() if graphs else cuda_graphs.uncaptured()
 
 
 def drop_in(backend: str, device):
@@ -246,7 +247,7 @@ def chain_check(label: str, chain, calls: int = CHAIN_CALLS,
     reserved = _reserved_by(lambda: chain(1))
     caps = captures()
     got = chain(calls)
-    with solver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = chain(calls)
     runs = {"graphs": [], "uncaptured": []}
     for _ in range(rounds):

@@ -4,8 +4,9 @@ against the uncaptured loop, their bits and their times.
 ``simulate``/``simulate_batch(backend="eager")`` step all scenarios in
 batched PyTorch and, on the card, replay each chunk of
 ``sim/loop.py::_EAGER_GRAPH_STEPS`` steps as one CUDA graph;
-``sim/loop.py::_step_loop(..., graphs=False, backend="eager")`` runs the
-same chunks uncaptured.  Default mode, ``chip_smoke.py``'s phase 27:
+``sim/loop.py::_step_loop(..., backend="eager")`` within
+``utils/cuda_graphs.py::uncaptured()`` runs the same chunks uncaptured.
+Default mode, ``chip_smoke.py``'s phase 27:
 
 * bits (:func:`check_bits`): the graphs against the uncaptured loop,
   records and final state, at ``benchmark_preset`` in float32 over
@@ -39,6 +40,7 @@ Without an NVIDIA GPU it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -47,6 +49,7 @@ import torch
 
 import mppi_robotarm_tpu_torch as m
 from mppi_robotarm_tpu_torch.sim import loop
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
 from mppi_robotarm_tpu_torch.tools.fused_timing import (
     FLEET, PROFILE_TRIES, ROUNDS, STEPS, _events_ms, _run_digest,
     device_total, fleet_inputs)
@@ -63,8 +66,9 @@ SWEEP_STEPS = 200     # --chunks: steps a timed run
 
 def run(args, steps: int, graphs: bool = True):
     """``steps`` eager steps of the batched state in ``args`` (arm, cfg,
-    sim, ref, states): (final state, record)."""
-    return loop._step_loop(*args, steps, graphs=graphs, backend="eager")
+    sim, ref, states), as graphs or uncaptured: (final state, record)."""
+    with contextlib.nullcontext() if graphs else cuda_graphs.uncaptured():
+        return loop._step_loop(*args, steps, backend="eager")
 
 
 def bench_inputs(device, dtype=torch.float32, samples=None, horizon=None):
@@ -144,7 +148,7 @@ def time_loop(device, steps=TIME_STEPS) -> dict:
     args = bench_inputs(device)
     loop._GRAPHS.clear()
     run(args, steps)                    # captures the chunks
-    captures = {g.n: g.capture_s for g in loop._GRAPHS.values()}
+    captures = loop._capture_seconds()
     runs = {"graphs": [], "uncaptured": []}
     enqueue = []
     for _ in range(ROUNDS):
@@ -218,8 +222,7 @@ def chunk_sweep(device, chunks, steps=SWEEP_STEPS) -> list:
             loop._EAGER_GRAPH_STEPS = row["S"]
             loop._GRAPHS.clear()
             row["sha256"] = _run_digest(*run(args, steps))
-            row["capture_s"] = {g.n: g.capture_s
-                                for g in loop._GRAPHS.values()}
+            row["capture_s"] = loop._capture_seconds()
         for _ in range(ROUNDS):
             for row in rows:
                 loop._EAGER_GRAPH_STEPS = row["S"] or keep

@@ -40,7 +40,8 @@ vector width divides it) and on a view 4 bytes past a 16-byte boundary.
 ``--steploop``: the per-step loop (``simulate_batch(backend="cuda")``)
 as replayed CUDA graphs of S steps, for each S of ``--chunks`` (default 1,
 8, 16, 32, 64, 256; ``sim/loop.py::_GRAPH_STEPS`` set to each in turn), against
-the eager chunked loop (``sim/loop.py::_step_loop(graphs=False)``): at
+the uncaptured chunked loop (``sim/loop.py::_step_loop`` within
+``utils/cuda_graphs.py::uncaptured()``): at
 ``benchmark_preset`` (B=1) over 1000 steps and on the fleet of
 ``chip_smoke.py``'s phase 9 over 50 steps, each µs/step by CUDA events,
 min of 3 in turns, the SHA-256 of records and final state, each S's
@@ -94,6 +95,7 @@ Without an NVIDIA GPU it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -108,6 +110,7 @@ import torch
 
 import mppi_robotarm_tpu_torch as m
 from mppi_robotarm_tpu_torch.ops import cuda_sim
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
 from mppi_robotarm_tpu_torch.utils.metrics import (
     ONPATH_FIRST as ONPATH_STEPS,
     onpath_mean_mm,
@@ -461,19 +464,20 @@ def measure_steploop(device, chunks=STEPLOOP_CHUNKS):
             loop._GRAPHS.clear()
             for row in rows:
                 loop._GRAPH_STEPS = row["S"]
-                graphs = row["setting"] != "eager"
                 before = set(loop._GRAPHS)
-                row["sha256"] = _run_digest(*loop._step_loop(
-                    *args, steps, graphs=graphs))
-                row["capture_s"] = {g.n: g.capture_s for k, g in
-                                    loop._GRAPHS.items() if k not in before}
+                # a run that runs each chunk length uncaptured once, then
+                # one that captures what the first did not
+                for _ in range(2):
+                    with _chunks_as(row):
+                        row["sha256"] = _run_digest(*loop._step_loop(
+                            *args, steps))
+                row["capture_s"] = loop._capture_seconds(before)
             for _ in range(ROUNDS):
                 for row in rows:
                     loop._GRAPH_STEPS = row["S"]
-                    graphs = row["setting"] != "eager"
-                    row["runs_ms"].append(_events_ms(
-                        lambda: loop._step_loop(*args, steps,
-                                                graphs=graphs)))
+                    with _chunks_as(row):
+                        row["runs_ms"].append(_events_ms(
+                            lambda: loop._step_loop(*args, steps)))
             for row in rows:
                 row["steps"] = steps
                 row["us_per_step"] = min(row["runs_ms"]) / steps * 1e3
@@ -486,7 +490,7 @@ def measure_steploop(device, chunks=STEPLOOP_CHUNKS):
                         loop._GRAPHS.clear()
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        loop._step_loop(*args, STEPS, graphs=True)
+                        loop._step_loop(*args, STEPS)
                         torch.cuda.synchronize()
                         row.setdefault("run_4000_runs_s", []).append(
                             time.perf_counter() - t0)
@@ -610,6 +614,12 @@ def tail_layout_of(spec: str, K: int, B: int):
     lay = cuda_step.TailLayout(-(-(n // 32) // (lanes * C)), lanes,
                                min(group, B), cap, C)
     return lay if cuda_step.tail_layout_fits(lay, K) else None
+
+
+def _chunks_as(row):
+    """The block of a ``--steploop`` row: uncaptured for the eager row."""
+    return (cuda_graphs.uncaptured() if row["setting"] == "eager"
+            else contextlib.nullcontext())
 
 
 def measure_split(device, calls=SPLIT_CALLS, tail_layouts=()):

@@ -1,34 +1,31 @@
-"""CUDA graphs of the port's device programs: capture, launch counts, LRU,
-and the host boundary of a replayed call.
+"""CUDA graphs of the port's device programs: one cache rule for both of
+the port's users, launch counts, and the host boundary of a replay.
 
-The port's counterpart of ``jax.jit``'s compile cache.  Two users share
-what is here:
+The port's counterpart of ``jax.jit``'s compile cache.  Two users run
+their device programs through :func:`run`, each with its own cache (an
+``OrderedDict`` of :data:`CACHE_SIZE` entries, least recently used out):
+the per-call entry points (``mppi/solver.py::_call``: ``solve``,
+``solve_batched`` and ``viz_rollouts``), one program a call, and the
+per-step loops (``sim/loop.py``), one program a chunk of steps, whose
+state a replay carries into the next.  One rule set serves both
+(:func:`run`): the entry (:class:`Entry`), the warm-up (a key's first use
+uncaptured, its second captured), the staging of the inputs by role
+(ints through :class:`HostInts`, a path read where it lies, every other
+tensor copied unless it already is the entry's buffer), the launch check
+by counter name (:func:`expect`) and the switch (:func:`uncaptured`,
+:data:`DEVICES`, :func:`captures`).
 
-* the per-step loops (``sim/loop.py``) capture a chunk of steps of a
-  closed loop, after one uncaptured warm-up step on scratch state;
-* the per-call entry points (``mppi/solver.py``: ``solve``,
-  ``solve_batched`` and ``viz_rollouts``) capture one call, at a key's
-  second call, the first having run uncaptured as the warm-up.
-
-Each keeps its own cache (an ``OrderedDict`` bounded by :func:`lru`), its
-own keys and its own rules for the launches a capture may record; what
-they share is :func:`capture`: the side stream a capture runs on (one a
-device, :func:`capture_stream`), the optional warm-up on it, the capture
-itself, and the launches of the port's kernels the capture recorded
-(:data:`COUNTERS`), which leave every count as it was, since a captured
-launch executes nothing.  :func:`replay` replays a graph on the current
-stream and adds the launches it recorded to the counts, so a count reads
-the same whether its kernel ran captured or not.  Both are spans of the
-calls they serve (``utils/spans.py``): ``graph.capture`` and
-``graph.replay``.
-
-The per-call graphs' boundary with the host takes two more pieces:
-:class:`HostInts`, the Python ints of a call (a seed, a step) staged
-through one pinned host buffer into the device buffer the program reads,
-in one asynchronous copy before the replay; and :class:`Packed`, a
-program's result written into one flat buffer a dtype inside the
-program, so that a replay's fresh result is one clone a dtype, handed
-back as views in the result's own shapes.
+:func:`capture` runs a capture on a side stream (one a device,
+:func:`capture_stream`) and leaves every count (:data:`COUNTERS`) as it
+was, since a captured launch executes nothing; :func:`replay` replays a
+graph on the current stream and adds the launches it recorded to the
+counts, so a count reads the same whether its kernel ran captured or
+not.  Spans (``utils/spans.py``): ``graph.key``, ``graph.warm``,
+``graph.capture``, ``graph.copy_in`` (``n``: the bytes it staged, ints
+included) and ``graph.replay``.  :class:`Packed` is the per-call users'
+result written into one flat buffer a dtype inside the program, so that
+a replay's fresh result is one clone a dtype, handed back as views in
+the result's own shapes.
 """
 
 from __future__ import annotations
@@ -54,8 +51,12 @@ COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
             (cuda_probe, "SCALE_LAUNCHES"), (cuda_probe, "BIG_LAUNCHES"),
             (cuda_pathgen, "LAUNCHES"), (cuda_solve, "PARTIALS"))
 LAUNCH_COUNTS = len(COUNTERS) - 1   # the leading entries that count launches
+NO_LAUNCH = (0,) * len(COUNTERS)
+CACHE_SIZE = 8               # entries a user's cache keeps
+DEVICES = ("cuda",)          # where programs run as graphs
 CAPTURE_STREAMS: dict = {}   # device index -> the stream captures run on
 STREAMS: dict = {}           # (stream id, device index) -> its Stream
+_ON = True                   # off inside uncaptured()
 
 
 def launch_counts() -> tuple:
@@ -63,11 +64,41 @@ def launch_counts() -> tuple:
     return tuple(getattr(mod, name) for mod, name in COUNTERS)
 
 
+def expect(counts: dict) -> tuple:
+    """The launches a capture must record, in :data:`COUNTERS`' order,
+    from ``{(module, name): count}``; every other count 0."""
+    return tuple(counts.get(c, 0) for c in COUNTERS)
+
+
 def named(counts: tuple) -> str:
     """The non-zero entries of a tuple in :data:`COUNTERS`' order, as
     ``module.NAME value`` for a message."""
     return ", ".join(f"{mod.__name__.rsplit('.', 1)[1]}.{name} {v}"
                      for (mod, name), v in zip(COUNTERS, counts) if v)
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Within the block every program runs uncaptured on the card too, the
+    yardstick of the tests and the timing tools (no public keyword)."""
+    global _ON
+    old, _ON = _ON, False
+    try:
+        yield
+    finally:
+        _ON = old
+
+
+def captures(device: torch.device) -> bool:
+    """Whether programs on ``device`` run as graphs now."""
+    return _ON and device.type in DEVICES
+
+
+def as_tensors(inputs, device) -> list:
+    """The inputs an uncaptured program takes: each Python int as a (1,)
+    int64 tensor on ``device``."""
+    return [torch.tensor([v], device=device) if type(v) is int else v
+            for v in inputs]
 
 
 def current_stream(device: torch.device):
@@ -98,8 +129,8 @@ class Captured(NamedTuple):
     """A capture: its graph, what the program returned while it was
     captured (the tensors each replay writes again), the launches of the
     port's kernels it recorded (in :data:`COUNTERS`' order) and the
-    seconds its warm-up, capture and instantiation took (its
-    ``graph.capture`` span's)."""
+    seconds its capture and instantiation took (its ``graph.capture``
+    span's)."""
 
     graph: "torch.cuda.CUDAGraph"
     out: Any
@@ -108,27 +139,20 @@ class Captured(NamedTuple):
 
 
 def capture(program: Callable[[], Any], device: torch.device, stream,
-            warmup: Optional[Callable[[], Any]] = None,
             arrivals: bool = False) -> Captured:
     """Capture ``program()`` on :func:`capture_stream` for replay on the
-    caller's ``stream``.  ``warmup``, when given, runs first, uncaptured on
-    the side stream (it loads what a capture may not).  With ``arrivals``
-    the solve kernel's launches on the side stream take ``stream``'s
-    arrival counters (``cuda_solve.counters_of``), so a replay shares them
-    only with work that runs in order with it; that stream's counters
-    must exist already (an uncaptured solve on it made them).  Every
-    launch count is left as it was found: the warm-up's launches ran off
-    the caller's program and the capture's execute nothing."""
-    counts = launch_counts()
+    caller's ``stream``.  With ``arrivals`` the solve kernel's launches on
+    the side stream take ``stream``'s arrival counters
+    (``cuda_solve.counters_of``), so a replay shares them only with work
+    that runs in order with it; that stream's counters must exist already
+    (an uncaptured solve on it made them).  Every launch count is left as
+    it was found: the capture's launches execute nothing."""
     own = capture_stream(device)
     own.wait_stream(stream)
     with spans.timed("graph.capture") as span, (
             cuda_solve.counters_of(device, stream.cuda_stream,
                                    own.cuda_stream)
             if arrivals else contextlib.nullcontext()):
-        if warmup is not None:
-            with torch.cuda.stream(own):
-                warmup()
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         try:
@@ -136,7 +160,7 @@ def capture(program: Callable[[], Any], device: torch.device, stream,
                 out = program()
         finally:
             recorded = tuple(a - b for a, b in zip(launch_counts(), before))
-            for (mod, name), v in zip(COUNTERS, counts):
+            for (mod, name), v in zip(COUNTERS, before):
                 setattr(mod, name, v)
     return Captured(graph, out, recorded, span.seconds)
 
@@ -161,6 +185,140 @@ def lru(cache: OrderedDict, key, make: Callable[[], Any], size: int):
     while len(cache) > size:
         cache.popitem(last=False)
     return value
+
+
+class Entry:
+    """A key's entry in a user's cache: whether its key has run once, its
+    capture (:class:`Captured`), and its staged inputs: the
+    :class:`HostInts` of its int slots and, a dtype each, the buffers its
+    other tensors but the path are copied into."""
+
+    def __init__(self):
+        self.warm = False
+        self.captured: Optional[Captured] = None
+
+    def stage(self, inputs: tuple, path, device, stream) -> list:
+        """The inputs a capture records, from the call's: the path as it
+        lies, the Python ints as views of a :class:`HostInts` buffer
+        (sent now), every other tensor as a clone."""
+        static = list(inputs)
+        self.slots = [i for i, v in enumerate(inputs) if type(v) is int]
+        self.ints = None
+        if self.slots:
+            self.ints = HostInts(len(self.slots), device)
+            self.ints.send([inputs[i] for i in self.slots], stream)
+            for j, i in enumerate(self.slots):
+                static[i] = self.ints.device[j:j + 1]
+        groups: dict = {}
+        for i, v in enumerate(inputs):
+            if i != path and isinstance(v, torch.Tensor):
+                static[i] = v.clone()
+                dsts, idx = groups.setdefault(v.dtype, ([], []))
+                dsts.append(static[i])
+                idx.append(i)
+        self.groups = list(groups.values())
+        return static
+
+    def copy_in(self, inputs: tuple, stream) -> None:
+        """A call's inputs into the entry's buffers, in the span
+        ``graph.copy_in`` when there is one to copy: the ints in one
+        asynchronous copy, the other tensors but the path one launch a
+        dtype (a dtype's one tensor by ``copy_``, which costs the host
+        less than a ``_foreach_copy_`` of one), each skipped where the
+        input is its buffer already."""
+        moves = []
+        for dsts, idx in self.groups:
+            pairs = [(d, inputs[i]) for d, i in zip(dsts, idx)
+                     if inputs[i] is not d]
+            if pairs:
+                moves.append(pairs)
+        if self.ints is None and not moves:
+            return
+        with spans.span("graph.copy_in") as s:
+            if self.ints is not None:
+                self.ints.send([inputs[i] for i in self.slots], stream)
+            for pairs in moves:
+                if len(pairs) == 1:
+                    pairs[0][0].copy_(pairs[0][1])
+                else:
+                    torch._foreach_copy_([d for d, _ in pairs],
+                                         [v for _, v in pairs])
+            if s:
+                s.n = 8 * len(self.slots) + sum(
+                    v.nbytes for pairs in moves for _, v in pairs)
+
+    def capture(self, name: str, program: Callable, inputs: tuple, device,
+                stream, launches: tuple, path, carry: bool) -> None:
+        """Capture ``program`` on staged copies of ``inputs``; raise unless
+        the capture recorded ``launches`` (the partials unchecked).  With
+        ``carry`` the capture writes the carried outputs back into the
+        buffers of the leading inputs they continue."""
+        static = self.stage(inputs, path, device, stream)
+
+        def captured():
+            out = program(*static)
+            if not carry:
+                return out
+            carried, rest = out
+            for dst, src in zip(static, carried):
+                if dst is not src:
+                    dst.copy_(src)
+            return tuple(static[:len(carried)]), rest
+
+        c = capture(captured, device, stream, arrivals=any(launches))
+        n = LAUNCH_COUNTS
+        if c.recorded[:n] != launches[:n]:
+            raise RuntimeError(
+                f"a captured {name} recorded "
+                f"{named(c.recorded) or 'no kernel launch'}, not "
+                f"{named(launches) or 'no kernel launch'}")
+        self.captured = c
+
+
+def run(cache: OrderedDict, name: str, key: tuple, program: Callable,
+        inputs: tuple, device, launches: tuple = NO_LAUNCH,
+        path: Optional[int] = None, carry: bool = False):
+    """``program(*inputs)`` as a CUDA graph, the entry of ``cache`` keyed
+    by ``name``, the device, the caller's stream, ``key`` (what the
+    program bakes in) and each input's shape and dtype, for a caller that
+    has checked :func:`captures`.  ``inputs`` are tensors, None or Python
+    ints, each int reaching ``program`` as a (1,) int64 tensor; nothing in
+    ``program`` reads the host.  ``inputs[path]``, when given, is read
+    where it lies: its address, strides, shape and dtype are in the key,
+    so a path at a new address is a new key.  With ``carry`` the program
+    returns (carried, rest), carried a tensor for each of its leading
+    inputs, the state it leaves them in: a replay leaves it in the
+    entry's buffers of those inputs and returns those buffers, so a
+    caller that passes them back as the next call's inputs copies nothing
+    in.
+
+    A key's first use runs uncaptured on the caller's inputs (the span
+    ``graph.warm``): it loads the kernels, raises the solve kernel's
+    shared-memory limit, gives the stream its arrival counters and makes
+    the eager rollout's cached constants, none of which a capture may
+    do.  Its second captures on the entry's own buffers (raising unless
+    the capture recorded ``launches``, :func:`expect`), and from then on
+    each use copies its inputs in and replays.  Returns (the program's outputs: the uncaptured ones, or the
+    graph's own as its replay leaves them; whether a graph captured
+    before this call replayed)."""
+    with spans.span("graph.key"):
+        stream = current_stream(device)
+        full = (name, device.index, stream.cuda_stream, *key, tuple(
+            v if v is None else int if type(v) is int
+            else (v.shape, v.dtype, v.stride(), v.data_ptr()) if i == path
+            else (v.shape, v.dtype) for i, v in enumerate(inputs)))
+        e = lru(cache, full, Entry, CACHE_SIZE)
+    hit = e.captured is not None
+    if not hit:
+        if not e.warm:
+            e.warm = True
+            with spans.span("graph.warm"):
+                return program(*as_tensors(inputs, device)), False
+        e.capture(name, program, inputs, device, stream, launches, path,
+                  carry)
+    e.copy_in(inputs, stream)
+    replay(e.captured.graph, e.captured.recorded)
+    return e.captured.out, hit
 
 
 class HostInts:

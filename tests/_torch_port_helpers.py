@@ -7,7 +7,9 @@ x64 enabled before :func:`configs` imports it; nothing else here needs JAX,
 so the card-only tests import this module on a machine without it.
 
 :func:`replaying_capture` is the CUDA-graph stand-in of the tests of the
-port's graphs (the per-step loops' and the per-call entry points').
+port's captured programs (``utils/cuda_graphs.py::run``: the per-call
+entry points' and the per-step loops' chunks), :func:`counted_kernels`
+the cuda backend's kernels counted on the CPU as on the card.
 """
 
 import contextlib
@@ -83,9 +85,12 @@ class StandInGraph:
 
 
 def _leaves(v):
-    """The tensors of a nested result, in order."""
+    """The tensors of a nested result, in order (a packed result's flat
+    buffers, ``cuda_graphs.Packed``)."""
     if isinstance(v, torch.Tensor):
         return [v]
+    if isinstance(v, cuda_graphs.Packed):
+        return list(v.flats)
     if isinstance(v, tuple):
         return [t for x in v for t in _leaves(x)]
     return []
@@ -100,7 +105,8 @@ def replaying_capture(monkeypatch):
     tensors the capture returned, as a replay rewrites a graph's outputs
     in place, and leaves the launch counts as it found them, as a replay
     runs no wrapper (``cuda_graphs.replay`` adds what the capture
-    recorded).  Each cache of graphs starts empty."""
+    recorded).  CPU tensors run as graphs (``cuda_graphs.DEVICES``), and
+    each cache of graphs starts empty."""
     capture = cuda_graphs.capture
 
     def recording(program, *a, **k):
@@ -127,22 +133,32 @@ def replaying_capture(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: StandInStream)
     monkeypatch.setattr(cuda_graphs, "CAPTURE_STREAMS", {})
+    monkeypatch.setattr(cuda_graphs, "DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(ploop, "_GRAPHS", OrderedDict())
     monkeypatch.setattr(psolver, "_CALL_GRAPHS", OrderedDict())
 
 
 @pytest.fixture
 def counted_kernels(monkeypatch):
-    """The cuda backend's two kernels counted as their wrappers count a
-    launch on the card (the plain versions count none): ``per_solve``
-    solve launches a call of the solve kernel's wrapper."""
+    """The cuda backend's kernels counted as their wrappers count a launch
+    on the card (the plain versions count none): the step head one, the
+    step tail one and one carried head when it carries the next step's
+    head, and ``per_solve`` solve launches a call of the solve kernel's
+    wrapper (1 unless the returned function is called with another)."""
     solve, head = cuda_solve.solve_batched, cuda_step.step_head
+    tail = cuda_step.step_tail
 
     def counted_head(*a, **k):
         cuda_step.HEAD_LAUNCHES += 1
         return head(*a, **k)
 
+    def counted_tail(*a, **k):
+        cuda_step.TAIL_LAUNCHES += 1
+        cuda_step.CARRIED_HEADS += int(k.get("carry_head", False))
+        return tail(*a, **k)
+
     monkeypatch.setattr(cuda_step, "step_head", counted_head)
+    monkeypatch.setattr(cuda_step, "step_tail", counted_tail)
 
     def per_solve(n):
         def counted(*a, **k):

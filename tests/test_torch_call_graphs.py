@@ -1,7 +1,9 @@
-"""The per-call entry points as CUDA graphs (``mppi/solver.py::_call``):
-``solve`` on both backends, ``solve_batched`` and ``viz_rollouts``, on the
-CPU under the replaying stand-in (``_torch_port_helpers.py::
-replaying_capture``) with the CPU let through as a graph device:
+"""The port's captured programs (``utils/cuda_graphs.py::run``), on the CPU
+under the replaying stand-in (``_torch_port_helpers.py::
+replaying_capture``) with the CPU let through as a graph device: the
+per-call entry points (``mppi/solver.py::_call``: ``solve`` on both
+backends, ``solve_batched`` and ``viz_rollouts``) and, in the cases the
+two users share, the per-step loop's chunks (``sim/loop.py``):
 
 * a replay equals the uncaptured call bit for bit, every field of the
   result, in float32 and float64, over a chain of 10 calls each fed the
@@ -9,18 +11,20 @@ replaying_capture``) with the CPU let through as a graph device:
   and cuda (injected and seeded, the plain versions on the CPU),
   ``solve_batched`` (seeded and injected) and ``viz_rollouts``;
 * a key's first call runs uncaptured and its second captures;
-  ``debug_mode`` and ``_uncaptured()`` never capture;
+  ``debug_mode`` and ``cuda_graphs.uncaptured()`` never capture;
 * an earlier result is not overwritten by a later call, a generator
   leaves a graph call in the state the uncaptured call leaves it, a path
   changed in place between calls is seen (also when the write bumps no
   ``_version``), a new path tensor is seen, seed and step as Python ints
   (staged through the pinned buffer) and as tensors give the uncaptured
-  bits, a config that is invalid on a later call still raises, and the
-  keys separate backend, dtype, shape, ``want_eps`` and the noise's
-  source;
+  bits, and a config that is invalid on a later call still raises;
 * ``solver.REPLAYS`` and ``solver.MISSES`` over a chain of calls;
-* the launches a capture records and a replay adds, and the raise when a
-  capture records other launches than its entry point's;
+* for both users, per-call and chunk: the keys separate the launch plan,
+  the backend, the shapes and dtypes (and a call's options and noise
+  source, a chunk's steps); the launches and partials a capture records
+  and each replay adds; the raise when a cuda capture records other
+  launches than its user expects, and when an eager one launches a port
+  kernel;
 * a captured call with every host read of a tensor and every tensor made
   from host data raising;
 * 20 calls of the compat drop-in through the graphs in float64 against
@@ -46,8 +50,9 @@ import torch
 
 import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.mppi import solver as psolver
-from mppi_robotarm_tpu_torch.ops import cuda_sim, cuda_solve
-from mppi_robotarm_tpu_torch.utils import cuda_graphs, debug
+from mppi_robotarm_tpu_torch.ops import cuda_sim, cuda_solve, cuda_step
+from mppi_robotarm_tpu_torch.sim import loop as ploop
+from mppi_robotarm_tpu_torch.utils import cuda_graphs, debug, spans
 from _torch_port_helpers import _leaves
 from _torch_port_helpers import (counted_kernels,  # noqa: F401 (fixtures)
                                  replaying_capture)
@@ -58,8 +63,9 @@ except ImportError:
     jcompat = None
 
 torch.set_num_threads(1)
-ARM = P.ArmParams()
+ARM, SIM = P.ArmParams(), P.SimConfig()
 CALLS = 10
+CHUNK = 4            # the cuda backend's chunk length in the loop's cases
 
 
 def _cfg(K=16, T=5, **kw):
@@ -91,6 +97,16 @@ def _next_x(x, u0):
                       x[..., 2:] + 0.003 * u0.to(x.dtype)], dim=-1)
 
 
+def _fresh(v):
+    """A result with every tensor cloned (NamedTuples kept, None kept)."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple):
+        return type(v)(*map(_fresh, v)) if hasattr(v, "_fields") else tuple(
+            map(_fresh, v))
+    return v
+
+
 def assert_same(a, b, where=""):
     """Two results equal bit for bit, field by field, dtypes included."""
     if isinstance(a, torch.Tensor):
@@ -107,10 +123,10 @@ def assert_same(a, b, where=""):
 @pytest.fixture
 def graphs_on_cpu(replaying_capture, counted_kernels,  # noqa: F811
                   monkeypatch):
-    """The per-call graphs on CPU tensors, under the replaying stand-in,
-    the cuda backend's kernels counted as on the card; returns the list
-    of the captures made."""
-    monkeypatch.setattr(psolver, "_GRAPH_DEVICES", ("cuda", "cpu"))
+    """The captured programs on CPU tensors, under the replaying stand-in,
+    the cuda backend's kernels counted as on the card, the loop's cuda
+    chunks :data:`CHUNK` steps; returns the list of the captures made."""
+    monkeypatch.setattr(ploop, "_GRAPH_STEPS", CHUNK)
     made = []
     capture = cuda_graphs.capture
 
@@ -125,10 +141,11 @@ def graphs_on_cpu(replaying_capture, counted_kernels,  # noqa: F811
 # ---- the chains ------------------------------------------------------------
 
 def solve_chain(backend, noise, dtype, calls=CALLS, device="cpu", cfg=None,
-                generator=None):
+                generator=None, ref=None):
     """``calls`` solves, each fed the last one's state and observation."""
     cfg = cfg or _cfg(exploration=0.25)
-    ref, x = _ref(dtype, device), _x0(dtype, device)
+    ref = _ref(dtype, device) if ref is None else ref
+    x = _x0(dtype, device)
     state = P.init_state(cfg, dtype=dtype, device=device)
     out = []
     for i in range(calls):
@@ -143,11 +160,12 @@ def solve_chain(backend, noise, dtype, calls=CALLS, device="cpu", cfg=None,
     return out
 
 
-def batched_chain(noise, dtype, calls=CALLS, device="cpu", B=3):
+def batched_chain(noise, dtype, calls=CALLS, device="cpu", B=3, ref=None):
     """``calls`` calls of ``solve_batched`` of B scenarios, each fed the
     last one's state and observations."""
     cfg = _cfg()
-    ref, x = _ref(dtype, device), _x0(dtype, device, B)
+    ref = _ref(dtype, device) if ref is None else ref
+    x = _x0(dtype, device, B)
     state = psolver.MPPIState(
         u_prev=P.init_state(cfg, dtype=dtype, device=device).u_prev.repeat(
             B, 1, 1),
@@ -191,7 +209,7 @@ CHAINS = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("chain", sorted(CHAINS))
 def test_a_replay_equals_the_uncaptured_call(graphs_on_cpu, chain, dtype):
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = CHAINS[chain](dtype)
     assert not graphs_on_cpu and not psolver._CALL_GRAPHS
     got = CHAINS[chain](dtype)
@@ -203,7 +221,7 @@ def test_a_replay_equals_the_uncaptured_call(graphs_on_cpu, chain, dtype):
 @pytest.mark.parametrize("source", ["eager", "cuda"])
 def test_a_viz_replay_equals_the_uncaptured_call(graphs_on_cpu, source,
                                                  dtype):
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         solved = solve_chain(source, "eps" if source == "eager" else "seed",
                              dtype)
         want = viz_chain(solved, dtype)
@@ -217,7 +235,7 @@ def test_a_generator_leaves_the_same_state(graphs_on_cpu):
     """The eager backend draws its noise from the generator before the
     replay, as the uncaptured call draws it."""
     gens = [torch.Generator().manual_seed(11) for _ in range(2)]
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = solve_chain("eager", "generator", torch.float64,
                            generator=gens[0])
     got = solve_chain("eager", "generator", torch.float64,
@@ -247,7 +265,7 @@ def test_the_second_call_of_a_key_captures(graphs_on_cpu):
 def test_debug_mode_and_the_switch_never_capture(graphs_on_cpu):
     with debug.debug_mode():
         solve_chain("eager", "eps", torch.float32, calls=3)
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         solve_chain("cuda", "seed", torch.float32, calls=3)
     assert not graphs_on_cpu and not psolver._CALL_GRAPHS
 
@@ -259,11 +277,11 @@ def test_an_earlier_result_is_not_overwritten(graphs_on_cpu):
                                    eps=_eps(i, (16, 5)))
     call(0)
     kept = call(1)                     # the capture's replay
-    snapshot = psolver._fresh(kept)
+    snapshot = _fresh(kept)
     later = call(2)                    # a replay of the same graph
     assert_same(kept, snapshot)
     assert not torch.equal(later.costs, kept.costs)
-    out = graphs_on_cpu[0].out
+    out = graphs_on_cpu[0].out.result      # the graph's own buffers
     assert kept.costs.data_ptr() != out.costs.data_ptr()
     assert later.u_seq.data_ptr() != out.u_seq.data_ptr()
 
@@ -278,7 +296,7 @@ def test_a_path_changed_in_place_is_seen(graphs_on_cpu):
     before = call(ref)
     ref[:, 0:2] += 0.05
     got = call(ref)
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = call(ref)
     assert_same(got, want)
     assert not torch.equal(got.costs, before.costs)
@@ -305,7 +323,7 @@ def test_a_path_rewritten_or_replaced_is_seen(graphs_on_cpu, change):
         ref.numpy()[:, 0:2] += 0.05
         assert ref._version == version
     got = [call(ref) for _ in range(3)]
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = call(ref)
     for res in got:
         assert_same(res, want)
@@ -336,14 +354,20 @@ def test_seed_and_step_as_ints_or_tensors_give_the_uncaptured_bits(
             state, x = res.state, _next_x(x, res.u0)
         return out
 
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = chain()
-    got = chain()
+    spans.reset()
+    with spans.recording():
+        got = chain()
     assert_same(got, want, scalars)
     (g,) = psolver._CALL_GRAPHS.values()
     assert len(graphs_on_cpu) == 1
-    assert g.copy_bytes == 4 * 4 + 5 * 2 * 4 + 8 + 2 * 8
+    copies = [s for s in spans.between(0, 1 << 62).spans
+              if s.name == "graph.copy_in"]
+    assert [s.n for s in copies] == [4 * 4 + 5 * 2 * 4 + 8 + 2 * 8] * (
+        CALLS - 1)
     assert len(g.slots) == {"int": 2, "tensor": 0, "mixed": 1}[scalars]
+    spans.reset()
 
 
 @pytest.mark.parametrize("entry", ["solve", "solve_batched",
@@ -433,14 +457,58 @@ def test_the_counts_of_replays_and_misses(graphs_on_cpu):
         psolver.solve(ARM, cfg, ref, x, state, backend="cuda", seed=4,
                       step=i)
     assert (psolver.REPLAYS - replays, psolver.MISSES - misses) == (9, 4)
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         solve_chain("cuda", "seed", torch.float32, calls=3)
     assert (psolver.REPLAYS - replays, psolver.MISSES - misses) == (9, 4)
 
 
-def test_keys_separate_backend_dtype_shape_options_and_noise(graphs_on_cpu):
+# ---- both users: keys and launch counts -----------------------------------
+
+def loop_chain(calls, backend="cuda", dtype=torch.float32, ref=None,
+               steps=None):
+    """``calls`` chunks of the per-step loop on ``backend``: one run of
+    ``calls`` chunks (or of ``steps`` steps) from a batch of two."""
+    cfg = _cfg()
+    st = P.init_sim_batch(cfg, SIM, [3, 4], dtype=dtype, device="cpu")
+    n = steps or calls * ploop._chunk_steps(backend)
+    return ploop._step_loop(ARM, cfg, SIM, _ref(dtype) if ref is None
+                            else ref, st, n, backend=backend)
+
+
+PATH = _ref()        # one path for the per-call uses: its address is keyed
+USES = {     # a user's ``calls`` uses of the cuda backend's program
+    "solve": lambda calls: solve_chain("cuda", "seed", torch.float32,
+                                       calls=calls, ref=PATH),
+    "solve_batched": lambda calls: batched_chain("seed", torch.float32,
+                                                 calls=calls, ref=PATH),
+    "chunk": loop_chain,
+}
+PER_USE = {  # the launches a use records, and its scenarios
+    "solve": ({(cuda_solve, "LAUNCHES"): 1, (cuda_step, "HEAD_LAUNCHES"): 1},
+              1),
+    "solve_batched": ({(cuda_solve, "LAUNCHES"): 1,
+                       (cuda_step, "HEAD_LAUNCHES"): 1}, 3),
+    "chunk": ({(cuda_solve, "LAUNCHES"): CHUNK,
+               (cuda_step, "HEAD_LAUNCHES"): 1,
+               (cuda_step, "TAIL_LAUNCHES"): CHUNK,
+               (cuda_step, "CARRIED_HEADS"): CHUNK - 1}, 2),
+}
+
+
+def _forced_tile(monkeypatch, calls):
+    """``calls()`` with the solve's tile forced to 32 through
+    ``cuda_solve._plan``, as ``fused_timing.py --tile`` forces one."""
+    plan = cuda_solve._plan
+    monkeypatch.setattr(cuda_solve, "_plan", lambda c, K, t, *a, **k:
+                        plan(c, K, t or 32, *a, **k))
+    calls()
+    monkeypatch.setattr(cuda_solve, "_plan", plan)
+
+
+def _solve_keys(monkeypatch):
+    """Variants of ``solve``, each called twice (its second call
+    captures)."""
     ref, x = _ref(), _x0()
-    keys = set()
 
     def calls(**kw):
         cfg = kw.pop("cfg", _cfg())
@@ -450,49 +518,90 @@ def test_keys_separate_backend_dtype_shape_options_and_noise(graphs_on_cpu):
         path = ref.to(dtype)
         for _ in range(2):
             psolver.solve(ARM, cfg, path, x.to(dtype), state, **kw)
-        new = set(psolver._CALL_GRAPHS) - keys
-        assert len(new) == 1, kw
-        keys.update(new)
-        return new.pop()
 
-    eager = calls(eps=_eps(0, (16, 5)))
-    f64 = calls(eps=_eps(0, (16, 5), torch.float64), dtype=torch.float64)
-    wide = calls(eps=_eps(0, (32, 5)), cfg=_cfg(32))
-    drawn = calls(generator=torch.Generator().manual_seed(0))
-    cuda = calls(eps=_eps(0, (16, 5)), backend="cuda")
-    seeded = calls(seed=3, backend="cuda")
-    with_eps = calls(seed=3, backend="cuda", want_eps=True)
-    assert len(keys) == 7 == len(graphs_on_cpu)
-    assert eager[3] == "eager" and cuda[3] == "cuda"
-    assert eager[4:6] == (ARM, _cfg())
-    assert seeded[:-1] != with_eps[:-1] and eager[:-1] != drawn[:-1]
-    assert f64[-1] != eager[-1] and wide[-1] != eager[-1]
-    assert cuda[-2] == psolver.step_solve_plan(_cfg(), 1, torch.device("cpu"))
+    return {
+        "eager": lambda: calls(eps=_eps(0, (16, 5))),
+        "float64": lambda: calls(eps=_eps(0, (16, 5), torch.float64),
+                                 dtype=torch.float64),
+        "K=32": lambda: calls(eps=_eps(0, (32, 5)), cfg=_cfg(32)),
+        "generator": lambda: calls(
+            generator=torch.Generator().manual_seed(0)),
+        "cuda": lambda: calls(eps=_eps(0, (16, 5)), backend="cuda"),
+        "seeded": lambda: calls(seed=3, backend="cuda"),
+        "want_eps": lambda: calls(seed=3, backend="cuda", want_eps=True),
+        # a config object of its own, whose plan is computed anew
+        "tile 32": lambda: _forced_tile(monkeypatch, lambda: calls(
+            eps=_eps(0, (16, 5)), backend="cuda", cfg=_cfg())),
+    }
 
 
-# ---- launch counts ---------------------------------------------------------------
+def _chunk_keys(monkeypatch):
+    """Variants of the per-step loop, each run twice (its second run's
+    first chunk captures)."""
+    def twice(**kw):
+        for _ in range(2):
+            loop_chain(1, **kw)
 
-@pytest.mark.parametrize("entry", ["solve", "solve_batched"])
-def test_a_replay_adds_the_launches_its_capture_recorded(
-        graphs_on_cpu, counted_kernels, entry):
-    counts = cuda_graphs.launch_counts()
-    if entry == "solve":
-        solve_chain("cuda", "seed", torch.float32, calls=5)
+    return {
+        "cuda": twice,
+        "eager": lambda: twice(backend="eager"),
+        "float64": lambda: twice(dtype=torch.float64),
+        "3 steps": lambda: twice(steps=CHUNK - 1),
+        "100 path rows": lambda: twice(ref=_ref()[:100]),
+        "tile 32": lambda: _forced_tile(monkeypatch, twice),
+    }
+
+
+@pytest.mark.parametrize("user", ["solve", "chunk"])
+def test_keys_separate_backend_dtype_shape_options_and_noise(
+        graphs_on_cpu, monkeypatch, user):
+    """Each variant of a user's calls is a key of its own and a capture
+    of its own: the launch plan (a tile forced through
+    ``cuda_solve._plan``), the backend, the dtype and the shapes, and a
+    call's options and noise source or a chunk's steps and path rows."""
+    cache = psolver._CALL_GRAPHS if user == "solve" else ploop._GRAPHS
+    keys = {}
+    for name, calls in (_solve_keys if user == "solve" else _chunk_keys)(
+            monkeypatch).items():
+        before = set(cache)
+        calls()
+        (keys[name],) = set(cache) - before
+        assert cache[keys[name]].captured is not None, name
+    assert len(set(keys.values())) == len(keys) == len(graphs_on_cpu)
+    plan = psolver.step_solve_plan(_cfg(), 1 if user == "solve" else 2,
+                                   torch.device("cpu"))
+    if user == "solve":
+        eager, cuda = keys["eager"], keys["cuda"]
+        assert eager[3] == "eager" and cuda[3] == "cuda"
+        assert eager[4:6] == (ARM, _cfg())
+        assert cuda[-2] == plan != keys["tile 32"][-2]
     else:
-        batched_chain("seed", torch.float32, calls=5)
+        assert [keys[k][3:5] for k in ("cuda", "eager", "3 steps")] == [
+            ("cuda", CHUNK), ("eager", 1), ("cuda", CHUNK - 1)]
+        assert keys["cuda"][8][0] == plan != keys["tile 32"][8][0]
+
+
+@pytest.mark.parametrize("user", sorted(USES))
+def test_a_replay_adds_the_launches_its_capture_recorded(graphs_on_cpu,
+                                                         user):
+    """Five uses: the first runs uncaptured and counts its launches, the
+    second captures (which counts none) and replays, and each replay adds
+    what the capture recorded; nothing else is counted."""
+    counts = cuda_graphs.launch_counts()
+    USES[user](5)
     (c,) = graphs_on_cpu
-    assert c.recorded == psolver._SOLVE_LAUNCHES
-    after = cuda_graphs.launch_counts()
-    assert after[0] - counts[0] == 5 and after[1] - counts[1] == 5
-    assert after[2:] == counts[2:]
+    assert c.recorded == cuda_graphs.expect(PER_USE[user][0])
+    assert cuda_graphs.launch_counts() == tuple(
+        a + 5 * b for a, b in zip(counts, c.recorded))
 
 
-@pytest.mark.parametrize("entry", ["solve", "solve_batched"])
+@pytest.mark.parametrize("user", sorted(USES))
 def test_a_replay_adds_the_partials_its_capture_recorded(
-        graphs_on_cpu, counted_kernels, monkeypatch, entry):
-    """A capture whose solve launch also counted its tile partials (as
+        graphs_on_cpu, monkeypatch, user):
+    """A capture whose solve launches also counted their tile partials (as
     the kernel's wrapper does on the card, ``cuda_solve.PARTIALS``) is
-    held to its launches alone; each replay adds the partials with them."""
+    held to its launches alone; each replay adds the partials with
+    them."""
     solve = cuda_solve.solve_batched
 
     def partials(*a, **k):
@@ -501,57 +610,75 @@ def test_a_replay_adds_the_partials_its_capture_recorded(
 
     monkeypatch.setattr(cuda_solve, "solve_batched", partials)
     before = cuda_solve.PARTIALS
-    if entry == "solve":
-        solve_chain("cuda", "seed", torch.float32, calls=5)
-        per_call = 4
-    else:
-        batched_chain("seed", torch.float32, calls=5)
-        per_call = 4 * 3
+    USES[user](5)
+    launches, B = PER_USE[user]
+    per_use = 4 * B * launches[cuda_solve, "LAUNCHES"]
     (c,) = graphs_on_cpu
-    assert c.recorded[-1] == per_call
-    assert c.recorded[:-1] == psolver._SOLVE_LAUNCHES[:-1]
-    # the first call runs uncaptured and counts; the capture counts nothing
-    assert cuda_solve.PARTIALS - before == 5 * per_call
+    assert c.recorded[-1] == per_use
+    assert c.recorded[:-1] == cuda_graphs.expect(launches)[:-1]
+    # the first use runs uncaptured and counts; the capture counts nothing
+    assert cuda_solve.PARTIALS - before == 5 * per_use
 
 
 @pytest.mark.parametrize("per_solve", [0, 2])
+@pytest.mark.parametrize("user", ["solve", "chunk"])
 def test_a_cuda_capture_without_one_launch_raises(
-        graphs_on_cpu, counted_kernels, per_solve):
+        graphs_on_cpu, counted_kernels, user, per_solve):
+    """A capture that recorded no solve kernel launch a solve (the kernel
+    left the path) or two raises, naming what it recorded and what its
+    user expects, and counts nothing."""
     counted_kernels(per_solve)
-    cfg, ref, x = _cfg(), _ref(), _x0()
-    state = P.init_state(cfg, device="cpu")
-    psolver.solve(ARM, cfg, ref, x, state, seed=1, backend="cuda")
+    USES[user](1)
     counts = cuda_graphs.launch_counts()
-    with pytest.raises(RuntimeError, match="a captured solve recorded"):
-        psolver.solve(ARM, cfg, ref, x, state, seed=1, backend="cuda")
+    with pytest.raises(RuntimeError, match=(
+            f"a captured {user} recorded .*, not cuda_solve.LAUNCHES "
+            f"{PER_USE[user][0][cuda_solve, 'LAUNCHES']}, ")):
+        USES[user](1)
     assert cuda_graphs.launch_counts() == counts
 
 
-@pytest.mark.parametrize("entry", ["solve", "viz_rollouts"])
-def test_an_eager_capture_with_a_port_kernel_launch_raises(
-        graphs_on_cpu, monkeypatch, entry):
-    name = "_solve_eager" if entry == "solve" else "rollout_trajectory"
-    inner = getattr(psolver, name)
+def _eager_use(user, monkeypatch, counter):
+    """One use of ``user``'s eager program with one launch of ``counter``
+    in it."""
+    mod, name = counter
+    owner, inner = {"solve": (psolver, "_solve_eager"),
+                    "viz_rollouts": (psolver, "rollout_trajectory"),
+                    "chunk": (ploop, "_eager_step")}[user]
+    real = getattr(owner, inner)
 
     def launching(*a, **k):
-        cuda_sim.FLEET_LAUNCHES += 1
-        return inner(*a, **k)
+        setattr(mod, name, getattr(mod, name) + 1)
+        return real(*a, **k)
 
-    monkeypatch.setattr(psolver, name, launching)
+    monkeypatch.setattr(owner, inner, launching)
     cfg, ref, x = _cfg(), _ref(), _x0()
     state = P.init_state(cfg, device="cpu")
     eps = _eps(0, (16, 5))
-    if entry == "solve":
-        call = lambda: psolver.solve(ARM, cfg, ref, x, state, eps=eps)
-    else:
-        call = lambda: psolver.viz_rollouts(ARM, cfg, x, state.u_prev,
-                                            state.u_prev, eps,
-                                            eps[:, 0, 0])
-    call()
+    if user == "solve":
+        return lambda: psolver.solve(ARM, cfg, ref, x, state, eps=eps)
+    if user == "viz_rollouts":
+        return lambda: psolver.viz_rollouts(ARM, cfg, x, state.u_prev,
+                                            state.u_prev, eps, eps[:, 0, 0])
+    return lambda: loop_chain(1, backend="eager")
+
+
+@pytest.mark.parametrize("counter", [(cuda_solve, "LAUNCHES"),
+                                     (cuda_step, "TAIL_LAUNCHES"),
+                                     (cuda_sim, "FLEET_LAUNCHES")])
+@pytest.mark.parametrize("user", ["solve", "viz_rollouts", "chunk"])
+def test_an_eager_capture_with_a_port_kernel_launch_raises(
+        graphs_on_cpu, monkeypatch, user, counter):
+    """The eager backend and the re-rollouts never run a port kernel: a
+    capture that records one raises, naming it, and leaves every count as
+    it found it."""
+    use = _eager_use(user, monkeypatch, counter)
+    use()
     counts = cuda_graphs.launch_counts()
-    with pytest.raises(RuntimeError, match=f"a captured {entry} recorded "
-                       f"cuda_sim.FLEET_LAUNCHES"):
-        call()
+    mod, name = counter
+    with pytest.raises(RuntimeError, match=(
+            f"a captured {user} recorded {mod.__name__.rsplit('.', 1)[1]}."
+            rf"{name} \d, not no kernel launch")):
+        use()
     assert cuda_graphs.launch_counts() == counts
 
 
@@ -599,7 +726,7 @@ def test_a_captured_call_reads_nothing_from_the_host(graphs_on_cpu,
         return capture(strict, *a, **k)
 
     dtype = torch.float64
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         solved = solve_chain("eager", "eps", dtype, calls=4)
         want = solved if chain != "viz" else viz_chain(solved, dtype)
     monkeypatch.setattr(cuda_graphs, "capture", guarded)
@@ -671,13 +798,13 @@ def test_graphs_equal_the_uncaptured_calls_on_the_card(dev, monkeypatch,
     monkeypatch.setattr(psolver, "_CALL_GRAPHS", type(
         psolver._CALL_GRAPHS)())
     if chain == "viz":
-        with psolver._uncaptured():
+        with cuda_graphs.uncaptured():
             solved = solve_chain("eager", "eps", dtype, device=dev)
         run = lambda: viz_chain(solved, dtype, device=dev)
     else:
         run = lambda: CHAINS[chain](dtype, device=dev)
     counts = cuda_graphs.launch_counts()
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = run()
     between = cuda_graphs.launch_counts()
     got = run()
@@ -720,7 +847,7 @@ def test_back_to_back_seeded_solves_equal_the_uncaptured_on_the_card(dev):
         return out
 
     psolver._CALL_GRAPHS.clear()
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = chain()
     replays = psolver.REPLAYS
     got = chain()
@@ -748,7 +875,7 @@ def test_a_path_written_without_a_version_bump_is_seen_on_the_card(
     ref.data.add_(0.05)
     assert ref._version == version
     got = call()
-    with psolver._uncaptured():
+    with cuda_graphs.uncaptured():
         want = call()
     assert_same(got, want)
     assert not torch.equal(got.costs, before.costs)

@@ -280,18 +280,17 @@ def _solve_cpu_args(cfg, B):
                                          (128, 4096, 1)])
 def test_solve_launch_is_one_call_with_the_streams_counters(
         fake_card, fresh_counters, K, B, n_tiles):
-    """One C call a solve, counted in LAUNCHES and not in
-    COMBINE_LAUNCHES; a scenario of one tile gets no workspace (the kernel
+    """One C call a solve, counted once in LAUNCHES; a scenario of one
+    tile gets no workspace (the kernel
     combines it in shared memory); every launch on a stream gets that
     stream's zeroed counters."""
     lib = fake_card(_FakeLib())
     cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=5)
-    before = (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES)
+    before = cuda_solve.LAUNCHES
     out, s, eps, (m, eta) = cuda_solve._launch(
         P.ArmParams(), cfg, *_solve_cpu_args(cfg, B), torch.arange(B), None,
         None, None, False, True, True, None, None)
-    assert (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES) == (
-        before[0] + 1, before[1])
+    assert cuda_solve.LAUNCHES == before + 1
     assert out.shape == (B, 5, 2) and s.shape == (B, K) and eps is None
     (name, a), = lib.calls
     assert name == "mppi_solve_launch" and a[1] == B

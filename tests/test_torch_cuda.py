@@ -193,11 +193,10 @@ def test_solve_kernel_matches_twin(dev, K, T, B, noise):
           if noise == "eps" else
           dict(seed=torch.arange(B, device=dev) + 7,
                step=torch.arange(B, device=dev) * 5 + 3))
-    before = (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES)
+    before = cuda_solve.LAUNCHES
     got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)
-    # one launch, and no separate combine
-    assert (cuda_solve.LAUNCHES, cuda_solve.COMBINE_LAUNCHES) == (
-        before[0] + 1, before[1])
+    # one launch, the combine in it
+    assert cuda_solve.LAUNCHES == before + 1
     want = cuda_solve.solve_batched_reference(ARM, cfg, x0, u, win, **kw)
     _check_solve(got, want)
     again = cuda_solve.solve_batched(ARM, cfg, x0, u, win, **kw)

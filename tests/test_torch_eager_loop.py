@@ -12,8 +12,9 @@ backend="eager")``) on the CPU, at small sizes:
   step, and float64 keeping its dtypes;
 * the graph path under a capture that records each chunk's program and
   replays it (:func:`replaying_capture`): the uncaptured loop's bits, one
-  graph a chunk length, keyed by the backend, and a raise when a port
-  kernel's launch shows in an eager chunk;
+  graph a chunk length, keyed by the backend, recording no launch of a
+  port kernel (the raise when one shows, and the key's backend, are
+  ``tests/test_torch_call_graphs.py``'s cases of both users);
 * no host reads: a chunk runs with ``Tensor.__bool__``, ``__int__``,
   ``__float__``, ``__index__``, ``item`` and ``tolist`` and a tensor made
   from host data raising, as a capture on the card would;
@@ -39,13 +40,11 @@ import torch
 
 import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.models.arm import fk_full
-from mppi_robotarm_tpu_torch.ops import cuda_sim, cuda_solve, cuda_step
 from mppi_robotarm_tpu_torch.ops.weights import (effective_sample_size,
                                                  ordered_sum, weight_entropy)
 from mppi_robotarm_tpu_torch.sim import loop as ploop
 from mppi_robotarm_tpu_torch.tools import eager_loop
 from mppi_robotarm_tpu_torch.utils import cuda_graphs
-from _torch_port_helpers import StandInStream as _Stream
 from _torch_port_helpers import replaying_capture  # noqa: F401 (fixture)
 
 try:        # the GPU machine has no JAX: there only the cuda tests run
@@ -203,6 +202,11 @@ def test_chunked_loop_with_injected_noise(monkeypatch):
 
 # ---- graphs, replayed on the CPU --------------------------------------------
 
+def _uncaptured_loop(*args, **kw):
+    with cuda_graphs.uncaptured():
+        return ploop._step_loop(*args, **kw)
+
+
 @pytest.mark.parametrize("chunk", [1, 3, 16])
 def test_graphs_replay_the_uncaptured_bits(replaying_capture, monkeypatch,
                                            chunk):
@@ -210,57 +214,21 @@ def test_graphs_replay_the_uncaptured_bits(replaying_capture, monkeypatch,
     cfg, ref = _cfg(32, 6), _ref()
     states = _batch(cfg, 2, step0=[0, 4])
     steps = 10
-    want = ploop._step_loop(ARM, cfg, SIM, ref, states, steps, graphs=False,
+    want = _uncaptured_loop(ARM, cfg, SIM, ref, states, steps,
                             backend="eager")
     counts = cuda_graphs.launch_counts()
-    got = ploop._step_loop(ARM, cfg, SIM, ref, states, steps, graphs=True,
+    got = ploop._step_loop(ARM, cfg, SIM, ref, states, steps,
                            backend="eager")
     assert_same_run(got, want)
-    again = ploop._step_loop(ARM, cfg, SIM, ref, got[0], steps, graphs=True,
+    again = ploop._step_loop(ARM, cfg, SIM, ref, got[0], steps,
                              backend="eager")
-    assert_same_run(again, ploop._step_loop(ARM, cfg, SIM, ref, want[0],
-                                            steps, graphs=False,
-                                            backend="eager"))
+    assert_same_run(again, _uncaptured_loop(ARM, cfg, SIM, ref, want[0],
+                                            steps, backend="eager"))
     lengths = {min(chunk, steps), steps % chunk} - {0}
-    assert sorted(g.n for g in ploop._GRAPHS.values()) == sorted(lengths)
-    assert all(k[0] == "eager" for k in ploop._GRAPHS)
-    assert all(g.launches == 0 and g.step_launches == (0, 0, 0)
-               for g in ploop._GRAPHS.values())
-    assert cuda_graphs.launch_counts() == counts
-
-
-def test_graph_key_holds_the_backend():
-    cfg, ref = _cfg(32, 6), _ref()
-    states = _batch(cfg, 1)
-    key = lambda backend: ploop._graph_key(ARM, cfg, SIM, ref, states, 4,
-                                           _Stream, backend)
-    assert key("eager") != key("cuda")
-    assert key("eager")[0] == "eager" and key("eager")[7] is None
-    assert key("cuda") == ploop._graph_key(ARM, cfg, SIM, ref, states, 4,
-                                           _Stream)
-
-
-@pytest.mark.parametrize("counter", [(cuda_solve, "LAUNCHES"),
-                                     (cuda_step, "TAIL_LAUNCHES"),
-                                     (cuda_sim, "FLEET_LAUNCHES")])
-def test_an_eager_chunk_with_a_port_kernel_launch_raises(
-        replaying_capture, monkeypatch, counter):
-    """The eager backend never runs a port kernel: a capture that records
-    one raises, naming it, and leaves every count as it found it."""
-    mod, name = counter
-    step = ploop._eager_step
-
-    def launching(*a, **k):
-        setattr(mod, name, getattr(mod, name) + 1)
-        return step(*a, **k)
-
-    monkeypatch.setattr(ploop, "_eager_step", launching)
-    cfg, ref = _cfg(32, 6), _ref()
-    counts = cuda_graphs.launch_counts()
-    with pytest.raises(RuntimeError, match=f"launched the port's kernels: "
-                       f".*{name} 3"):
-        ploop._capture(ARM, cfg, SIM, ref, _batch(cfg, 2), 3, _Stream,
-                       backend="eager")
+    assert sorted(k[4] for k in ploop._GRAPHS) == sorted(lengths)
+    assert all(k[3] == "eager" for k in ploop._GRAPHS)
+    assert all(e.captured.recorded == cuda_graphs.NO_LAUNCH
+               for e in ploop._GRAPHS.values())
     assert cuda_graphs.launch_counts() == counts
 
 
@@ -437,10 +405,10 @@ def test_graphs_equal_the_uncaptured_loop_on_the_card(dev, monkeypatch, K, T,
     ref = _arc(dtype, dev)
     states = _batch(cfg, B, dtype, dev)
     steps = 3 * ploop._EAGER_GRAPH_STEPS + 2
-    want = ploop._step_loop(ARM, cfg, SIM, ref, states, steps, graphs=False,
+    want = _uncaptured_loop(ARM, cfg, SIM, ref, states, steps,
                             backend="eager")
     got = P.simulate_batch(ARM, cfg, SIM, ref, states, steps)
-    assert all(k[0] == "eager" for k in ploop._GRAPHS)
+    assert all(k[3] == "eager" for k in ploop._GRAPHS)
     for f, a, c in zip(got[1]._fields, got[1], want[1]):
         assert torch.equal(a, c), f
     for a, c in zip(ploop._state_tensors(got[0]),

@@ -250,29 +250,40 @@ def test_the_cpu_entry_points_emit_their_spans():
 
 
 @pytest.fixture
-def call_graphs_on_cpu(replaying_capture, counted_kernels,  # noqa: F811
-                       monkeypatch):
-    monkeypatch.setattr(psolver, "_GRAPH_DEVICES", ("cuda", "cpu"))
+def call_graphs_on_cpu(replaying_capture, counted_kernels):  # noqa: F811
+    """The captured programs on CPU tensors under the replaying stand-in,
+    the cuda backend's kernels counted as on the card."""
 
 
 def test_the_per_call_graph_emits_its_spans(call_graphs_on_cpu):
-    """First call warm, second captured and replayed, third copied in and
-    replayed; ``graph.copy_in`` counts the bytes of every input it
-    stages: x, u_prev, wp_idx, and seed and step through the pinned
-    buffer; the path is read where it lies."""
+    """First call warm, second captured, copied in and replayed, third
+    copied in and replayed; each hands back its result through
+    ``graph.clone_out``; ``graph.copy_in`` counts the bytes of every
+    input it stages: x, u_prev, wp_idx, and seed and step through the
+    pinned buffer; the path is read where it lies."""
     with spans.recording():
         _solves(3)
     calls = [[c.name for c in recorded() if c.root == s.index
               and c.index != s.index] for s in recorded()
              if s.name == "solve"]
     assert calls == [
-        ["solve.args", "graph.key", "graph.warm"],
-        ["solve.args", "graph.key", "graph.capture", "graph.replay",
-         "graph.clone_out"],
+        ["solve.args", "graph.key", "graph.warm", "graph.clone_out"],
+        ["solve.args", "graph.key", "graph.capture", "graph.copy_in",
+         "graph.replay", "graph.clone_out"],
         ["solve.args", "graph.key", "graph.copy_in", "graph.replay",
          "graph.clone_out"]]
-    (copy,) = [s for s in recorded() if s.name == "graph.copy_in"]
-    assert copy.n == 4 * 4 + 5 * 2 * 4 + 3 * 8
+    copies = [s.n for s in recorded() if s.name == "graph.copy_in"]
+    assert copies == [4 * 4 + 5 * 2 * 4 + 3 * 8] * 2
+
+
+def test_a_per_call_replay_copies_440_bytes(call_graphs_on_cpu):
+    """A real-time caller's replay at T = 50 stages 440 B: the
+    observation (16), u_prev (400), the waypoint index (8), and seed and
+    step (16) through the pinned buffer; the path none."""
+    with spans.recording():
+        _solves(4, _cfg(16, 50))
+    copies = [s.n for s in recorded() if s.name == "graph.copy_in"]
+    assert copies == [440] * 3
 
 
 def test_capture_seconds_are_the_capture_spans(call_graphs_on_cpu):
@@ -288,31 +299,69 @@ def test_capture_seconds_are_the_capture_spans(call_graphs_on_cpu):
     assert g.captured.capture_s > 0 and not spans.allocated()
 
 
+def _loop_spans(run) -> list:
+    """The spans directly under the ``simulate`` root of ``run()``."""
+    spans.reset()
+    with spans.recording():
+        with spans.span("simulate"):
+            run()
+    return [s for s in recorded() if s.parent == 0]
+
+
 def test_the_step_loop_emits_its_chunk_spans(replaying_capture,  # noqa: F811
                                              monkeypatch):
-    """Chunks of 4 over 10 steps (the eager backend's, whose capture the
-    stand-in takes on the CPU): the first chunk's graph copies its state,
-    clock and path in, the second replays the same graph (no copy), the
-    last (2 steps) is a graph of its own; every chunk copies its rows out,
-    then the final state is cloned out."""
+    """Three runs in chunks of 4 over 10 steps (the eager backend's, whose
+    capture the stand-in takes on the CPU).  The first runs each chunk
+    length's first chunk warm and captures the 4-step chunk at its
+    second; the second captures the 2-step chunk; the third replays all.
+    A run copies its state, clock and path in at its first replay and at
+    each change of graph, not into the graph the last replay left them
+    in; every chunk copies its rows out, then the final state is cloned
+    out."""
     monkeypatch.setattr(ploop, "_EAGER_GRAPH_STEPS", 4)
     cfg, ref = _cfg(), _ref()
     st = ploop._as_batch(P.init_sim(cfg, SIM, seed=4, device="cpu"))
-    with spans.recording():
-        with spans.span("simulate"):
-            ploop._step_loop(ARM, cfg, SIM, ref, st, 10, graphs=True,
-                             backend="eager")
-    chunk = ["graph.key", "graph.copy_in", "graph.replay", "loop.rows_out"]
-    got = [s for s in recorded() if s.parent == 0]
-    assert names(got) == [*chunk, chunk[0], *chunk[2:], *chunk,
-                          "loop.state_out"]
+    run = lambda: ploop._step_loop(ARM, cfg, SIM, ref, st, 10,
+                                   backend="eager")
+    key, out = "graph.key", "loop.rows_out"
+    warm = [key, "graph.warm", out]
+    capture = [key, "graph.capture", "graph.copy_in", "graph.replay", out]
+    copy = [key, "graph.copy_in", "graph.replay", out]
+    replay = [key, "graph.replay", out]
     state_bytes = sum(v.nbytes for v in ploop._state_tensors(
         st._replace(seed=torch.as_tensor(st.seed))))
-    copies = [s.n for s in got if s.name == "graph.copy_in"]
-    assert copies == [state_bytes + 8 + ref.nbytes] * 2
-    rows = [s.n for s in got if s.name == "loop.rows_out"]
     per_step = sum(r.nbytes for r in ploop._row_buffers(1, st, ref))
-    assert rows == [4 * per_step, 4 * per_step, 2 * per_step]
+    for want in ([*warm, *capture, *warm], [*copy, *replay, *capture],
+                 [*copy, *replay, *copy]):
+        got = _loop_spans(run)
+        assert names(got) == [*want, "loop.state_out"]
+        copies = [s.n for s in got if s.name == "graph.copy_in"]
+        assert copies == [state_bytes + 8 + ref.nbytes] * want.count(
+            "graph.copy_in")
+        rows = [s.n for s in got if s.name == out]
+        assert rows == [4 * per_step, 4 * per_step, 2 * per_step]
+
+
+def test_a_continuing_chunk_copies_nothing_in(call_graphs_on_cpu,
+                                              monkeypatch):
+    """A run at B = 1 of three chunks of one graph (the cuda backend's, in
+    chunks of 4): once captured, its first chunk copies the state, clock
+    and path in, and the two after it replay on what the last replay
+    left, copying nothing; the records are the uncaptured loop's."""
+    monkeypatch.setattr(ploop, "_GRAPH_STEPS", 4)
+    cfg, ref = _cfg(), _ref()
+    st = P.init_sim(cfg, SIM, seed=4, device="cpu")
+    run = lambda: P.simulate(ARM, cfg, SIM, ref, st, 12, backend="cuda")
+    run()                                       # warm, then captured
+    with cuda_graphs.uncaptured():
+        want = run()
+    spans.reset()
+    with spans.recording():
+        got = run()
+    assert [s.name for s in recorded()].count("graph.copy_in") == 1
+    assert [s.name for s in recorded()].count("graph.replay") == 3
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
 
 
 def test_the_trace_holds_the_spans_on_its_time_base(tmp_path):

@@ -50,6 +50,7 @@ from mppi_robotarm_tpu_torch.ops import cuda_solve, cuda_step
 from mppi_robotarm_tpu_torch.ops.weights import (effective_sample_size,
                                                  mppi_weights, weight_entropy)
 from mppi_robotarm_tpu_torch.sim import loop as ploop
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
 try:                                     # the CPU parity tests' reference
     import jax
@@ -426,10 +427,11 @@ def test_kernels_equal_their_plain_versions(dev, K, T, B):
 
 
 @pytest.mark.cuda
-def test_graph_loop_runs_one_head_and_one_tail_a_step(dev):
+def test_graph_loop_runs_one_head_and_one_tail_a_step(dev, monkeypatch):
     """A chunk of n steps launches one step head, then a solve and a tail
     a step, n - 1 of the tails carrying the next step's head: a head a
     chunk, a tail and a solve a step."""
+    monkeypatch.setattr(ploop, "_GRAPHS", type(ploop._GRAPHS)())
     cfg = _cfg(512, 16)
     ref = torch.as_tensor(P.synth_circle_path(2000), device=dev)
     states = P.init_sim_batch(cfg, SIM, [1, 2], device=dev)
@@ -445,8 +447,12 @@ def test_graph_loop_runs_one_head_and_one_tail_a_step(dev):
                 cuda_step.CARRIED_HEADS - before[2],
                 cuda_solve.LAUNCHES - before[3]) == (
                     chunks, steps, steps - chunks, steps)
-    assert all(g.step_launches == (1, g.n, g.n - 1)
-               for g in ploop._GRAPHS.values())
+    for key, e in ploop._GRAPHS.items():
+        n = key[4]                          # the chunk's steps
+        assert e.captured.recorded[:-1] == cuda_graphs.expect({
+            (cuda_solve, "LAUNCHES"): n, (cuda_step, "HEAD_LAUNCHES"): 1,
+            (cuda_step, "TAIL_LAUNCHES"): n,
+            (cuda_step, "CARRIED_HEADS"): n - 1})[:-1]
 
 
 @pytest.mark.cuda

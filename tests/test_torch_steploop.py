@@ -10,18 +10,23 @@ Records and final state must be equal bit for bit: the two run the same
 operations in the same order.  The chunk boundaries are moved with a small
 ``_GRAPH_STEPS``; one case runs the package's own.
 
+Under the replaying stand-in (``_torch_port_helpers.py::
+replaying_capture``): a new key's first chunk runs uncaptured, with the
+graph loop's bits, and the tails a chunk ran on a cluster are held to its
+key's tail layout.  The cases the loop's chunks share with the per-call
+graphs (keys, launches and partials a replay adds, the raise on other
+launches) are in ``tests/test_torch_call_graphs.py``.
+
 Marked ``cuda`` and skipped without a card: the graph loop against the
-eager chunked loop bit for bit (K=1024 B=1, K=128 B=64, a path end inside
-a chunk), the graph cache, two streams, the launch count, and a change of
-the solve's layout.  The file imports nothing of JAX, so on a GPU machine
-without JAX:
+uncaptured chunked loop bit for bit (K=1024 B=1, K=128 B=64, a path end
+inside a chunk), the graph cache, two streams, the launch count, and a
+change of the solve's layout.  The file imports nothing of JAX, so on a
+GPU machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_steploop.py -m cuda
 """
 
-import contextlib
 import dataclasses
-from collections import OrderedDict
 
 import numpy as np
 import pytest
@@ -34,6 +39,8 @@ from mppi_robotarm_tpu_torch.ops.weights import (effective_sample_size,
                                                  weight_entropy)
 from mppi_robotarm_tpu_torch.sim import loop as ploop
 from mppi_robotarm_tpu_torch.utils import cuda_graphs
+from _torch_port_helpers import (counted_kernels,  # noqa: F401 (fixtures)
+                                 replaying_capture)
 
 torch.set_num_threads(1)
 ARM, SIM = P.ArmParams(), P.SimConfig()
@@ -197,178 +204,94 @@ def test_float64_state_keeps_its_dtypes(small_chunks):
                     list_loop(ARM, cfg, SIM, ref, states, steps))
 
 
-class _Stream:
-    cuda_stream = 7
-
-
-def test_graph_key_follows_the_solve_plan(monkeypatch):
-    """A graph's key holds the layout ``cuda_solve._plan`` gives when it
-    is looked up: forcing another tile (as ``fused_timing.py
-    --onpath-seeds --tile`` does) gives another key, so no graph captured
-    under one plan is replayed under another."""
-    cfg, ref = _cfg(1024, 50), _ref()
-    states = _batch(cfg, 1)
-    key = lambda: ploop._graph_key(ARM, cfg, SIM, ref, states, 64, _Stream)
-    k0 = key()
-    plan = cuda_solve._plan
-    monkeypatch.setattr(cuda_solve, "_plan",
-                        lambda c, K, t, *a, **k: plan(c, K, t or 128, *a,
-                                                      **k))
-    assert key() != k0
-    monkeypatch.setattr(cuda_solve, "_plan", plan)
-    assert key() == k0
-    assert ploop._graph_key(ARM, cfg, SIM, ref, states, 63, _Stream) != k0
-    assert ploop._graph_key(ARM, cfg, SIM, ref[:100], states, 64,
-                            _Stream) != k0
-
-
-class _SideStream:
-    """torch.cuda.Stream stand-in: the loop's own capture stream."""
-
-    cuda_stream = 11
-
-    def __init__(self, device=None):
-        pass
-
-    def wait_stream(self, other):
-        pass
-
-
 @pytest.fixture
-def fake_capture(monkeypatch):
-    """torch.cuda's graph and stream calls answered on CPU tensors: a
-    capture runs its block once, as a capture records it, and a replay
-    runs nothing.  Returns a function that makes every per-step solve
-    count ``n`` launches in ``cuda_solve.LAUNCHES``, as the kernel's
-    wrapper counts its one (the plain twin counts none), and the step's
-    head and tail one each in ``cuda_step``'s counts, and a tail that
-    carries the next head one in ``CARRIED_HEADS``, as theirs do."""
-    class Graph:
-        def replay(self):
-            pass
+def graphs_on_cpu(replaying_capture, counted_kernels, small_chunks,  # noqa
+                  monkeypatch):
+    """The loop's chunks as graphs on CPU tensors under the replaying
+    stand-in, the cuda backend's kernels counted as on the card; returns
+    the list of the captures made."""
+    made = []
+    capture = cuda_graphs.capture
 
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g, stream=None: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "Stream", _SideStream)
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream)
-    monkeypatch.setattr(cuda_graphs, "CAPTURE_STREAMS", {})
-    monkeypatch.setattr(ploop, "_GRAPHS", OrderedDict())
-    solve = cuda_solve.solve_batched
-    head, tail = cuda_step.step_head, cuda_step.step_tail
+    def counted(*a, **k):
+        made.append(capture(*a, **k))
+        return made[-1]
 
-    def counted_head(*a, **k):
-        cuda_step.HEAD_LAUNCHES += 1
-        return head(*a, **k)
+    monkeypatch.setattr(cuda_graphs, "capture", counted)
+    return made
 
-    def counted_tail(*a, **k):
-        cuda_step.TAIL_LAUNCHES += 1
-        cuda_step.CARRIED_HEADS += int(k.get("carry_head", False))
+
+def test_a_new_keys_first_chunk_runs_uncaptured(graphs_on_cpu):
+    """A run of one chunk under a new key runs it uncaptured and captures
+    nothing; the next run's chunk captures and replays.  Both give the
+    uncaptured loop's bits."""
+    cfg, ref = _cfg(), _ref()
+    states = _batch(cfg, 2)
+    with cuda_graphs.uncaptured():
+        want = ploop._step_loop(ARM, cfg, SIM, ref, states, SMALL_S)
+    assert not ploop._GRAPHS
+    first = ploop._step_loop(ARM, cfg, SIM, ref, states, SMALL_S)
+    (entry,) = ploop._GRAPHS.values()
+    assert entry.warm and entry.captured is None and not graphs_on_cpu
+    assert_same_run(first, want)
+    assert_same_run(ploop._step_loop(ARM, cfg, SIM, ref, states, SMALL_S),
+                    want)
+    assert entry.captured is not None and len(graphs_on_cpu) == 1
+
+
+def _clustered(monkeypatch, layout_clustered: bool, tails_clustered: bool):
+    """The key's tail layout that of a card of 132 SMs and 15 cluster
+    slots (a cluster a scenario at K = 16384) or of the CPU (none), and
+    the step tail counted in ``cuda_step.CLUSTER_TAILS`` or not."""
+    layout = cuda_step._tail_layout_on
+    monkeypatch.setattr(
+        cuda_step, "_tail_layout_on", lambda K, B, device:
+        cuda_step.step_tail_layout(K, B, 132, 15) if layout_clustered
+        else layout(K, B, device))
+    tail = cuda_step.step_tail
+
+    def counted(*a, **k):
+        cuda_step.CLUSTER_TAILS += int(tails_clustered)
         return tail(*a, **k)
 
-    monkeypatch.setattr(cuda_step, "step_head", counted_head)
-    monkeypatch.setattr(cuda_step, "step_tail", counted_tail)
-
-    def launches_a_solve(n):
-        def counted(*a, **k):
-            cuda_solve.LAUNCHES += n
-            return solve(*a, **k)
-        monkeypatch.setattr(cuda_solve, "solve_batched", counted)
-    return launches_a_solve
-
-
-def test_replays_count_the_launches_their_capture_recorded(fake_capture):
-    """A capture counts the solve launches it records into the graph and
-    leaves ``cuda_solve.LAUNCHES`` as it found it (the warm-up's and the
-    capture's launch run no step); each replay adds the graph's count."""
-    fake_capture(1)
-    cfg, ref = _cfg(), _ref()
-    states = _batch(cfg, 2)
-    before = cuda_solve.LAUNCHES
-    g = ploop._capture(ARM, cfg, SIM, ref, states, 3, _Stream)
-    assert (g.n, g.launches) == (3, 3)
-    assert cuda_solve.LAUNCHES == before
-    assert not cuda_solve._COUNTERS_OF       # the counters' block is closed
-    steps = 2 * ploop._GRAPH_STEPS + 5
-    ploop._step_loop(ARM, cfg, SIM, ref, states, steps, graphs=True)
-    assert sorted(g.n for g in ploop._GRAPHS.values()) == [
-        5, ploop._GRAPH_STEPS]
-    assert cuda_solve.LAUNCHES == before + steps
-    assert list(cuda_graphs.CAPTURE_STREAMS) == [None]   # one a device
-
-
-def test_replays_count_the_partials_their_capture_recorded(fake_capture,
-                                                           monkeypatch):
-    """A chunk's capture records the tile partials its solves counted
-    (``cuda_solve.PARTIALS``, as the kernel's wrapper counts them on the
-    card) and leaves the count as it found it; each replay of the chunk
-    adds them, as it adds the launches."""
-    fake_capture(1)
-    solve = cuda_solve.solve_batched
-
-    def partials(*a, **k):
-        cuda_solve.PARTIALS += 128 * a[2].shape[0]
-        return solve(*a, **k)
-
-    monkeypatch.setattr(cuda_solve, "solve_batched", partials)
-    cfg, ref = _cfg(), _ref()
-    states = _batch(cfg, 2)
-    before = cuda_solve.PARTIALS
-    g = ploop._capture(ARM, cfg, SIM, ref, states, 3, _Stream)
-    assert g.recorded[0] == 3 and g.recorded[-1] == 3 * 128 * 2
-    assert cuda_solve.PARTIALS == before
-    replays = 3
-    ploop._step_loop(ARM, cfg, SIM, ref, states,
-                     replays * ploop._GRAPH_STEPS, graphs=True)
-    (chunk,) = ploop._GRAPHS.values()
-    assert chunk.recorded[-1] == ploop._GRAPH_STEPS * 128 * 2
-    assert cuda_solve.PARTIALS == before + replays * chunk.recorded[-1]
+    monkeypatch.setattr(cuda_step, "step_tail", counted)
 
 
 def test_replays_count_the_cluster_tails_their_capture_recorded(
-        fake_capture, monkeypatch):
-    """A large-K chunk's capture records its tails that ran on a cluster
-    (``cuda_step.CLUSTER_TAILS``, as the tail's wrapper counts them on a
-    card of 132 SMs and 15 cluster slots at K = 16384) and leaves the
-    count as it found it; each replay adds them, as it adds the tails."""
-    fake_capture(1)
-    tail = cuda_step.step_tail
-
-    def clustered(*a, **k):
-        lay = cuda_step.step_tail_layout(a[1].num_samples, a[5].shape[0], 132,
-                                         15)
-        cuda_step.CLUSTER_TAILS += int(lay.cluster > 1)
-        return tail(*a, **k)
-
-    monkeypatch.setattr(cuda_step, "step_tail", clustered)
+        graphs_on_cpu, monkeypatch):
+    """A large-K chunk's capture records its tails that ran on a cluster,
+    as its key's layout says they do (``cuda_step.CLUSTER_TAILS``, as the
+    tail's wrapper counts them on the card), and leaves the count as it
+    found it; each replay adds them, as it adds the tails."""
+    _clustered(monkeypatch, True, True)
     cfg, ref = _cfg(16384, 6), _ref()
     states = _batch(cfg, 2)
     before = (cuda_step.TAIL_LAUNCHES, cuda_step.CLUSTER_TAILS)
-    g = ploop._capture(ARM, cfg, SIM, ref, states, 3, _Stream)
+    chunks = 3
+    ploop._step_loop(ARM, cfg, SIM, ref, states, chunks * SMALL_S)
+    (c,) = graphs_on_cpu
     at = [name for _, name in cuda_graphs.COUNTERS].index("CLUSTER_TAILS")
-    assert g.recorded[at] == 3
-    assert (cuda_step.TAIL_LAUNCHES, cuda_step.CLUSTER_TAILS) == before
-    replays = 3
-    ploop._step_loop(ARM, cfg, SIM, ref, states,
-                     replays * ploop._GRAPH_STEPS, graphs=True)
-    (chunk,) = ploop._GRAPHS.values()
-    assert chunk.recorded[at] == ploop._GRAPH_STEPS
+    assert c.recorded[at] == SMALL_S
     assert cuda_step.CLUSTER_TAILS - before[1] == \
-        cuda_step.TAIL_LAUNCHES - before[0] == replays * ploop._GRAPH_STEPS
+        cuda_step.TAIL_LAUNCHES - before[0] == chunks * SMALL_S
 
 
-@pytest.mark.parametrize("per_solve", [0, 2])
-def test_capture_without_one_launch_a_step_raises(fake_capture, per_solve):
-    """A chunk whose capture recorded no solve kernel launch (the kernel
-    left the path) or more than one a step raises, and counts nothing."""
-    fake_capture(per_solve)
-    cfg, ref = _cfg(), _ref()
-    before = cuda_solve.LAUNCHES
-    with pytest.raises(RuntimeError, match=f"holds {3 * per_solve} solve"):
-        ploop._capture(ARM, cfg, SIM, ref, _batch(cfg, 1), 3, _Stream)
-    assert cuda_solve.LAUNCHES == before
+@pytest.mark.parametrize("layout_clustered", [True, False])
+def test_a_chunk_capture_raises_when_cluster_tails_disagree_with_its_layout(
+        graphs_on_cpu, monkeypatch, layout_clustered):
+    """A chunk whose key's tail layout runs on a cluster must record a
+    cluster tail a step, and one whose layout does not none: a capture
+    that recorded otherwise raises and counts nothing."""
+    _clustered(monkeypatch, layout_clustered, not layout_clustered)
+    cfg, ref = _cfg(16384, 6), _ref()
+    states = _batch(cfg, 2)
+    ploop._step_loop(ARM, cfg, SIM, ref, states, SMALL_S)
+    counts = cuda_graphs.launch_counts()
+    expected = (f"not .*cuda_step.CLUSTER_TAILS {SMALL_S}" if layout_clustered
+                else f"recorded .*cuda_step.CLUSTER_TAILS {SMALL_S}, not")
+    with pytest.raises(RuntimeError, match=f"a captured chunk .*{expected}"):
+        ploop._step_loop(ARM, cfg, SIM, ref, states, SMALL_S)
+    assert cuda_graphs.launch_counts() == counts
 
 
 # ---- on the card ----------------------------------------------------------
@@ -381,7 +304,8 @@ def dev():
 
 
 def _eager(cfg, ref, states, steps):
-    return ploop._step_loop(ARM, cfg, SIM, ref, states, steps, graphs=False)
+    with cuda_graphs.uncaptured():
+        return ploop._step_loop(ARM, cfg, SIM, ref, states, steps)
 
 
 def _graph(cfg, ref, states, steps):
@@ -464,10 +388,12 @@ def test_graph_loops_on_two_streams_at_once(dev):
 
 
 @pytest.mark.cuda
-def test_graph_loop_counts_one_solve_launch_a_step(dev):
-    """The first call captures (its warm-up and capture are not counted)
-    and the second replays: each adds exactly its steps, as the launches
-    each graph's capture recorded."""
+def test_graph_loop_counts_one_solve_launch_a_step(dev, monkeypatch):
+    """The first call runs each chunk length's first chunk uncaptured, and
+    captures and replays the rest; the second captures the chunk length
+    the first ran once and replays the rest: each adds exactly its steps,
+    as the launches each graph's capture recorded."""
+    monkeypatch.setattr(ploop, "_GRAPHS", type(ploop._GRAPHS)())
     cfg, ref = _cfg(512, 16), _ref(2000, dev)
     states = _batch(cfg, 2, dev)
     steps = 2 * ploop._GRAPH_STEPS + 3
@@ -476,7 +402,9 @@ def test_graph_loop_counts_one_solve_launch_a_step(dev):
         _graph(cfg, ref, states, steps)
         torch.cuda.synchronize()
         assert cuda_solve.LAUNCHES == before + steps
-    assert all(g.launches == g.n for g in ploop._GRAPHS.values())
+    solves = [dict(zip(cuda_graphs.COUNTERS, e.captured.recorded))[
+        cuda_solve, "LAUNCHES"] for e in ploop._GRAPHS.values()]
+    assert sorted(solves) == [3, ploop._GRAPH_STEPS]
 
 
 @pytest.mark.cuda

@@ -15,7 +15,6 @@ import pytest
 import torch
 
 import mppi_robotarm_tpu_torch as P
-from mppi_robotarm_tpu_torch.mppi import solver as psolver
 from mppi_robotarm_tpu_torch.ops import cuda_sim
 from mppi_robotarm_tpu_torch.tools import (call_graphs, combine_clocks,
                                            fused_timing, sanitize,
@@ -497,7 +496,7 @@ def test_fused_timing_split_pieces_run_on_the_cpu():
     cfg = dataclasses.replace(cfg, num_samples=32, horizon=6)
     ref = torch.as_tensor(P.synth_circle_path(300))
     st = P.init_sim_batch(cfg, sim, [1, 2, 3], device="cpu")
-    st, _ = loop._step_loop(arm, cfg, sim, ref, st, 2, graphs=False)
+    st, _ = loop._step_loop(arm, cfg, sim, ref, st, 2)
     pieces = fused_timing.split_pieces(arm, cfg, sim, ref, st)
     labels = [label for label, _, _ in pieces]
     assert labels[-2:] == ["step head kernel", "step tail kernel"]
@@ -585,7 +584,6 @@ def test_call_graphs_tool_compares_on_the_cpu(
     uncaptured run, every field 0.0 (bitwise), and a perturbed or shorter
     run showing its difference; a solve chain and a ``solve_batched``
     chain bitwise with one capture each."""
-    monkeypatch.setattr(psolver, "_GRAPH_DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(call_graphs, "_events_ms", _host_ms)
     monkeypatch.setattr(call_graphs, "_reserved_by", lambda fn: fn() and 0)
     got = call_graphs.compat_run("eager", "cpu", 4, True)
