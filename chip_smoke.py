@@ -151,10 +151,17 @@ Phases (any failure raises and exits non-zero):
      and a near-deterministic softmax has an entropy near 0), and equal
      to their order in torch (``cuda_step.tail_stats_ordered``) bit for
      bit; then ``simulate(backend="cuda")`` at K=65536 for 300 steps, its
-     own launch counts (a head a chunk, a tail a step, every tail on a
-     cluster: ``cuda_step.CLUSTER_TAILS`` == ``TAIL_LAUNCHES``, where
-     phase 8's K=1024 run counts none) and the tail's device time a launch
-     in its replayed graphs against its plain version and its bound;
+     own launch counts (a head a chunk, a control tail and a statistics
+     launch a step, ``cuda_step.STATS_LAUNCHES`` == ``TAIL_LAUNCHES``, the
+     statistics on a branch beside the next solve and a chunk's last on a
+     cluster, the control tail in one block, so ``CLUSTER_TAILS`` counts
+     none, and phase 8's K=1024 run counts no statistics launch), its records and final state bit for bit
+     the same loop's with the fused tail (the branch off), and the
+     control tail's and the statistics' device time a launch in its
+     replayed graphs, their plain versions and their bounds; before it,
+     the split tail against its plain versions at K=65536, B=1 and 2
+     (the control tail, then the statistics beside a solve and in the
+     tail's own layout, a frozen scenario among them);
  21. the sample-sharded step's kernels (``csrc/shard_kernel.cu``, the
      rescale before the SUM and the finish after it) and the step kernels
      around them against their plain versions on the same card tensors:
@@ -502,11 +509,15 @@ def compare_records(label, a, b):
 
 
 def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
-                 states, steps=CMP_STEPS):
+                 states, steps=CMP_STEPS, split=None):
     """Phase 20: ``steps`` steps of the per-step loop's chunk (the step
     head, then each step the solve kernel and the step tail, which carries
     the next step's head) with the step kernels and with their plain
-    versions, on the same card tensors; everything bit for bit but the
+    versions, on the same card tensors; with ``split`` (True or False)
+    the tail split as the statistics' branch splits it: the control tail
+    (``statistics=False``), then the statistics launched on their own
+    (``cuda_step.step_stats(beside=split)``; plain ``step_stats_plain``),
+    reading the done lane the control wrote.  Everything bit for bit but the
     mean cost, ESS and entropy, which must agree within STEP_STATS_RTOL
     relative, the entropy relative to the larger of itself and its range
     log K (a softmax on one sample has an entropy near 0, where one
@@ -516,8 +527,9 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
     kernel starts from and on the state after every step of the kernels'
     run: the head kernel's four outputs (x0, the new index, the path end,
     the window), and at every step the head the tail kernel carries, must
-    equal its.  Returns the largest absolute error of the heads' outputs
-    and of those three statistics."""
+    equal its.  Returns the largest absolute error of the heads' outputs,
+    of those three statistics, and of the record's other lanes and the
+    state (0 where they are bitwise)."""
     import torch
 
     head_err = 0.0
@@ -543,10 +555,17 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
             x0, wp, path_end, window = h
             u_seq, s, _ = solve_kernels(arm, cfg, x0, st.mppi.u_prev, window,
                                         st.seed, None, st.step, False)
+            row = tuple(r[i] for r in rows)
             *nxt, clock, h = tail(arm, cfg, sim, ref,
                                   *loop._state_tensors(st)[:5], st.done, wp,
-                                  path_end, u_seq, s, clock,
-                                  tuple(r[i] for r in rows), carry_head=True)
+                                  path_end, u_seq, s, clock, row,
+                                  carry_head=True,
+                                  **({} if split is None
+                                     else {"statistics": False}))
+            if split is not None and kernels:
+                cuda_step.step_stats(cfg, s, row, beside=split)
+            elif split is not None:
+                cuda_step.step_stats_plain(cfg, s, row)
             st = loop._as_state((*nxt[:5], st.seed, nxt[5]))
             if kernels:
                 same_head(h, st, f"step {i}: the head the step tail kernel "
@@ -565,11 +584,16 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
     kern = run(cuda_step.step_head, cuda_step.step_tail)
     plain = run(cuda_step.step_head_plain, cuda_step.step_tail_plain)
     torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(
-        loop._state_tensors(kern[0]), loop._state_tensors(plain[0]))),
-        f"{label}: the step kernels' final state differs from the plain "
-        f"versions'")
+    pairs = list(zip(loop._state_tensors(kern[0]),
+                     loop._state_tensors(plain[0])))
+    check(all(torch.equal(a, b) for a, b in pairs),
+          f"{label}: the step kernels' final state differs from the plain "
+          f"versions'")
     err, rel = 0.0, 0.0
+    exact = max(float((a.double() - b.double()).abs().max())
+                for a, b in pairs + [
+                    (x, y) for i, (x, y) in enumerate(zip(kern[1], plain[1]))
+                    if i not in (8, 9, 10)])
     for name, a, b in zip(("q", "dq", "u", "ee", "elbow", "ref_xy", "wp_idx",
                            "cost_min", "cost_mean", "ess", "weight_entropy",
                            "done"), kern[1], plain[1]):
@@ -585,7 +609,11 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
             check(torch.equal(a, b), f"{label}: record {name} differs from "
                   f"the plain versions'")
     B = states.q.shape[0]
-    layout = cuda_step._tail_layout_on(cfg.num_samples, B, states.q.device)
+    layout = (cuda_step._tail_layout_on(cfg.num_samples, B, states.q.device)
+              if split is None else
+              f"{cuda_step.CONTROL_LAYOUT}, the statistics "
+              + ("beside a solve in one block" if split else
+                 "in the tail's own layout"))
     print(f"{label}: the step kernels == their plain versions over {steps} "
           f"steps of {B} scenario(s) (K={cfg.num_samples}; the tail's "
           f"layout {layout}): the head kernel's x0, index, path end and "
@@ -597,7 +625,7 @@ def step_compare(label, loop, cuda_step, solve_kernels, arm, cfg, sim, ref,
           f"== tail_stats_ordered bitwise; "
           f"{int(kern[1][-1][-1].sum())} scenario(s) "
           f"done at the end")
-    return head_err, err
+    return head_err, err, exact
 
 
 def shard_step_compare(label, sharded, cuda_solve, arm, cfg, sim, ref,
@@ -1028,6 +1056,7 @@ def main() -> int:
     cuda_solve.LAUNCHES = 0
     cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
     cuda_step.CARRIED_HEADS = cuda_step.CLUSTER_TAILS = 0
+    cuda_step.STATS_LAUNCHES = 0
     t0 = time.perf_counter()
     final_p, rec_p = m.simulate(arm, cfg, sim, ref, state0, STEPS,
                                 backend="cuda")
@@ -1038,6 +1067,7 @@ def main() -> int:
     tail_launches = cuda_step.TAIL_LAUNCHES
     carried_heads = cuda_step.CARRIED_HEADS
     cluster_tails = cuda_step.CLUSTER_TAILS
+    stats_launches = cuda_step.STATS_LAUNCHES
     chunks = -(-STEPS // graph_steps)
     captures = loop._capture_seconds()
     live = int((~rec_p.done).sum())
@@ -1069,14 +1099,15 @@ def main() -> int:
     check(solve_launches == STEPS >= live,
           f"the per-step path made {solve_launches} solve launches in "
           f"{STEPS} steps, not one a step")
-    check((head_launches, tail_launches, carried_heads, cluster_tails)
-          == (chunks, STEPS, STEPS - chunks, 0),
+    check((head_launches, tail_launches, carried_heads, cluster_tails,
+           stats_launches) == (chunks, STEPS, STEPS - chunks, 0, 0),
           f"the per-step path made {head_launches} step head and "
           f"{tail_launches} step tail launches, {carried_heads} of them "
-          f"carrying the head and {cluster_tails} on a cluster, in {STEPS} "
-          f"steps, not a head a chunk of {graph_steps} ({chunks}) and a "
-          f"tail a step in one block, all but each chunk's last carrying "
-          f"the head")
+          f"carrying the head and {cluster_tails} on a cluster, and "
+          f"{stats_launches} statistics launches, in {STEPS} steps, not a "
+          f"head a chunk of {graph_steps} ({chunks}) and a whole tail a "
+          f"step in one block, all but each chunk's last carrying the "
+          f"head")
     for field, v in zip(rec_p._fields, rec_p):
         if v.dtype.is_floating_point:
             check(bool(torch.isfinite(v).all()), f"per-step {field} not finite")
@@ -1835,7 +1866,7 @@ def main() -> int:
           f" on-path mean {onpath_c:.3f} mm (gate {ONPATH_GATE_MM} mm)")
 
     # ---- 20. the step kernels against their plain versions -------------
-    head_err, step_err = step_compare(
+    head_err, step_err, _ = step_compare(
         "step kernels B=1 benchmark_preset", loop, cuda_step, _solve_kernels,
         arm, cfg, sim, ref, loop._as_batch(state0)._replace(
             seed=torch.zeros(1, dtype=torch.int64, device=device)))
@@ -1876,11 +1907,32 @@ def main() -> int:
                             cuda_step, _solve_kernels, arm, cfg_big, sim,
                             ref, st_big)
         head_err, big_err = max(head_err, errs[0]), max(big_err, errs[1])
-    # the large-K loop, simulate(backend="cuda"): every tail on a cluster;
-    # then a step tail's device time in its replayed graphs
+    # the same with the tail split as the statistics' branch splits it:
+    # the control tail, then the statistics beside a solve (one block) and
+    # in the tail's own layout (a cluster), scenario 1 of B=2 frozen from
+    # the start (B=2 forces the split, which the loop's rule takes only at
+    # B=1); the control's outputs bitwise, the statistics within the band
+    # of the plain ones and == tail_stats_ordered bitwise
+    ctl_err = stats_err = 0.0
+    for b in (1, 2):
+        st_big = m.init_sim_batch(cfg_big, sim, np.arange(b), device=device)
+        st_big = st_big._replace(done=torch.arange(b, device=device) == 1)
+        for beside in (True, False):
+            errs = step_compare(
+                f"split step kernels B={b} K={LARGE_K} beside={beside}",
+                loop, cuda_step, _solve_kernels, arm, cfg_big, sim, ref,
+                st_big, split=beside)
+            head_err, stats_err = max(head_err, errs[0]), max(stats_err,
+                                                              errs[1])
+            ctl_err = max(ctl_err, errs[2])
+    # the large-K loop, simulate(backend="cuda"): the control tail a step,
+    # its statistics on a branch beside the next solve, a chunk's last
+    # statistics on a cluster; then the control tail's and the
+    # statistics' device time in its replayed graphs
     loop._GRAPHS.clear()
     cuda_step.HEAD_LAUNCHES = cuda_step.TAIL_LAUNCHES = 0
     cuda_step.CARRIED_HEADS = cuda_step.CLUSTER_TAILS = 0
+    cuda_step.STATS_LAUNCHES = 0
     final_l, rec_l = m.simulate(arm, cfg_big, sim, ref,
                                 m.init_sim(cfg_big, sim, seed=0,
                                            device=device), LARGE_K_STEPS,
@@ -1888,21 +1940,67 @@ def main() -> int:
     torch.cuda.synchronize()
     big = (cuda_step.HEAD_LAUNCHES, cuda_step.TAIL_LAUNCHES,
            cuda_step.CARRIED_HEADS, cuda_step.CLUSTER_TAILS)
+    big_stats = cuda_step.STATS_LAUNCHES
     chunks_l = -(-LARGE_K_STEPS // graph_steps)
-    check(big == (chunks_l, LARGE_K_STEPS, LARGE_K_STEPS - chunks_l,
-                  LARGE_K_STEPS),
+    check(big == (chunks_l, LARGE_K_STEPS, LARGE_K_STEPS - chunks_l, 0)
+          and big_stats == LARGE_K_STEPS,
           f"the large-K loop made (heads, tails, carried, on a cluster) "
-          f"{big} in {LARGE_K_STEPS} steps, not a head a chunk and a tail "
-          f"a step, every tail on a cluster")
+          f"{big} and {big_stats} statistics launches in {LARGE_K_STEPS} "
+          f"steps, not a head a chunk, a control tail in one block and a "
+          f"statistics launch a step")
     check(all(bool(torch.isfinite(v).all()) for v in rec_l),
           "the large-K loop's records are not finite")
-    big_tail = fused_timing.profiled_us(
+    big_prof = fused_timing.profiled_us(
         lambda: m.simulate(arm, cfg_big, sim, ref, final_l, graph_steps * 8,
                            backend="cuda"),
-        1, keep=lambda key: "step_tail" in key)
-    check(len(big_tail) == 1, f"the large-K loop's profiled window showed "
-          f"the step tail as {sorted(big_tail)}, not one kernel")
+        1, keep=lambda key: "step_tail" in key or "step_stats" in key)
+    big_tail = {k: v for k, v in big_prof.items() if "step_tail" in k}
+    big_stats_us = {k: v for k, v in big_prof.items() if "step_stats" in k}
+    check(len(big_tail) == 1 and len(big_stats_us) == 2,
+          f"the large-K loop's profiled window showed the step tail as "
+          f"{sorted(big_prof)}, not one control tail and two statistics "
+          f"builds")
     big_tail_ms = sum(big_tail.values()) / 1e3
+    # a statistics launch's mean over a chunk: the last on the cluster
+    on_cluster = [us for k, us in big_stats_us.items() if ", true, true>" in k]
+    beside_us = [us for k, us in big_stats_us.items()
+                 if ", true, true>" not in k]
+    check(len(on_cluster) == len(beside_us) == 1,
+          f"the large-K loop's statistics builds {sorted(big_stats_us)}, not "
+          f"one beside a solve and one on a cluster")
+    big_stats_ms = ((graph_steps - 1) * beside_us[0]
+                    + on_cluster[0]) / graph_steps / 1e3
+    # the same 300 steps with the fused tail (the branch off): every record
+    # field and the final state bit for bit the branched loop's
+    branched = loop._branched
+    loop._branched = lambda *a, **k: False
+    try:
+        loop._GRAPHS.clear()
+        tails0 = (cuda_step.TAIL_LAUNCHES, cuda_step.CLUSTER_TAILS,
+                  cuda_step.STATS_LAUNCHES)
+        final_w, rec_w = m.simulate(arm, cfg_big, sim, ref,
+                                    m.init_sim(cfg_big, sim, seed=0,
+                                               device=device),
+                                    LARGE_K_STEPS, backend="cuda")
+        torch.cuda.synchronize()
+        fused_counts = (cuda_step.TAIL_LAUNCHES - tails0[0],
+                        cuda_step.CLUSTER_TAILS - tails0[1],
+                        cuda_step.STATS_LAUNCHES - tails0[2])
+    finally:
+        loop._branched = branched
+        loop._GRAPHS.clear()
+    check(fused_counts == (LARGE_K_STEPS, LARGE_K_STEPS, 0),
+          f"the fused-tail large-K loop made (tails, on a cluster, "
+          f"statistics launches) {fused_counts}, not a whole tail a step on "
+          f"a cluster")
+    for field, a, b in zip(rec_l._fields, rec_l, rec_w):
+        check(torch.equal(a, b), f"the large-K loop's record {field} with "
+              f"the statistics on a branch differs from the fused tail's")
+    check(all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+              for a, b in zip(loop._state_tensors(loop._as_batch(final_l)),
+                              loop._state_tensors(loop._as_batch(final_w)))),
+          "the large-K loop's final state with the statistics on a branch "
+          "differs from the fused tail's")
     st_l = loop._as_batch(final_l)
     ph_l = cuda_step.step_head_plain(cfg_big, ref, st_l.q, st_l.dq,
                                      st_l.mppi.wp_idx)
@@ -1914,13 +2012,25 @@ def main() -> int:
                 tuple(r[0] for r in loop._row_buffers(1, st_l, ref)))
     big_plain_ms = min(cuda_time(lambda: [cuda_step.step_tail_plain(
         *big_args, carry_head=True) for _ in range(20)], 3)) / 20
+    ctl_plain_ms = min(cuda_time(lambda: [cuda_step.step_tail_plain(
+        *big_args, carry_head=True, statistics=False)
+        for _ in range(20)], 3)) / 20
+    stats_plain_ms = min(cuda_time(lambda: [cuda_step.step_stats_plain(
+        cfg_big, s_l, big_args[-1]) for _ in range(20)], 3)) / 20
     print(f"step kernels K={LARGE_K} H={cfg.horizon}: simulate(backend="
           f"'cuda') {LARGE_K_STEPS} steps, step_head_kernel {big[0]}, "
           f"step_tail_kernel {big[1]} ({big[2]} carrying the next head, "
-          f"{big[3]} on a cluster); the tail carrying the next head "
-          f"{big_tail_ms * 1e3:.3f} us device time a launch in the graph "
-          f"loop ({sorted(big_tail)[0]}), its plain version "
-          f"{big_plain_ms * 1e3:.2f} us (CUDA events over 20 calls, min "
+          f"{big[3]} on a cluster), step_stats_kernel {big_stats}; records "
+          f"and final state bitwise the fused tail's loop's ({fused_counts[0]}"
+          f" tails, {fused_counts[1]} on a cluster); the control tail "
+          f"carrying the next head {big_tail_ms * 1e3:.3f} us device time a "
+          f"launch in the graph loop ({sorted(big_tail)[0]}), the "
+          f"statistics beside the next solve {beside_us[0]:.3f} us and a "
+          f"chunk's last on a cluster {on_cluster[0]:.3f} us "
+          f"({big_stats_ms * 1e3:.3f} us a launch over a chunk); plain "
+          f"versions: the whole tail {big_plain_ms * 1e3:.2f} us, the "
+          f"control tail {ctl_plain_ms * 1e3:.2f} us, the statistics "
+          f"{stats_plain_ms * 1e3:.2f} us (CUDA events over 20 calls, min "
           f"of 3)")
     print("step kernels: the tail's layout (statistics warps a block, "
           "logical lanes a lane, scenarios a block, samples a logical lane "
@@ -2530,10 +2640,14 @@ def main() -> int:
     adv_l = float((wp_l[1:] - wp_l[:-1]).mean())
     head_rows_l = ((W + adv_l) * 4 + 4 + W * 4) * f4 + 8 + 1
     carried_l = big[2] / big[1]
+    # there the control tail, which reads no S and writes no statistics,
+    # runs on the step's path, and the statistics on their own read S
+    # and the done lane and write the four statistics lanes
     big_tail_bound = bound(
-        20 * LARGE_K + 70 + carried_l * (9 + 7 * W),
-        (LARGE_K + 3 * 2 * cfg.horizon + 4 + 4 + 2 + 6 * 2 + 4) * f4
+        70 + carried_l * (9 + 7 * W),
+        (3 * 2 * cfg.horizon + 4 + 4 + 2 + 6 * 2) * f4
         + 8 * 8 + 4 + carried_l * head_rows_l)
+    big_stats_bound = bound(20 * LARGE_K, (LARGE_K + 4) * f4 + 1)
     # the sharded step's kernels at the main path's shape (B=1, T=50), a
     # launch: the rescale reads m, m_s, η_s and A_s (2T) and writes the
     # message (1 + 2T); a difference, a multiply and an exp, then a
@@ -2557,7 +2671,9 @@ def main() -> int:
           f"live), step_head_kernel {head_bound[0] * 1e3:.5f} us "
           f"({head_bound[1]}), step_tail_kernel carrying the next head "
           f"{tail_bound[0] * 1e3:.5f} us ({tail_bound[1]}), at K={LARGE_K} "
-          f"{big_tail_bound[0] * 1e3:.5f} us ({big_tail_bound[1]}), "
+          f"the control tail {big_tail_bound[0] * 1e3:.5f} us "
+          f"({big_tail_bound[1]}), step_stats_kernel "
+          f"{big_stats_bound[0] * 1e3:.5f} us ({big_stats_bound[1]}), "
           f"probe_scale_kernel {p1_bound[0] * 1e3:.5f} us "
           f"({p1_bound[1]}), probe_big_kernel {p2_bound[0] * 1e3:.5f} us "
           f"({p2_bound[1]}), shard_scale_kernel {scale_bound[0] * 1e3:.5f} "
@@ -2609,9 +2725,15 @@ def main() -> int:
               "no Pallas kernel)", tail_launches, step_err, tail_ms,
               plain_tail_ms, tail_bound),
         entry(f"step_tail_kernel K={LARGE_K}", "step_kernel.cu",
-              "the same at BASELINE config 3's K=65536, H=50, B=1, on a "
-              "thread-block cluster of 8 CTAs", big[1], big_err,
-              big_tail_ms, big_plain_ms, big_tail_bound),
+              "the same at BASELINE config 3's K=65536, H=50, B=1: the "
+              "control tail on the step's path (its statistics in "
+              "step_stats_kernel)", big[1], ctl_err,
+              big_tail_ms, ctl_plain_ms, big_tail_bound),
+        entry(f"step_stats_kernel K={LARGE_K}", "step_kernel.cu",
+              "the step tail's statistics (min, mean, ESS, entropy of S) "
+              "at K=65536, H=50, B=1, on a branch beside the next solve, a "
+              "chunk's last on a cluster", big_stats, stats_err,
+              big_stats_ms, stats_plain_ms, big_stats_bound),
         entry("shard_scale_kernel", "shard_kernel.cu",
               "mppi_robotarm_tpu/parallel/sharded.py:139-142 (the rescale "
               "of _solve_local_pallas between its pmin and psum, fused by "

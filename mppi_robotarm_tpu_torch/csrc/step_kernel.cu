@@ -1,6 +1,8 @@
 // The per-step loop's step body around the solve kernel: a chunk of the
 // loop is one head launch, then two launches a step, solve_kernel.cu and
-// the tail, which also runs the next step's head.
+// the tail, which also runs the next step's head; above K = 1024, where
+// the solve leaves SMs free, the tail's statistics run as a third launch
+// a step on a branch of the chunk's graph, beside the next solve.
 //
 // Replaces: no Pallas kernel.  In the JAX package, sim_step
 // (mppi_robotarm_tpu/sim/loop.py:86) runs under simulate's jitted lax.scan
@@ -35,7 +37,12 @@
 //   statistics warps: min S, mean S, the ESS and the entropy of the softmax
 //   weights of S, zeroed where done, written by the statistics' first warp.
 //   The two parts share nothing but their inputs, so neither waits for the
-//   other.  `clock` is the run's step counter (step0 + the steps taken,
+//   other, and each can run alone: the control warp without statistics
+//   warps (the control tail), and the statistics in step_stats_kernel, the
+//   same code in the same layouts with the control warp idle, reading the
+//   freeze flag from the record row's done lane that the control tail
+//   wrote (ops/cuda_step.py::stats_branch says where the loop splits
+//   them).  `clock` is the run's step counter (step0 + the steps taken,
 //   frozen ones too), so a captured graph replays at any offset of the run.
 //
 // Arithmetic.  Exact float32 and --fmad=false, as the torch code it
@@ -857,18 +864,21 @@ __host__ __device__ constexpr int tail_bound(bool wide) {
   return wide ? 576 : 1024;
 }
 
-// `group` scenarios a block, each a run of ns + 1 warps: ns statistics
-// warps, then the control warp.  `h` holds the carried head's outputs, or
-// its x0 is null.  On a cluster (CL) a scenario takes the cluster's CTAs,
-// one group each, kClusterStats statistics threads (ns warps owning
-// logical warps, the rest sharing their per-sample work) and the control
-// warp, CTA 0's running the control and the others' doing nothing but the
+// The body of both S2 kernels.  `group` scenarios a block, each a run of
+// ns + 1 warps: ns statistics warps, then the control warp, which runs
+// tail_control where `control` (step_tail_kernel) and nothing where not
+// (step_stats_kernel).  `h` holds the carried head's outputs, or its x0
+// is null.  On a cluster (CL) a scenario takes the cluster's CTAs, one
+// group each, kClusterStats statistics threads (ns warps owning logical
+// warps, the rest sharing their per-sample work) and the control warp,
+// CTA 0's running the control and the others' doing nothing but the
 // cluster's barriers, which every thread takes alike: the control warp
 // arrives at round 1's before its work.
-template <int L, int CAP, bool WIDE, bool CL>
-__global__ void __launch_bounds__(CL ? kClusterThreads : tail_bound(WIDE))
-step_tail_kernel(const StepParams p, const TailArgs a, const HeadArgs h,
-                 int B, int n, int ns) {
+template <int L, int CAP, bool CL>
+__device__ __forceinline__ void tail_block(const StepParams& p,
+                                           const TailArgs& a,
+                                           const HeadArgs& h, int B, int n,
+                                           int ns, bool control) {
   extern __shared__ float red[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if constexpr (CL) {
@@ -878,7 +888,7 @@ step_tail_kernel(const StepParams p, const TailArgs a, const HeadArgs h,
     const bool stats = a.r_q != nullptr;
     if (warp == kClusterStats / 32) {
       if (stats) cluster_arrive();
-      if (rank == 0) {
+      if (control && rank == 0) {
         tail_control(p, a, h, h.x0 != nullptr, b, lane, red + kRedFloats);
       }
       if (stats) {                       // rounds 1 to 3
@@ -903,44 +913,79 @@ step_tail_kernel(const StepParams p, const TailArgs a, const HeadArgs h,
     if (b >= B) return;                  // the scenario's warps alike
     float* mine = red + g * (kRedFloats + 4 * kStagedRows);
     if (role == ns) {
-      tail_control(p, a, h, h.x0 != nullptr, b, lane, mine + kRedFloats);
+      if (control) {
+        tail_control(p, a, h, h.x0 != nullptr, b, lane, mine + kRedFloats);
+      }
     } else if (a.r_q != nullptr) {
       tail_stats<L, CAP, false>(p, a, b, role, ns, n, lane, mine, 1 + g);
     }
   }
 }
 
+// The whole tail (ns > 0: the control warp and the statistics) or, with
+// ns = 0, the control warp alone: the tail whose statistics run beside
+// it in step_stats_kernel.
+template <int L, int CAP, bool WIDE, bool CL>
+__global__ void __launch_bounds__(CL ? kClusterThreads : tail_bound(WIDE))
+step_tail_kernel(const StepParams p, const TailArgs a, const HeadArgs h,
+                 int B, int n, int ns) {
+  tail_block<L, CAP, CL>(p, a, h, B, n, ns, true);
+}
+
+// The tail's statistics alone, in the tail's layout (its control warp
+// idle): min S, mean S, ESS and entropy into the record row, zeroed
+// where the row's done lane, which the control tail wrote, is set.
+template <int L, int CAP, bool WIDE, bool CL>
+__global__ void __launch_bounds__(CL ? kClusterThreads : tail_bound(WIDE))
+step_stats_kernel(const StepParams p, const TailArgs a, int B, int n,
+                  int ns) {
+  tail_block<L, CAP, CL>(p, a, HeadArgs{}, B, n, ns, false);
+}
+
+// What a launch of mppi_step_tail_launch runs of the tail: all of it
+// (step_tail_kernel), its control warp alone (step_tail_kernel with no
+// statistics warps), or its statistics alone (step_stats_kernel).
+enum TailPart { kWhole = 0, kControl = 1, kStats = 2 };
+
 template <int L, int CAP, bool WIDE>
 static int launch_tail(const StepParams& p, const TailArgs& a,
                        const HeadArgs& h, int B, int n, int ns, int group,
-                       cudaStream_t stream) {
+                       bool stats_only, cudaStream_t stream) {
   const size_t smem =
       group * (kRedFloats + 4 * kStagedRows) * sizeof(float);
-  step_tail_kernel<L, CAP, WIDE, false><<<(B + group - 1) / group,
-                                          group * (ns + 1) * 32, smem,
-                                          stream>>>(p, a, h, B, n, ns);
+  const dim3 grid((B + group - 1) / group), block(group * (ns + 1) * 32);
+  if (stats_only) {
+    step_stats_kernel<L, CAP, WIDE, false><<<grid, block, smem, stream>>>(
+        p, a, B, n, ns);
+  } else {
+    step_tail_kernel<L, CAP, WIDE, false><<<grid, block, smem, stream>>>(
+        p, a, h, B, n, ns);
+  }
   return (int)cudaGetLastError();
 }
 
-// The build of (L, CAP) for ns statistics warps: narrow with one and CAP
-// 1, wide otherwise.
+// The build of (L, CAP) for ns statistics warps (none for the control
+// alone): narrow with one and CAP 1, wide otherwise.
 template <int L, int CAP>
 static int launch_tail(const StepParams& p, const TailArgs& a,
-                       const HeadArgs& h, int B, int n, int group,
+                       const HeadArgs& h, int B, int n, int group, int part,
                        cudaStream_t stream) {
-  const int ns = (n / 32 + L - 1) / L;
+  const int ns = part == kControl ? 0 : (n / 32 + L - 1) / L;
   const bool narrow = CAP == 1 && ns == 1;
   if (group * (ns + 1) * 32 > tail_bound(!narrow) ||
       (ns > 1 && group > kMaxBarrierGroup) ||
       (CAP > 0 && (p.K + n - 1) / n > CAP)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool stats_only = part == kStats;
   if constexpr (CAP == 1) {
     if (narrow) {
-      return launch_tail<L, CAP, false>(p, a, h, B, n, ns, group, stream);
+      return launch_tail<L, CAP, false>(p, a, h, B, n, ns, group, stats_only,
+                                        stream);
     }
   }
-  return launch_tail<L, CAP, true>(p, a, h, B, n, ns, group, stream);
+  return launch_tail<L, CAP, true>(p, a, h, B, n, ns, group, stats_only,
+                                   stream);
 }
 
 // The clustered build, (L, CAP) = (1, 64), on clusters of kMaxCluster
@@ -977,7 +1022,8 @@ static void cluster_config(cudaLaunchConfig_t* cfg,
 
 // How many clusters of the clustered build the current device holds at
 // once (cudaOccupancyMaxActiveClusters; 0: it cannot place one), asked
-// once a device, with the shared memory limit the build needs raised.
+// once a device, with the shared memory limit the build needs raised for
+// both of its kernels.
 static int cluster_slots(int* slots) {
   static int known[kMaxDevices];         // slots + 1; 0: not asked yet
   int dev = 0;
@@ -995,6 +1041,10 @@ static int cluster_slots(int* slots) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return (int)e;
+  auto* stats = step_stats_kernel<1, kClusterCap, true, true>;
+  e = cudaFuncSetAttribute(stats, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return (int)e;
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
   if (e != cudaSuccess) return (int)e;
@@ -1004,11 +1054,11 @@ static int cluster_slots(int* slots) {
 }
 
 // B scenarios of K <= kClusterCap * kMaxLanes samples on the clustered
-// build; cudaErrorInvalidClusterSize where the device cannot place a
-// cluster.
+// build, the whole tail or its statistics alone; cudaErrorInvalidClusterSize
+// where the device cannot place a cluster.
 static int launch_tail_cluster(const StepParams& p, const TailArgs& a,
                                const HeadArgs& h, int B, int n,
-                               cudaStream_t stream) {
+                               bool stats_only, cudaStream_t stream) {
   if (n != kMaxLanes || (p.K + n - 1) / n > kClusterCap) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1019,9 +1069,15 @@ static int launch_tail_cluster(const StepParams& p, const TailArgs& a,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attrs[2];
   cluster_config(&cfg, attrs, B, stream);
-  e = (int)cudaLaunchKernelEx(&cfg, step_tail_kernel<1, kClusterCap, true,
-                                                     true>,
-                              p, a, h, B, n, kClusterNs);
+  if (stats_only) {
+    e = (int)cudaLaunchKernelEx(
+        &cfg, step_stats_kernel<1, kClusterCap, true, true>, p, a, B, n,
+        kClusterNs);
+  } else {
+    e = (int)cudaLaunchKernelEx(
+        &cfg, step_tail_kernel<1, kClusterCap, true, true>, p, a, h, B, n,
+        kClusterNs);
+  }
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
@@ -1047,33 +1103,42 @@ int mppi_step_head_launch(const StepParams* params, const HeadArgs* args,
 // registers (0: S read again each pass), `group` scenarios a block, and
 // `cluster` CTAs a scenario, which the build fixes: kMaxCluster for the
 // clustered one (lanes 1, cap kClusterCap, group 1), 1 for the others.
-// Returns the cudaError_t of the launch, cudaErrorInvalidValue for a
-// layout the kernel is not built for or arguments it does not take.
+// `part` (TailPart) runs all of the tail, its control alone (in one
+// block, no cluster; a record row's statistics lanes left as they are),
+// or its statistics alone (no head; the row's done lane, which the
+// control wrote, is the freeze flag they read).  Returns the cudaError_t
+// of the launch, cudaErrorInvalidValue for a layout the kernel is not
+// built for or arguments it does not take.
 int mppi_step_tail_launch(const StepParams* params, const TailArgs* args,
                           const HeadArgs* head, int B, int n, int lanes,
-                          int cap, int group, int cluster, void* stream) {
+                          int cap, int group, int cluster, int part,
+                          void* stream) {
   const StepParams p = *params;
   if (B < 1 || p.K < 1 || p.T < 1 || p.n_ref < 1 || n < 32 ||
-      n > kMaxLanes || n % 32 != 0 || group < 1 ||
-      (head != nullptr && (head->x0 == nullptr || p.W < 1))) {
+      n > kMaxLanes || n % 32 != 0 || group < 1 || part < kWhole ||
+      part > kStats ||
+      (head != nullptr && (head->x0 == nullptr || p.W < 1)) ||
+      (part == kStats && (head != nullptr || args->r_done == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   HeadArgs h = {};
   if (head != nullptr) h = *head;
+  TailArgs a = *args;
+  if (part == kStats) a.done = a.path_end = a.r_done;
   const cudaStream_t st = (cudaStream_t)stream;
   const bool clustered = lanes == 1 && cap == kClusterCap;
   if (cluster != (clustered ? kMaxCluster : 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (clustered) {
-    if (group != 1) return (int)cudaErrorInvalidValue;
-    return launch_tail_cluster(p, *args, h, B, n, st);
+    if (group != 1 || part == kControl) return (int)cudaErrorInvalidValue;
+    return launch_tail_cluster(p, a, h, B, n, part == kStats, st);
   }
   if (lanes == 4 && cap == 1) {
-    return launch_tail<4, 1>(p, *args, h, B, n, group, st);
+    return launch_tail<4, 1>(p, a, h, B, n, group, part, st);
   }
   if (lanes == 2 && cap == 0) {
-    return launch_tail<2, 0>(p, *args, h, B, n, group, st);
+    return launch_tail<2, 0>(p, a, h, B, n, group, part, st);
   }
   return (int)cudaErrorInvalidValue;
 }

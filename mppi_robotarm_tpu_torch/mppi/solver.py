@@ -121,11 +121,12 @@ def step_solve_plan(cfg: MPPIConfig, batch: int, device) -> tuple:
 
 
 def _solve_kernels(arm, cfg, observed_x, u_prev, window, seed, eps, step,
-                   want_eps):
+                   want_eps, s_out=None):
     """The cuda backend's K×T sweep for (B, ...) inputs: the kernels'
     outputs cast back to the state's dtype.  Returns (u_seq, S, eps).  The
     window's validity mask is not passed: no version of the solve reads
-    it (``ops/cuda_solve.py``)."""
+    it (``ops/cuda_solve.py``).  ``s_out`` (B, K) float32 takes S in
+    place (``cuda_solve.solve_batched``)."""
     f32 = torch.float32
     dtype = u_prev.dtype
     opts = _solve_options(cfg)
@@ -134,7 +135,7 @@ def _solve_kernels(arm, cfg, observed_x, u_prev, window, seed, eps, step,
         u_prev.to(f32).contiguous(), window.to(f32).contiguous(),
         None, seed=seed,
         eps=None if eps is None else eps.to(f32).contiguous(), step=step,
-        emit_eps=want_eps or eps is not None, **opts)
+        emit_eps=want_eps or eps is not None, s_out=s_out, **opts)
     out = out.to(dtype)
     u_seq = out if opts["fuse_update"] else _median_update(u_prev, out, cfg)
     return u_seq, s.to(dtype), eps_used

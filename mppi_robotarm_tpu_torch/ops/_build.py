@@ -125,7 +125,7 @@ C_FUNCTIONS = {
     "mppi_probe_scale_launch": ([_P, _P, _I, _P], _I),
     "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _I, _P], _I),
     "mppi_step_head_launch": ([_P, _P, _I, _P], _I),
-    "mppi_step_tail_launch": ([_P, _P, _P] + [_I] * 6 + [_P], _I),
+    "mppi_step_tail_launch": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
     "mppi_step_tail_cluster_slots": ([_P], _I),
     "mppi_shard_scale_launch": ([_P] * 5 + [_I, _I, _F, _P], _I),
     "mppi_shard_finish_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),

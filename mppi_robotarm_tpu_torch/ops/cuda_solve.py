@@ -250,7 +250,8 @@ def solve_batched_reference(arm: ArmParams, cfg: MPPIConfig, x0, u, window,
                             nvalid=None, seed=None, eps=None, step=None,
                             tile: Optional[int] = None, emit_eps: bool = True,
                             normalize: bool = True, fuse_update: bool = False,
-                            k_local: Optional[int] = None, k_offset=None):
+                            k_local: Optional[int] = None, k_offset=None,
+                            s_out: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the solve kernel.
 
     Same arguments and results as :func:`solve_batched`, on any device:
@@ -278,6 +279,8 @@ def solve_batched_reference(arm: ArmParams, cfg: MPPIConfig, x0, u, window,
                < _f32((1.0 - cfg.exploration) * cfg.num_samples))
     s = rollout_cost_trig(arm, cfg, x0[:, 0:1], x0[:, 1:2], x0[:, 2:3],
                           x0[:, 3:4], u, eps_used, window[:, None], exploit)
+    if s_out is not None:
+        s = s_out.copy_(s)
 
     m_p, eta_p, rows = tile_partials(s, eps_used, tile, cfg.lam)
     out, m, eta = combine_reference(m_p, eta_p, rows, u, cfg, normalize,
@@ -395,7 +398,7 @@ def counters_of(device: torch.device, stream: int, on: int):
 
 
 def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
-            normalize, fuse_update, k_local, k_offset):
+            normalize, fuse_update, k_local, k_offset, s_out=None):
     """Check the operands and launch csrc/solve_kernel.cu on the current
     stream.  Raises on anything the kernel does not take."""
     global LAUNCHES, PARTIALS
@@ -432,13 +435,18 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
         if v is not None and v.device != device:
             raise ValueError(f"{name} is on {v.device}, expected {device}")
 
-    # one allocation for S, the tile partials (none for one tile: the
-    # kernel combines it in shared memory), the output and (m, eta)
+    # one allocation for S (unless given), the tile partials (none for one
+    # tile: the kernel combines it in shared memory), the output and (m,
+    # eta)
+    if s_out is not None:
+        _check_tensor("s_out", s_out, (B, K), f32, device)
     stride = (2 * T + 2) if n_tiles > 1 else 0
-    sizes = (B * K, B * n_tiles * stride, B * 2 * T, B, B)
-    s_out, part, out, m, eta = torch.empty(
+    sizes = (0 if s_out is not None else B * K, B * n_tiles * stride,
+             B * 2 * T, B, B)
+    s_new, part, out, m, eta = torch.empty(
         sum(sizes), dtype=f32, device=device).split(sizes)
-    s_out, out = s_out.view(B, K), out.view(B, T, 2)
+    s_out = s_new.view(B, K) if s_out is None else s_out
+    out = out.view(B, T, 2)
     eps_out = (torch.empty((B, K, T, 2), dtype=f32, device=device)
                if use_prng and emit_eps else None)
     params = _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
@@ -478,7 +486,8 @@ def solve_batched(arm: ArmParams, cfg: MPPIConfig,
                   normalize: bool = True,
                   fuse_update: bool = False,
                   k_local: Optional[int] = None,
-                  k_offset=None):            # (B,) global index of sample 0
+                  k_offset=None,             # (B,) global index of sample 0
+                  s_out: Optional[torch.Tensor] = None):   # (B, K) f32
     """One solve of B scenarios (see the module docstring for the results).
 
     Any CUDA operand launches ``csrc/solve_kernel.cu`` (one launch) or
@@ -487,22 +496,25 @@ def solve_batched(arm: ArmParams, cfg: MPPIConfig,
     ``tile`` (default :func:`solve_tile`) changes no per-sample cost and
     only the rounding of the cross-tile sums; the kernel's threads per
     sample and tiles per block (:func:`solve_layout`, from the batch and
-    the card's SMs) change no bit.
+    the card's SMs) change no bit.  ``s_out``, a contiguous (B, K)
+    float32 tensor, takes S in place of a new one (the per-step loop's
+    double buffer, ``sim/loop.py::_steps_into``).
     """
     kinds = {v.device.type for v in (x0, u, window, nvalid, seed, eps, step,
-                                     k_offset)
+                                     k_offset, s_out)
              if isinstance(v, torch.Tensor)}
     if kinds == {"cpu"}:
         return solve_batched_reference(
             arm, cfg, x0, u, window, nvalid, seed=seed, eps=eps, step=step,
             tile=tile, emit_eps=emit_eps, normalize=normalize,
-            fuse_update=fuse_update, k_local=k_local, k_offset=k_offset)
+            fuse_update=fuse_update, k_local=k_local, k_offset=k_offset,
+            s_out=s_out)
     if "cuda" not in kinds:
         raise ValueError(f"solve_batched runs on CUDA or CPU tensors, got "
                          f"{sorted(kinds)}")
     # any CUDA operand takes the kernel, which raises on mixed devices
     return _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
-                   normalize, fuse_update, k_local, k_offset)
+                   normalize, fuse_update, k_local, k_offset, s_out)
 
 
 def solve_core(arm: ArmParams, cfg: MPPIConfig, x0, u, window, nvalid=None,

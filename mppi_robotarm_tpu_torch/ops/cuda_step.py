@@ -14,7 +14,9 @@ launch, then two launches a step on the card:
   elbow, reference row, index, the costs' min and mean, the weights' ESS
   and entropy, done, zeroed where done as the record is; with
   ``carry_head`` also the next step's head on the new state, so the next
-  step needs no head launch.
+  step needs no head launch; with ``statistics=False`` all but the row's
+  statistics, which :func:`step_stats` then writes in a launch of their
+  own (the loop's branch above K = 1024, :func:`stats_branch`).
 
 They are the port's counterpart of what XLA fuses around the Pallas solve
 in the JAX package's jitted ``simulate`` (``mppi_robotarm_tpu/sim/loop.py::
@@ -29,12 +31,13 @@ reference row are the plain versions' bit for bit (the same float32
 operations in the same order), and the carried head is the head kernel's
 on the tail's outputs; the statistics are sums over K in the kernel's
 fixed order (:func:`tail_stats_ordered`), which depends on K alone, not on
-the tail's layout (:func:`step_tail_layout`).  A launch copies nothing from
-the host, so both can be captured in a CUDA graph; each adds one to its
-count (:data:`HEAD_LAUNCHES`, :data:`TAIL_LAUNCHES`, and
+the tail's layout (:func:`step_tail_layout`) nor on whether they run in
+the tail's launch or their own.  A launch copies nothing from the host, so
+all can be captured in a CUDA graph; each adds one to its count
+(:data:`HEAD_LAUNCHES`, :data:`TAIL_LAUNCHES`, :data:`STATS_LAUNCHES`, and
 :data:`CARRIED_HEADS` for a tail that carries the head,
-:data:`CLUSTER_TAILS` for one that ran on a thread-block cluster) where it
-launches, at capture for a captured one.
+:data:`CLUSTER_TAILS` for a tail that ran on a thread-block cluster)
+where it launches, at capture for a captured one.
 """
 
 from __future__ import annotations
@@ -53,11 +56,13 @@ from .waypoint import update_waypoint_index
 from .weights import (effective_sample_size, mppi_weights, ordered_sum,
                       weight_entropy)
 
-# Launches of step_head_kernel and step_tail_kernel, the tail launches
-# that carried the next step's head and those that ran on a cluster; a
-# run that must show it went through them reads these before and after.
+# Launches of step_head_kernel, step_tail_kernel and step_stats_kernel
+# (the tail's statistics launched on their own), the tail launches that
+# carried the next step's head and those that ran on a cluster; a run
+# that must show it went through them reads these before and after.
 HEAD_LAUNCHES = 0
 TAIL_LAUNCHES = 0
+STATS_LAUNCHES = 0
 CARRIED_HEADS = 0
 CLUSTER_TAILS = 0
 
@@ -77,6 +82,10 @@ TAIL_CLUSTER = 8              # CTAs a scenario: the portable cluster limit
 # lane, 13.5 at 12, 24 at 24 and 75 at 64, so a wave for each 16 takes
 # the cluster only where it is the faster (PERF.md's sweep)
 CLUSTER_WAVE_SAMPLES = 16
+# What a launch runs of the tail (csrc/step_kernel.cu::TailPart): all of
+# it, its control warp alone, or its statistics alone
+_WHOLE, _CONTROL, _STATS = 0, 1, 2
+_STAT_LANES = ("r_cmin", "r_cmean", "r_ess", "r_ent")
 
 
 class _StepParams(ctypes.Structure):
@@ -134,6 +143,12 @@ class TailLayout(NamedTuple):
     group: int    # scenarios a block
     cap: int      # samples a logical lane kept on chip (0: S read each pass)
     cluster: int = 1   # CTAs a scenario (1: one block, no cluster)
+
+
+# The tail's control warp launched without its statistics
+# (``step_tail(statistics=False)``): no statistics warps, one scenario a
+# block (the loop splits the tail only while the batch leaves SMs free)
+CONTROL_LAYOUT = TailLayout(0, 2, 1, 0)
 
 
 def step_tail_layout(K: int, B: int, sm_count: Optional[int] = None,
@@ -194,6 +209,27 @@ def tail_layout_fits(layout: TailLayout, K: Optional[int] = None) -> bool:
     return (layout.group * (layout.warps + 1) * 32
             <= (1024 if narrow else 576)
             and (layout.warps == 1 or layout.group <= 15))
+
+
+def stats_branch(K: int, B: int, sm_count: Optional[int],
+                 plan: tuple) -> bool:
+    """Whether the per-step loop's chunk (``sim/loop.py::_steps_into``)
+    runs the tail's statistics as their own launch on a branch beside the
+    next step's solve, the control tail alone between two solves: above K
+    = :data:`MAX_THREADS` (below it the statistics cost about 0.7 us
+    beside the control warp, less than a launch), where the solve kernel's
+    blocks under ``plan`` ((tile, n_tiles, lanes, group) of
+    ``cuda_solve._plan``: ceil(n_tiles / group) blocks a scenario) leave
+    the SMs of a card of ``sm_count`` SMs that the statistics' blocks
+    take, one an SM (:func:`step_tail_layout` with no cluster slots: a
+    scenario's statistics in one block).  Off the card (``sm_count``
+    None) never."""
+    if sm_count is None or K <= MAX_THREADS:
+        return False
+    _, n_tiles, _, group = plan
+    solve_blocks = B * -(-n_tiles // group)
+    stats_blocks = -(-B // step_tail_layout(K, B, sm_count).group)
+    return solve_blocks + stats_blocks <= sm_count
 
 
 def tail_stats_ordered(s: torch.Tensor, lam: float):
@@ -392,18 +428,20 @@ def step_head(cfg: MPPIConfig, ref: torch.Tensor, q, dq, wp_idx):
 def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                     ref: torch.Tensor, step, q, dq, u_prev, wp_idx, done,
                     wp_new, path_end, u_seq, s, clock=None,
-                    row: Optional[tuple] = None, carry_head: bool = False):
+                    row: Optional[tuple] = None, carry_head: bool = False,
+                    statistics: bool = True):
     """Plain version of the tail for B scenarios, in the dtypes of its
     inputs: the state before the step (step, q, dq, u_prev, wp_idx, done),
     the head's new index and path end, the solve's updated controls u_seq
     (B, T, 2) and costs s (B, K), and the run's step counter ``clock``
     (B,) or None.  Writes the step's record row into ``row`` (twelve (B,
     ...) tensors in ``SimRecord``'s field order; needs ``clock``) when
-    given.  Returns the state after the step (step, q, dq, u_prev,
-    wp_idx, done) and clock + 1 (None without a clock), and with
-    ``carry_head`` also the next step's head, :func:`step_head_plain` on
-    that state.  It is also the eager backend's step tail on any device
-    (``sim/loop.py::_eager_step``)."""
+    given, without ``statistics`` all but its statistics lanes
+    (:func:`step_stats_plain` writes those).  Returns the state after the
+    step (step, q, dq, u_prev, wp_idx, done) and clock + 1 (None without a
+    clock), and with ``carry_head`` also the next step's head,
+    :func:`step_head_plain` on that state.  It is also the eager backend's
+    step tail on any device (``sim/loop.py::_eager_step``)."""
     done = done | path_end
     # solver.shift_warm_start: drop u[0], repeat the last row
     u_next = torch.cat([u_seq[..., 1:, :], u_seq[..., -1:, :]], dim=-2)
@@ -417,21 +455,41 @@ def step_tail_plain(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     if row is not None:
         nq = out[1]
         x1, y1, x2, y2 = fk_full(nq[:, 0], nq[:, 1], arm)
-        w = mppi_weights(s, cfg.lam)
-        zero = lambda v: torch.where(
-            done.view(-1, *(1,) * (v.dim() - 1)), torch.zeros_like(v), v)
         idx = torch.clamp(clock + 1, max=ref.shape[0] - 1)
-        for dst, v in zip(row, (
-                nq, out[2], zero(u0), torch.stack([x2, y2], dim=-1),
-                torch.stack([x1, y1], dim=-1), ref[idx, 0:2], out[4],
-                zero(torch.amin(s, dim=-1)),
-                zero(ordered_sum(s) / cfg.num_samples),
-                zero(effective_sample_size(w)), zero(weight_entropy(w)),
-                done)):
-            dst.copy_(v)
+        lanes = [nq, out[2], _zero(done, u0), torch.stack([x2, y2], dim=-1),
+                 torch.stack([x1, y1], dim=-1), ref[idx, 0:2], out[4]]
+        lanes += _stats_plain(cfg, s, done) if statistics else [None] * 4
+        for dst, v in zip(row, (*lanes, done)):
+            if v is not None:
+                dst.copy_(v)
     if carry_head:
         return (*out, step_head_plain(cfg, ref, out[1], out[2], out[4]))
     return out
+
+
+def _zero(done, v):
+    """``v`` with the rows of the scenarios that are done zeroed."""
+    return torch.where(done.view(-1, *(1,) * (v.dim() - 1)),
+                       torch.zeros_like(v), v)
+
+
+def _stats_plain(cfg: MPPIConfig, s, done) -> list:
+    """The record row's statistics lanes of costs ``s`` (B, K) in torch's
+    order: min, mean, the weights' ESS and entropy, zeroed where done."""
+    w = mppi_weights(s, cfg.lam)
+    return [_zero(done, v) for v in (
+        torch.amin(s, dim=-1), ordered_sum(s) / cfg.num_samples,
+        effective_sample_size(w), weight_entropy(w))]
+
+
+def step_stats_plain(cfg: MPPIConfig, s, row: tuple) -> None:
+    """Plain version of the tail's statistics launched on their own: the
+    statistics lanes of the record ``row`` (twelve (B, ...) tensors in
+    ``SimRecord``'s field order) from costs ``s`` (B, K), zeroed where the
+    row's done lane (written by the tail with ``statistics=False``) is
+    set."""
+    for dst, v in zip(row[7:11], _stats_plain(cfg, s, row[11])):
+        dst.copy_(v)
 
 
 @functools.lru_cache(maxsize=None)
@@ -463,12 +521,41 @@ def _tail_layout_on(K: int, B: int, device: torch.device) -> TailLayout:
     return step_tail_layout(K, B, _sm_count(device), _cluster_slots(device))
 
 
+def _written(row, B, device) -> Optional[tuple]:
+    """The record row's tensors the kernel writes: each of ``row`` itself,
+    or for a float lane of another dtype a float32 copy, checked against
+    the kernel's shapes and dtypes; None for no row."""
+    if row is None:
+        return None
+    if len(row) != len(_TAIL_ROW):
+        raise ValueError(f"a record row is {len(_TAIL_ROW)} tensors, "
+                         f"got {len(row)}")
+    f32 = torch.float32
+    written = tuple(torch.empty(t.shape, dtype=f32, device=t.device)
+                    if _f32(t) is not t else t for t in row)
+    for name, t, (shape, dtype) in zip(_TAIL_ROW, written, (
+            ((B, 2), f32),) * 6 + (((B,), torch.int64),)
+            + (((B,), f32),) * 4 + (((B,), torch.bool),)):
+        _check_tensor(name, t, shape, dtype, device)
+    return written
+
+
+def _copy_back(row, written, skip=()) -> None:
+    """The float32 copies of ``written`` into their lanes of ``row``, but
+    the lanes named in ``skip``."""
+    for name, dst, t in zip(_TAIL_ROW, row or (), written or ()):
+        if dst is not t and name not in skip:
+            dst.copy_(t)
+
+
 def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
                  clock, row, carry_head=False,
-                 layout: Optional[TailLayout] = None):
+                 layout: Optional[TailLayout] = None,
+                 statistics: bool = True):
     """The tail kernel's launch; ``layout`` (default
-    :func:`step_tail_layout` on this card) forces one, for the layout
-    A/Bs of ``tools/fused_timing.py --split --tail-layouts`` and the card
+    :func:`step_tail_layout` on this card, or without ``statistics``
+    :data:`CONTROL_LAYOUT`) forces one, for the layout A/Bs of
+    ``tools/fused_timing.py --split --tail-layouts`` and the card
     tests."""
     global TAIL_LAUNCHES, CARRIED_HEADS, CLUSTER_TAILS
     from ._build import load_library
@@ -497,26 +584,15 @@ def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
             _check_tensor(name, t, *shapes[name], device)
     outs = [torch.empty_like(v) for v in (step, q, dq, u_prev, wp_idx, done)]
     outs.append(None if clock is None else torch.empty_like(clock))
-    written = row
-    if row is not None:
-        if len(row) != len(_TAIL_ROW):
-            raise ValueError(f"a record row is {len(_TAIL_ROW)} tensors, "
-                             f"got {len(row)}")
-        # a float row of another dtype is written through a float32 copy
-        written = tuple(
-            torch.empty(t.shape, dtype=f32, device=t.device)
-            if _f32(t) is not t else t for t in row)
-        for name, t, (shape, dtype) in zip(_TAIL_ROW, written, (
-                (b2, f32),) * 6 + (((B,), i64),) + (((B,), f32),) * 4
-                + (((B,), bb),)):
-            _check_tensor(name, t, shape, dtype, device)
+    written = _written(row, B, device)
     ptrs = [None if t is None else t.data_ptr()
             for t in (*ins.values(), *outs, *(written or (None,) * 12))]
     args = _TailArgs(*ptrs)
     head, head_args = (_head_outputs(B, cfg.search_idx_len, device)
                        if carry_head else (None, None))
     if layout is None:
-        layout = _tail_layout_on(K, B, device)
+        layout = (_tail_layout_on(K, B, device) if statistics
+                  else CONTROL_LAYOUT)
     params = _step_params(arm, cfg, sim, ref.shape[0])
     lib = load_library()
     with torch.cuda.device(device):
@@ -524,7 +600,7 @@ def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
             ctypes.byref(params), ctypes.byref(args),
             None if head_args is None else ctypes.byref(head_args), B,
             step_tail_threads(K), layout.lanes, layout.cap, layout.group,
-            layout.cluster,
+            layout.cluster, _WHOLE if statistics else _CONTROL,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if err:
         raise RuntimeError(f"step_tail_kernel launch failed ({layout}): "
@@ -532,9 +608,7 @@ def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
     TAIL_LAUNCHES += 1
     CARRIED_HEADS += int(carry_head)
     CLUSTER_TAILS += int(layout.cluster > 1)
-    for dst, t in zip(row or (), written or ()):
-        if dst is not t:
-            dst.copy_(t)
+    _copy_back(row, written, () if statistics else _STAT_LANES)
     nxt = (*(v.to(d) for v, d in zip(outs, dtypes)), outs[6])
     if not carry_head:
         return nxt
@@ -545,13 +619,15 @@ def _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq, s,
 def step_tail(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
               ref: torch.Tensor, step, q, dq, u_prev, wp_idx, done, wp_new,
               path_end, u_seq, s, clock=None, row: Optional[tuple] = None,
-              carry_head: bool = False):
+              carry_head: bool = False, statistics: bool = True):
     """The step's tail (see the module docstring and
     :func:`step_tail_plain` for the arguments and results): CUDA tensors
     launch ``step_tail_kernel`` in the layout of :func:`step_tail_layout`
     (contiguous float, int64 and bool tensors; it runs in float32, float
     operands cast to it and the results, the record row and the carried
-    head back to their dtypes) or raise; CPU tensors take
+    head back to their dtypes), or without ``statistics`` its control warp
+    alone in :data:`CONTROL_LAYOUT`, leaving the row's statistics lanes
+    to :func:`step_stats`; or raise.  CPU tensors take
     :func:`step_tail_plain`.  With ``carry_head`` the results end with the
     next step's head, (x0, index, path_end, window) as :func:`step_head`
     gives them on the new state."""
@@ -560,6 +636,53 @@ def step_tail(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
                    *(row or ()))
     if kinds == {"cpu"}:
         return step_tail_plain(arm, cfg, sim, ref, *state, wp_new, path_end,
-                               u_seq, s, clock, row, carry_head)
+                               u_seq, s, clock, row, carry_head, statistics)
     return _tail_launch(arm, cfg, sim, ref, state, wp_new, path_end, u_seq,
-                        s, clock, row, carry_head)
+                        s, clock, row, carry_head, None, statistics)
+
+
+def _stats_launch(cfg, s, row, beside: bool):
+    """The statistics kernel's launch (``step_stats_kernel``) on the
+    current stream ``beside`` a solve in one block a scenario
+    (:func:`step_tail_layout` with no cluster slots), else in the tail's
+    own layout."""
+    global STATS_LAUNCHES
+    from ._build import load_library
+    from .cuda_solve import _sm_count
+
+    device, s = s.device, _f32(s)
+    B, K = s.shape[0], cfg.num_samples
+    _check_tensor("s", s, (B, K), torch.float32, device)
+    written = _written(row, B, device)
+    args = _TailArgs(s=s.data_ptr(), **{
+        name: t.data_ptr() for name, t in zip(_TAIL_ROW, written)})
+    layout = (step_tail_layout(K, B, _sm_count(device)) if beside
+              else _tail_layout_on(K, B, device))
+    params = _step_params(None, cfg, None, 1)
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.mppi_step_tail_launch(
+            ctypes.byref(params), ctypes.byref(args), None, B,
+            step_tail_threads(K), layout.lanes, layout.cap, layout.group,
+            layout.cluster, _STATS,
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err:
+        raise RuntimeError(f"step_stats_kernel launch failed ({layout}): "
+                           + lib.mppi_error_string(err).decode())
+    STATS_LAUNCHES += 1
+    _copy_back(row, written, [n for n in _TAIL_ROW if n not in _STAT_LANES])
+
+
+def step_stats(cfg: MPPIConfig, s, row: tuple, beside: bool = True):
+    """The tail's statistics on their own, after a tail launched with
+    ``statistics=False`` wrote the rest of the record ``row``: min, mean,
+    ESS and entropy of costs ``s`` (B, K) into the row's statistics lanes,
+    zeroed where its done lane is set, the kernel's bits
+    (:func:`tail_stats_ordered`).  CUDA tensors launch
+    ``step_stats_kernel``, ``beside`` a solve in one block a scenario
+    (so it takes only the SMs the solve leaves), else in the tail's own
+    layout (a cluster where it pays); or raise.  CPU tensors take
+    :func:`step_stats_plain`."""
+    if _kinds(s, *row) == {"cpu"}:
+        return step_stats_plain(cfg, s, row)
+    return _stats_launch(cfg, s, row, beside)

@@ -17,7 +17,9 @@ The loops:
     which vmaps its step inside one ``lax.scan``); ``backend="cuda"`` runs
     each step as the solve kernel of ``ops/cuda_solve.py`` and
     ``ops/cuda_step.py``'s tail (plant, freeze, record row, the next
-    step's head), after one ``cuda_step`` head a chunk, all in float32 (a
+    step's head; above K = 1024, where the solve leaves SMs free, the
+    row's statistics on a branch beside the next solve), after one
+    ``cuda_step`` head a chunk, all in float32 (a
     float64 state goes through them cast and comes back float64).  Both
     keep step, seed and waypoint index on the device so the host never
     waits, and on the card run the steps as replayed CUDA graphs of a
@@ -334,27 +336,62 @@ def _steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
     first, then each step the solve kernel and the step tail, which
     carries the next step's head but on the last step; step i writes its
     record row into slot i of each of ``rows`` in place; ``clock`` is the
-    run's step counter (the reference rows' index).  Returns the last
-    state and clock.  No host synchronisation, so a CUDA graph can
-    capture it."""
+    run's step counter (the reference rows' index).  Where
+    :func:`_branched`, the tail runs its control alone and the row's
+    statistics run as their own launch forked after it
+    (``cuda_graphs.Branch``: in a graph, a branch beside the next step's
+    solve), reading S from one of two buffers by the step's parity, which
+    the solve of step i + 2 overwrites only after the statistics of step
+    i; the last step's statistics take the tail's own layout (no solve
+    beside them), and the forks are joined before the rows leave.
+    Returns the last state and clock.  No host synchronisation, so a CUDA
+    graph can capture it."""
     n = rows[0].shape[0]
+    B, device = states.q.shape[0], ref_path.device
+    branch = _branched(cfg, B, device)
+    if branch:
+        fork = cuda_graphs.Branch(device)
+        costs = torch.empty((2, B, cfg.num_samples), dtype=torch.float32,
+                            device=device)
     head = cuda_step.step_head(cfg, ref_path, states.q, states.dq,
                                states.mppi.wp_idx)
     for i in range(n):
         eps = None if eps_chunk is None else eps_chunk[i]
         x0, wp, path_end, window = head
+        s_out = None
+        if branch:
+            fork.wait(i % 2)
+            s_out = costs[i % 2]
         u_seq, s, _ = _solve_kernels(
             arm, cfg, x0, states.mppi.u_prev, window,
-            states.seed if eps is None else None, eps, states.step, False)
+            states.seed if eps is None else None, eps, states.step, False,
+            s_out)
         carry = i + 1 < n
+        row = tuple(r[i] for r in rows)
         out = cuda_step.step_tail(
             arm, cfg, sim, ref_path, *_state_tensors(states)[:5],
-            states.done, wp, path_end, u_seq, s, clock,
-            tuple(r[i] for r in rows), carry_head=carry)
+            states.done, wp, path_end, u_seq, s, clock, row,
+            carry_head=carry, statistics=not branch)
+        if branch:
+            with fork.fork(i % 2):
+                cuda_step.step_stats(cfg, s_out, row, beside=carry)
         step, q, dq, u_prev, wp, done, clock = out[:7]
         head = out[7] if carry else None
         states = _as_state((step, q, dq, u_prev, wp, states.seed, done))
+    if branch:
+        fork.join()
     return states, clock
+
+
+def _branched(cfg: MPPIConfig, B: int, device, plan=None) -> bool:
+    """Whether a chunk of B scenarios on ``device`` runs the step tail's
+    statistics on a branch (:func:`_steps_into`):
+    ``cuda_step.stats_branch`` of K, B, the card's SMs and the solve's
+    launch ``plan`` (default: :func:`step_solve_plan` now)."""
+    if plan is None:
+        plan = step_solve_plan(cfg, B, device)
+    return cuda_step.stats_branch(cfg.num_samples, B,
+                                  cuda_solve._sm_count(device), plan)
 
 
 def _eager_steps_into(arm: ArmParams, cfg: MPPIConfig, sim: SimConfig,
@@ -394,20 +431,27 @@ def _chunk_key(arm, cfg, sim, B: int, n: int, device, backend: str):
     """What a chunk of ``n`` steps bakes in beside its inputs' shapes (the
     backend, the steps, the configs, and for the cuda backend the solve's
     and the step tail's layouts as the solver and ``cuda_step`` plan them
-    now, so a graph captured under one plan is never replayed under
-    another), and the launches its capture records: for the cuda backend
-    a solve and a tail a step, one head, the n - 1 tails that carried the
-    next head, and on a clustered tail layout a cluster tail a step; none
-    of the port's kernels for the eager backend."""
+    now and whether the statistics run on a branch, so a graph captured
+    under one plan is never replayed under another), and the launches its
+    capture records: for the cuda backend a solve and a tail a step, one
+    head, the n - 1 tails that carried the next head, on a branch
+    (:func:`_branched`) a statistics launch a step, and on a clustered
+    tail layout a cluster tail a step (none on a branch, where the control
+    tail runs in one block); none of the port's kernels for the eager
+    backend."""
     if backend != "cuda":
         return (backend, n, arm, cfg, sim, None), cuda_graphs.NO_LAUNCH
     layout = cuda_step._tail_layout_on(cfg.num_samples, B, device)
-    return (backend, n, arm, cfg, sim,
-            (step_solve_plan(cfg, B, device), layout)), cuda_graphs.expect({
-                (cuda_solve, "LAUNCHES"): n, (cuda_step, "HEAD_LAUNCHES"): 1,
-                (cuda_step, "TAIL_LAUNCHES"): n,
-                (cuda_step, "CARRIED_HEADS"): n - 1,
-                (cuda_step, "CLUSTER_TAILS"): n * (layout.cluster > 1)})
+    plan = step_solve_plan(cfg, B, device)
+    branch = _branched(cfg, B, device, plan)
+    return (backend, n, arm, cfg, sim, (plan, layout, branch)), \
+        cuda_graphs.expect({
+            (cuda_solve, "LAUNCHES"): n, (cuda_step, "HEAD_LAUNCHES"): 1,
+            (cuda_step, "TAIL_LAUNCHES"): n,
+            (cuda_step, "STATS_LAUNCHES"): n * branch,
+            (cuda_step, "CARRIED_HEADS"): n - 1,
+            (cuda_step, "CLUSTER_TAILS"):
+                (not branch) * n * (layout.cluster > 1)})
 
 
 def _chunk(body, arm, cfg, sim, n: int, *inputs):

@@ -25,7 +25,9 @@ not.  Spans (``utils/spans.py``): ``graph.key``, ``graph.warm``,
 included) and ``graph.replay``.  :class:`Packed` is the per-call users'
 result written into one flat buffer a dtype inside the program, so that
 a replay's fresh result is one clone a dtype, handed back as views in
-the result's own shapes.
+the result's own shapes.  :class:`Branch` forks work off the current
+stream and joins it back: in a captured program, a branch of the graph
+(the loop's step statistics beside the next solve, ``sim/loop.py``).
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ from . import spans
 # counts of work their wrappers add beside them (the solve kernel's tile
 # partials): a replay adds both as its capture recorded them
 COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
-            (cuda_step, "TAIL_LAUNCHES"), (cuda_step, "CARRIED_HEADS"),
-            (cuda_step, "CLUSTER_TAILS"),
+            (cuda_step, "TAIL_LAUNCHES"), (cuda_step, "STATS_LAUNCHES"),
+            (cuda_step, "CARRIED_HEADS"), (cuda_step, "CLUSTER_TAILS"),
             (cuda_sim, "LAUNCHES"), (cuda_sim, "FLEET_LAUNCHES"),
             (cuda_shard, "SCALE_LAUNCHES"), (cuda_shard, "FINISH_LAUNCHES"),
             (cuda_probe, "SCALE_LAUNCHES"), (cuda_probe, "BIG_LAUNCHES"),
@@ -55,6 +57,7 @@ NO_LAUNCH = (0,) * len(COUNTERS)
 CACHE_SIZE = 8               # entries a user's cache keeps
 DEVICES = ("cuda",)          # where programs run as graphs
 CAPTURE_STREAMS: dict = {}   # device index -> the stream captures run on
+BRANCH_STREAMS: dict = {}    # device index -> the stream branches run on
 STREAMS: dict = {}           # (stream id, device index) -> its Stream
 _ON = True                   # off inside uncaptured()
 
@@ -123,6 +126,52 @@ def capture_stream(device: torch.device):
     if own is None:
         own = CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
     return own
+
+
+class Branch:
+    """Work forked off the current stream of ``device`` onto a side
+    stream (one a device, made at its first use) and joined back; under a
+    capture, a branch of the graph beside the work that follows on the
+    current stream.  Each :meth:`fork` waits for the current stream's work
+    so far and is kept under a slot; :meth:`wait` makes the current stream
+    wait for the fork of a slot (before it overwrites what that fork
+    reads), :meth:`join` for every fork.  Off the card the forks run in
+    order where they are made and the waits do nothing."""
+
+    def __init__(self, device: torch.device):
+        self.card = device.type == "cuda"
+        self.forks: dict = {}
+        if self.card:
+            self.main = torch.cuda.current_stream(device)
+            self.side = BRANCH_STREAMS.get(device.index)
+            if self.side is None:
+                self.side = BRANCH_STREAMS[device.index] = torch.cuda.Stream(
+                    device)
+
+    @contextlib.contextmanager
+    def fork(self, slot):
+        """Inside the block work goes onto the side stream, after the
+        current stream's work so far."""
+        if not self.card:
+            yield
+            return
+        self.side.wait_stream(self.main)
+        with torch.cuda.stream(self.side):
+            yield
+        self.forks[slot] = self.side.record_event()
+
+    def wait(self, slot) -> None:
+        """The current stream's later work waits for the fork of ``slot``,
+        if one is open."""
+        done = self.forks.pop(slot, None)
+        if done is not None:
+            self.main.wait_event(done)
+
+    def join(self) -> None:
+        """The current stream's later work waits for every fork."""
+        if self.card:
+            self.main.wait_stream(self.side)
+        self.forks.clear()
 
 
 class Captured(NamedTuple):

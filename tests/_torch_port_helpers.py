@@ -143,10 +143,11 @@ def counted_kernels(monkeypatch):
     """The cuda backend's kernels counted as their wrappers count a launch
     on the card (the plain versions count none): the step head one, the
     step tail one and one carried head when it carries the next step's
-    head, and ``per_solve`` solve launches a call of the solve kernel's
-    wrapper (1 unless the returned function is called with another)."""
+    head, the tail's statistics launched on their own one, and
+    ``per_solve`` solve launches a call of the solve kernel's wrapper (1
+    unless the returned function is called with another)."""
     solve, head = cuda_solve.solve_batched, cuda_step.step_head
-    tail = cuda_step.step_tail
+    tail, stats = cuda_step.step_tail, cuda_step.step_stats
 
     def counted_head(*a, **k):
         cuda_step.HEAD_LAUNCHES += 1
@@ -157,8 +158,13 @@ def counted_kernels(monkeypatch):
         cuda_step.CARRIED_HEADS += int(k.get("carry_head", False))
         return tail(*a, **k)
 
+    def counted_stats(*a, **k):
+        cuda_step.STATS_LAUNCHES += 1
+        return stats(*a, **k)
+
     monkeypatch.setattr(cuda_step, "step_head", counted_head)
     monkeypatch.setattr(cuda_step, "step_tail", counted_tail)
+    monkeypatch.setattr(cuda_step, "step_stats", counted_stats)
 
     def per_solve(n):
         def counted(*a, **k):

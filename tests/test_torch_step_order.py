@@ -41,8 +41,10 @@ import pytest
 import torch
 
 import mppi_robotarm_tpu_torch as P
-from mppi_robotarm_tpu_torch.ops import cuda_step
+from mppi_robotarm_tpu_torch.mppi import solver as psolver
+from mppi_robotarm_tpu_torch.ops import cuda_solve, cuda_step
 from mppi_robotarm_tpu_torch.sim import loop as ploop
+from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
 torch.set_num_threads(1)
 ARM, SIM = P.ArmParams(), P.SimConfig()
@@ -235,6 +237,142 @@ def test_a_chunk_runs_one_head_and_a_tail_a_step(monkeypatch):
                      "plain_head": n, "plain_tail": n}
 
 
+def _solve_plan(K, B, sms):
+    """The solve's launch plan for B scenarios of K samples, H = 50, on a
+    card of ``sms`` SMs (None: off the card)."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=50)
+    o = psolver._solve_options(cfg)
+    return cuda_solve._plan(cfg, K, o["tile"], o["normalize"],
+                            o["fuse_update"], B, sms)
+
+
+@pytest.mark.parametrize("K,B,sms,branch", [
+    (65536, 1, 132, True),      # 128 solve blocks leave 4 of 132 SMs
+    (16384, 1, 132, True),
+    (1024, 1, 132, False),      # the statistics cost less than a launch
+    (128, 4096, 132, False),    # the fleet
+    (65536, 1, 128, False),     # the solve's blocks fill every SM
+    (65536, 1, 129, True),      # one SM left: one block of statistics
+    (65536, 2, 132, False),     # 256 solve blocks: two waves
+    (65536, 1, None, False)])   # off the card
+def test_the_statistics_branch_rule(K, B, sms, branch):
+    """``stats_branch``: the tail's statistics leave the control tail's
+    launch above K = 1024, where the solve's blocks leave the SMs the
+    statistics' one-block layout takes (one scenario, one block);
+    elsewhere the fused tail stays."""
+    plan = _solve_plan(K, B, sms)
+    if K == 65536:
+        assert (plan[1], plan[3]) == (128, 1)     # 128 tiles, one a block
+    if B == 1:
+        assert cuda_step.step_tail_layout(K, B, sms).group == 1
+    assert cuda_step.stats_branch(K, B, sms, plan) is branch
+
+
+def test_the_branch_layouts_fit_what_the_kernel_takes():
+    """The statistics beside a solve stay in one block (no cluster), and
+    the control alone has no statistics warps; both are layouts the
+    kernel takes."""
+    for K, B in ((65536, 1), (16384, 1), (65536, 2), (2000, 3)):
+        lay = cuda_step.step_tail_layout(K, B, 132)
+        assert lay.cluster == 1 and cuda_step.tail_layout_fits(lay, K)
+        assert cuda_step.tail_layout_fits(cuda_step.CONTROL_LAYOUT, K)
+    assert cuda_step.CONTROL_LAYOUT.warps == 0
+
+
+def test_the_chunks_launches_name_the_statistics_launches(monkeypatch):
+    """A chunk's key holds whether its statistics run on a branch, and its
+    expected launches name ``cuda_step.STATS_LAUNCHES``: one a step on a
+    branch, none in the fused tail; on a clustered tail layout a cluster
+    tail a step in the fused tail, none on a branch, whose control tail
+    runs in one block."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=16384, horizon=6)
+    cpu, n = torch.device("cpu"), 16
+    monkeypatch.setattr(cuda_step, "_tail_layout_on", lambda K, B, device:
+                        cuda_step.step_tail_layout(K, B, 132, 15))
+    for branch in (True, False):
+        monkeypatch.setattr(ploop, "_branched",
+                            lambda *a, branch=branch: branch)
+        key, launches = ploop._chunk_key(ARM, cfg, SIM, 1, n, cpu, "cuda")
+        assert key[-1][-1] is branch
+        counts = dict(zip([name for _, name in cuda_graphs.COUNTERS],
+                          launches))
+        assert counts["STATS_LAUNCHES"] == (n if branch else 0)
+        assert counts["TAIL_LAUNCHES"] == n
+        assert counts["CLUSTER_TAILS"] == (0 if branch else n)
+        assert (f"cuda_step.STATS_LAUNCHES {n}" in cuda_graphs.named(
+            launches)) is branch
+
+
+def _branch_run(monkeypatch, branch, steps, K=48, B=3):
+    """``_step_loop`` (cuda backend, the plain versions on the CPU) with
+    the statistics' branch forced on or off; returns its result and the
+    calls of ``step_tail`` (its ``statistics``) and ``step_stats`` (its
+    ``beside``)."""
+    calls = {"tail": [], "stats": []}
+    tail, stats = cuda_step.step_tail, cuda_step.step_stats
+
+    def counted_tail(*a, **k):
+        calls["tail"].append(k.get("statistics", True))
+        return tail(*a, **k)
+
+    def counted_stats(*a, **k):
+        calls["stats"].append(k.get("beside", True))
+        return stats(*a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ploop, "_branched", lambda *a, **k: branch)
+        mp.setattr(cuda_step, "step_tail", counted_tail)
+        mp.setattr(cuda_step, "step_stats", counted_stats)
+        cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=6)
+        ref = torch.as_tensor(P.synth_circle_path(40, revolutions=0.02),
+                              dtype=torch.float32)
+        states = P.init_sim_batch(cfg, SIM, np.arange(B), device="cpu")
+        # scenarios that reach the path end near step 53, inside a chunk
+        states = states._replace(mppi=states.mppi._replace(
+            wp_idx=torch.tensor([0, 4, 8])))
+        out = ploop._step_loop(ARM, cfg, SIM, ref, states, steps)
+    return out, calls
+
+
+def test_a_branched_chunk_records_the_fused_tails_bits(monkeypatch):
+    """On the CPU (the plain versions) a loop whose chunks run the control
+    tail and the statistics apart records the fused tail's bits, the
+    frozen steps' zeroed statistics among them: a control tail and a
+    statistics launch a step, the chunk's last statistics not beside a
+    solve."""
+    S = ploop._GRAPH_STEPS
+    steps = 4 * S + 6
+    (f1, r1), c1 = _branch_run(monkeypatch, True, steps)
+    (f0, r0), c0 = _branch_run(monkeypatch, False, steps)
+    assert bool(r0.done.any()) and not bool(r0.done[0].any())
+    for name, a, b in zip(P.SimRecord._fields, r1, r0):
+        assert torch.equal(a, b), name
+    for a, b in zip(ploop._state_tensors(f1), ploop._state_tensors(f0)):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    assert c0 == {"tail": [True] * steps, "stats": []}
+    assert c1["tail"] == [False] * steps
+    last = [i % S == S - 1 or i == steps - 1 for i in range(steps)]
+    assert c1["stats"] == [not x for x in last]
+
+
+def test_a_single_step_keeps_the_fused_tail(monkeypatch):
+    """``sim_step`` has no chunk to overlap: its tail runs whole, with no
+    statistics launch of its own, whatever the rule says."""
+    calls = []
+    tail = cuda_step.step_tail
+    monkeypatch.setattr(ploop, "_branched", lambda *a, **k: True)
+    monkeypatch.setattr(cuda_step, "stats_branch", lambda *a, **k: True)
+    monkeypatch.setattr(cuda_step, "step_tail", lambda *a, **k: (
+        calls.append(k.get("statistics", True)), tail(*a, **k))[1])
+    monkeypatch.setattr(cuda_step, "step_stats", lambda *a, **k:
+                        pytest.fail("a statistics launch in sim_step"))
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=32, horizon=6)
+    ref = torch.as_tensor(P.synth_circle_path(500), dtype=torch.float32)
+    state = P.init_sim(cfg, SIM, seed=3, device="cpu")
+    ploop.sim_step(ARM, cfg, SIM, ref, state, backend="cuda")
+    assert calls == [True]
+
+
 # ---- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -351,11 +489,12 @@ def test_clustered_statistics_equal_the_twin_on_the_card(dev, K, B):
         assert torch.equal(fields[name], w), name
 
 
-def _chain(dev, K, steps, seed=5, layout=None):
+def _chain(dev, K, steps, seed=5, layout=None, branch=None):
     """``simulate(backend="cuda")`` from ``init_sim(seed)`` at K samples,
     H = 50, on the 8000-point circle; the step tail in ``layout`` (None:
-    the package's), the chunks captured anew.  Returns the records and
-    the tail launches and clustered tails it counted."""
+    the package's), its statistics on a branch or not as ``branch`` says
+    (None: as the package's rule says), the chunks captured anew.  Returns
+    the records and the tail launches and clustered tails it counted."""
     cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=50)
     ref = torch.as_tensor(P.synth_circle_path(8000), dtype=torch.float32,
                           device=dev)
@@ -364,6 +503,8 @@ def _chain(dev, K, steps, seed=5, layout=None):
         mp.setattr(ploop, "_GRAPHS", type(ploop._GRAPHS)())
         if layout is not None:
             mp.setattr(cuda_step, "_tail_layout_on", lambda *a: layout)
+        if branch is not None:
+            mp.setattr(ploop, "_branched", lambda *a, **k: branch)
         before = (cuda_step.TAIL_LAUNCHES, cuda_step.CLUSTER_TAILS)
         _, rec = P.simulate(ARM, cfg, SIM, ref, state, steps,
                             backend="cuda")
@@ -374,14 +515,14 @@ def _chain(dev, K, steps, seed=5, layout=None):
 
 @pytest.mark.cuda
 def test_a_large_k_chain_records_the_one_block_layouts_bits(dev):
-    """4000 steps at K = 65536: the tail on a cluster against the layout
-    that reads S each pass in one block, every record field bit for
-    bit."""
+    """4000 steps at K = 65536 with the fused tail (the statistics off the
+    branch): the tail on a cluster against the layout that reads S each
+    pass in one block, every record field bit for bit."""
     K = 65536
     one_block = cuda_step.step_tail_layout(K, 1)
     assert one_block.cluster == 1 and one_block.cap == 0
-    got, counts = _chain(dev, K, 4000)
-    want, _ = _chain(dev, K, 4000, layout=one_block)
+    got, counts = _chain(dev, K, 4000, branch=False)
+    want, _ = _chain(dev, K, 4000, layout=one_block, branch=False)
     assert counts == (4000, 4000)
     for name, a, b in zip(P.SimRecord._fields, got, want):
         assert torch.equal(a, b), name
@@ -389,9 +530,105 @@ def test_a_large_k_chain_records_the_one_block_layouts_bits(dev):
 
 @pytest.mark.cuda
 def test_cluster_tails_count_every_large_k_tail_and_no_k1024_one(dev):
-    """Over a step-loop window ``CLUSTER_TAILS`` moves with
-    ``TAIL_LAUNCHES`` at K = 65536 (replays adding what their captures
-    recorded) and stays at K = 1024."""
+    """Over a step-loop window of the fused tail ``CLUSTER_TAILS`` moves
+    with ``TAIL_LAUNCHES`` at K = 65536 (replays adding what their
+    captures recorded) and stays at K = 1024."""
     steps = 3 * ploop._GRAPH_STEPS + 5
-    assert _chain(dev, 65536, steps)[1] == (steps, steps)
+    assert _chain(dev, 65536, steps, branch=False)[1] == (steps, steps)
     assert _chain(dev, 1024, steps)[1] == (steps, 0)
+
+
+
+def _with_done(row, frozen):
+    """A copy of the record ``row`` whose done lane is ``frozen``."""
+    row = tuple(r.clone() for r in row)
+    row[11].copy_(frozen)
+    return row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B", [(16384, 1), (65536, 1), (65536, 2)])
+def test_statistics_launch_equals_the_twin_on_the_card(dev, K, B):
+    """``step_stats`` after the control tail: the control tail's row is the
+    fused tail's but for the statistics lanes, and the statistics launch,
+    beside a solve (one block) and alone (the tail's own layout, a
+    cluster), writes the twin's bits (``tail_stats_ordered``), zeroed
+    where the row's done lane is set."""
+    args = _tail_inputs(K, B, dev, seed=K + B)
+    cfg, ref, state, wp_new, path_end, u_seq, s, clock = args
+    (*fused, fused_head), fused_row = _run_tail(*args)
+    row = tuple(r[0] for r in ploop._row_buffers(
+        1, ploop._as_state((*state[:5], None, state[5])), ref))
+    *ctl, ctl_head = cuda_step.step_tail(
+        ARM, cfg, SIM, ref, *state, wp_new, path_end, u_seq, s, clock, row,
+        carry_head=True, statistics=False)
+    torch.cuda.synchronize()
+    for a, b in zip((*ctl, *ctl_head), (*fused[:7], *fused_head)):
+        assert torch.equal(a, b)
+    for i, (a, b) in enumerate(zip(row, fused_row)):
+        if not 7 <= i <= 10:
+            assert torch.equal(a, b), P.SimRecord._fields[i]
+    want = cuda_step.tail_stats_ordered(s, cfg.lam)
+    frozen = torch.arange(B, device=dev) % 2 == 1
+    for beside in (True, False):
+        for done in (row[11], frozen):
+            got = _with_done(row, done)
+            before = (cuda_step.STATS_LAUNCHES, cuda_step.CLUSTER_TAILS)
+            cuda_step.step_stats(cfg, s, got, beside=beside)
+            torch.cuda.synchronize()
+            assert (cuda_step.STATS_LAUNCHES - before[0],
+                    cuda_step.CLUSTER_TAILS - before[1]) == (1, 0)
+            for name, g, w in zip(P.SimRecord._fields[7:11], got[7:11],
+                                  want):
+                assert torch.equal(g, torch.where(done, 0.0, w)), name
+
+
+def _loop(dev, K, B, steps, branch, captured):
+    """``simulate_batch(backend="cuda")`` of B scenarios at K samples, H =
+    50, on the 8000-point circle, the statistics on a branch or in the
+    fused tail as ``branch`` says, as replayed graphs (chunks captured
+    anew) or under ``cuda_graphs.uncaptured()``.  Returns the final state,
+    the records and the tail and statistics launches it counted."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=50)
+    ref = torch.as_tensor(P.synth_circle_path(8000), dtype=torch.float32,
+                          device=dev)
+    states = P.init_sim_batch(cfg, SIM, np.arange(B) + 11, device=dev)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ploop, "_GRAPHS", type(ploop._GRAPHS)())
+        mp.setattr(ploop, "_branched", lambda *a, **k: branch)
+        before = (cuda_step.TAIL_LAUNCHES, cuda_step.STATS_LAUNCHES)
+        if captured:
+            out = P.simulate_batch(ARM, cfg, SIM, ref, states, steps,
+                                   backend="cuda")
+        else:
+            with cuda_graphs.uncaptured():
+                out = P.simulate_batch(ARM, cfg, SIM, ref, states, steps,
+                                       backend="cuda")
+        torch.cuda.synchronize()
+    return (*out, (cuda_step.TAIL_LAUNCHES - before[0],
+                   cuda_step.STATS_LAUNCHES - before[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B", [(65536, 1), (65536, 2), (16384, 1)])
+def test_a_branched_loop_records_the_fused_tails_bits(dev, K, B):
+    """The loop with the statistics on a branch of each chunk against the
+    fused tail's loop: every record field and the final state bit for
+    bit, as replayed graphs and uncaptured; a statistics launch a tail
+    over whole chunks on the branch, none in the fused tail.  The rule
+    takes the branch at B = 1 on an H100 (132 SMs) and not at B = 2, whose
+    solve fills the card; B = 2 forces it."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=50)
+    if cuda_solve._sm_count(dev) == 132:
+        assert ploop._branched(cfg, B, dev) is (B == 1)
+    steps = 4 * ploop._GRAPH_STEPS + 5
+    want = _loop(dev, K, B, steps, False, True)
+    assert want[2] == (steps, 0)
+    for captured in (True, False):
+        got = _loop(dev, K, B, steps, True, captured)
+        assert got[2] == (steps, steps), captured
+        for name, a, b in zip(P.SimRecord._fields, got[1], want[1]):
+            assert torch.equal(a, b), (name, captured)
+        for a, b in zip(ploop._state_tensors(got[0]),
+                        ploop._state_tensors(want[0])):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))

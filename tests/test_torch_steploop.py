@@ -294,6 +294,28 @@ def test_a_chunk_capture_raises_when_cluster_tails_disagree_with_its_layout(
     assert cuda_graphs.launch_counts() == counts
 
 
+def test_replays_count_the_statistics_launches_their_capture_recorded(
+        graphs_on_cpu, monkeypatch):
+    """A chunk whose statistics run on a branch (``_branched``, forced
+    here) records a statistics launch a step beside its tails
+    (``cuda_step.STATS_LAUNCHES``), each replay adds them, and its
+    records are the fused tail's uncaptured loop's bit for bit."""
+    cfg, ref = _cfg(64, 6), _ref()
+    states = _batch(cfg, 2)
+    with cuda_graphs.uncaptured():
+        want = ploop._step_loop(ARM, cfg, SIM, ref, states, 3 * SMALL_S)
+    monkeypatch.setattr(ploop, "_branched", lambda *a, **k: True)
+    before = (cuda_step.TAIL_LAUNCHES, cuda_step.STATS_LAUNCHES)
+    chunks = 3
+    got = ploop._step_loop(ARM, cfg, SIM, ref, states, chunks * SMALL_S)
+    (c,) = graphs_on_cpu
+    at = [name for _, name in cuda_graphs.COUNTERS].index("STATS_LAUNCHES")
+    assert c.recorded[at] == SMALL_S
+    assert cuda_step.STATS_LAUNCHES - before[1] == \
+        cuda_step.TAIL_LAUNCHES - before[0] == chunks * SMALL_S
+    assert_same_run(got, want)
+
+
 # ---- on the card ----------------------------------------------------------
 
 @pytest.fixture
