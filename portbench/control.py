@@ -1,6 +1,7 @@
 """The readings a cell's limits are set from: the program's on many seeds,
 and the control's, the plain reference put in the program's place and
-computed in bfloat16 (the precision below the configuration's float32).
+computed in the precision below the configuration's ``dtype``: bfloat16
+below float32 (every cell's so far), float32 below float64.
 
     python3 -m portbench.control --workload <name> --seconds <s> \\
         --seeds <n> ... [--controls <k>]
@@ -23,23 +24,30 @@ import torch
 
 from portbench import harness, judge
 
+BELOW = {"float64": torch.float32, "float32": torch.bfloat16}
+
+
+def below(conf: dict) -> torch.dtype:
+    """The control's precision: the one below the configuration's."""
+    return BELOW[conf.get("dtype", "float32")]
+
 
 def seed_readings(cell, driver, seed: int, seconds: float, device,
-                  control: bool, ctx=None) -> dict:
+                  control: bool) -> dict:
     """One seed's window and readings: the program's, and with ``control``
-    the bfloat16 reference's in its place."""
+    the reference's in its place, in the precision :func:`below` the
+    configuration's."""
+    kind = judge.kind(driver.KIND, cell.root)
     ctx = driver.prepare(cell, seed, device)
     with harness.steady():
         win = driver.window(ctx, seconds)
     inp, prog, extra = driver.cases(ctx, win)
-    out = {"seed": seed, "answers": judge.count(inp),
-           "program": {**extra, **judge.readings(driver.KIND, ctx.P, ctx.ref,
-                                                 inp, prog)}}
+    read = lambda p: {**extra, **kind.readings(ctx.P, ctx.ref, inp, p,
+                                               judge.F64)}
+    out = {"seed": seed, "answers": kind.count(inp), "program": read(prog)}
     if control:
-        fake = judge.control(driver.KIND, ctx.P, ctx.ref, inp,
-                             torch.bfloat16)
-        out["control"] = {**extra, **judge.readings(
-            driver.KIND, ctx.P, ctx.ref, inp, fake)}
+        out["control"] = read(kind.control(ctx.P, ctx.ref, inp,
+                                           below(cell.conf)))
     return out
 
 

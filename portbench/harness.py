@@ -11,6 +11,9 @@ in a file of its own, found by the name ``BENCHMARK.json`` gives it:
   ``closed()`` as it closes, which ends a trace) and
   ``cases`` (what the window produced and what it was given, for the
   check, with ``KIND`` naming how ``judge.py`` compares them);
+* ``kinds/<kind>.py`` — a comparison of its own, for a ``KIND`` that is
+  not one of ``judge.KINDS``: ``readings``, ``control`` and ``count``
+  (``judge.kind``);
 * ``limits/<workload>.json`` — the limit of each reading of the cell;
 * ``endtoend/<metric>.py`` and ``metrics/<metric>.py`` — one metric each,
   ``read(run)`` returning its value, or None where it finds nothing.
@@ -131,6 +134,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     driver = load(cell.root, "drivers", cell.traffic["driver"])
+    kind = judge.kind(driver.KIND, cell.root)
     t_prep = time.perf_counter()
     ctx = driver.prepare(cell, seed, device)
     log(f"set-up: {t_prep - t_start:.2f} s to the driver, "
@@ -153,8 +157,8 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
             f"1500 live steps of a chain or episode (bench.py's gate: 42 mm)")
     t_check = time.perf_counter()
     inp, prog, readings = driver.cases(ctx, win)
-    readings.update(judge.readings(driver.KIND, ctx.P, ctx.ref, inp, prog))
-    log(f"check: {judge.count(inp)} answers compared")
+    readings.update(kind.readings(ctx.P, ctx.ref, inp, prog, judge.F64))
+    log(f"check: {kind.count(inp)} answers compared")
     log(f"check: {time.perf_counter() - t_check:.2f} s")
     correct, rows, info = judge.verdict(readings, cell.limits)
     for name, value in info:

@@ -26,11 +26,20 @@ Each gap is read over every answer compared, as its widest (``u_gap``)
 and its 99th percentile (``u_gap_p99``); a cell's limits file names the
 readings held to a limit, and the others are printed beside them.  A NaN
 reading, or a gap over no answer at all, counts as over its limit.
+
+How a cell's answers are compared is its driver's ``KIND``, found by
+:func:`kind`: "rows" and "calls" are the two above; any other name is a
+file ``kinds/<name>.py`` beside the drivers, which brings its own
+``readings``, ``control`` and ``count`` (and may use :func:`summary`).
+Where the cases carry the noise each answer was drawn with (``eps``, (B,
+K, T, 2)), the reference takes it in place of its own Philox stream.
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -85,9 +94,10 @@ def _rel(p, r) -> torch.Tensor:
 def row_readings(P: dict, ref_path: torch.Tensor, state: dict, prog: dict,
                  dtype=F64) -> dict:
     """Readings of B closed-loop steps: ``state`` the program's state
-    before each (q, dq, u_prev, wp, done, seed, step), ``prog`` what it
-    produced (the row's q, dq, u, wp, done, cost_min, cost_mean, ess,
-    entropy, and ``u_next``, the controls its next step starts from)."""
+    before each (q, dq, u_prev, wp, done, and seed and step or the
+    injected ``eps``), ``prog`` what it produced (the row's q, dq, u, wp,
+    done, cost_min, cost_mean, ess, entropy, and ``u_next``, the controls
+    its next step starts from)."""
     out = {"wp_gap": [], "u_gap": [], "x_gap": [], "stat_gap": [],
            "flag_miss": []}
     for s in _blocks(P, state["q"].shape[0]):
@@ -105,14 +115,14 @@ def row_readings(P: dict, ref_path: torch.Tensor, state: dict, prog: dict,
             [_rel(pg[k], r[k]) for k in
              ("cost_min", "cost_mean", "ess", "entropy")]).amax(dim=0))
         out["flag_miss"].append((pg["done"] != r["done"]).double())
-    return _summary(out)
+    return summary(out)
 
 
 def call_readings(P: dict, ref_path: torch.Tensor, inp: dict, prog: dict,
                   dtype=F64) -> dict:
     """Readings of B solves: ``inp`` what each was handed (q, dq, u_prev,
-    wp, seed, step), ``prog`` what it returned (u0, u_new, u_next, wp,
-    path_end, costs, weights)."""
+    wp, and seed and step or the injected ``eps``), ``prog`` what it
+    returned (u0, u_new, u_next, wp, path_end, costs, weights)."""
     out = {"wp_gap": [], "u_gap": [], "cost_gap": [], "weight_gap": [],
            "flag_miss": []}
     for s in _blocks(P, inp["q"].shape[0]):
@@ -120,7 +130,8 @@ def call_readings(P: dict, ref_path: torch.Tensor, inp: dict, prog: dict,
         no = torch.zeros_like(st["wp"], dtype=torch.bool)
         gap, wp_new = _judged_index(P, ref_path, st, pg["wp"], no)
         r = mppi.solve(P, ref_path, st["q"], st["dq"], st["u_prev"],
-                       st["wp"], st["seed"], st["step"], dtype, wp_new)
+                       st["wp"], st.get("seed"), st.get("step"), dtype,
+                       wp_new, st.get("eps"))
         out["wp_gap"].append(gap)
         du = lambda k: (pg[k].double() - r[k]).abs().flatten(1).amax(dim=1)
         out["u_gap"].append(torch.stack(
@@ -133,7 +144,7 @@ def call_readings(P: dict, ref_path: torch.Tensor, inp: dict, prog: dict,
         out["weight_gap"].append(
             (pg["weights"].double() - r["weights"]).abs().amax(dim=1))
         out["flag_miss"].append((pg["path_end"] != r["path_end"]).double())
-    return _summary(out)
+    return summary(out)
 
 
 def _quantile(x: torch.Tensor, q: float) -> float:
@@ -145,7 +156,7 @@ def _quantile(x: torch.Tensor, q: float) -> float:
     return float(torch.kthvalue(x.cpu(), k).values)
 
 
-def _summary(out: dict) -> dict:
+def summary(out: dict) -> dict:
     """Each gap over every answer: its widest (``<name>``) and its 99th
     percentile (``<name>_p99``); the count of flag misses."""
     res = {}
@@ -158,34 +169,57 @@ def _summary(out: dict) -> dict:
     return res
 
 
-def readings(kind: str, P: dict, ref_path, inp: dict, prog: dict,
-             dtype=F64) -> dict:
-    """:func:`row_readings` for ``kind`` "rows", :func:`call_readings` for
-    "calls"."""
-    fn = {"rows": row_readings, "calls": call_readings}[kind]
-    return fn(P, ref_path, inp, prog, dtype)
-
-
 def count(inp: dict) -> int:
     """Answers compared: scenario-steps or calls."""
     return int(inp["q"].shape[0])
 
 
-def control(kind: str, P: dict, ref_path, inp: dict, dtype) -> dict:
-    """The reference in ``dtype`` put in the program's place: what it
-    produces from the same inputs, in the program's output types."""
-    out = {}
-    for s in _blocks(P, count(inp)):
-        st = _cut(inp, s)
-        if kind == "rows":
-            r = mppi.loop_step(P, ref_path, st, dtype)
-        else:
-            r = mppi.solve(P, ref_path, st["q"], st["dq"], st["u_prev"],
-                           st["wp"], st["seed"], st["step"], dtype)
-        for k, v in r.items():
-            out.setdefault(k, []).append(
-                v.to(torch.float32) if v.is_floating_point() else v)
-    return {k: torch.cat(v) for k, v in out.items()}
+def _control(step: Callable) -> Callable:
+    """The control of a kind whose reference is ``step(P, ref_path, st,
+    dtype)`` on a block of its inputs: the reference in ``dtype`` put in
+    the program's place, what it produces from the same inputs in the
+    program's output types."""
+    def control(P: dict, ref_path, inp: dict, dtype) -> dict:
+        out = {}
+        for s in _blocks(P, count(inp)):
+            for k, v in step(P, ref_path, _cut(inp, s), dtype).items():
+                out.setdefault(k, []).append(
+                    v.to(torch.float32) if v.is_floating_point() else v)
+        return {k: torch.cat(v) for k, v in out.items()}
+    return control
+
+
+def _solve_of(P: dict, ref_path, st: dict, dtype) -> dict:
+    return mppi.solve(P, ref_path, st["q"], st["dq"], st["u_prev"], st["wp"],
+                      st.get("seed"), st.get("step"), dtype,
+                      eps=st.get("eps"))
+
+
+class Kind(NamedTuple):
+    """How a cell's answers are compared: ``readings(P, ref_path, inp,
+    prog, dtype)`` the gaps of what the program produced, ``control(P,
+    ref_path, inp, dtype)`` the reference in ``dtype`` in the program's
+    place, ``count(inp)`` the answers compared."""
+
+    readings: Callable
+    control: Callable
+    count: Callable
+
+
+KINDS = {"rows": Kind(row_readings, _control(mppi.loop_step), count),
+         "calls": Kind(call_readings, _control(_solve_of), count)}
+
+
+def kind(name: str, root: Path) -> Kind:
+    """The kind ``name``: one of :data:`KINDS`, or else the file
+    ``portbench/kinds/<name>.py`` under ``root`` (FileNotFoundError where
+    there is none)."""
+    if name in KINDS:
+        return KINDS[name]
+    from .harness import load
+
+    mod = load(root, "kinds", name)
+    return Kind(mod.readings, mod.control, mod.count)
 
 
 def verdict(readings: dict, limits: dict):

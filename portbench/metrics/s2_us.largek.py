@@ -1,8 +1,12 @@
 """Device µs of the step tail (S2, ``step_tail_kernel`` in
 ``csrc/step_kernel.cu``) a live solve: its device time over the launches
 the trace kept, times the launches the port counted, over the window's
-live solves.  Above 1024 samples the tail's statistics run in the layout
-that reads S again each pass (``ops/cuda_step.py::step_tail_layout``)."""
+live solves.  At K = 65536 on the H100 the step loop splits the tail
+(``ops/cuda_step.py::stats_branch``): ``step_tail_kernel`` is the control
+warp alone, on the step's path between two solves, and this reads only
+that; the statistics run as ``step_stats_kernel`` on a branch beside the
+next solve, read by ``s2_stats_us.largek`` and
+``s2_stats_overlap.largek``."""
 
 KERNEL = "step_tail_kernel"
 

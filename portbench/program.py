@@ -20,9 +20,15 @@ def configs(conf: dict):
 
 
 def counters() -> dict:
-    """The port's launch counts so far, by the kernel they count."""
-    return {"sim_kernel": cuda_sim.LAUNCHES,
-            "fleet_kernel": cuda_sim.FLEET_LAUNCHES,
-            "solve_tile_kernel": cuda_solve.LAUNCHES,
-            "step_head_kernel": cuda_step.HEAD_LAUNCHES,
-            "step_tail_kernel": cuda_step.TAIL_LAUNCHES}
+    """The port's launch counts so far, by the kernel they count, and
+    ``solve_partials``, the tile partials the solve kernel's combine has
+    folded (``cuda_solve.PARTIALS``; left out where the port has no such
+    count)."""
+    out = {"sim_kernel": cuda_sim.LAUNCHES,
+           "fleet_kernel": cuda_sim.FLEET_LAUNCHES,
+           "solve_tile_kernel": cuda_solve.LAUNCHES,
+           "step_head_kernel": cuda_step.HEAD_LAUNCHES,
+           "step_tail_kernel": cuda_step.TAIL_LAUNCHES}
+    if hasattr(cuda_solve, "PARTIALS"):
+        out["solve_partials"] = cuda_solve.PARTIALS
+    return out

@@ -116,15 +116,17 @@ def median_reflect(x: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def solve(P: dict, ref, q, dq, u_prev, wp, seed, step, dtype,
-          wp_new=None) -> dict:
+          wp_new=None, eps=None) -> dict:
     """One solve of B scenarios in ``dtype``: q, dq (B, 2), u_prev (B, T,
-    2), wp, seed, step (B,) int64; ``ref`` the (N, 4) path.  Returns the
-    new index ``wp`` and the window metric ``dist`` it was picked by,
-    ``path_end``, the costs, the weights and their statistics, Σwε's
-    median update ``u_new``, its shift ``u_next`` and the control ``u0``
-    = u_next[:, 0].  With ``wp_new`` the solve goes on from that index
-    instead of its own pick (the judge hands it the program's, which
-    ``dist`` judges)."""
+    2), wp, seed, step (B,) int64; ``ref`` the (N, 4) path.  The noise is
+    the Philox stream keyed (seed, step), or ``eps`` (B, K, T, 2) in any
+    float dtype where the caller drew it (cast to ``dtype``; seed and step
+    are then not read).  Returns the new index ``wp`` and the window
+    metric ``dist`` it was picked by, ``path_end``, the costs, the weights
+    and their statistics, Σwε's median update ``u_new``, its shift
+    ``u_next`` and the control ``u0`` = u_next[:, 0].  With ``wp_new`` the
+    solve goes on from that index instead of its own pick (the judge hands
+    it the program's, which ``dist`` judges)."""
     arm, mp = P["arm"], P["mppi"]
     K, T, lam = mp["num_samples"], mp["horizon"], mp["lam"]
     ref, q, dq, u_prev = (v.to(dtype) for v in (ref, q, dq, u_prev))
@@ -132,7 +134,8 @@ def solve(P: dict, ref, q, dq, u_prev, wp, seed, step, dtype,
     if wp_new is not None:
         wn = wp_new
     win, _ = window_rows(ref, wn, mp["search_idx_len"])
-    eps = philox.epsilon(seed, step, K, T, mp["sigma"], dtype)
+    eps = (philox.epsilon(seed, step, K, T, mp["sigma"], dtype)
+           if eps is None else eps.to(dtype))
     s = rollout_costs(arm, mp, torch.cat([q, dq], dim=1), u_prev, eps, win)
     m = torch.amin(s, dim=1, keepdim=True)
     e = torch.exp(-(s - m) / lam)
@@ -151,16 +154,16 @@ def solve(P: dict, ref, q, dq, u_prev, wp, seed, step, dtype,
 
 def loop_step(P: dict, ref, st: dict, dtype, wp_new=None) -> dict:
     """One closed-loop step of B scenarios from state ``st`` (q, dq,
-    u_prev, wp, done, seed, step): the solve, the freeze at the path end,
-    the shifted controls, the plant at the plant's dt with the constant
-    disturbance, and the step's record row: ``q``, ``dq``, ``u`` (0 where
-    frozen), ``wp``, ``done`` and the statistics (0 where frozen), with
-    ``u_next`` the controls carried to the next step and ``dist`` the
-    waypoint metric of the solve (:func:`solve`, which takes
-    ``wp_new``)."""
+    u_prev, wp, done, and seed and step or the injected ``eps``): the
+    solve, the freeze at the path end, the shifted controls, the plant at
+    the plant's dt with the constant disturbance, and the step's record
+    row: ``q``, ``dq``, ``u`` (0 where frozen), ``wp``, ``done`` and the
+    statistics (0 where frozen), with ``u_next`` the controls carried to
+    the next step and ``dist`` the waypoint metric of the solve
+    (:func:`solve`, which takes ``wp_new``)."""
     sim = P["sim"]
-    r = solve(P, ref, st["q"], st["dq"], st["u_prev"], st["wp"], st["seed"],
-              st["step"], dtype, wp_new)
+    r = solve(P, ref, st["q"], st["dq"], st["u_prev"], st["wp"],
+              st.get("seed"), st.get("step"), dtype, wp_new, st.get("eps"))
     frz = st["done"] | r["path_end"]
     col = lambda v: frz.view(-1, *(1,) * (v.dim() - 1))
     keep = lambda new, old: torch.where(col(new), old, new)

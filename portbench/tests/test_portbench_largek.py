@@ -49,18 +49,31 @@ def test_the_cell_at_k4096_is_correct():
 
 
 def test_the_layouts_the_cells_why_names():
-    """On a 132-SM card K=65536 is 128 tiles of 512 samples at one lane a
-    sample and one tile a block, and the step tail runs 16 statistics
-    warps of two logical lanes a lane, reading S each pass."""
+    """On the H100 (132 SMs, 15 slots for the step tail's cluster of 8)
+    K=65536 is 128 tiles of 512 samples at one lane a sample and one tile
+    a block, which leave the SMs the statistics' one block takes, so the
+    step loop splits the tail: the control warp alone between two K2s,
+    the statistics beside the next K2 in one block of 16 warps of two
+    logical lanes a lane, reading S each pass, and a chunk's last
+    statistics on a cluster of 8 CTAs, their samples kept on chip."""
     _, cfg, _ = program.configs(harness.load_cell(NAME).conf)
     assert cfg.num_samples == 65536 and cfg.horizon == 50
-    assert cuda_solve.solve_layout(cfg, 65536, 1, 132) == (512, 1, 1)
-    assert cuda_solve._plan(cfg, 65536, None, True, True, 1, 132) == (
-        512, 128, 1, 1)
-    assert cuda_step.step_tail_layout(65536, 1, 132) == \
-        cuda_step.TailLayout(16, 2, 1, 0)
-    tile, n_tiles, _, group = cuda_solve._plan(cfg, 65536, None, True, True,
-                                               1, 132)
+    sms, slots = 132, 15
+    assert cuda_solve.solve_layout(cfg, 65536, 1, sms) == (512, 1, 1)
+    plan = cuda_solve._plan(cfg, 65536, None, True, True, 1, sms)
+    assert plan == (512, 128, 1, 1)
+    assert cuda_step.stats_branch(65536, 1, sms, plan)
+    assert cuda_step.CONTROL_LAYOUT == cuda_step.TailLayout(0, 2, 1, 0)
+    beside = cuda_step.step_tail_layout(65536, 1, sms)
+    assert beside == cuda_step.TailLayout(16, 2, 1, 0)
+    last = cuda_step.step_tail_layout(65536, 1, sms, slots)
+    assert last == cuda_step.TailLayout(4, 1, 1, 64, cuda_step.TAIL_CLUSTER)
+    assert (last.lanes, last.cap) == cuda_step.CLUSTER_BUILD
+    for layout in (cuda_step.CONTROL_LAYOUT, beside, last):
+        assert cuda_step.tail_layout_fits(layout)
+    assert cuda_step.tail_layout_fits(beside, 65536)
+    assert cuda_step.tail_layout_fits(last, 65536)
+    tile, n_tiles, _, group = plan
     assert cuda_solve.solve_smem_bytes(cfg, tile, n_tiles, group) == 208200
 
 
@@ -149,13 +162,15 @@ def test_a_reader_gives_none_without_its_input(name, monkeypatch):
 
 def test_the_readers_read_the_window(monkeypatch):
     """4000 live solves: K2 and S2 seen at 3000 of their 4000 launches,
-    and 128 partials a launch over the process."""
+    and the window's 512,000 partials, 128 a launch; the process's own
+    count (1280 partials over 10 launches, 128 too) is not what is read."""
     monkeypatch.setattr(cuda_solve, "LAUNCHES", 10)
     monkeypatch.setattr(cuda_solve, "PARTIALS", 1280)
+    counters = {**{k: 0 for k in program.counters()},
+                "solve_tile_kernel": 4000, "step_tail_kernel": 4000,
+                "solve_partials": 4000 * 128}
     run = _run({"solve_tile_kernel": (0.3, 3000),
-                "step_tail_kernel": (0.015, 3000)},
-               {**{k: 0 for k in program.counters()},
-                "solve_tile_kernel": 4000, "step_tail_kernel": 4000}, 4000)
+                "step_tail_kernel": (0.015, 3000)}, counters, 4000)
     load = lambda n: harness.load(harness.ROOT, "metrics", n).read(run)
     assert load("k2_partials") == pytest.approx(128.0)
     assert load("s2_us.largek") == pytest.approx(5.0)
@@ -163,3 +178,16 @@ def test_the_readers_read_the_window(monkeypatch):
     assert load("k2_roofline.largek") == pytest.approx(
         100.0 * bound * 0.75 / 0.3)
     assert load("k2_roofline.largek") == load("k2_roofline")
+    monkeypatch.setattr(cuda_solve, "PARTIALS", 2560)
+    assert load("k2_partials") == pytest.approx(128.0)
+    run.window.counters["solve_partials"] = 4000 * 64
+    assert load("k2_partials") == pytest.approx(64.0)
+
+
+def test_the_window_counts_its_own_partials(monkeypatch):
+    """``program.counters`` names the port's partials count beside the
+    launches, and leaves it out where the port has none."""
+    monkeypatch.setattr(cuda_solve, "PARTIALS", 77)
+    assert program.counters()["solve_partials"] == 77
+    monkeypatch.delattr(cuda_solve, "PARTIALS")
+    assert "solve_partials" not in program.counters()
