@@ -1445,12 +1445,14 @@ def main() -> int:
     # ---- 14. fleet timing ----------------------------------------------
     warps = cuda_sim.fleet_warps(cfg_b.num_samples)
     per_lane = -(-(-(-cfg_b.num_samples // 32)) // warps)
+    k3_args = (f"<{warps},{per_lane},"
+               f"{cuda_sim.scan_width(cfg_b.search_idx_len)}>")
     k3_sass = next(v for k, v in sass_loops.functions(
         sass_loops.library_sass()).items() if "fleet_kernel" in k
-        and sass_loops.template_args(k) == f"<{warps},{per_lane}>")
+        and sass_loops.template_args(k) == k3_args)
     k3_loop = sass_loops.loop_classes(k3_sass)
     check(k3_loop, "no rollout loop in fleet_kernel's SASS")
-    print(f"fleet layout: fleet_kernel<{warps},{per_lane}>, {warps} warps a "
+    print(f"fleet layout: fleet_kernel{k3_args}, {warps} warps a "
           f"scenario, {per_lane} samples a lane, "
           f"{min(8, cuda_sim.FLEET_MAX_WARPS // warps)} scenarios a block; "
           f"its rollout loop holds {k3_loop['local load']} local loads and "

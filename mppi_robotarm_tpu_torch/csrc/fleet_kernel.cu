@@ -72,7 +72,9 @@
 // carried four samples (36 registers of Sample) spilled, two samples spill
 // a little and one does not, so fleet_warps gives K > 96 four warps, one
 // sample a lane: sim_kernel.cu's thread-per-sample layout, with the
-// one-chain scan of an issue-bound card (PERF.md has the A/Bs).  A lane
+// one-chain scan of an issue-bound card (PERF.md has the A/Bs), at the
+// window's compiled width where it has one (mppi_device.cuh's kScanWidth:
+// each kW, kS has an instance at it and one at a run-time W).  A lane
 // holds at most two samples.
 
 #include <cuda_runtime.h>
@@ -109,8 +111,10 @@ __device__ __forceinline__ void scenario_sync(int place) {
 
 }  // namespace
 
-// kW warps per scenario, kS samples per lane (kW * kS * 32 >= K, kS <= 2).
-template <int kW, int kS>
+// kW warps per scenario, kS samples per lane (kW * kS * 32 >= K, kS <= 2);
+// the window scans at the compiled width kWin (kScanWidth == W), or at W
+// read at run time (kWin = 0).
+template <int kW, int kS, int kWin>
 __global__ void __launch_bounds__(32 * kMaxWarps, kMinBlocks)
 fleet_kernel(const SimParams p, int B,
              const float* __restrict__ state_f,   // (B, 4) q1, q2, dq1, dq2
@@ -214,16 +218,16 @@ fleet_kernel(const SimParams p, int B,
               e1 = eps_step[((size_t)k * T + t) * 2];
               e2 = eps_step[((size_t)k * T + t) * 2 + 1];
             }
-            sample_step(p, xs[i], (float)k < p.exploit_thresh, e1, e2, u1r,
-                        u2r, s_win);
+            sample_step<kWin>(p, xs[i], (float)k < p.exploit_thresh, e1,
+                              e2, u1r, u2r, s_win);
           }
         }
       }
       float sv[kS];
 #pragma unroll
       for (int i = 0; i < kS; ++i) {
-        sv[i] = lane + 32 * (h * kS + i) < K ? sample_terminal(p, xs[i], s_win)
-                                             : INFINITY;
+        sv[i] = lane + 32 * (h * kS + i) < K
+                    ? sample_terminal<kWin>(p, xs[i], s_win) : INFINITY;
       }
 
       // ---- 3. softmax and stats, slot j = sim_kernel.cu's warp j ---------
@@ -372,12 +376,13 @@ using FleetKernel = void (*)(const SimParams, int, const float*, const int*,
 // The instance for kW warps a scenario (ops/cuda_sim.py::fleet_warps): the
 // fewest samples a lane that cover K.  Null when K does not fit: one warp
 // holds one slot, two warps up to two slots a lane, four warps one.
+template <int kWin>
 FleetKernel fleet_instance(int warps, int K) {
   const int slots = (K + 31) / 32;
-  if (warps == 1 && slots == 1) return fleet_kernel<1, 1>;
-  if (warps == 2 && slots > 1 && slots <= 2) return fleet_kernel<2, 1>;
-  if (warps == 2 && slots > 2 && slots <= 4) return fleet_kernel<2, 2>;
-  if (warps == 4 && slots > 3 && slots <= 4) return fleet_kernel<4, 1>;
+  if (warps == 1 && slots == 1) return fleet_kernel<1, 1, kWin>;
+  if (warps == 2 && slots > 1 && slots <= 2) return fleet_kernel<2, 1, kWin>;
+  if (warps == 2 && slots > 2 && slots <= 4) return fleet_kernel<2, 2, kWin>;
+  if (warps == 4 && slots > 3 && slots <= 4) return fleet_kernel<4, 1, kWin>;
   return nullptr;
 }
 
@@ -387,17 +392,23 @@ extern "C" {
 
 // Launch the fleet kernel on `stream`: B scenarios of `warps` warps each,
 // `group` per block (fewer when the block would exceed 8 warps or its
-// shared memory would not fit).  eps_scratch is mppi_fleet_scratch_floats()
-// floats per scenario in PRNG mode, null in eps mode.  Returns the
-// cudaError_t of the launch; cudaErrorInvalidValue when B % group != 0,
-// group is outside 1..8, K is outside 1..128 or `warps` does not fit K.
+// shared memory would not fit), the window scanned at the compiled width
+// `scan_w` (kScanWidth, which must equal W) or, at 0, at W read at run
+// time (ops/cuda_sim.py::scan_width picks).  eps_scratch is
+// mppi_fleet_scratch_floats() floats per scenario in PRNG mode, null in
+// eps mode.  Returns the cudaError_t of the launch; cudaErrorInvalidValue
+// when B % group != 0, group is outside 1..8, K is outside 1..128,
+// `warps` does not fit K or scan_w is neither 0 nor a compiled W.
 int mppi_fleet_launch(const SimParams* params, int B, int group, int warps,
-                      const float* state_f, const int* state_i,
+                      int scan_w, const float* state_f, const int* state_i,
                       const float* u0, const float* ref, const float* eps_in,
                       float* eps_scratch, float* rec, float* ufin,
                       void* stream) {
   const SimParams p = *params;
-  const FleetKernel kernel = fleet_instance(warps, p.K);
+  const FleetKernel kernel =
+      scan_w == 0 ? fleet_instance<0>(warps, p.K)
+      : scan_w == kScanWidth && p.W == kScanWidth
+          ? fleet_instance<kScanWidth>(warps, p.K) : nullptr;
   if (p.K < 1 || p.K > 32 * kMaxSlots || kernel == nullptr || group < 1 ||
       group > kMaxWarps || B % group != 0) {
     return (int)cudaErrorInvalidValue;

@@ -162,7 +162,23 @@ __device__ __forceinline__ float warp_min(float v) {
 //            whose many resident warps hide the chain (fleet_kernel.cu,
 //            solve_kernel.cu at one lane a sample).  Two chains four rows a
 //            pass without the load-ahead measured the same there (PERF.md).
+//            At a compiled width kWin (kScanWidth; 0 = W read at run time)
+//            the chain runs kScanPass rows a pass, a divisor of the width:
+//            each row's load at an immediate offset from the pass's base,
+//            each row's index the pass's plus an immediate, no remainder
+//            pass; the same compares in the same order, so the same row.
+//            The wrappers pick it from W and the lanes a sample alone
+//            (ops/cuda_sim.py::scan_width).  Whole rows unrolled (30 a
+//            pass) took 110 registers in solve_kernel.cu, which halved its
+//            blocks an SM at the fleet's 4096 x K=128 (PERF.md).
 enum class Scan { kAhead, kSerial };
+
+// The window width the kSerial scan is compiled at, besides the run-time
+// loop: the reference's search_idx_len, which every configuration runs
+// (ops/cuda_sim.py::SCAN_WIDTH holds the same number); and its rows a
+// pass.
+constexpr int kScanWidth = 30;
+constexpr int kScanPass = 6;
 
 // The stage or terminal cost (weights w[4]) against window row r.
 __device__ __forceinline__ float row_cost(float x, float y, float dq1,
@@ -190,13 +206,15 @@ __device__ __forceinline__ void scan_take(float x, float y, float4 r,
 }
 
 // The tracking cost on a window of float4 rows, scanned by one thread on
-// the schedule kS.
-template <Scan kS>
+// the schedule kS; kSerial at kWin > 0 takes W == kWin rows.
+template <Scan kS, int kWin = 0>
 __device__ __forceinline__ float window_cost(float x, float y, float dq1,
                                              float dq2, const float4* win,
                                              int W, const float* w,
                                              float dist_scale,
                                              float cost_scale) {
+  static_assert(kWin == 0 || kS == Scan::kSerial,
+                "a compiled width is kSerial's");
   float b0 = INFINITY, b1 = INFINITY;
   int j0 = 0, j1 = 1;
   int j = 0;
@@ -237,6 +255,13 @@ __device__ __forceinline__ float window_cost(float x, float y, float dq1,
     const float e2 = dq2 - r.w;
     return (w[0] * (ex * ex) + w[1] * (ey * ey) + w[2] * (e1 * e1) +
             w[3] * (e2 * e2)) * cost_scale;
+  } else if constexpr (kWin > 0) {
+    static_assert(kWin % kScanPass == 0, "no remainder pass");
+#pragma unroll kScanPass
+    for (int r = 0; r < kWin; ++r) {
+      scan_take(x, y, win[r], r, dist_scale, b0, j0);
+    }
+    return row_cost(x, y, dq1, dq2, win[j0], w, cost_scale);
   } else {
     for (; j < W; ++j) scan_take(x, y, win[j], j, dist_scale, b0, j0);
     return row_cost(x, y, dq1, dq2, win[j0], w, cost_scale);
@@ -249,15 +274,17 @@ __device__ __forceinline__ float window_cost(float x, float y, float dq1,
 // chains over its rows; a (d, j) butterfly over the group takes the
 // smallest d, ties to the lower row, so every lane of the group picks the
 // serial scan's row and returns the same bits.  `mask` holds every lane of
-// the warp that calls it (whole groups).
-template <int L>
+// the warp that calls it (whole groups).  A compiled width kWin is one
+// lane's (L = 1).
+template <int L, int kWin = 0>
 __device__ __forceinline__ float window_cost_lanes(
     float x, float y, float dq1, float dq2, const float4* win, int W,
     const float* w, float dist_scale, float cost_scale, int sub,
     unsigned mask) {
+  static_assert(kWin == 0 || L == 1, "a compiled width scans on one lane");
   if constexpr (L == 1) {
-    return window_cost<Scan::kSerial>(x, y, dq1, dq2, win, W, w,
-                                      dist_scale, cost_scale);
+    return window_cost<Scan::kSerial, kWin>(x, y, dq1, dq2, win, W, w,
+                                            dist_scale, cost_scale);
   } else {
     float b0 = INFINITY, b1 = INFINITY;
     int j0 = sub, j1 = sub + L;

@@ -63,8 +63,9 @@ __device__ __forceinline__ void philox_eps(const SimParams& p, uint32_t seed,
 // One horizon step of a sample: control v = (u + ε | ε), clamp, the arm
 // step with the trig carry and exact sincosf of the new angles, the stage
 // cost against the window (W float4 rows; one scan chain, the fewest
-// instructions, since fleet_kernel.cu fills the card: PERF.md), then
-// γ·vᵀΣ⁻¹u.
+// instructions, since fleet_kernel.cu fills the card: PERF.md; at a
+// compiled width kWin == W with no remainder pass), then γ·vᵀΣ⁻¹u.
+template <int kWin>
 __device__ __forceinline__ void sample_step(const SimParams& p, Sample& x,
                                             bool exploit, float e1, float e2,
                                             float u1r, float u2r,
@@ -84,23 +85,24 @@ __device__ __forceinline__ void sample_step(const SimParams& p, Sample& x,
   sincosf(x.q1 + x.q2, &x.s12, &x.c12);
   const float ex = p.l1c * x.c1 + p.l2c * x.c12;
   const float ey = p.l1c * x.s1 + p.l2c * x.s12;
-  x.s = x.s + window_cost<Scan::kSerial>(ex, ey, x.dq1, x.dq2, win, p.W,
-                                         p.stage_w, p.dist_scale,
-                                         p.cost_scale);
+  x.s = x.s + window_cost<Scan::kSerial, kWin>(ex, ey, x.dq1, x.dq2, win,
+                                               p.W, p.stage_w, p.dist_scale,
+                                               p.cost_scale);
   const float su1 = p.sinv[0] * u1r + p.sinv[1] * u2r;
   const float su2 = p.sinv[2] * u1r + p.sinv[3] * u2r;
   x.s = x.s + p.gamma * (v1 * su1 + v2 * su2);
 }
 
 // The sample's total cost: its running cost plus the terminal cost.
+template <int kWin>
 __device__ __forceinline__ float sample_terminal(const SimParams& p,
                                                  const Sample& x,
                                                  const float4* win) {
   const float ex = p.l1c * x.c1 + p.l2c * x.c12;
   const float ey = p.l1c * x.s1 + p.l2c * x.s12;
-  return x.s + window_cost<Scan::kSerial>(ex, ey, x.dq1, x.dq2, win, p.W,
-                                          p.term_w, p.dist_scale,
-                                          p.cost_scale);
+  return x.s + window_cost<Scan::kSerial, kWin>(ex, ey, x.dq1, x.dq2, win,
+                                                p.W, p.term_w, p.dist_scale,
+                                                p.cost_scale);
 }
 
 // (d, j) butterfly: every lane ends with the smallest d, ties to the

@@ -89,7 +89,9 @@
 // chains fill the card (K=65536: 128 blocks of 512 threads on 132 SMs, one
 // block per SM for its 200 KB of shared eps; the fleet's 4096 x K=128)
 // issue rate bounds it, and one lane a sample scans alone on one chain,
-// the fewest instructions (PERF.md).  The combine does almost no work (at
+// the fewest instructions (PERF.md), at the window's compiled width where
+// it has one (solve_tile_kernel<1, kScanWidth>: about 90 instructions a
+// sample-step fewer at W = 30).  The combine does almost no work (at
 // most ~128 tiles' partials: the wrapper grows the tile with K), so its
 // cost is latency: as a second launch, a launch's gap and 5.9-14.6 us of
 // kernel on an H100.  In the last block it is a few microseconds of
@@ -336,8 +338,10 @@ __device__ __noinline__ void combine_solve(
 // Every sum of a tile runs over its samples in one order, on its own warps
 // and shared memory, so neither L nor G changes any bit of any result; the
 // tile does (the wrapper picks it from K alone, so a scenario gives the
-// same bits alone and in a batch, on every card).
-template <int L>
+// same bits alone and in a batch, on every card).  The window scans at the
+// compiled width kWin (L = 1 and W == kScanWidth) or, at kWin = 0, at W
+// read at run time.
+template <int L, int kWin = 0>
 __global__ void __launch_bounds__(512)
 solve_tile_kernel(const SolveParams p,
                   const float* __restrict__ x0,        // (B, 4)
@@ -442,16 +446,18 @@ solve_tile_kernel(const SolveParams p,
       sincosf(q1 + q2, &s12, &c12);
       const float x = p.l1c * c1 + p.l2c * c12;
       const float y = p.l1c * s1 + p.l2c * s12;
-      s = s + window_cost_lanes<L>(x, y, dq1, dq2, s_win, W, p.stage_w,
-                                   p.dist_scale, p.cost_scale, sub, mask);
+      s = s + window_cost_lanes<L, kWin>(x, y, dq1, dq2, s_win, W,
+                                         p.stage_w, p.dist_scale,
+                                         p.cost_scale, sub, mask);
       const float su1 = p.sinv[0] * u1r + p.sinv[1] * u2r;
       const float su2 = p.sinv[2] * u1r + p.sinv[3] * u2r;
       s = s + p.gamma * (v1 * su1 + v2 * su2);
     }
     const float xT = p.l1c * c1 + p.l2c * c12;
     const float yT = p.l1c * s1 + p.l2c * s12;
-    s = s + window_cost_lanes<L>(xT, yT, dq1, dq2, s_win, W, p.term_w,
-                                 p.dist_scale, p.cost_scale, sub, mask);
+    s = s + window_cost_lanes<L, kWin>(xT, yT, dq1, dq2, s_win, W, p.term_w,
+                                       p.dist_scale, p.cost_scale, sub,
+                                       mask);
     if (sub == 0) s_out[(size_t)b * K + k] = s;
   }
 
@@ -520,31 +526,38 @@ static cudaError_t fit_smem(const void* fn, size_t smem, size_t* set) {
   return e;
 }
 
-static size_t tile_smem_set[3][kDevices];
+static size_t tile_smem_set[4][kDevices];
 
 extern "C" {
 
-// Launch the solve on `stream`; returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for lanes outside 1, 2, 4, a group below 1 or
-// more than 512 threads a block, or several tiles a scenario without the
-// workspace `part` and the arrival counters `count`, which must hold B
-// zeros).
+// Launch the solve on `stream`, the window scanned at the compiled width
+// `scan_w` (kScanWidth at one lane a sample, which must equal W) or, at 0,
+// at W read at run time (ops/cuda_sim.py::scan_width picks); returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for lanes outside 1,
+// 2, 4, a group below 1 or more than 512 threads a block, a scan_w that
+// is neither 0 nor a compiled W at one lane, or several tiles a scenario
+// without the workspace `part` and the arrival counters `count`, which
+// must hold B zeros).
 int mppi_solve_launch(const SolveParams* params, int B, const float* x0,
                       const float* u, const float* win, const long long* seed,
                       const long long* step, const long long* koff,
                       const float* eps_in, float* eps_out, float* s_out,
                       float* part, int* count, float* out, float* m_out,
-                      float* eta_out, void* stream) {
+                      float* eta_out, int scan_w, void* stream) {
   const SolveParams p = *params;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int li = p.lanes == 1 ? 0 : p.lanes == 2 ? 1 : p.lanes == 4 ? 2 : -1;
+  const int li = p.lanes == 1 ? (scan_w ? 3 : 0)
+                 : p.lanes == 2 ? 1 : p.lanes == 4 ? 2 : -1;
   if (li < 0 || p.group < 1 || p.group * p.tile * p.lanes > 512 ||
+      (scan_w != 0 && (scan_w != kScanWidth || p.W != scan_w ||
+                       p.lanes != 1)) ||
       (p.n_tiles > 1 && (part == nullptr || count == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const void* const tiles[3] = {(const void*)solve_tile_kernel<1>,
-                                (const void*)solve_tile_kernel<2>,
-                                (const void*)solve_tile_kernel<4>};
+  const void* const tiles[4] = {
+      (const void*)solve_tile_kernel<1>, (const void*)solve_tile_kernel<2>,
+      (const void*)solve_tile_kernel<4>,
+      (const void*)solve_tile_kernel<1, kScanWidth>};
   // the window, controls, warp partials and the combine's 2T + 2, then
   // the larger of the G tiles' e and eps and, where a block can hold
   // them, the scenario's tile partials (else the kernel stages them in
@@ -561,7 +574,11 @@ int mppi_solve_launch(const SolveParams* params, int B, const float* x0,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.n_tiles + p.group - 1) / p.group, B);
   const int threads = p.group * p.tile * p.lanes;
-  if (p.lanes == 1) {
+  if (li == 3) {
+    solve_tile_kernel<1, kScanWidth><<<grid, threads, smem, st>>>(
+        p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part, count,
+        out, m_out, eta_out);
+  } else if (p.lanes == 1) {
     solve_tile_kernel<1><<<grid, threads, smem, st>>>(
         p, x0, u, win, seed, step, koff, eps_in, eps_out, s_out, part, count,
         out, m_out, eta_out);

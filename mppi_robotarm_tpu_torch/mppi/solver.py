@@ -42,6 +42,7 @@ from ..config import ArmParams, MPPIConfig
 from ..device import resolve_device
 from ..models.arm import fk_ee
 from ..ops import cuda_solve, cuda_step
+from ..ops.cuda_sim import scan_width
 from ..ops.filters import median_filter_reflect
 from ..ops.noise import sample_epsilon, sigma_cholesky
 from ..ops.rollout import rollout_costs, rollout_trajectory
@@ -147,11 +148,22 @@ def _solve_kernels(arm, cfg, observed_x, u_prev, window, seed, eps, step,
 # utils/cuda_graphs.py::run, the counterpart of the JAX package's jit of
 # solve, solve_batched_pallas and viz_rollouts (:func:`_call`).
 _CALL_GRAPHS: "OrderedDict" = OrderedDict()
-# the launches a capture of the cuda backend's solve records: its one step
-# head and one solve kernel (the eager backend and the re-rollouts record
-# none of the port's kernels)
-_SOLVE_LAUNCHES = cuda_graphs.expect({(cuda_solve, "LAUNCHES"): 1,
-                                      (cuda_step, "HEAD_LAUNCHES"): 1})
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_launches(window: int, lanes: int) -> tuple:
+    """The launches a capture of the cuda backend's solve records at a
+    window of ``window`` rows and ``lanes`` threads a sample (its plan,
+    :func:`step_solve_plan`): its one step head and one solve kernel,
+    whose window scan takes its compiled width where
+    ``cuda_sim.scan_width`` says (the eager backend and the re-rollouts
+    record none of the port's kernels)."""
+    return cuda_graphs.expect({
+        (cuda_solve, "LAUNCHES"): 1,
+        (cuda_solve, "COMPILED_SCANS"): int(bool(scan_width(window, lanes))),
+        (cuda_step, "HEAD_LAUNCHES"): 1})
+
+
 # the per-call graphs' calls on the card: those that replayed a captured
 # graph, and those that found none under their key, whose path (read
 # where it lies, its address in the key) was captured anew: a key's
@@ -329,13 +341,14 @@ def solve(
 
         if backend == "cuda":
             # the head's launch is one warp a scenario, from B alone
+            plan = _plan_of(keyed, 1, device)
             res = _call("solve", functools.partial(_solve_one_cuda, arm, cfg,
                                                    want_eps),
                         (ref_path, observed_x, state.u_prev, wp_idx, seed,
                          eps, step), device,
                         ("cuda", _keyed(arm), keyed, want_eps,
-                         drawn is not None, _plan_of(keyed, 1, device)),
-                        _SOLVE_LAUNCHES, path=0)
+                         drawn is not None, plan),
+                        _solve_launches(cfg.search_idx_len, plan[2]), path=0)
         else:
             if eps is None:
                 eps = sample_epsilon(generator, cfg.num_samples, cfg.horizon,
@@ -426,14 +439,14 @@ def solve_batched(
         device = observed_x.device
         as_dev = lambda v: v if v is None or type(v) is int else (
             torch.as_tensor(v, device=device))
+        plan = _plan_of(keyed, observed_x.shape[0], device)
         return _call("solve_batched",
                      functools.partial(_solve_batched_program, arm, cfg,
                                        False),
                      (ref_path, observed_x, state.u_prev, state.wp_idx,
                       as_dev(seeds), eps, as_dev(step)), device,
-                     ("cuda", _keyed(arm), keyed, seeds is not None,
-                      _plan_of(keyed, observed_x.shape[0], device)),
-                     _SOLVE_LAUNCHES, path=0)
+                     ("cuda", _keyed(arm), keyed, seeds is not None, plan),
+                     _solve_launches(cfg.search_idx_len, plan[2]), path=0)
 
 
 def _viz_program(arm, cfg, observed_x, u_seq, u_prev, eps,

@@ -119,8 +119,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_int for every int, c_float for every float.
 C_FUNCTIONS = {
     "mppi_sim_launch": ([_P, _I, _I] + [_P] * 9, _I),
-    "mppi_solve_launch": ([_P, _I] + [_P] * 15, _I),
-    "mppi_fleet_launch": ([_P, _I, _I, _I] + [_P] * 9, _I),
+    "mppi_solve_launch": ([_P, _I] + [_P] * 14 + [_I, _P], _I),
+    "mppi_fleet_launch": ([_P, _I, _I, _I, _I] + [_P] * 9, _I),
     "mppi_fleet_scratch_floats": ([_P], _I),
     "mppi_probe_scale_launch": ([_P, _P, _I, _P], _I),
     "mppi_probe_big_launch": ([_P, _P, _I, _P, _I, _I, _P], _I),

@@ -57,11 +57,18 @@ FLEET_MAX_WARPS = 8       # fleet kernel: warps per block
 CLUSTER_SIZES = (8, 4, 2, 1)   # sim_kernel: blocks per scenario
 CTA_MIN_WARPS = 4         # cluster_size: one warp per scheduler of an SM
 
+# The window width csrc/mppi_device.cuh compiles the one-chain window scan
+# at (kScanWidth), beside the loop over a width read at run time: the
+# reference's search_idx_len, which every configuration runs.
+SCAN_WIDTH = 30
+
 # Kernel launches made by fused_sim_run_batched, of sim_kernel (LAUNCHES)
-# and of fleet_kernel (FLEET_LAUNCHES); a run that must show it went
-# through a kernel reads them before and after.
+# and of fleet_kernel (FLEET_LAUNCHES, of which FLEET_COMPILED_SCANS
+# scanned the window at its compiled width, :func:`scan_width`); a run
+# that must show it went through a kernel reads them before and after.
 LAUNCHES = 0
 FLEET_LAUNCHES = 0
+FLEET_COMPILED_SCANS = 0
 
 _ARM_FIELDS = ("a11", "b11", "c11", "m2", "l2", "k12", "k12b", "m22", "g1a",
                "g1b", "lc2", "l1", "g2")
@@ -339,6 +346,18 @@ def cluster_size(batch: int, num_samples: int, sm_count: int) -> int:
                 and batch * c <= sm_count or c == 1)
 
 
+def scan_width(window: int, lanes: int = 1) -> int:
+    """The compiled width the issue-bound kernels scan a window of
+    ``window`` rows at, ``lanes`` threads a sample: the window where the
+    library holds the one-chain scan compiled at it (:data:`SCAN_WIDTH`)
+    and one lane scans a sample alone (fleet_kernel, and solve_kernel at
+    one lane a sample), else 0, the loop over a width read at run time.
+    The lanes that split a scan (solve_kernel at 2 and 4) and sim_kernel's
+    two-chain scan are latency-bound and keep their loops.  The same
+    compares in the same order either way: no bit changes."""
+    return window if window == SCAN_WIDTH and lanes == 1 else 0
+
+
 def fleet_warps(num_samples: int) -> int:
     """Warps per scenario for fleet_kernel, from K's 32-sample slots: one
     warp for one slot, two for two or three (two samples a lane at three),
@@ -463,7 +482,7 @@ def _launch_fleet(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
                   n_steps, eps, step0, group):
     """Launch csrc/fleet_kernel.cu on the current stream: :func:`fleet_warps`
     warps per scenario, ``group`` scenarios per block (at most 8 warps)."""
-    global FLEET_LAUNCHES
+    global FLEET_LAUNCHES, FLEET_COMPILED_SCANS
     from ._build import load_library
 
     params, state_f, state_i, rec, ufin = _operands(
@@ -471,6 +490,7 @@ def _launch_fleet(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
         step0)
     device = ref_path.device
     warps = fleet_warps(cfg.num_samples)
+    scan_w = scan_width(cfg.search_idx_len)
     lib = load_library()
     scratch = None
     if eps is None:          # PRNG mode: the ε store, [slot][t][c][lane]
@@ -480,11 +500,13 @@ def _launch_fleet(arm, cfg, sim, ref_path, q0, dq0, u_prev, wp_idx, seed,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mppi_fleet_launch(
-            ctypes.byref(params), q0.shape[0], group, warps, _ptr(state_f),
-            _ptr(state_i), _ptr(u_prev), _ptr(ref_path), _ptr(eps),
-            _ptr(scratch), _ptr(rec), _ptr(ufin), ctypes.c_void_p(stream))
+            ctypes.byref(params), q0.shape[0], group, warps, scan_w,
+            _ptr(state_f), _ptr(state_i), _ptr(u_prev), _ptr(ref_path),
+            _ptr(eps), _ptr(scratch), _ptr(rec), _ptr(ufin),
+            ctypes.c_void_p(stream))
     _raise_on(lib, err, f"fleet_kernel ({warps} warps a scenario)")
     FLEET_LAUNCHES += 1
+    FLEET_COMPILED_SCANS += bool(scan_w)
     return rec, ufin
 
 

@@ -58,7 +58,8 @@ from .cuda_rollout import (
     philox_epsilon_batch,
     rollout_cost_trig,
 )
-from .cuda_sim import _ArmConsts, _arm_consts, _check_tensor, _ptr
+from .cuda_sim import (_ArmConsts, _arm_consts, _check_tensor, _ptr,
+                       scan_width)
 from .filters import median_filter_reflect
 from .noise import sigma_inverse
 
@@ -75,6 +76,8 @@ COUNTER_SLOTS = 8             # streams an allocation of counters serves
 # kernel reads these before and after.  A captured launch counts nothing:
 # each replay of its graph adds it (utils/cuda_graphs.py::replay).
 LAUNCHES = 0                  # solve_tile_kernel, tiles and combine
+COMPILED_SCANS = 0            # of them, those whose window scan took its
+                              # compiled width (cuda_sim.scan_width)
 PARTIALS = 0                  # tile partials the launches' combines fold,
                               # n_tiles × B a launch, counted as LAUNCHES is
 
@@ -401,7 +404,7 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
             normalize, fuse_update, k_local, k_offset, s_out=None):
     """Check the operands and launch csrc/solve_kernel.cu on the current
     stream.  Raises on anything the kernel does not take."""
-    global LAUNCHES, PARTIALS
+    global LAUNCHES, COMPILED_SCANS, PARTIALS
     from ._build import load_library
 
     if (seed is None) == (eps is None):
@@ -451,6 +454,7 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
                if use_prng and emit_eps else None)
     params = _solve_params(arm, cfg, K, tile, n_tiles, use_prng, normalize,
                            fuse_update, step_stride, lanes, group)
+    scan_w = scan_width(W, lanes)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -463,11 +467,12 @@ def _launch(arm, cfg, x0, u, window, seed, eps, step, tile, emit_eps,
             ctypes.byref(params), B, _ptr(x0), _ptr(u), _ptr(window),
             _ptr(seed), _ptr(step), _ptr(koff), _ptr(eps), _ptr(eps_out),
             _ptr(s_out), _ptr(part if stride else None), _ptr(count),
-            _ptr(out), _ptr(m), _ptr(eta), ctypes.c_void_p(stream))
+            _ptr(out), _ptr(m), _ptr(eta), scan_w, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError("solve_kernel launch failed: "
                            + lib.mppi_error_string(err).decode())
     LAUNCHES += 1
+    COMPILED_SCANS += bool(scan_w)
     PARTIALS += n_tiles * B
     eps_used = (eps_out if use_prng else eps) if emit_eps else None
     return out, s_out, eps_used, (m, eta)

@@ -57,7 +57,8 @@ from ..mppi.solver import (
 )
 from ..ops import cuda_solve, cuda_step
 from ..ops.cuda_rollout import philox_epsilon_batch
-from ..ops.cuda_sim import FLEET_MAX_SAMPLES, fused_sim_run_batched
+from ..ops.cuda_sim import (FLEET_MAX_SAMPLES, fused_sim_run_batched,
+                            scan_width)
 from ..ops.cuda_step import plant_step
 from ..utils import cuda_graphs, debug, spans
 
@@ -437,8 +438,9 @@ def _chunk_key(arm, cfg, sim, B: int, n: int, device, backend: str):
     head, the n - 1 tails that carried the next head, on a branch
     (:func:`_branched`) a statistics launch a step, and on a clustered
     tail layout a cluster tail a step (none on a branch, where the control
-    tail runs in one block); none of the port's kernels for the eager
-    backend."""
+    tail runs in one block), and a solve a step whose window scan takes
+    its compiled width where ``cuda_sim.scan_width`` says; none of the
+    port's kernels for the eager backend."""
     if backend != "cuda":
         return (backend, n, arm, cfg, sim, None), cuda_graphs.NO_LAUNCH
     layout = cuda_step._tail_layout_on(cfg.num_samples, B, device)
@@ -446,7 +448,10 @@ def _chunk_key(arm, cfg, sim, B: int, n: int, device, backend: str):
     branch = _branched(cfg, B, device, plan)
     return (backend, n, arm, cfg, sim, (plan, layout, branch)), \
         cuda_graphs.expect({
-            (cuda_solve, "LAUNCHES"): n, (cuda_step, "HEAD_LAUNCHES"): 1,
+            (cuda_solve, "LAUNCHES"): n,
+            (cuda_solve, "COMPILED_SCANS"):
+                n * bool(scan_width(cfg.search_idx_len, plan[2])),
+            (cuda_step, "HEAD_LAUNCHES"): 1,
             (cuda_step, "TAIL_LAUNCHES"): n,
             (cuda_step, "STATS_LAUNCHES"): n * branch,
             (cuda_step, "CARRIED_HEADS"): n - 1,

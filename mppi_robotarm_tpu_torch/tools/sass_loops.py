@@ -11,8 +11,10 @@ whose body covers ``rows`` window rows and runs W / rows times a horizon
 step, and the Payne-Hanek reductions of sinf/cosf, which only arguments
 beyond 105615 take), a count by opcode class, and the instructions one
 horizon step issues at a window of W rows: the body less its nested loops,
-plus each scan's body W / rows times. The Payne-Hanek set-up outside its
-loops is left in, so that figure is an upper bound of the fast path.
+plus each scan's body W / rows times. A scan with no loop of its own (a
+compiled width unrolled whole) sits in the body and counts once a step.
+The Payne-Hanek set-up outside its loops is left in, so that figure is an
+upper bound of the fast path.
 
 With ``--groups`` it reads a listing with line information instead
 (``nvdisasm -gi`` of a cubin built with ``-lineinfo``) and attributes each
@@ -64,16 +66,18 @@ _TEXT = re.compile(r"^\.text\.(\S+):$")
 _LABEL = re.compile(r"^(\.L_x_\d+):")
 _LOC = re.compile(r'//## File "([^"]+)", line (\d+)')
 _LABEL_REF = re.compile(r"`\((\.L_x_\d+)\)")
-# (group, functions whose lines it takes, regex of the lines it takes);
-# an instruction takes the group of the innermost source location that
-# has one
+# (group, regex of the names of the functions whose lines it takes, regex
+# of the lines it takes); an instruction takes the group of the innermost
+# source location that has one.  The window scan takes every function
+# named for the window or a scan, so a schedule of its own (a loop over W,
+# a compiled width) counts there whatever its name.
 GROUPS = (
-    ("window scan", ("window_cost", "window_cost_lanes", "scan_take",
-                     "row_cost", "tracking_cost"), None),
-    ("sincosf", (), re.compile(r"\bsincosf\s*\(")),
-    ("Philox and Box-Muller", ("philox4x32_10", "uniform_from_bits",
-                               "box_muller", "philox_eps"), None),
-    ("divide", (), re.compile(r"/\s*det\b")),
+    ("window scan", re.compile(r"window|scan|^row_cost$|^tracking_cost$"),
+     None),
+    ("sincosf", None, re.compile(r"\bsincosf\s*\(")),
+    ("Philox and Box-Muller", re.compile(
+        r"^(philox4x32_10|uniform_from_bits|box_muller|philox_eps)$"), None),
+    ("divide", None, re.compile(r"/\s*det\b")),
 )
 OPCODE_GROUPS = (("LDS", "shared load"), ("LDL", "local memory"),
                  ("STL", "local memory"))
@@ -285,7 +289,8 @@ class SourceGroups:
         where = {n for n, a, b in funcs if a <= line <= b}
         code = text[line - 1] if 0 < line <= len(text) else ""
         for group, names, regex in GROUPS:
-            if where.intersection(names) or (regex and regex.search(code)):
+            if (names and any(names.search(n) for n in where)) or (
+                    regex and regex.search(code)):
                 return group
         return None
 

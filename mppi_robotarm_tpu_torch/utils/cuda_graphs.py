@@ -42,13 +42,17 @@ from ..ops import (cuda_pathgen, cuda_probe, cuda_shard, cuda_sim,
                    cuda_solve, cuda_step)
 from . import spans
 
-# every launch count of the port's kernels, as (module, name), then the
-# counts of work their wrappers add beside them (the solve kernel's tile
-# partials): a replay adds both as its capture recorded them
+# every launch count of the port's kernels, as (module, name), with the
+# launches of K2 and K3 whose window scan took its compiled width
+# (``cuda_sim.scan_width``), then the counts of work their wrappers add
+# beside them (the solve kernel's tile partials): a replay adds both as
+# its capture recorded them
 COUNTERS = ((cuda_solve, "LAUNCHES"), (cuda_step, "HEAD_LAUNCHES"),
             (cuda_step, "TAIL_LAUNCHES"), (cuda_step, "STATS_LAUNCHES"),
-            (cuda_step, "CARRIED_HEADS"), (cuda_step, "CLUSTER_TAILS"),
+            (cuda_step, "CARRIED_HEADS"), (cuda_solve, "COMPILED_SCANS"),
+            (cuda_step, "CLUSTER_TAILS"),
             (cuda_sim, "LAUNCHES"), (cuda_sim, "FLEET_LAUNCHES"),
+            (cuda_sim, "FLEET_COMPILED_SCANS"),
             (cuda_shard, "SCALE_LAUNCHES"), (cuda_shard, "FINISH_LAUNCHES"),
             (cuda_probe, "SCALE_LAUNCHES"), (cuda_probe, "BIG_LAUNCHES"),
             (cuda_pathgen, "LAUNCHES"), (cuda_solve, "PARTIALS"))

@@ -22,7 +22,7 @@ import torch
 
 import mppi_robotarm_tpu_torch.config as pcfg
 from mppi_robotarm_tpu_torch.mppi import solver as psolver
-from mppi_robotarm_tpu_torch.ops import cuda_solve, cuda_step
+from mppi_robotarm_tpu_torch.ops import cuda_sim, cuda_solve, cuda_step
 from mppi_robotarm_tpu_torch.sim import loop as ploop
 from mppi_robotarm_tpu_torch.utils import cuda_graphs
 
@@ -145,7 +145,9 @@ def counted_kernels(monkeypatch):
     step tail one and one carried head when it carries the next step's
     head, the tail's statistics launched on their own one, and
     ``per_solve`` solve launches a call of the solve kernel's wrapper (1
-    unless the returned function is called with another)."""
+    unless the returned function is called with another), as many of them
+    on the compiled-width scan where ``cuda_sim.scan_width`` gives the
+    wrapper's layout one."""
     solve, head = cuda_solve.solve_batched, cuda_step.step_head
     tail, stats = cuda_step.step_tail, cuda_step.step_stats
 
@@ -167,9 +169,17 @@ def counted_kernels(monkeypatch):
     monkeypatch.setattr(cuda_step, "step_stats", counted_stats)
 
     def per_solve(n):
-        def counted(*a, **k):
+        def counted(arm, cfg, x0, *a, **k):
+            eps = k.get("eps")
+            K = k.get("k_local") or (cfg.num_samples if eps is None
+                                     else eps.shape[1])
+            lanes = cuda_solve.solve_layout(
+                cfg, K, x0.shape[0], cuda_solve._sm_count(x0.device),
+                k.get("tile"))[1]
             cuda_solve.LAUNCHES += n
-            return solve(*a, **k)
+            cuda_solve.COMPILED_SCANS += n * bool(
+                cuda_sim.scan_width(cfg.search_idx_len, lanes))
+            return solve(arm, cfg, x0, *a, **k)
         monkeypatch.setattr(cuda_solve, "solve_batched", counted)
     per_solve(1)
     return per_solve

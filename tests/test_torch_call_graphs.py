@@ -483,12 +483,17 @@ USES = {     # a user's ``calls`` uses of the cuda backend's program
                                                  calls=calls, ref=PATH),
     "chunk": loop_chain,
 }
-PER_USE = {  # the launches a use records, and its scenarios
-    "solve": ({(cuda_solve, "LAUNCHES"): 1, (cuda_step, "HEAD_LAUNCHES"): 1},
-              1),
+PER_USE = {  # the launches a use records, and its scenarios (one lane a
+    # sample without a card, so at the default window every solve takes
+    # the compiled-width scan)
+    "solve": ({(cuda_solve, "LAUNCHES"): 1,
+               (cuda_solve, "COMPILED_SCANS"): 1,
+               (cuda_step, "HEAD_LAUNCHES"): 1}, 1),
     "solve_batched": ({(cuda_solve, "LAUNCHES"): 1,
+                       (cuda_solve, "COMPILED_SCANS"): 1,
                        (cuda_step, "HEAD_LAUNCHES"): 1}, 3),
     "chunk": ({(cuda_solve, "LAUNCHES"): CHUNK,
+               (cuda_solve, "COMPILED_SCANS"): CHUNK,
                (cuda_step, "HEAD_LAUNCHES"): 1,
                (cuda_step, "TAIL_LAUNCHES"): CHUNK,
                (cuda_step, "CARRIED_HEADS"): CHUNK - 1}, 2),

@@ -322,6 +322,73 @@ def test_solve_launch_counts_its_tile_partials(fake_card, fresh_counters, K,
         before[0] + 1, before[1] + n_tiles * B)
 
 
+# ---- the compiled-width window scan (cuda_sim.scan_width) ----------------
+
+@pytest.mark.parametrize("W,lanes,want", [
+    (30, 1, 30),          # every configuration's window, one lane a sample
+    (30, 2, 0), (30, 4, 0),   # the lanes that split a scan keep the loop
+    (7, 1, 0), (33, 1, 0), (29, 1, 0), (31, 1, 0), (1, 1, 0)])
+def test_scan_width_is_the_compiled_width_at_one_lane(W, lanes, want):
+    assert cuda_sim.scan_width(W, lanes) == want
+    assert cuda_sim.scan_width(W) == (W if W == cuda_sim.SCAN_WIDTH else 0)
+
+
+def test_scan_width_is_the_width_the_kernels_compile():
+    """The wrappers' width is the kernels' kScanWidth, the reference's
+    default window."""
+    src = (CSRC / "mppi_device.cuh").read_text()
+    width = int(re.search(r"constexpr int kScanWidth = (\d+);",
+                          src).group(1))
+    assert width == cuda_sim.SCAN_WIDTH == P.MPPIConfig().search_idx_len
+
+
+@pytest.mark.parametrize("K,B,W,sms,want", [
+    (65536, 1, 30, 132, 30),    # the large-K cell: one lane a sample
+    (128, 64, 30, 132, 0),      # a fleet-like batch at two lanes
+    (128, 256, 30, 132, 30),    # and at one
+    (1024, 1, 30, 132, 0),      # four lanes a sample: the loop
+    (1024, 8, 30, 132, 0),      # two lanes
+    (1024, 64, 30, 132, 30),    # one lane
+    (65536, 1, 7, 132, 0), (65536, 1, 33, 132, 0),
+    (100, 8, 30, None, 30)])    # no card: one lane
+def test_solve_launch_hands_the_kernel_its_scan_width(
+        fake_card, fresh_counters, monkeypatch, K, B, W, sms, want):
+    """The solve's one C call carries ``scan_width(W, lanes)`` of its
+    layout, and a launch on the compiled width counts in COMPILED_SCANS
+    beside LAUNCHES."""
+    lib = fake_card(_FakeLib())
+    monkeypatch.setattr(cuda_solve, "_sm_count", lambda d: sms)
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=5,
+                              search_idx_len=W)
+    x0, u, win = _solve_cpu_args(cfg, B)
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMPILED_SCANS)
+    cuda_solve._launch(P.ArmParams(), cfg, x0, u, win, torch.arange(B),
+                       None, None, None, False, True, True, None, None)
+    (name, a), = lib.calls
+    assert name == "mppi_solve_launch" and a[-2] == want
+    assert a[0]._obj.W == W
+    assert want == 0 or a[0]._obj.lanes == 1
+    assert (cuda_solve.LAUNCHES, cuda_solve.COMPILED_SCANS) == (
+        before[0] + 1, before[1] + bool(want))
+
+
+@pytest.mark.parametrize("W,want", [(30, 30), (7, 0), (33, 0)])
+def test_fleet_launch_hands_the_kernel_its_scan_width(fake_card, W, want):
+    """fleet_kernel scans one sample a lane: the compiled width wherever W
+    is one, counted in FLEET_COMPILED_SCANS beside FLEET_LAUNCHES."""
+    lib = fake_card(_FakeLib())
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=128, horizon=5,
+                              search_idx_len=W)
+    args = list(_cpu_args(cfg, steps=1, B=8))
+    before = (cuda_sim.FLEET_LAUNCHES, cuda_sim.FLEET_COMPILED_SCANS)
+    cuda_sim._launch_fleet(*args, None, torch.zeros(8, dtype=torch.int64), 8)
+    calls = [c for c in lib.calls if c[0] == "mppi_fleet_launch"]
+    (name, a), = calls
+    assert a[1:5] == (8, 8, 4, want)
+    assert (cuda_sim.FLEET_LAUNCHES, cuda_sim.FLEET_COMPILED_SCANS) == (
+        before[0] + 1, before[1] + bool(want))
+
+
 def test_solves_inside_counters_of_take_that_streams_slot(fake_card,
                                                            fresh_counters):
     """Inside ``counters_of(device, 9, on=7)`` a launch on stream 7 takes

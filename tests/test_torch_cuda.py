@@ -12,6 +12,7 @@ suite's conftest:
 """
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -146,9 +147,10 @@ def test_kernel_rejects_bad_operands(dev):
 
 # ---- the per-step solve kernel (csrc/solve_kernel.cu) ----------------------
 
-def _solve_inputs(dev, B, K, T, seed):
+def _solve_inputs(dev, B, K, T, seed, W=30):
     """B scenarios near the preset state, warm-start controls plus noise,
-    clamped windows at staggered indices of a 2000-point circle."""
+    clamped windows of W rows at staggered indices of a 2000-point
+    circle."""
     rng = np.random.default_rng(seed)
     ref = torch.as_tensor(P.synth_circle_path(2000), device=dev)
     x0 = torch.as_tensor(
@@ -156,8 +158,8 @@ def _solve_inputs(dev, B, K, T, seed):
          ).astype(np.float32), device=dev)
     u = torch.as_tensor((np.array([10.0, -2.0]) + rng.normal(size=(B, T, 2))
                          ).astype(np.float32), device=dev)
-    starts = 3 * torch.arange(B, device=dev) % (2000 - 30)
-    idx = starts[:, None] + torch.arange(30, device=dev)
+    starts = 3 * torch.arange(B, device=dev) % (2000 - W)
+    idx = starts[:, None] + torch.arange(W, device=dev)
     return x0, u, ref[idx].contiguous()
 
 
@@ -551,3 +553,143 @@ def test_simulate_fused_batch_on_the_card(dev):
     P.simulate_fused_batch(ARM, big, SIM, ref, states, 2, group=8)
     assert (cuda_sim.LAUNCHES, cuda_sim.FLEET_LAUNCHES) == (before[0] + 1,
                                                             before[1])
+
+
+# ---- the compiled-width window scan (cuda_sim.scan_width) -------------------
+
+# SHA-256 of the records and final state of a 4000-step chain of
+# simulate(backend="cuda") at benchmark_preset with K = 65536 from
+# init_sim(seed=0) on the 8000-point circle (:func:`_large_k_chain`), as
+# the loop over a run-time window width gave it on an H100 before the
+# scan took its compiled width there.
+LARGE_K_CHAIN_SHA256 = (
+    "72511f624d5c80cdf6c0f4b68e2d715b00cb9ee104acbb1b7a9a63a88b19369c")
+
+
+def _large_k_chain(dev, steps=4000):
+    arm, cfg, sim = P.benchmark_preset()
+    cfg = dataclasses.replace(cfg, num_samples=65536)
+    ref = torch.as_tensor(P.synth_circle_path(8000), device=dev)
+    final, rec = P.simulate(arm, cfg, sim, ref,
+                            P.init_sim(cfg, sim, seed=0, device=dev), steps,
+                            backend="cuda")
+    h = hashlib.sha256()
+    for t in (*rec, final.step, final.q, final.dq, *final.mppi, final.done):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _as_loop(monkeypatch, module):
+    """``module``'s launches scan at the run-time width, whatever W."""
+    monkeypatch.setattr(module, "scan_width", lambda W, lanes=1: 0)
+
+
+@pytest.mark.parametrize("K,B", [(65536, 1),    # the large-K cell's layout
+                                 (128, 256)])   # a batch at one lane
+@pytest.mark.parametrize("W", [30, 7, 33])
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_solve_compiled_scan_keeps_the_bits(dev, monkeypatch, K, B, W,
+                                            noise):
+    """K2 at one lane a sample: at W = 30 it takes the compiled-width scan
+    (one COMPILED_SCANS a launch) and gives the loop's bits in every
+    output; at any W, S and m equal the plain twin bit for bit, the rest
+    within _check_solve's tolerances (the sums' order differs)."""
+    T = 50 if K > 1024 else 30
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=T,
+                              search_idx_len=W, lam=3e5)
+    x0, u, win = _solve_inputs(dev, B, K, T, W + B, W=W)
+    kw = (dict(eps=torch.as_tensor(eps_noise(K, (B, K, T, 2)), device=dev))
+          if noise == "eps" else
+          dict(seed=torch.arange(B, device=dev) + 7,
+               step=torch.arange(B, device=dev) * 5 + 3))
+    assert cuda_solve.solve_layout(cfg, K, B, cuda_solve._sm_count(dev))[1] \
+        == 1
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMPILED_SCANS)
+    got = cuda_solve.solve_batched(ARM, cfg, x0, u, win, fuse_update=True,
+                                   **kw)
+    compiled = W == cuda_sim.SCAN_WIDTH
+    assert (cuda_solve.LAUNCHES - before[0],
+            cuda_solve.COMPILED_SCANS - before[1]) == (1, int(compiled))
+    _check_solve(got, cuda_solve.solve_batched_reference(
+        ARM, cfg, x0, u, win, fuse_update=True, **kw))
+    if compiled:
+        _as_loop(monkeypatch, cuda_solve)
+        loop = cuda_solve.solve_batched(ARM, cfg, x0, u, win,
+                                        fuse_update=True, **kw)
+        assert cuda_solve.COMPILED_SCANS - before[1] == 1
+        for a, b in zip((got[0], got[1], *got[3]), (loop[0], loop[1],
+                                                     *loop[3])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K,B", [(1024, 1), (1024, 8)])
+def test_solve_on_split_lanes_keeps_the_loop(dev, K, B):
+    """Four and two lanes a sample split the scan: no compiled width."""
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=50)
+    assert cuda_solve.solve_layout(cfg, K, B,
+                                   cuda_solve._sm_count(dev))[1] > 1
+    x0, u, win = _solve_inputs(dev, B, K, 50, 3)
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMPILED_SCANS)
+    cuda_solve.solve_batched(ARM, cfg, x0, u, win,
+                             seed=torch.arange(B, device=dev))
+    assert (cuda_solve.LAUNCHES - before[0],
+            cuda_solve.COMPILED_SCANS - before[1]) == (1, 0)
+
+
+@pytest.mark.parametrize("W", [30, 7, 33])
+@pytest.mark.parametrize("noise", ["eps", "prng"])
+def test_fleet_compiled_scan_keeps_the_bits(dev, monkeypatch, W, noise):
+    """K3's records and u_final equal sim_kernel's bit for bit at every
+    width (K1 keeps its two-chain loop); at W = 30 through the compiled
+    width (one FLEET_COMPILED_SCANS a launch) and equal to the loop's."""
+    K, B, steps = 128, 16, 12
+    cfg = dataclasses.replace(P.MPPIConfig(), num_samples=K, horizon=30,
+                              search_idx_len=W)
+    args = _fleet_args(cfg, dev, B, 400, True)
+    kw = dict(step0=torch.arange(B, device=dev) * 2,
+              eps=(torch.as_tensor(eps_noise(K, (B, steps, K, 30, 2)),
+                                   device=dev) if noise == "eps" else None))
+    before = (cuda_sim.FLEET_LAUNCHES, cuda_sim.FLEET_COMPILED_SCANS)
+    rec, uf = cuda_sim.fused_sim_run_batched(*args, steps, group=8, **kw)
+    compiled = W == cuda_sim.SCAN_WIDTH
+    assert (cuda_sim.FLEET_LAUNCHES - before[0],
+            cuda_sim.FLEET_COMPILED_SCANS - before[1]) == (1, int(compiled))
+    rec1, uf1 = cuda_sim.fused_sim_run_batched(*args, steps, group=1, **kw)
+    assert torch.equal(rec, rec1) and torch.equal(uf, uf1)
+    if compiled:
+        _as_loop(monkeypatch, cuda_sim)
+        loop = cuda_sim.fused_sim_run_batched(*args, steps, group=8, **kw)
+        assert torch.equal(rec, loop[0]) and torch.equal(uf, loop[1])
+        assert cuda_sim.FLEET_COMPILED_SCANS - before[1] == 1
+
+
+@pytest.mark.parametrize("K,compiled", [(65536, 1), (1024, 0)])
+def test_replays_add_the_compiled_scans_their_capture_recorded(dev, K,
+                                                                compiled):
+    """The per-call graphs and the loop's chunks count a compiled-width
+    scan a solve where the key's plan takes one lane a sample (K = 65536)
+    and none at four (K = 1024): the uncaptured first use counts, the
+    capture records, each replay adds."""
+    from mppi_robotarm_tpu_torch.sim import loop as ploop
+
+    arm, cfg, sim = P.benchmark_preset()
+    cfg = dataclasses.replace(cfg, num_samples=K)
+    ref = torch.as_tensor(P.synth_circle_path(8000), device=dev)
+    s0 = P.init_sim(cfg, sim, seed=3, device=dev)
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMPILED_SCANS)
+    for step in range(3):
+        P.solve(arm, cfg, ref, torch.cat([s0.q, s0.dq]), s0.mppi, seed=5,
+                step=step, backend="cuda")
+    assert cuda_solve.LAUNCHES - before[0] == 3
+    assert cuda_solve.COMPILED_SCANS - before[1] == 3 * compiled
+    steps = 3 * ploop._GRAPH_STEPS
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMPILED_SCANS)
+    P.simulate(arm, cfg, sim, ref, s0, steps, backend="cuda")
+    assert cuda_solve.LAUNCHES - before[0] == steps
+    assert cuda_solve.COMPILED_SCANS - before[1] == steps * compiled
+
+
+def test_large_k_chain_keeps_the_parents_bits(dev):
+    """A 4000-step K = 65536 chain of the per-step loop, whose K2 takes
+    the compiled-width scan, gives the bits the run-time loop gave."""
+    assert _large_k_chain(dev) == LARGE_K_CHAIN_SHA256

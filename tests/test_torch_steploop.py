@@ -34,7 +34,7 @@ import torch
 
 import mppi_robotarm_tpu_torch as P
 from mppi_robotarm_tpu_torch.models.arm import fk_full
-from mppi_robotarm_tpu_torch.ops import cuda_solve, cuda_step
+from mppi_robotarm_tpu_torch.ops import cuda_sim, cuda_solve, cuda_step
 from mppi_robotarm_tpu_torch.ops.weights import (effective_sample_size,
                                                  weight_entropy)
 from mppi_robotarm_tpu_torch.sim import loop as ploop
@@ -274,6 +274,28 @@ def test_replays_count_the_cluster_tails_their_capture_recorded(
     assert c.recorded[at] == SMALL_S
     assert cuda_step.CLUSTER_TAILS - before[1] == \
         cuda_step.TAIL_LAUNCHES - before[0] == chunks * SMALL_S
+
+
+@pytest.mark.parametrize("W", [30, 7, 33])
+def test_replays_count_the_compiled_scans_their_capture_recorded(
+        graphs_on_cpu, W):
+    """A chunk's capture records a solve a step on the compiled-width
+    window scan where ``cuda_sim.scan_width`` gives the key's plan one
+    (W = 30 at one lane a sample, the CPU's layout) and none at another
+    width (``cuda_solve.COMPILED_SCANS``, as the wrapper counts them on
+    the card); each replay adds what the capture recorded."""
+    cfg, ref = dataclasses.replace(_cfg(), search_idx_len=W), _ref()
+    states = _batch(cfg, 2)
+    before = (cuda_solve.LAUNCHES, cuda_solve.COMPILED_SCANS)
+    chunks = 3
+    ploop._step_loop(ARM, cfg, SIM, ref, states, chunks * SMALL_S)
+    (c,) = graphs_on_cpu
+    at = [name for _, name in cuda_graphs.COUNTERS].index("COMPILED_SCANS")
+    compiled = W == cuda_sim.SCAN_WIDTH
+    assert c.recorded[at] == SMALL_S * compiled
+    assert cuda_solve.LAUNCHES - before[0] == chunks * SMALL_S
+    assert cuda_solve.COMPILED_SCANS - before[1] == \
+        chunks * SMALL_S * compiled
 
 
 @pytest.mark.parametrize("layout_clustered", [True, False])

@@ -229,6 +229,36 @@ def test_sass_groups_split_the_rollout_loop(tmp_path, W, scan):
     assert line.endswith("; local memory on the lines of other 1, sincosf 1")
 
 
+# _LINEINFO's loop with its window scan compiled at its width: the row's
+# shared load, compare and select straight-line in the body, no branch
+# back, and the scan's function under another name.
+_LINEINFO_FLAT = (_LINEINFO.replace(".L_x_2:\n", "")
+                  .replace("@P2 BRA `(.L_x_2)", "FSEL R25, R12, R25, P0"))
+_DEV_FLAT = _DEV.replace("void window_cost(", "void scan_rows_at(")
+
+
+@pytest.mark.parametrize("W", [30, 7])
+def test_sass_groups_count_a_loop_free_scan_once_a_step(tmp_path, W):
+    """A scan with no loop of its own counts what one horizon step issues
+    at any W, and takes the window scan's group whatever its function is
+    named."""
+    (tmp_path / "dev.cuh").write_text(_DEV_FLAT)
+    funcs, locs = sass_loops.parse(_LINEINFO_FLAT)
+    name, insns = next(iter(funcs.items()))
+    assert sass_loops.loops(insns) == [(0x10, 0xa0)]
+    got = sass_loops.groups(insns, locs[name], W=W,
+                            sources=sass_loops.SourceGroups(tmp_path))
+    assert got == {"window scan": [2, 2], "sincosf": [1, 1],
+                   "Philox and Box-Muller": [2, 2], "divide": [1, 1],
+                   "shared load": [1, 1], "local memory": [2, 2],
+                   "other": [1, 1],
+                   "local memory by source": {"sincosf": 1, "other": 1}}
+    lines = sass_loops.describe("fleet_kernel<4,1,30>", insns, W=W)
+    assert len(lines) == 3 and lines[2] == (
+        f"  one horizon step at W={W} issues at most 10 instructions on "
+        f"the fast path")
+
+
 def test_sass_main_groups_a_saved_listing(tmp_path, capsys):
     f = tmp_path / "lineinfo.txt"
     f.write_text(_LINEINFO)
